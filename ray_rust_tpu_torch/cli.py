@@ -1,0 +1,94 @@
+"""Command-line interface: the reference's flag surface (src/main.rs:32-93),
+trace mode.
+
+PyTorch counterpart of ``ray_rust_tpu/cli.py``. Renders the default scene to
+a PNG on ``--device`` (default ``cuda``)::
+
+    python -m ray_rust_tpu_torch.cli 1920 1080 -o out.png
+
+``-t/--threads`` and ``-p/--port_no`` are accepted for compatibility and
+change nothing in trace mode. March mode, the glow effect, scene files and
+the web viewer (``-m``, ``-g``, ``-s``, ``-d``, ``-w``) are not ported yet
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from .config import RenderConfig
+from .models.scene import default_scene
+from .renderer import render_u8
+from .utils.image import gradient_prefill, save_png
+
+_NOT_PORTED = {
+    "raymarch": "-m/--raymarch (march mode, ROADMAP queue 2, K3)",
+    "gloweffect": "-g/--gloweffect (march mode, ROADMAP queue 2, K3)",
+    "serialize_file": "-s/--serialize_file (host apps, ROADMAP queue 1)",
+    "deserialize_file": "-d/--deserialize_file (host apps, ROADMAP queue 1)",
+    "webserver": "-w/--webserver (host apps, ROADMAP queue 1)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ray-rust-tpu-torch",
+        description="Differentiable ray tracer, PyTorch + CUDA port (trace mode)",
+    )
+    p.add_argument("width", type=int, help="Width of the image [px]")
+    p.add_argument("height", type=int, help="Height of the image [px]")
+    p.add_argument("-t", "--threads", type=int, default=8,
+                   help="thread count (accepted for compatibility)")
+    p.add_argument("-o", "--output", default="foo.png", help="Output file name")
+    p.add_argument("-m", "--raymarch", action="store_true", help="Use ray marching")
+    p.add_argument("-g", "--gloweffect", type=float, default=None,
+                   help="Enable glow effect and set its strength (ray marching)")
+    p.add_argument("-s", "--serialize_file", default=None,
+                   help="File name for serialized scene output")
+    p.add_argument("-d", "--deserialize_file", default=None,
+                   help="File name for deserialized scene input")
+    p.add_argument("-w", "--webserver", action="store_true",
+                   help="Launch a web server that responds with rendered images")
+    p.add_argument("-p", "--port_no", type=int, default=3000,
+                   help="Port number, if use web server")
+    p.add_argument("--refraction_unroll", type=int, default=None,
+                   help="Refraction depth cap (default 4)")
+    p.add_argument("--max_refractions", type=int, default=None,
+                   help="Override the refraction depth cap")
+    p.add_argument("--max_reflections", type=int, default=None,
+                   help="Override the reflection depth cap")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for name, what in _NOT_PORTED.items():
+        if getattr(args, name):
+            raise NotImplementedError(f"{what} is not yet ported")
+    for name in ("width", "height", "threads", "output"):
+        print(f"Value for {name}: {getattr(args, name)}")
+
+    caps = {k: getattr(args, k)
+            for k in ("max_refractions", "max_reflections", "refraction_unroll")
+            if getattr(args, k) is not None}
+    cfg = RenderConfig(xres=args.width, yres=args.height, xfov=1.0,
+                       yfov=args.height / args.width,  # main.rs:135-136
+                       **caps)
+    scene, _ = default_scene()
+    scene = scene.to(args.device)
+
+    start = time.time()
+    buf = gradient_prefill(args.width, args.height)
+    buf[:, :] = render_u8(scene, cfg)
+    save_png(args.output, buf)
+    elapsed = time.time() - start
+    print("Rendering time: %d.%06d" % (int(elapsed), int((elapsed % 1) * 1e6)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,35 @@
+// Host build of the trace kernel's per-pixel body (trace_body.cuh): a plain
+// loop over the pixels on the CPU, so the kernel's logic can be tested
+// against the plain PyTorch version where there is no card. Same arguments
+// as rt_trace_fwd in trace_fwd.cu, minus the device and stream. Build with
+// ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC``.
+
+#include "trace_body.cuh"
+
+extern "C" void rt_trace_host(const float* f32t, const int* i32t, const float* cam,
+                              const float* light, int n, int xres, int yres, float sx,
+                              float sy, int max_reflections, int refraction_cap, int bg,
+                              float* out_r, float* out_g, float* out_b) {
+  rt::SceneView s;
+  s.f32 = f32t;
+  s.i32 = i32t;
+  s.n = n;
+  s.light = rt::v3(light[0], light[1], light[2]);
+  rt::Params p;
+  p.xres = xres;
+  p.yres = yres;
+  p.sx = sx;
+  p.sy = sy;
+  p.max_reflections = max_reflections;
+  p.refraction_cap = refraction_cap;
+  p.bg = bg;
+  for (int iy = 0; iy < yres; ++iy) {
+    for (int ix = 0; ix < xres; ++ix) {
+      rt::C3 c = rt::trace_pixel(s, p, cam, ix, iy);
+      const long o = static_cast<long>(iy) * xres + ix;
+      out_r[o] = c.r;
+      out_g[o] = c.g;
+      out_b[o] = c.b;
+    }
+  }
+}

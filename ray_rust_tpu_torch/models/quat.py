@@ -1,0 +1,58 @@
+"""Quaternion camera pose (parity with reference src/quat.rs:6-134).
+
+PyTorch counterpart of ``ray_rust_tpu/models/quat.py``, reduced to what the
+trace path needs: the pitch-yaw-roll constructor and vector rotation.
+``slerp`` comes with the animation slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .vec import Vec3, _f32
+
+__all__ = ["Quat"]
+
+
+class Quat(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    w: torch.Tensor
+
+    def conjugated(self) -> "Quat":
+        return Quat(-self.x, -self.y, -self.z, self.w)
+
+    def __mul__(self, o: "Quat") -> "Quat":
+        """Hamilton product, component layout as in quat.rs:63-72."""
+        qa, qb = self, o
+        return Quat(
+            qa.y * qb.z - qa.z * qb.y + qa.x * qb.w + qa.w * qb.x,
+            qa.z * qb.x - qa.x * qb.z + qa.y * qb.w + qa.w * qb.y,
+            qa.x * qb.y - qa.y * qb.x + qa.z * qb.w + qa.w * qb.z,
+            -qa.x * qb.x - qa.y * qb.y - qa.z * qb.z + qa.w * qb.w,
+        )
+
+    def transform(self, v: Vec3) -> Vec3:
+        """Rotate a vector: ``q * (v,0) * conj(q)`` (quat.rs:74-80)."""
+        qr = self * Quat(v.x, v.y, v.z, torch.zeros_like(v.x))
+        qret = qr * self.conjugated()
+        return Vec3(qret.x, qret.y, qret.z)
+
+    @staticmethod
+    def rotation(p, sx: float, sy: float, sz: float) -> "Quat":
+        """Axis-angle rotation; axis must be normalized (quat.rs:92-95)."""
+        half = _f32(p) / 2.0
+        s = torch.sin(half)
+        return Quat(s * sx, s * sy, s * sz, torch.cos(half))
+
+    @staticmethod
+    def from_pyr(pyr: Vec3) -> "Quat":
+        """Pitch-yaw-roll to quaternion with the reference's axis convention
+        (quat.rs:129-134): roll about +X, yaw about +Z, pitch about +Y."""
+        mx = Quat.rotation(pyr.z, 1.0, 0.0, 0.0)
+        my = Quat.rotation(pyr.y, 0.0, 0.0, 1.0)
+        mp = Quat.rotation(pyr.x, 0.0, 1.0, 0.0)
+        return mx * my * mp

@@ -1,0 +1,1 @@
+"""Subpackage of ray_rust_tpu_torch."""
