@@ -1,15 +1,15 @@
-"""Command-line interface: the reference's flag surface (src/main.rs:32-93),
-trace mode.
+"""Command-line interface: the reference's flag surface (src/main.rs:32-93).
 
 PyTorch counterpart of ``ray_rust_tpu/cli.py``. Renders the default scene to
-a PNG on ``--device`` (default ``cuda``)::
+a PNG on ``--device`` (default ``cuda``), in trace mode or, with ``-m``, in
+march mode with an optional glow strength ``-g``::
 
     python -m ray_rust_tpu_torch.cli 1920 1080 -o out.png
+    python -m ray_rust_tpu_torch.cli 1280 720 -m -g 1.0 -o out.png
 
 ``-t/--threads`` and ``-p/--port_no`` are accepted for compatibility and
-change nothing in trace mode. March mode, the glow effect, scene files and
-the web viewer (``-m``, ``-g``, ``-s``, ``-d``, ``-w``) are not ported yet
-and raise ``NotImplementedError``.
+change nothing. Scene files and the web viewer (``-s``, ``-d``, ``-w``) are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,8 +24,6 @@ from .renderer import render_u8
 from .utils.image import gradient_prefill, save_png
 
 _NOT_PORTED = {
-    "raymarch": "-m/--raymarch (march mode, ROADMAP queue 2, K3)",
-    "gloweffect": "-g/--gloweffect (march mode, ROADMAP queue 2, K3)",
     "serialize_file": "-s/--serialize_file (host apps, ROADMAP queue 1)",
     "deserialize_file": "-d/--deserialize_file (host apps, ROADMAP queue 1)",
     "webserver": "-w/--webserver (host apps, ROADMAP queue 1)",
@@ -35,7 +33,7 @@ _NOT_PORTED = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ray-rust-tpu-torch",
-        description="Differentiable ray tracer, PyTorch + CUDA port (trace mode)",
+        description="Differentiable ray tracer, PyTorch + CUDA port",
     )
     p.add_argument("width", type=int, help="Width of the image [px]")
     p.add_argument("height", type=int, help="Height of the image [px]")
@@ -77,9 +75,9 @@ def main(argv=None) -> int:
             if getattr(args, k) is not None}
     cfg = RenderConfig(xres=args.width, yres=args.height, xfov=1.0,
                        yfov=args.height / args.width,  # main.rs:135-136
+                       use_raymarching=args.raymarch, glow_effect=args.gloweffect,
                        **caps)
-    scene, _ = default_scene()
-    scene = scene.to(args.device)
+    scene, _ = default_scene(device=args.device)
 
     start = time.time()
     buf = gradient_prefill(args.width, args.height)

@@ -21,6 +21,13 @@
 // never holds more than 1 + R(R-1)/2 tasks for R = max_reflections
 // (ops/kernel_trace.py checks that against STACK_CAP; a push past it would
 // turn the pixel to NaN rather than lose the sub-trace).
+//
+// Vectors, the sky, uv maps, patterns and the normal are shared with the
+// march-mode body (march_body.cuh).
+//
+// A build with -DRT_COUNT_OPS counts the f32 arithmetic of the object loops
+// (the fewest operations each object test can take) into *SceneView::ops,
+// for the kernels' roofline bound; the ordinary build compiles it away.
 #pragma once
 
 #include <math.h>
@@ -29,6 +36,12 @@
 #define RT_HD __host__ __device__ inline
 #else
 #define RT_HD inline
+#endif
+
+#ifdef RT_COUNT_OPS
+#define RT_COUNT(s, k) (*(s).ops += static_cast<unsigned long long>(k))
+#else
+#define RT_COUNT(s, k) ((void)0)
 #endif
 
 namespace rt {
@@ -56,6 +69,11 @@ constexpr int BIGNORE = 1 << 4;
 constexpr int BG_DEFAULT_SKY = 0;
 constexpr int BG_BLACK = 1;
 constexpr int STACK_CAP = 16;
+
+// Fewest f32 operations (add, sub, mul, div, sqrt) of one object test in a
+// raycast: a sphere whose discriminant is negative, a floor facing away.
+constexpr int OPS_SPHERE_TEST = 19;
+constexpr int OPS_FLOOR_TEST = 8;
 
 constexpr float F32_EPS = 1.1920928955078125e-7f;  // f32::EPSILON
 constexpr float PI_F = 3.14159265358979323846f;
@@ -178,6 +196,9 @@ struct SceneView {
   const int* i32;    // (n, I32_COLS)
   int n;
   V3 light;
+#ifdef RT_COUNT_OPS
+  unsigned long long* ops;  // this thread's operation count
+#endif
 };
 
 // Render parameters: image size, 2*fov in f32, depth caps, background id.
@@ -219,7 +240,9 @@ RT_HD float raycast(const SceneView& s, V3 vi, V3 eye, int ig, int flags, int* i
   *idx = 0;
   for (int i = 0; i < s.n; ++i) {
     if (i == ig) continue;
-    float c = candidate_t(s.f32 + i * F32_COLS, s.i32[i * I32_COLS], vi, eye, t, flags);
+    const int kind = s.i32[i * I32_COLS];
+    RT_COUNT(s, kind == KIND_SPHERE ? OPS_SPHERE_TEST : OPS_FLOOR_TEST);
+    float c = candidate_t(s.f32 + i * F32_COLS, kind, vi, eye, t, flags);
     if (c < t) {
       t = c;
       *idx = i;
@@ -263,6 +286,24 @@ RT_HD C3 pattern_diffuse(const float* o, int pattern, float u, float v) {
   return d;
 }
 
+// Sphere (pt - org)/|pt - org| (render.rs:443-445) or the floor's stored
+// face normal (render.rs:553-555), for object row ``o`` of kind ``kind``.
+RT_HD V3 surface_normal(const float* o, int kind, V3 pt) {
+  return kind == KIND_SPHERE ? normalized(sub(pt, v3(o[0], o[1], o[2]))) : v3(o[3], o[4], o[5]);
+}
+
+// The camera ray of pixel (ix, iy) (render.rs:808-815):
+// normalize(rot * (1, ey, ez, 0) * conj(rot)). ``cam`` is the packed camera row.
+RT_HD V3 camera_ray(int xres, int yres, float sx, float sy, const float* cam, int ix, int iy) {
+  float ey = (float)(ix - xres / 2) * sx / (float)xres;
+  float ez = -(float)(iy - yres / 2) * sy / (float)yres;
+  Q4 q = {cam[3], cam[4], cam[5], cam[6]};
+  Q4 qc = {-q.x, -q.y, -q.z, q.w};
+  Q4 e = {1.0f, ey, ez, 0.0f};
+  Q4 r = qmul(qmul(q, e), qc);
+  return normalized(v3(r.x, r.y, r.z));
+}
+
 // A pending trace: start ray, level, ignored object, flags, and the weight
 // its colour carries into the pixel.
 struct Task {
@@ -295,7 +336,7 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
     const int* oi = s.i32 + idx * I32_COLS;
     V3 pt = add(vi, scale(eye, t));
     V3 org = v3(o[0], o[1], o[2]);
-    V3 n = oi[0] == KIND_SPHERE ? normalized(sub(pt, org)) : v3(o[3], o[4], o[5]);
+    V3 n = surface_normal(o, oi[0], pt);
 
     // Lambert + Phong (render.rs:1024-1046)
     float li = dot(s.light, n);
@@ -371,17 +412,9 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
 
 // The colour of pixel (ix, iy). ``cam`` is the packed camera row.
 RT_HD C3 trace_pixel(const SceneView& s, const Params& p, const float* cam, int ix, int iy) {
-  // camera ray (render.rs:808-815): rot * (v, 0) * conj(rot), normalized
-  float ey = (float)(ix - p.xres / 2) * p.sx / (float)p.xres;
-  float ez = -(float)(iy - p.yres / 2) * p.sy / (float)p.yres;
-  Q4 q = {cam[3], cam[4], cam[5], cam[6]};
-  Q4 qc = {-q.x, -q.y, -q.z, q.w};
-  Q4 e = {1.0f, ey, ez, 0.0f};
-  Q4 r = qmul(qmul(q, e), qc);
-
   Task stack[STACK_CAP];
   stack[0].vi = v3(cam[0], cam[1], cam[2]);
-  stack[0].eye = normalized(v3(r.x, r.y, r.z));
+  stack[0].eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
   stack[0].w = c3(1.0f, 1.0f, 1.0f);
   stack[0].lev = 0;
   stack[0].ig = -1;

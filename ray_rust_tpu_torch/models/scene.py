@@ -3,7 +3,9 @@
 PyTorch counterpart of ``ray_rust_tpu/models/scene.py``. All objects live in
 one structure-of-arrays table with a ``kind`` discriminator; every leaf is a
 tensor, and a render runs on the device those tensors lie on
-(:meth:`Scene.to`).
+(:meth:`Scene.to`). The constructors put them on ``cuda`` unless the caller
+passes another ``device``; where there is no CUDA device, torch's own error
+is raised rather than a silent CPU scene.
 
 :func:`scene_from_numpy` builds a :class:`Scene` from a flat dict of numpy
 leaves keyed by dotted field path (``"objects.org.x"``), the layout
@@ -132,11 +134,12 @@ class FloorSpec:
 
 
 def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
-                camera_pyr, light, bg: str = "default_sky"):
-    """Assemble the scene tensors + static meta from host specs. Objects keep
-    their order: the nearest-hit scan tie-breaks to the lowest index
-    (render.rs:1003-1015) and index 0 ends the bounce loop
-    (render.rs:1187-1189)."""
+                camera_pyr, light, bg: str = "default_sky", device="cuda"):
+    """Assemble the scene tensors + static meta from host specs, on
+    ``device``. Objects keep their order: the nearest-hit scan tie-breaks to
+    the lowest index (render.rs:1003-1015) and index 0 ends the bounce loop
+    (render.rs:1187-1189). The camera quaternion and the light are computed
+    on the host, so every device gets the same values."""
     mat_ids = {m.name: i for i, m in enumerate(materials)}
     table = build_material_table(materials)
 
@@ -178,7 +181,7 @@ def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
         materials=table,
         camera=Camera.from_pyr(v3(*camera_position), v3(*camera_pyr)),
         light=v3(*light).normalized(),
-    )
+    ).to(device)
     meta = SceneMeta(
         material_names=tuple(m.name for m in materials),
         texture_names=tuple(m.texture_name for m in materials),
@@ -187,7 +190,7 @@ def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
     return scene, meta
 
 
-def default_scene(texture_dir: str = "."):
+def default_scene(texture_dir: str = ".", device="cuda"):
     """The reference's built-in scene (src/main.rs:154-276): a floor, two
     mirror spheres, a red sphere and a glass sphere. The floor texture
     ``bar.png`` is not loaded yet, so the floor keeps its gradation
@@ -222,6 +225,7 @@ def default_scene(texture_dir: str = "."):
         camera_position=(0.0, -150.0, -300.0),
         camera_pyr=(0.0, -pi / 2.0, -pi / 2.0),
         light=(50.0, 60.0, -50.0),
+        device=device,
     )
 
 
@@ -248,9 +252,9 @@ def scene_to_numpy(scene) -> dict:
     return out
 
 
-def scene_from_numpy(leaves: dict, device=None) -> Scene:
-    """Build a :class:`Scene` from :func:`scene_to_numpy`'s layout. Float
-    leaves become f32 tensors, integer leaves int32 tensors."""
+def scene_from_numpy(leaves: dict, device="cuda") -> Scene:
+    """Build a :class:`Scene` on ``device`` from :func:`scene_to_numpy`'s
+    layout. Float leaves become f32 tensors, integer leaves int32 tensors."""
     if any(k.split(".")[0] == "textures" for k in leaves):
         raise NotImplementedError(
             "image textures are not ported yet (ROADMAP queue 2, K1a)")

@@ -1,14 +1,20 @@
 """Build and load the port's native kernels from ``ray_rust_tpu_torch/csrc``.
 
-The CUDA kernels are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, which is loaded
-with ``ctypes``. The library's file name carries a hash of the sources and
-flags, so an edited source is rebuilt and a stale library is never loaded.
-The build goes to ``ray_rust_tpu_torch/_build/`` (git-ignored). A failed
-build raises with the compiler's output.
+The CUDA kernels (``trace_fwd.cu``, ``march_fwd.cu``) are compiled at first
+use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a plain
+C interface, which are loaded with ``ctypes``. A library's file name carries
+a hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. The builds go to ``ray_rust_tpu_torch/_build/``
+(git-ignored), each with its compiler output beside it, so a cached build
+reports the same ptxas lines as a fresh one. A failed build raises with the
+compiler's output. :func:`prebuild` runs several builds at once, one
+compiler each.
 
-:func:`build_host_library` compiles the same per-pixel body for the CPU with
-``g++`` (``csrc/trace_host.cpp``), for the tests.
+:func:`build_host_library` compiles a kernel's per-pixel body for the CPU
+with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``), for the
+tests; with ``count_ops=True`` it builds it with ``-DRT_COUNT_OPS``, which
+adds the f32 operations the body takes to a counter, for the kernels'
+roofline bound.
 """
 
 from __future__ import annotations
@@ -16,12 +22,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load_trace_library", "build_host_library", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_cuda_library", "prebuild", "build_host_library", "called_functions",
+           "build_logs", "BUILD_DIR", "CSRC_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -32,13 +41,23 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
+COUNT_FLAGS = ["-DRT_COUNT_OPS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 
-# The last build's compiler output (register and spill counts from ptxas).
-build_log = ""
-_trace_lib = None
+# C signatures, up to the output planes: the CUDA launchers add the device
+# and the stream, their host loops the operation counter.
+_TRACE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P]
+_MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F,
+               _P, _P, _P]
+_CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march_fwd", _MARCH_ARGS)}
+_HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host", _MARCH_ARGS)}
+
+# Each build's compiler output (for nvcc, ptxas's registers, stack and
+# spills), by library stem.
+build_logs: dict = {}
+_cuda_libs: dict = {}
 
 
 def _find_nvcc() -> str:
@@ -54,15 +73,18 @@ def _find_nvcc() -> str:
 def _compile(compiler: list, main_src: Path, out_dir: Path, stem: str) -> tuple:
     """Compile ``main_src`` (which includes headers from csrc) into
     ``out_dir/lib<stem>-<hash>.so`` unless that file exists. Returns the path
-    and the compiler output."""
+    and the compiler output, which is kept in ``lib<stem>-<hash>.log`` beside
+    the library and recorded in ``build_logs[stem]``."""
     h = hashlib.sha256(" ".join(compiler).encode())
     for src in sorted(CSRC_DIR.iterdir()):
         if src.suffix in (".cu", ".cuh", ".cpp", ".h"):
             h.update(src.name.encode())
             h.update(src.read_bytes())
     out = out_dir / f"lib{stem}-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out, ""
+    log_path = out.with_suffix(".log")
+    if out.exists() and log_path.exists():
+        build_logs[stem] = log_path.read_text()
+        return out, build_logs[stem]
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
@@ -71,33 +93,60 @@ def _compile(compiler: list, main_src: Path, out_dir: Path, stem: str) -> tuple:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"building {main_src.name} failed:\n{proc.stderr}")
+    log_path.write_text(proc.stderr)  # before the library: a cached build has its log
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    build_logs[stem] = proc.stderr
     return out, proc.stderr
 
 
-def load_trace_library() -> ctypes.CDLL:
-    """Build (if needed) and load the CUDA trace kernel library."""
-    global _trace_lib, build_log
-    if _trace_lib is None:
-        path, build_log = _compile([_find_nvcc()] + NVCC_FLAGS,
-                                   CSRC_DIR / "trace_fwd.cu", BUILD_DIR, "trace_fwd")
-        lib = ctypes.CDLL(str(path))
-        lib.rt_trace_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
-                                     _P, _P, _P, _I, _P]
-        lib.rt_trace_fwd.restype = _I
+def _bind(path: Path, fn_name: str, argtypes: list, restype) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return lib
+
+
+def _compile_cuda(name: str) -> Path:
+    return _compile([_find_nvcc()] + NVCC_FLAGS, CSRC_DIR / f"{name}.cu", BUILD_DIR, name)[0]
+
+
+def load_cuda_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"`` or
+    ``"march_fwd"``)."""
+    if name not in _cuda_libs:
+        fn_name, argtypes = _CUDA_FNS[name]
+        lib = _bind(_compile_cuda(name), fn_name, argtypes + [_I, _P], _I)
         lib.rt_error_string.argtypes = [_I]
         lib.rt_error_string.restype = ctypes.c_char_p
-        _trace_lib = lib
-    return _trace_lib
+        _cuda_libs[name] = lib
+    return _cuda_libs[name]
 
 
-def build_host_library(out_dir) -> ctypes.CDLL:
-    """Build and load ``csrc/trace_host.cpp``: the kernel's per-pixel body
-    in a CPU loop."""
-    path, _ = _compile(["g++"] + GXX_FLAGS, CSRC_DIR / "trace_host.cpp",
-                       Path(out_dir), "trace_host")
-    lib = ctypes.CDLL(str(path))
-    lib.rt_trace_host.argtypes = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
-                                  _P, _P, _P]
-    lib.rt_trace_host.restype = None
-    return lib
+def prebuild(names) -> None:
+    """Compile several CUDA libraries at once, one ``nvcc`` each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for f in [pool.submit(_compile_cuda, n) for n in names]:
+            f.result()
+
+
+def called_functions(ptxas_log: str) -> list:
+    """The functions that ``ptxas -v`` reports in ``ptxas_log`` besides the
+    kernels (entry functions): device functions left as real calls. Raises
+    if the log reports no kernel."""
+    entries = set(re.findall(r"Compiling entry function '([^']+)'", ptxas_log))
+    if not entries:
+        raise ValueError("the ptxas log reports no kernel")
+    reported = re.findall(r"Function properties for (\S+)", ptxas_log)
+    return sorted(set(reported) - entries)
+
+
+def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
+    """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
+    a CPU loop (``rt_trace_host`` or ``rt_march_host``)."""
+    stem = f"{name}_host" + ("_ops" if count_ops else "")
+    path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
+                       CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)
+    fn_name, argtypes = _HOST_FNS[name]
+    return _bind(path, fn_name, argtypes + [_P], None)

@@ -34,6 +34,7 @@ __all__ = [
     "unsupported_reason",
     "render_color_kernel",
     "render_color_plain",
+    "kernel_args",
 ]
 
 # Launches of the trace kernel since import (or since a caller reset it).
@@ -82,7 +83,7 @@ def pack_scene(scene: Scene):
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the kernel cannot render ``scene`` under ``cfg``, or None."""
     if cfg.use_raymarching:
-        return "march mode is not ported yet (ROADMAP queue 2, K3)"
+        return "march mode runs in the march kernel (K3, ops/kernel_march.py)"
     if scene.textures is not None:
         return "image textures are not ported yet (ROADMAP queue 2, K1a)"
     if scene.objects.count > KERNEL_OBJECT_MAX:
@@ -115,36 +116,53 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
-    """Render through the CUDA trace kernel. The scene's tensors must lie on
-    a CUDA device; the image is returned there as a Color of ``(H, W)``
-    planes. Raises on anything the kernel does not take."""
-    global LAUNCHES
-    reason = unsupported_reason(scene, cfg)
-    if reason is not None:
-        raise ValueError(f"the trace kernel does not cover this render: {reason}")
+def launch(lib, fn, scene: Scene, cfg: RenderConfig, args: list) -> Color:
+    """Call launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres, sx, sy,
+    *args, out_r, out_g, out_b, device, stream)`` on the current stream
+    with the packed tables of ``scene`` and return the image; raises if the
+    tables or the launch are not as the kernel takes them."""
     dev = scene.device
-    if dev.type != "cuda":
-        raise ValueError(f"the trace kernel needs CUDA tensors, got {dev}")
-    from ._build import load_trace_library
-
-    lib = load_trace_library()
     n = scene.objects.count
     f32t, i32t, cam, light = pack_scene(scene)
     _check(f32t, "f32 table", torch.float32, (n, F32_COLS), dev)
     _check(i32t, "i32 table", torch.int32, (n, I32_COLS), dev)
     _check(cam, "camera", torch.float32, (1, 8), dev)
     _check(light, "light", torch.float32, (1, 4), dev)
-
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
     sx, sy = fov_scales(cfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rt_trace_fwd(
-        f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(), n,
-        cfg.xres, cfg.yres, sx, sy, cfg.max_reflections, cfg.refraction_cap(),
-        BG_IDS[cfg.bg], out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        dev.index, stream)
+    rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
+            n, cfg.xres, cfg.yres, sx, sy, *args,
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"trace kernel launch failed: {lib.rt_error_string(rc).decode()}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
     return Color(out[0], out[1], out[2])
+
+
+def kernel_args(cfg: RenderConfig) -> list:
+    """The launcher's render arguments after the image size and field of
+    view (also those of the host build, ``csrc/trace_host.cpp``)."""
+    return [cfg.max_reflections, cfg.refraction_cap(), BG_IDS[cfg.bg]]
+
+
+def check_launchable(scene: Scene, reason: Optional[str], what: str):
+    """Raise ValueError unless the ``what`` kernel takes this render: no
+    ``reason`` against it, and the scene's tensors on a CUDA device."""
+    if reason is not None:
+        raise ValueError(f"the {what} kernel does not cover this render: {reason}")
+    if scene.device.type != "cuda":
+        raise ValueError(f"the {what} kernel needs CUDA tensors, got {scene.device}")
+
+
+def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
+    """Render through the CUDA trace kernel. The scene's tensors must lie on
+    a CUDA device; the image is returned there as a Color of ``(H, W)``
+    planes. Raises on anything the kernel does not take."""
+    global LAUNCHES
+    check_launchable(scene, unsupported_reason(scene, cfg), "trace")
+    from ._build import load_cuda_library
+
+    lib = load_cuda_library("trace_fwd")
+    img = launch(lib, lib.rt_trace_fwd, scene, cfg, kernel_args(cfg))
+    LAUNCHES += 1
+    return img
+

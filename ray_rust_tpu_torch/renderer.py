@@ -3,9 +3,14 @@
 PyTorch counterpart of ``ray_rust_tpu/renderer.py``. A render runs on the
 device of the scene's tensors:
 
-- CUDA: the trace kernel (``ops/kernel_trace.py``), or ``NotImplementedError``
+- CUDA: the trace kernel (``ops/kernel_trace.py``) in trace mode, the march
+  kernel (``ops/kernel_march.py``) in march mode, or ``NotImplementedError``
   naming the ROADMAP item that would cover the request;
-- CPU: the plain PyTorch trace, differentiable by autograd.
+- CPU: the plain PyTorch version, differentiable by autograd in trace mode.
+
+March mode has no gradient yet on either device: a march render of a scene
+that requires grad raises rather than return an autograd gradient that is
+not the JAX package's implicit one.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch
 from .config import RenderConfig
 from .models.scene import Scene
 from .models.vec import Color
-from .ops import kernel_trace
+from .ops import kernel_march, kernel_trace
 
 __all__ = ["render_color", "render_u8", "to_u8"]
 
@@ -25,18 +30,24 @@ def render_color(scene: Scene, cfg: RenderConfig) -> Color:
     """Forward render: scene -> Color of ``(H, W)`` planes on the scene's
     device."""
     dev = scene.device
+    grad = any(t.requires_grad for t in scene.tensors())
+    if cfg.use_raymarching and grad:
+        raise NotImplementedError(
+            "march-mode gradients are not ported yet (ROADMAP queue 1 item 6: the "
+            "implicit VJP _march_while_vjp, and kernel K4)")
+    kernels = kernel_march if cfg.use_raymarching else kernel_trace
     if dev.type == "cpu":
-        return kernel_trace.render_color_plain(scene, cfg)
+        return kernels.render_color_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render path for device {dev}")
-    if any(t.requires_grad for t in scene.tensors()):
+    if grad:
         raise NotImplementedError(
             "gradients on the card need the backward kernel, which is not "
             "ported yet (ROADMAP queue 2, K2); render on the CPU for autograd")
-    reason = kernel_trace.unsupported_reason(scene, cfg)
+    reason = kernels.unsupported_reason(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"no CUDA render path: {reason}")
-    return kernel_trace.render_color_kernel(scene, cfg)
+    return kernels.render_color_kernel(scene, cfg)
 
 
 def to_u8(img: Color) -> torch.Tensor:

@@ -131,10 +131,24 @@ def test_default_sky_matches_jax():
 def test_default_scene_equals_jax_leaves():
     jax_scene, _ = rt.default_scene()
     leaves = rtt.scene_to_numpy(jax_scene)
-    from_jax = rtt.scene_from_numpy(leaves)
-    port, _ = rtt.default_scene()
+    from_jax = rtt.scene_from_numpy(leaves, device="cpu")
+    port, _ = rtt.default_scene(device="cpu")
     got = rtt.scene_to_numpy(port)
     assert got.keys() == leaves.keys()
     for k, v in rtt.scene_to_numpy(from_jax).items():
         assert got[k].dtype == v.dtype, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_scene_constructors_default_to_cuda():
+    """The library API renders on the card unless the caller asks for the
+    CPU: with no CUDA device the default raises torch's own error."""
+    if torch.cuda.is_available():
+        assert rtt.default_scene()[0].device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            rtt.default_scene()
+    scene, _ = rtt.default_scene(device="cpu")
+    assert all(t.device.type == "cpu" for t in scene.tensors())
+    img = rtt.render_u8(scene, rtt.RenderConfig(xres=16, yres=12, max_reflections=1))
+    assert img.shape == (12, 16, 3) and img.std() > 0

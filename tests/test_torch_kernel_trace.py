@@ -34,7 +34,7 @@ def _compare(ref, got, frac_budget=0.05, tol=1e-3, mean_tol=0.02):
 
 
 def _port(jax_scene):
-    return rtt.scene_from_numpy(rtt.scene_to_numpy(jax_scene))
+    return rtt.scene_from_numpy(rtt.scene_to_numpy(jax_scene), device="cpu")
 
 
 def _img(col):
@@ -56,6 +56,11 @@ def _jax_cfg(cfg):
                               for f in dataclasses.fields(cfg)})
 
 
+def _on_cpu(pkg):
+    """``build_scene`` keywords that put a port scene on the CPU."""
+    return {"device": "cpu"} if pkg is rtt else {}
+
+
 def _many_spheres(pkg, n_spheres, seed=3):
     """A floor and seeded spheres in front of the camera, built by ``pkg``
     (either package: their build_scene functions take the same specs)."""
@@ -72,7 +77,7 @@ def _many_spheres(pkg, n_spheres, seed=3):
         for _ in range(n_spheres)
     ]
     scene, _ = pkg.build_scene(mats, objs, (0.0, -150.0, -300.0),
-                              (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0))
+                              (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0), **_on_cpu(pkg))
     return scene
 
 
@@ -95,7 +100,7 @@ def _patterns_scene(pkg):
         pkg.SphereSpec("mirror", 70.0, (140.0, -30.0, 300.0), uvmap=1),
     ]
     scene, _ = pkg.build_scene(mats, objs, (0.0, 0.0, -300.0),
-                              (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0))
+                              (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0), **_on_cpu(pkg))
     return scene
 
 
@@ -115,7 +120,7 @@ def _glass_cluster(pkg):
                         (-25, 20, 170), (25, 20, 170), (0, -60, 120)]
     ]
     scene, _ = pkg.build_scene(mats, objs, (0.0, 0.0, -150.0),
-                               (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0))
+                               (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0), **_on_cpu(pkg))
     return scene
 
 
@@ -166,7 +171,7 @@ def test_kernel_supported_agrees_with_pallas_supported():
 
 
 def test_cpu_render_takes_plain_version():
-    scene, _ = rtt.default_scene()
+    scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=24, yres=16, max_reflections=2, refraction_unroll=1)
     before = kt.LAUNCHES
     out = rtt.render_color(scene, cfg)
@@ -183,7 +188,7 @@ def test_cpu_render_takes_plain_version():
     (dict(max_reflections=7), "task stack"),
 ])
 def test_unsupported_reason_names_what_is_missing(change, names):
-    scene, _ = rtt.default_scene()
+    scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=8)
     assert kt.unsupported_reason(scene, cfg) is None
     assert kt.unsupported_reason(scene, cfg.with_(max_reflections=6)) is None
@@ -202,14 +207,14 @@ def _host_render(lib, scene, cfg):
     lib.rt_trace_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
                       scene.objects.count, cfg.xres, cfg.yres, sx, sy, cfg.max_reflections,
                       cfg.refraction_cap(), BG_IDS[cfg.bg], out[0].data_ptr(),
-                      out[1].data_ptr(), out[2].data_ptr())
+                      out[1].data_ptr(), out[2].data_ptr(), None)
     return out.permute(1, 2, 0).numpy()
 
 
 _HOST_CASES = {
-    "default_unroll2": (lambda: rtt.default_scene()[0],
+    "default_unroll2": (lambda: rtt.default_scene(device="cpu")[0],
                         rtt.RenderConfig(xres=64, yres=48, max_reflections=2, refraction_unroll=2)),
-    "default_full_depth": (lambda: rtt.default_scene()[0],
+    "default_full_depth": (lambda: rtt.default_scene(device="cpu")[0],
                            rtt.RenderConfig(xres=64, yres=48, refraction_unroll=None)),
     "patterns_black_bg": (lambda: _patterns_scene(rtt),
                           rtt.RenderConfig(xres=48, yres=32, bg="black", max_reflections=4)),
@@ -236,7 +241,7 @@ def test_host_build_of_kernel_body_matches_plain(host_lib, case):
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    scene = rtt.default_scene()[0].to("cuda")
+    scene = rtt.default_scene(device="cuda")[0]
     for cfg in (rtt.RenderConfig(xres=320, yres=240),
                 rtt.RenderConfig(xres=333, yres=101, refraction_unroll=None)):
         before = kt.LAUNCHES

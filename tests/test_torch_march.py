@@ -1,0 +1,374 @@
+"""March mode with glow in the PyTorch port against the JAX package.
+
+The plain version (``ops/march.py``, ``ops/trace.py:raymarch``) against JAX
+``distance_estimate``, ``march_single`` (while mode), the jnp ``render_color``
+and the Pallas march kernel in interpret mode; the march kernel's per-pixel
+body (``csrc/march_body.cuh``) built for the host with g++ against the plain
+version and against the march golden; routing and the CLI. Inputs come from
+a numpy seed or the default scene, carried into the port with
+``scene_to_numpy``/``scene_from_numpy``. The plain comparisons run at 32x24
+with ``march_max_iter <= 2000``, as the JAX package's march kernel test
+does (tests/test_pallas.py:151-167): a horizon-grazing ray runs ~1 500 steps.
+The kernel itself runs only on a card:
+``python -m pytest --noconftest -m cuda tests/test_torch_march.py``.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import ray_rust_tpu_torch as rtt
+from ray_rust_tpu_torch import cli
+from ray_rust_tpu_torch.ops import _build
+from ray_rust_tpu_torch.ops import kernel_march as km
+from ray_rust_tpu_torch.ops import kernel_trace as kt
+from ray_rust_tpu_torch.ops.march import distance_estimate, march_single
+from ray_rust_tpu_torch.ops.rays import fov_scales
+from ray_rust_tpu_torch.utils.image import load_png
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_GLOW = dict(use_raymarching=True, glow_effect=1.0)
+
+
+def _compare(ref, got, frac_budget, mean_tol, tol=1e-3):
+    diff = np.abs(got - ref)
+    bad_frac = (diff.max(-1) > tol).mean()
+    assert np.isfinite(got).all()
+    assert bad_frac <= frac_budget, (
+        f"{bad_frac:.1%} pixels differ > {tol} (budget {frac_budget:.0%}); "
+        f"mean {diff.mean():.4f} max {diff.max():.3f}"
+    )
+    assert diff.mean() <= mean_tol, f"mean diff {diff.mean():.4f} > {mean_tol}"
+
+
+def _img(col):
+    """(H, W, 3) numpy image from a Color of either package."""
+    return np.stack([c.detach().cpu().numpy() if isinstance(c, torch.Tensor)
+                     else np.asarray(c) for c in col], -1)
+
+
+def _jax():
+    import ray_rust_tpu
+
+    return ray_rust_tpu
+
+
+def _jax_cfg(cfg, **extra):
+    """The same render settings as a JAX RenderConfig."""
+    return _jax().RenderConfig(**{f.name: getattr(cfg, f.name)
+                                  for f in dataclasses.fields(cfg)}, **extra)
+
+
+def _port(jax_scene):
+    return rtt.scene_from_numpy(rtt.scene_to_numpy(jax_scene), device="cpu")
+
+
+def _on_cpu(pkg):
+    return {"device": "cpu"} if pkg is rtt else {}
+
+
+def _seventy_spheres(pkg):
+    """tests/test_pallas.py:119-148's 71-object march scene (glowing floor)."""
+    rng = np.random.default_rng(3)
+    mats = [pkg.MaterialSpec(name="floor", diffuse=(1.0, 1.0, 0.0), glow_dist=2.0)] + [
+        pkg.MaterialSpec(name=f"m{i}", diffuse=tuple(rng.uniform(0.2, 1.0, 3)),
+                         specular=(0.3, 0.3, 0.3), pn=8)
+        for i in range(4)
+    ]
+    objs = [pkg.FloorSpec("floor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0))] + [
+        pkg.SphereSpec(f"m{int(rng.integers(4))}", float(rng.uniform(20, 60)),
+                       tuple(rng.uniform(-800, 800, 3) * np.array([1, 0.3, 1])
+                             + np.array([0, -150, 400])))
+        for _ in range(70)
+    ]
+    return pkg.build_scene(mats, objs, (0.0, -150.0, -300.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0), **_on_cpu(pkg))[0]
+
+
+def _glass_before_glow(pkg):
+    """A glowing glass sphere in front of a glowing red one over a floor: the
+    refraction sub-marches pass the red sphere, so each carries its own glow
+    factor into a parent that has one too."""
+    mats = [
+        pkg.MaterialSpec(name="floor", diffuse=(0.8, 0.8, 0.8), pattern=1, pattern_scale=40.0),
+        pkg.MaterialSpec(name="glass", transparency=0.8, refraction=1.2,
+                         diffuse=(0.1, 0.1, 0.3), glow_dist=1.5),
+        pkg.MaterialSpec(name="red", diffuse=(0.8, 0.0, 0.0), specular=(0.3, 0.3, 0.3),
+                         pn=24, glow_dist=5.0),
+    ]
+    objs = [
+        pkg.FloorSpec("floor", (0.0, -100.0, 0.0), (0.0, 1.0, 0.0), uvmap=2),
+        pkg.SphereSpec("glass", 60.0, (0.0, -20.0, 60.0)),
+        pkg.SphereSpec("red", 50.0, (20.0, -30.0, 220.0)),
+    ]
+    return pkg.build_scene(mats, objs, (0.0, 0.0, -250.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0), **_on_cpu(pkg))[0]
+
+
+def _default_jax():
+    return _jax().default_scene()[0]
+
+
+@pytest.mark.parametrize("make", [_default_jax, lambda: _seventy_spheres(_jax())],
+                         ids=["default", "seventy_spheres"])
+def test_distance_estimate_matches_jax(make):
+    """Random points around the scene, a random ignored object per point:
+    distances and glow within 1e-5 relative, indices equal."""
+    import jax.numpy as jnp
+    from ray_rust_tpu.ops.march import distance_estimate as jax_de
+
+    jax_scene = make()
+    n = jax_scene.objects.count
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-600, 600, (3, 4096)).astype(np.float32)
+    ig = rng.integers(-1, n, 4096).astype(np.int32)
+    want = jax_de(jax_scene, _jax().Vec3(*map(jnp.asarray, pts)), jnp.asarray(ig))
+    got = distance_estimate(_port(jax_scene), rtt.Vec3(*map(torch.from_numpy, pts)),
+                            torch.from_numpy(ig))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=0)
+
+
+def test_march_single_matches_jax_while_mode():
+    """The same 32x24 primary rays marched by both packages, on >= 98% of
+    lanes: index and iteration count equal, final distance and travel equal
+    to 1e-4 relative (1e-5 absolute near a hit). XLA's compiled loop rounds
+    the position update apart from eager PyTorch at the ulp, and that drifts
+    over hundreds of steps."""
+    import jax.numpy as jnp
+    from ray_rust_tpu.ops.march import march_single as jax_march
+    from ray_rust_tpu.ops.rays import camera_rays as jax_rays
+
+    rt = _jax()
+    cfg = rtt.RenderConfig(xres=32, yres=24, march_max_iter=2000, **_GLOW)
+    jax_scene = _default_jax()
+    vi, eye = jax_rays(jax_scene.camera.position, jax_scene.camera.rotation, _jax_cfg(cfg))
+    vi_np = [np.broadcast_to(np.asarray(c), (24, 32)).copy() for c in vi]
+    eye_np = [np.array(c) for c in eye]
+    ig = np.full((24, 32), -1, np.int32)
+    want = jax_march(jax_scene, _jax_cfg(cfg), rt.Vec3(*map(jnp.asarray, vi_np)),
+                     rt.Vec3(*map(jnp.asarray, eye_np)), jnp.asarray(ig))
+    got = march_single(_port(jax_scene), cfg, rtt.Vec3(*map(torch.from_numpy, vi_np)),
+                       rtt.Vec3(*map(torch.from_numpy, eye_np)), torch.from_numpy(ig))
+    for name in ("final_dist", "idx", "iter", "travel_dist"):
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        same = (a == b) if name in ("idx", "iter") else np.isclose(a, b, rtol=1e-4, atol=1e-5)
+        assert same.mean() >= 0.98, f"{name}: equal on {same.mean():.1%} of lanes"
+    assert (got.iter.numpy() > 100).any()  # some lanes graze the floor
+
+
+def _slice_cfg():
+    return rtt.RenderConfig(xres=32, yres=24, max_refractions=1, march_max_iter=2000, **_GLOW)
+
+
+def test_plain_march_matches_jax_render_color():
+    """The slice as a whole against the jnp path: <= 2% of pixels > 1e-3,
+    mean <= 0.01."""
+    from ray_rust_tpu.renderer import render_color as jax_render_color
+
+    cfg = _slice_cfg()
+    jax_scene = _default_jax()
+    ref = _img(jax_render_color(jax_scene, _jax_cfg(cfg)))
+    got = _img(rtt.render_color(_port(jax_scene), cfg))
+    assert got.shape == (24, 32, 3)
+    _compare(ref, got, frac_budget=0.02, mean_tol=0.01)
+
+
+def test_plain_march_matches_pallas_interpret():
+    """Against the Pallas march kernel in interpret mode, within the budget
+    the JAX package gives that kernel against the jnp path
+    (tests/test_pallas.py:167: 5%, mean 0.03)."""
+    from ray_rust_tpu.ops.pallas_march import render_color_pallas_march
+
+    cfg = _slice_cfg()
+    jax_scene = _default_jax()
+    ref = _img(render_color_pallas_march(jax_scene, _jax_cfg(cfg, pallas_march_chunk=4),
+                                         interpret=True))
+    got = _img(km.render_color_plain(_port(jax_scene), cfg))
+    _compare(ref, got, frac_budget=0.05, mean_tol=0.03)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return _build.build_host_library(tmp_path_factory.mktemp("march_host"), "march")
+
+
+def _host_render(lib, scene, cfg, ops=None):
+    f32t, i32t, cam, light = kt.pack_scene(scene)
+    out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
+    sx, sy = fov_scales(cfg)
+    args = km.kernel_args(cfg)
+    lib.rt_march_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
+                      scene.objects.count, cfg.xres, cfg.yres, sx, sy, *args,
+                      out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                      None if ops is None else ops.data_ptr())
+    return out.permute(1, 2, 0).numpy()
+
+
+_HOST_CASES = {
+    "default_glow": (lambda: rtt.default_scene(device="cpu")[0],
+                     rtt.RenderConfig(xres=32, yres=24, march_max_iter=2000, **_GLOW)),
+    "default_glow_full_depth": (lambda: rtt.default_scene(device="cpu")[0],
+                                rtt.RenderConfig(xres=32, yres=24, march_max_iter=2000,
+                                                 refraction_unroll=None, **_GLOW)),
+    "glass_before_glow": (lambda: _glass_before_glow(rtt),
+                          rtt.RenderConfig(xres=32, yres=24, march_max_iter=2000,
+                                           glow_effect=0.7, use_raymarching=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_HOST_CASES))
+def test_host_build_of_march_body_matches_plain(host_lib, case):
+    """The kernel's body as g++ builds it against the plain version, within
+    the golden budget (2% of pixels > 1e-3, mean 0.01); they differ at most
+    where powf and torch.pow round apart."""
+    make, cfg = _HOST_CASES[case]
+    scene = make()
+    want = _img(km.render_color_plain(scene, cfg))
+    got = _host_render(host_lib, scene, cfg)
+    _compare(want, got, frac_budget=0.02, mean_tol=0.01)
+    if case == "glass_before_glow":  # the fold of sub-march glow factors is exercised
+        no_glow = _img(km.render_color_plain(scene, cfg.with_(glow_effect=None)))
+        assert np.abs(want - no_glow).max() > 0.05
+
+
+def test_host_build_meets_march_golden(host_lib):
+    """Full march budget (10 000 steps) and full refraction depth against the
+    oracle's golden image: <= 2% of pixels > 1e-3, mean <= 0.01."""
+    ref = np.load(os.path.join(_REPO, "tests", "goldens",
+                               "default_march_glow_160x120.npz"))["img"]
+    cfg = rtt.RenderConfig(xres=160, yres=120, refraction_unroll=None, **_GLOW)
+    got = _host_render(host_lib, rtt.default_scene(device="cpu")[0], cfg)
+    _compare(ref, got, frac_budget=0.02, mean_tol=0.01)
+
+
+def test_op_counting_build_changes_no_pixel(tmp_path, host_lib):
+    """The operation-counting build renders the same image and counts at
+    least one SDF sweep of every object per pixel."""
+    counting = _build.build_host_library(tmp_path, "march", count_ops=True)
+    scene = rtt.default_scene(device="cpu")[0]
+    cfg = rtt.RenderConfig(xres=16, yres=12, march_max_iter=2000, **_GLOW)
+    ops = torch.zeros(1, dtype=torch.int64)
+    got = _host_render(counting, scene, cfg, ops)
+    np.testing.assert_array_equal(got, _host_render(host_lib, scene, cfg))
+    assert int(ops) > 16 * 12 * 5 * 8
+
+
+def test_march_tree_bounds():
+    """A pixel's raymarch tree nests at most max(1, refraction cap) calls:
+    the kernel takes a cap of FRAME_CAP = 10 and refuses 11."""
+    scene, _ = rtt.default_scene(device="cpu")
+    cfg = rtt.RenderConfig(xres=8, yres=8, refraction_unroll=None, **_GLOW)
+    assert km.unsupported_reason(scene, cfg.with_(max_refractions=10)) is None
+    assert "task stack holds 10" in km.unsupported_reason(scene, cfg.with_(max_refractions=11))
+
+
+def test_cached_build_keeps_its_log(tmp_path):
+    """A second build of the same source is the cached library, and it
+    reports the first build's compiler output."""
+    compiler = ["g++", "-v"] + _build.GXX_FLAGS  # -v: the compiler writes a log
+    src = _build.CSRC_DIR / "march_host.cpp"
+    path, log = _build._compile(compiler, src, tmp_path, "logged")
+    assert "logged" in _build.build_logs and log
+    mtime = path.stat().st_mtime_ns
+    _build.build_logs.clear()
+    again, cached_log = _build._compile(compiler, src, tmp_path, "logged")
+    assert again == path and again.stat().st_mtime_ns == mtime
+    assert cached_log == log == _build.build_logs["logged"]
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z16march_fwd_kernelPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z16march_fwd_kernelPKf
+    744 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 744 bytes cumulative stack size
+"""
+_PTXAS_CALL = """\
+ptxas info    : Function properties for _ZN2rt8raymarchILi1EEENS_2C3ERKNS_9SceneViewE
+    96 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+
+
+def test_called_functions_reads_ptxas_log():
+    """A kernel alone reports no call; a device function left as a call
+    is named; a log without a kernel is refused."""
+    assert _build.called_functions(_PTXAS_LOG) == []
+    assert _build.called_functions(_PTXAS_LOG + _PTXAS_CALL) == [
+        "_ZN2rt8raymarchILi1EEENS_2C3ERKNS_9SceneViewE"]
+    with pytest.raises(ValueError, match="no kernel"):
+        _build.called_functions(_PTXAS_CALL)
+
+
+def test_cpu_march_render_takes_plain_version():
+    scene, _ = rtt.default_scene(device="cpu")
+    cfg = rtt.RenderConfig(xres=12, yres=8, march_max_iter=500, **_GLOW)
+    before = km.LAUNCHES
+    out = rtt.render_color(scene, cfg)
+    assert km.LAUNCHES == before == 0
+    np.testing.assert_array_equal(_img(out), _img(km.render_color_plain(scene, cfg)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        km.render_color_kernel(scene, cfg)
+    assert km.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("change,names", [
+    (dict(use_raymarching=False), "K1"),
+    (dict(bg="sunset"), "background"),
+    (dict(refraction_unroll=None, max_refractions=11), "task stack"),
+])
+def test_march_unsupported_reason_names_what_is_missing(change, names):
+    scene, _ = rtt.default_scene(device="cpu")
+    cfg = rtt.RenderConfig(xres=8, yres=8, **_GLOW)
+    assert km.unsupported_reason(scene, cfg) is None
+    assert km.unsupported_reason(scene, cfg.with_(refraction_unroll=None)) is None
+    assert names in km.unsupported_reason(scene, cfg.with_(**change))
+
+
+def test_march_unsupported_reason_textures_and_size():
+    cfg = rtt.RenderConfig(xres=8, yres=8, **_GLOW)
+    scene, _ = rtt.default_scene(device="cpu")
+    assert "textures" in km.unsupported_reason(scene._replace(textures=np.zeros(1)), cfg)
+    big = rtt.build_scene(
+        [rtt.MaterialSpec(name="m")],
+        [rtt.SphereSpec("m", 1.0, (float(i), 0.0, 100.0)) for i in range(513)],
+        (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), device="cpu")[0]
+    assert "512 objects" in km.unsupported_reason(big, cfg)
+
+
+def test_march_render_with_grad_raises():
+    scene, _ = rtt.default_scene(device="cpu")
+    light = scene.light.x.clone().requires_grad_()
+    scene = scene._replace(light=scene.light._replace(x=light))
+    with pytest.raises(NotImplementedError, match="K4"):
+        rtt.render_color(scene, rtt.RenderConfig(xres=8, yres=8, **_GLOW))
+
+
+def test_cli_march_glow_cpu_writes_render_u8(tmp_path):
+    out = tmp_path / "march.png"
+    assert cli.main(["16", "12", "-m", "-g", "1.0", "-o", str(out), "--device", "cpu"]) == 0
+    png = load_png(str(out))
+    scene, _ = rtt.default_scene(device="cpu")
+    want = rtt.render_u8(scene, rtt.RenderConfig(xres=16, yres=12, yfov=12 / 16, **_GLOW))
+    assert png.shape == (12, 16, 3)
+    np.testing.assert_array_equal(png, want)
+
+
+@pytest.mark.cuda
+def test_cuda_march_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = rtt.default_scene(device="cuda")[0]
+    for cfg in (rtt.RenderConfig(xres=160, yres=120, **_GLOW),
+                rtt.RenderConfig(xres=97, yres=61, refraction_unroll=None, **_GLOW)):
+        before = km.LAUNCHES
+        got = _img(rtt.render_color(scene, cfg))  # routes a CUDA march scene to the kernel
+        torch.cuda.synchronize()
+        assert km.LAUNCHES == before + 1
+        assert got.shape == (cfg.yres, cfg.xres, 3)
+        _compare(_img(km.render_color_plain(scene, cfg)), got, frac_budget=0.02,
+                 mean_tol=0.01)

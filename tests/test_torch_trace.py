@@ -47,7 +47,7 @@ def _jax_trace(scene, cfg):
 
 
 def _port_trace(jax_scene, cfg):
-    scene = rtt.scene_from_numpy(rtt.scene_to_numpy(jax_scene))
+    scene = rtt.scene_from_numpy(rtt.scene_to_numpy(jax_scene), device="cpu")
     vi, eye = camera_rays(scene.camera.position, scene.camera.rotation, cfg)
     return trace_image(scene, cfg, vi, eye).to_array().numpy()
 
@@ -95,7 +95,7 @@ def test_plain_golden_default_trace_320x240():
     """Full reference depths (3 reflections, 10 refractions) against the
     oracle's golden image."""
     ref = np.load(os.path.join(_REPO, "tests", "goldens", "default_trace_320x240.npz"))["img"]
-    scene, _ = rtt.default_scene()
+    scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=320, yres=240, refraction_unroll=None)
     got = rtt.render_color(scene, cfg).to_array().numpy()
     _compare(ref, got, frac_budget=0.02, mean_tol=0.01)
@@ -117,7 +117,7 @@ def test_cli_cpu_writes_render_u8(tmp_path):
     out = tmp_path / "out.png"
     assert cli.main(["32", "24", "-o", str(out), "--device", "cpu"]) == 0
     png = load_png(str(out))
-    scene, _ = rtt.default_scene()
+    scene, _ = rtt.default_scene(device="cpu")
     want = rtt.render_u8(scene, rtt.RenderConfig(xres=32, yres=24, yfov=24 / 32))
     assert png.shape == (24, 32, 3)
     np.testing.assert_array_equal(png, want)
@@ -126,7 +126,7 @@ def test_cli_cpu_writes_render_u8(tmp_path):
 def test_cli_refuses_unported_flags(tmp_path):
     import pytest
 
-    for flag in (["-m"], ["-w"], ["-g", "1.0"]):
+    for flag in (["-w"], ["-s", "scene.yaml"], ["-d", "scene.yaml"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             cli.main(["8", "8", "-o", str(tmp_path / "x.png"), "--device", "cpu"] + flag)
 
