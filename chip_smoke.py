@@ -7,20 +7,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
-   the trace kernel (K1) and the march kernel (K3); ptxas registers, stack
-   and spills; the march kernel must be one function (ptxas reports no
-   device function beside it: its refraction levels are all inlined);
+   the trace kernel (K1), the march kernel (K3) and the trace backward
+   (K2); ptxas registers, stack and spills; the march kernel and the
+   backward must each be one function (ptxas reports no device function
+   beside the kernel: everything is inlined);
 3. each kernel against its plain PyTorch version on the card, and against
    its full-depth golden image, each within the JAX package's golden budget:
    at most 2% of pixels off by more than 1e-3, mean difference at most 0.01;
-   also at the shape of its main path;
+   also at the shape of its main path; the trace backward against torch
+   autograd of the plain trace, per scene leaf within relative L2 0.01 (the
+   JAX package's budget, tests/test_pallas_bwd.py:84-96), at four small
+   cases and at the training main path's shape;
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: trace mode, the CLI at 1920x1080 then ``render_u8`` at
    three camera poses (three viewer requests), one trace kernel launch per
    render; march mode with glow, the CLI at 1280x720 ``-m -g 1.0`` then
    three ``render_u8`` requests, one march kernel launch per render;
+   training, five ``sgd_train_step``s at 1920x1080 on the default scene
+   against a target whose red material is 0.1 redder, one trace and one
+   backward kernel launch per step, the loss falling;
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
-   version in turns (3 warm-ups, 10 timed renders each); the march kernel at
+   version in turns (3 warm-ups, 10 timed renders each); the forward and
+   backward step at 1920x1080 through the kernels and through plain autograd
+   in turns, the backward kernel alone, and its plain version (3 warm-ups,
+   10 timed calls each; the plain versions one call each with no warm-up,
+   ~32 s a call at 1080p); the march kernel at
    1280x720, 1920x1080 and 320x240 (3 warm-ups, 10 timed renders each), the
    plain march once at 320x240 and once at 1280x720 (the comparison of phase
    3: a plain frame takes tens of seconds at any size); each kernel's
@@ -47,8 +58,12 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUDGET = dict(frac=0.02, mean=0.01, tol=1e-3)  # tests/test_parity.py:152-161
-W, H = 1920, 1080  # the trace main path
+W, H = 1920, 1080  # the trace and training main paths
 MW, MH = 1280, 720  # the march main path
+GRAD_BUDGET = 0.01  # per scene leaf, relative L2 (tests/test_pallas_bwd.py:84-96)
+# The training main path's learning rate on the material colours; at 30 the
+# five steps bring the red back from 0.8 to ~0.9 (tests/test_torch_grad.py).
+TRAIN_LR = 30.0
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM rate
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -130,6 +145,31 @@ def count_ops(name, mod, cfg):
     return int(ops)
 
 
+def count_bwd_ops(cfg):
+    """The f32 operations of the backward kernel's raycasts (its record pass)
+    on the default scene under ``cfg``: its host build with -DRT_COUNT_OPS."""
+    import torch
+
+    import ray_rust_tpu_torch as rtt
+    from ray_rust_tpu_torch.ops import _build
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.ops.rays import fov_scales
+
+    lib = _build.build_host_library(_build.BUILD_DIR, "trace_bwd", count_ops=True)
+    scene, _ = rtt.default_scene(device="cpu")
+    tables = kt.pack_scene(scene)
+    g = torch.zeros((3, cfg.yres, cfg.xres), dtype=torch.float32)
+    block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
+    ops = torch.zeros(1, dtype=torch.int64)
+    sx, sy = fov_scales(cfg)
+    lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), scene.objects.count, cfg.xres,
+                          cfg.yres, sx, sy, *kb.kernel_args(cfg),
+                          *(plane.data_ptr() for plane in g), block.data_ptr(), None, None, None,
+                          ops.data_ptr())
+    return int(ops)
+
+
 def cuda_ms(torch, fn, warm=3, reps=10):
     for _ in range(warm):
         fn()
@@ -164,28 +204,34 @@ def main() -> int:
     from ray_rust_tpu_torch.ops import _build
     from ray_rust_tpu_torch.ops import kernel_march as km
     from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.parallel import sgd_train_step
     from ray_rust_tpu_torch.utils.image import load_png
 
     cfg_main = rtt.RenderConfig(xres=W, yres=H)
     glow = dict(use_raymarching=True, glow_effect=1.0)
     cfg_march = rtt.RenderConfig(xres=MW, yres=MH, **glow)
     # the main paths' operation counts, on the host while the card works
-    counting = ThreadPoolExecutor(max_workers=2)
+    counting = ThreadPoolExecutor(max_workers=3)
     ops_futures = {"trace_fwd": counting.submit(count_ops, "trace", kt, cfg_main),
-                   "march_fwd": counting.submit(count_ops, "march", km, cfg_march)}
+                   "march_fwd": counting.submit(count_ops, "march", km, cfg_march),
+                   "trace_bwd": counting.submit(count_bwd_ops, cfg_main)}
 
     # 2. the builds, one nvcc each, all started together
     t0 = time.time()
-    _build.prebuild(["trace_fwd", "march_fwd"])
-    print(f"build: trace_fwd.cu and march_fwd.cu with nvcc in {time.time() - t0:.1f} s")
-    for stem in ("trace_fwd", "march_fwd"):
+    stems = ("trace_fwd", "march_fwd", "trace_bwd")
+    _build.prebuild(stems)
+    print(f"build: trace_fwd.cu, march_fwd.cu and trace_bwd.cu with nvcc in "
+          f"{time.time() - t0:.1f} s")
+    for stem in stems:
         print(f"  ptxas, {stem}:")
         for line in _build.build_logs[stem].splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print("    " + line.strip())
-    calls = _build.called_functions(_build.build_logs["march_fwd"])
-    if calls:
-        raise SystemExit(f"chip_smoke: march_fwd.cu left device functions as calls: {calls}")
+    for stem in ("march_fwd", "trace_bwd"):
+        calls = _build.called_functions(_build.build_logs[stem])
+        if calls:
+            raise SystemExit(f"chip_smoke: {stem}.cu left device functions as calls: {calls}")
 
     dev = torch.device("cuda", 0)
 
@@ -243,6 +289,62 @@ def main() -> int:
     got, ref, march_plain_ms = both(default, cfg_march, km)
     march_max_abs_err = compare(f"march default {MW}x{MH} (the main path's shape)", ref, got)
 
+    print("backward kernel vs torch autograd of the plain version:")
+
+    def grad_case(name, scene, cfg, seed=0):
+        """K2's table cotangents against autograd of the plain trace, mapped
+        to the scene's leaves; returns the largest relative L2."""
+        scene = scene.to(dev)
+        rng = np.random.default_rng(seed)
+        g = rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
+                                         .astype(np.float32)).to(dev) for _ in range(3)))
+        got, prim = kb.render_grads_kernel(scene, cfg, g, return_primal=True)
+        torch.cuda.reset_peak_memory_stats()
+        want = kb.render_grads_plain(scene, cfg, g)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        agree = float((img(prim) == img(kt.render_color_plain(scene, cfg))).all(-1).mean())
+        got, want = kb.leaf_grads(scene, got), kb.leaf_grads(scene, want)
+        worst, worst_leaf = 0.0, None
+        for path, w in want.items():
+            a = got[path].detach().cpu().numpy().astype(np.float64)
+            if not np.isfinite(a).all():
+                raise SystemExit(f"chip_smoke: {name}: {path} cotangent not finite")
+            if "pattern_scale" in path:
+                continue
+            b = w.detach().cpu().numpy().astype(np.float64)
+            rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-2))
+            if rel >= worst:
+                worst, worst_leaf = rel, path
+        ok = worst <= GRAD_BUDGET
+        print(f"  {name}: image bit-equal to the plain forward on {agree:.4%} of pixels, "
+              f"largest leaf relative L2 {worst:.3g} ({worst_leaf}), plain autograd peak "
+              f"{peak / 2**30:.2f} GiB -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {name}: {worst_leaf} off by relative L2 {worst:.3g}")
+        return worst
+
+    for name, scene, cfg in [
+        ("default 320x240", default, rtt.RenderConfig(xres=320, yres=240)),
+        ("default 320x240 refraction_unroll=None", default,
+         rtt.RenderConfig(xres=320, yres=240, refraction_unroll=None)),
+        ("40 objects 320x240", spheres_scene(rtt, 7, 39),
+         rtt.RenderConfig(xres=320, yres=240, max_refractions=1)),
+        ("101 objects 160x120", spheres_scene(rtt, 11, 100), rtt.RenderConfig(xres=160, yres=120)),
+    ]:
+        grad_case(name, scene, cfg)
+    # the main path's shape, or the largest whose plain autograd graph fits
+    for pw, ph in ((W, H), (1280, 720), (960, 540)):
+        try:
+            bwd_max_err = grad_case(f"default {pw}x{ph}", default, cfg_main.with_(xres=pw, yres=ph))
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"  default {pw}x{ph}: the plain autograd graph does not fit the card: {e}")
+            torch.cuda.empty_cache()
+    else:
+        raise SystemExit("chip_smoke: the plain autograd graph fits at no shape tried")
+    cfg_plain = cfg_main.with_(xres=pw, yres=ph)  # where the plain versions are timed
+
     # 4. the main paths
     poses = [((0.0, -150.0, -300.0), (0.0, -np.pi / 2, -np.pi / 2)),
              ((120.0, -120.0, -320.0), (0.0, -np.pi / 2 + 0.2, -np.pi / 2)),
@@ -285,6 +387,40 @@ def main() -> int:
     launches = main_path("trace", [str(W), str(H)], cfg_main, kt, km)
     march_launches = main_path("march", [str(MW), str(MH), "-m", "-g", "1.0"], cfg_march, km, kt)
 
+    # training: the red material 0.1 redder in the target; the material
+    # colours train (the camera and the geometry sit on knife edges of this
+    # scene, the x = 0 plane and the horizon, where any step flips pixels)
+    m = scene_dev.materials
+    red = m.diffuse.r.clone()
+    red[2] += 0.1
+    with torch.no_grad():
+        target = rtt.render_color(scene_dev._replace(
+            materials=m._replace(diffuse=m.diffuse._replace(r=red))), cfg_main).to_array()
+
+    def colours(c):
+        return type(c)(*(t.detach().clone().requires_grad_() for t in c))
+
+    s = scene_dev._replace(materials=m._replace(diffuse=colours(m.diffuse),
+                                                specular=colours(m.specular)))
+    kt.LAUNCHES = km.LAUNCHES = kb.LAUNCHES = 0
+    t0 = time.time()
+    losses = []
+    for _ in range(5):
+        s, loss = sgd_train_step(s, cfg_main, target, lr=TRAIN_LR)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    train_launches = (kt.LAUNCHES, kb.LAUNCHES, km.LAUNCHES)
+    print(f"main path, training: 5 sgd_train_step at {W}x{H} in {train_s:.2f} s, launches "
+          f"(trace, backward, march) {train_launches}, losses "
+          + ", ".join(f"{v:.6g}" for v in losses)
+          + f"; red {float(s.materials.diffuse.r[2].detach()):.4f} (target 0.9, start 0.8)")
+    if train_launches != (5, 5, 0):
+        raise SystemExit(f"chip_smoke: want 5 trace, 5 backward and 0 march launches in training, "
+                         f"got {train_launches}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: the training loss did not fall: {losses}")
+
     # 5. times at the main path's shape, in turns, once the host is free
     ops = {name: f.result() for name, f in ops_futures.items()}
     counting.shutdown()
@@ -298,6 +434,46 @@ def main() -> int:
         print(f"  {name}: {ms:.3f} ms/frame, {W * H / ms / 1e3:.1f} Mrays/s primary")
     k_ms = float(np.mean([ms for n, ms in runs if n == "kernel"]))
     p_ms = float(np.mean([ms for n, ms in runs if n == "plain"]))
+
+    print(f"forward + backward {W}x{H}, default scene, default cfg ({card}):")
+    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
+              for t in scene_dev.tensors()]
+    params = [t for t in leaves if t.requires_grad]
+    s_grad = scene_dev.with_tensors(leaves)
+
+    def step(render, cfg):
+        """Render, MSE against a target 0.05 brighter, gradient of every
+        float leaf: the step without the update."""
+        target_ = torch.full((cfg.yres, cfg.xres, 3), 0.05, device=dev)
+
+        def run():
+            loss_ = (torch.stack(list(render(s_grad, cfg)), -1) - target_).square().mean()
+            torch.autograd.grad(loss_, params, allow_unused=True)
+        return run
+
+    kernel_step = step(rtt.render_color, cfg_main)
+    plain_step = step(kt.render_color_plain, cfg_plain)
+    plain_reps = dict(warm=0, reps=1)
+    step_runs = [("plain", cuda_ms(torch, plain_step, **plain_reps)),
+                 ("kernel", cuda_ms(torch, kernel_step)), ("kernel", cuda_ms(torch, kernel_step)),
+                 ("plain", cuda_ms(torch, plain_step, **plain_reps))]
+    for name, ms in step_runs:
+        c = cfg_main if name == "kernel" else cfg_plain
+        print(f"  step ({name} at {c.xres}x{c.yres}: render, MSE, gradient of every float "
+              f"leaf): {ms:.3f} ms")
+    rng = np.random.default_rng(0)
+
+    def planes(cfg):
+        return rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
+                                            .astype(np.float32)).to(dev) for _ in range(3)))
+
+    g_main, g_plain = planes(cfg_main), planes(cfg_plain)
+    bwd_ms = cuda_ms(torch, lambda: kb.render_grads_kernel(scene_dev, cfg_main, g_main,
+                                                           return_primal=True))
+    bwd_plain_ms = cuda_ms(torch, lambda: kb.render_grads_plain(scene_dev, cfg_plain, g_plain),
+                           **plain_reps)
+    print(f"  backward kernel alone at {W}x{H} (wrapper, with the image): {bwd_ms:.3f} ms; its "
+          f"plain version (autograd of the plain trace) at {pw}x{ph}: {bwd_plain_ms:.3f} ms")
 
     print(f"march + glow forward, default scene, default cfg ({card}):")
     with torch.no_grad():
@@ -313,8 +489,10 @@ def main() -> int:
 
     # roofline bounds from the operation counts of the main paths' frames
     bounds = {}
-    for name, cfg in (("trace_fwd", cfg_main), ("march_fwd", cfg_march)):
+    for name, cfg in (("trace_fwd", cfg_main), ("march_fwd", cfg_march), ("trace_bwd", cfg_main)):
         nbytes = io_bytes(scene_dev, cfg)
+        if name == "trace_bwd":  # + the cotangent planes read, the block written
+            nbytes += 3 * 4 * cfg.xres * cfg.yres + 4 * (scene_dev.objects.count + 1) * kb.GRAD_COLS
         bounds[name] = roofline(ops[name], nbytes)
         print(f"  bound, {name} {cfg.xres}x{cfg.yres}: {ops[name]} f32 operations, "
               f"{nbytes} bytes -> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
@@ -335,6 +513,14 @@ def main() -> int:
         "launches": march_launches, "max_abs_err": march_max_abs_err,
         "ms": march_ms[(MW, MH)], "plain_ms": march_plain_ms,
         "bound_ms": bounds["march_fwd"][0], "bound_by": bounds["march_fwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "trace_bwd", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/trace_bwd.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_bwd.py:563",
+        "launches": train_launches[1], "max_abs_err": bwd_max_err, "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bounds["trace_bwd"][0], "bound_by": bounds["trace_bwd"][1],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

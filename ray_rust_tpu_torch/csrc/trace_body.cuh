@@ -23,7 +23,10 @@
 // turn the pixel to NaN rather than lose the sub-trace).
 //
 // Vectors, the sky, uv maps, patterns and the normal are shared with the
-// march-mode body (march_body.cuh).
+// march-mode body (march_body.cuh). The traversal takes a recorder: the
+// forward kernel's (NoRecord) does nothing, the backward kernel's
+// (trace_bwd_body.cuh) saves the state of every raycast site, so both run
+// one traversal.
 //
 // A build with -DRT_COUNT_OPS counts the f32 arithmetic of the object loops
 // (the fewest operations each object test can take) into *SceneView::ops,
@@ -304,18 +307,31 @@ RT_HD V3 camera_ray(int xres, int yres, float sx, float sy, const float* cam, in
   return normalized(v3(r.x, r.y, r.z));
 }
 
-// A pending trace: start ray, level, ignored object, flags, and the weight
-// its colour carries into the pixel.
+// A pending trace: start ray, level, ignored object, flags, the weight its
+// colour carries into the pixel, and the recorder's id of the site that
+// pushed it (-1 for the camera ray).
 struct Task {
   V3 vi, eye;
   C3 w;
   int lev, ig, flags;
+  int parent;
+};
+
+// The forward kernel's recorder: records nothing.
+struct NoRecord {
+  RT_HD void task(const Task&) {}
+  RT_HD int site(V3, V3, C3, int, int, bool, bool) { return -1; }
 };
 
 // Run one trace (render.rs:1142-1224) and add its weighted colour to *out;
-// refraction sub-traces go onto the stack.
+// refraction sub-traces go onto the stack. ``rec.task`` sees the trace
+// start and ``rec.site`` each raycast site: its ray, throughput, flags,
+// winner, hit and shadow outcome; the id it returns is the parent of the
+// site's refraction sub-trace.
+template <class Rec>
 RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* out,
-                      Task* stack, int* sp) {
+                      Task* stack, int* sp, Rec& rec) {
+  rec.task(tk);
   V3 vi = tk.vi, eye = tk.eye;
   int ig = tk.ig, flags = tk.flags;
   C3 fcs = c3(1.0f, 1.0f, 1.0f);
@@ -325,6 +341,7 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
     int idx;
     float t = raycast(s, vi, eye, ig, flags, &idx);
     if (!is_finite(t)) {
+      rec.site(vi, eye, fcs, flags, idx, false, false);
       // a miss picks up the background once, unguarded (render.rs:1212-1217)
       C3 bg = background(p.bg, s.light, eye);
       out->r += tk.w.r * (bg.r * fcs.r);
@@ -351,6 +368,7 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
     int i_s;
     float t_s = raycast(s, add(pt, scale(s.light, F32_EPS)), s.light, idx, 0, &i_s);
     bool lit = !is_finite(t_s) || s.f32[i_s * F32_COLS + 13] > 0.0f;
+    const int site = rec.site(vi, eye, fcs, flags, idx, true, lit);
     float k1 = lit ? fminf(0.2f + di, 1.0f) : 0.2f;
     float k2 = lit ? refl : 0.0f;
 
@@ -373,6 +391,7 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
       c.lev = lev;
       c.ig = idx;
       c.flags = sp_n < 0.0f ? OUTONLY : INONLY;
+      c.parent = site;
       c.w = c3(mr ? tk.w.r * (fcs.r * f) : 0.0f, mg ? tk.w.g * (fcs.g * f) : 0.0f,
                mb ? tk.w.b * (fcs.b * f) : 0.0f);
       if (*sp < STACK_CAP) {
@@ -411,7 +430,9 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
 }
 
 // The colour of pixel (ix, iy). ``cam`` is the packed camera row.
-RT_HD C3 trace_pixel(const SceneView& s, const Params& p, const float* cam, int ix, int iy) {
+template <class Rec>
+RT_HD C3 trace_pixel(const SceneView& s, const Params& p, const float* cam, int ix, int iy,
+                     Rec& rec) {
   Task stack[STACK_CAP];
   stack[0].vi = v3(cam[0], cam[1], cam[2]);
   stack[0].eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
@@ -419,13 +440,19 @@ RT_HD C3 trace_pixel(const SceneView& s, const Params& p, const float* cam, int 
   stack[0].lev = 0;
   stack[0].ig = -1;
   stack[0].flags = 0;
+  stack[0].parent = -1;
   int sp = 1;
   C3 out = c3(0.0f, 0.0f, 0.0f);
   while (sp > 0) {
     Task tk = stack[--sp];
-    trace_task(s, p, tk, &out, stack, &sp);
+    trace_task(s, p, tk, &out, stack, &sp, rec);
   }
   return out;
+}
+
+RT_HD C3 trace_pixel(const SceneView& s, const Params& p, const float* cam, int ix, int iy) {
+  NoRecord rec;
+  return trace_pixel(s, p, cam, ix, iy, rec);
 }
 
 }  // namespace rt

@@ -1,0 +1,121 @@
+// Host build of the trace backward's per-pixel body (trace_bwd_body.cuh): a
+// plain loop over the pixels on the CPU, so the kernel's adjoint can be
+// tested against torch autograd of the plain PyTorch version where there is
+// no card. Same arguments as rt_trace_bwd in trace_bwd.cu, minus the device
+// and stream. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared
+// -fPIC`` (and -DRT_COUNT_OPS to add the operation count to *ops_total).
+//
+// The rt_*_adj functions expose single adjoint steps for the tests, each
+// over ``m`` cases laid out as flat arrays.
+
+#include "trace_bwd_body.cuh"
+
+namespace {
+
+struct HostAcc {
+  float* block;
+  void add(int row, int col, float v) { block[row * rt::GRAD_COLS + col] += v; }
+};
+
+}  // namespace
+
+extern "C" {
+
+void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
+                       const float* light, int n, int xres, int yres, float sx, float sy,
+                       int max_reflections, int refraction_cap, int bg, float cutoff,
+                       const float* g_r, const float* g_g, const float* g_b, float* out_block,
+                       float* prim_r, float* prim_g, float* prim_b,
+                       unsigned long long* ops_total) {
+  rt::SceneView s;
+  s.f32 = f32t;
+  s.i32 = i32t;
+  s.n = n;
+  s.light = rt::v3(light[0], light[1], light[2]);
+#ifdef RT_COUNT_OPS
+  s.ops = ops_total;
+#else
+  (void)ops_total;
+#endif
+  rt::Params p;
+  p.xres = xres;
+  p.yres = yres;
+  p.sx = sx;
+  p.sy = sy;
+  p.max_reflections = max_reflections;
+  p.refraction_cap = refraction_cap;
+  p.bg = bg;
+  HostAcc acc = {out_block};
+  for (int iy = 0; iy < yres; ++iy) {
+    for (int ix = 0; ix < xres; ++ix) {
+      const long o = static_cast<long>(iy) * xres + ix;
+      rt::C3 c = rt::trace_pixel_grad(s, p, cutoff, cam, ix, iy,
+                                      rt::c3(g_r[o], g_g[o], g_b[o]), acc);
+      if (prim_r != nullptr) {
+        prim_r[o] = c.r;
+        prim_g[o] = c.g;
+        prim_b[o] = c.b;
+      }
+    }
+  }
+}
+
+// light (3), d (3m), g (3m) -> g_light (3m), g_d (3m): default sky.
+void rt_sky_adj(int m, const float* light, const float* d, const float* g, float* g_light,
+                float* g_d) {
+  rt::V3 l = rt::v3(light[0], light[1], light[2]);
+  for (int i = 0; i < m; ++i) {
+    const float* di = d + 3 * i;
+    const float* gi = g + 3 * i;
+    rt::V3 gl = rt::v3(0.0f, 0.0f, 0.0f), gd = rt::v3(0.0f, 0.0f, 0.0f);
+    rt::background_adj(rt::BG_DEFAULT_SKY, l, rt::v3(di[0], di[1], di[2]),
+                       rt::c3(gi[0], gi[1], gi[2]), &gl, &gd);
+    g_light[3 * i] = gl.x, g_light[3 * i + 1] = gl.y, g_light[3 * i + 2] = gl.z;
+    g_d[3 * i] = gd.x, g_d[3 * i + 1] = gd.y, g_d[3 * i + 2] = gd.z;
+  }
+}
+
+// eye (3m), n (3m), refraction (m), g_ray (3m) -> g_eye (3m), g_n (3m),
+// g_refraction (m): the refraction bend.
+void rt_bend_adj(int m, const float* eye, const float* n, const float* refr, const float* g_ray,
+                 float* g_eye, float* g_n, float* g_refr) {
+  for (int i = 0; i < m; ++i) {
+    const float* e = eye + 3 * i;
+    const float* nn = n + 3 * i;
+    const float* gr = g_ray + 3 * i;
+    rt::V3 ge = rt::v3(0.0f, 0.0f, 0.0f), gn = rt::v3(0.0f, 0.0f, 0.0f);
+    float gf = 0.0f;
+    rt::bend_adj(rt::v3(e[0], e[1], e[2]), rt::v3(nn[0], nn[1], nn[2]), refr[i],
+                 rt::v3(gr[0], gr[1], gr[2]), &ge, &gn, &gf);
+    g_eye[3 * i] = ge.x, g_eye[3 * i + 1] = ge.y, g_eye[3 * i + 2] = ge.z;
+    g_n[3 * i] = gn.x, g_n[3 * i + 1] = gn.y, g_n[3 * i + 2] = gn.z;
+    g_refr[i] = gf;
+  }
+}
+
+// The camera rays of an xres x yres image: cam (8), g_eye (3 * xres * yres,
+// pixel-major) -> g_rot (4): the summed rotation cotangent.
+void rt_camera_ray_adj(int xres, int yres, float sx, float sy, const float* cam,
+                       const float* g_eye, float* g_rot) {
+  for (int k = 0; k < 4; ++k) g_rot[k] = 0.0f;
+  for (int iy = 0; iy < yres; ++iy) {
+    for (int ix = 0; ix < xres; ++ix) {
+      const float* ge = g_eye + 3 * (static_cast<long>(iy) * xres + ix);
+      rt::Q4 gq =
+          rt::camera_ray_adj(xres, yres, sx, sy, cam, ix, iy, rt::v3(ge[0], ge[1], ge[2]));
+      g_rot[0] += gq.x, g_rot[1] += gq.y, g_rot[2] += gq.z, g_rot[3] += gq.w;
+    }
+  }
+}
+
+// ri (m), pn (m), g (m) -> g_ri (m), g_pn (m): the Phong power.
+void rt_pow_adj(int m, const float* ri, const float* pn, const float* g, float* g_ri,
+                float* g_pn) {
+  for (int i = 0; i < m; ++i) {
+    g_ri[i] = 0.0f;
+    g_pn[i] = 0.0f;
+    rt::pow_adj(ri[i], pn[i], g[i], &g_ri[i], &g_pn[i]);
+  }
+}
+
+}  // extern "C"

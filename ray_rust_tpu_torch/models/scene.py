@@ -107,6 +107,12 @@ class Scene(NamedTuple):
         _map_tensors(out.append, self)
         return out
 
+    def with_tensors(self, tensors) -> "Scene":
+        """The same scene with its tensors replaced by ``tensors``, given in
+        the order of :meth:`tensors`."""
+        it = iter(tensors)
+        return _map_tensors(lambda _: next(it), self)
+
 
 @dataclasses.dataclass(frozen=True)
 class SceneMeta:

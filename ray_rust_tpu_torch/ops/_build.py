@@ -1,6 +1,6 @@
 """Build and load the port's native kernels from ``ray_rust_tpu_torch/csrc``.
 
-The CUDA kernels (``trace_fwd.cu``, ``march_fwd.cu``) are compiled at first
+The CUDA kernels (``trace_fwd.cu``, ``march_fwd.cu``, ``trace_bwd.cu``) are compiled at first
 use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a plain
 C interface, which are loaded with ``ctypes``. A library's file name carries
 a hash of the sources and flags, so an edited source is rebuilt and a stale
@@ -11,7 +11,8 @@ compiler's output. :func:`prebuild` runs several builds at once, one
 compiler each.
 
 :func:`build_host_library` compiles a kernel's per-pixel body for the CPU
-with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``), for the
+with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
+``csrc/trace_bwd_host.cpp``), for the
 tests; with ``count_ops=True`` it builds it with ``-DRT_COUNT_OPS``, which
 adds the f32 operations the body takes to a counter, for the kernels'
 roofline bound.
@@ -51,8 +52,11 @@ _F = ctypes.c_float
 _TRACE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P]
 _MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F,
                _P, _P, _P]
-_CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march_fwd", _MARCH_ARGS)}
-_HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host", _MARCH_ARGS)}
+_BWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P]
+_CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march_fwd", _MARCH_ARGS),
+             "trace_bwd": ("rt_trace_bwd", _BWD_ARGS)}
+_HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host", _MARCH_ARGS),
+             "trace_bwd": ("rt_trace_bwd_host", _BWD_ARGS)}
 
 # Each build's compiler output (for nvcc, ptxas's registers, stack and
 # spills), by library stem.
@@ -112,8 +116,8 @@ def _compile_cuda(name: str) -> Path:
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"`` or
-    ``"march_fwd"``)."""
+    """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"``,
+    ``"march_fwd"`` or ``"trace_bwd"``)."""
     if name not in _cuda_libs:
         fn_name, argtypes = _CUDA_FNS[name]
         lib = _bind(_compile_cuda(name), fn_name, argtypes + [_I, _P], _I)
@@ -144,7 +148,8 @@ def called_functions(ptxas_log: str) -> list:
 
 def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
     """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
-    a CPU loop (``rt_trace_host`` or ``rt_march_host``)."""
+    a CPU loop (``rt_trace_host``, ``rt_march_host`` or
+    ``rt_trace_bwd_host``)."""
     stem = f"{name}_host" + ("_ops" if count_ops else "")
     path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
                        CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)

@@ -26,7 +26,7 @@ import numpy as np
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
-from .kernel_trace import check_launchable, launch, render_color_plain
+from .kernel_trace import check_launchable, launch, pack_scene, render_color_plain
 from .sky import BG_IDS
 
 __all__ = [
@@ -91,7 +91,7 @@ def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
     from ._build import load_cuda_library
 
     lib = load_cuda_library("march_fwd")
-    img = launch(lib, lib.rt_march_fwd, scene, cfg, kernel_args(cfg))
+    img = launch(lib, lib.rt_march_fwd, pack_scene(scene), cfg, kernel_args(cfg))
     LAUNCHES += 1
     return img
 

@@ -33,6 +33,7 @@ __all__ = [
     "kernel_supported",
     "unsupported_reason",
     "render_color_kernel",
+    "render_tables_kernel",
     "render_color_plain",
     "kernel_args",
 ]
@@ -108,7 +109,7 @@ def render_color_plain(scene: Scene, cfg: RenderConfig) -> Color:
     return trace_image(scene, cfg, vi, eye)
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
         raise ValueError(f"{name}: want {dtype} {shape} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
@@ -116,26 +117,34 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(lib, fn, scene: Scene, cfg: RenderConfig, args: list) -> Color:
+def launch(lib, fn, tables, cfg: RenderConfig, args: list) -> Color:
     """Call launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres, sx, sy,
     *args, out_r, out_g, out_b, device, stream)`` on the current stream
-    with the packed tables of ``scene`` and return the image; raises if the
-    tables or the launch are not as the kernel takes them."""
-    dev = scene.device
-    n = scene.objects.count
-    f32t, i32t, cam, light = pack_scene(scene)
-    _check(f32t, "f32 table", torch.float32, (n, F32_COLS), dev)
-    _check(i32t, "i32 table", torch.int32, (n, I32_COLS), dev)
-    _check(cam, "camera", torch.float32, (1, 8), dev)
-    _check(light, "light", torch.float32, (1, 4), dev)
+    with the packed scene ``tables`` (:func:`pack_scene`'s four) and return
+    the image; raises if the tables or the launch are not as the kernel
+    takes them."""
+    check_tables(tables)
+    f32t, i32t, cam, light = tables
+    dev = f32t.device
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
     sx, sy = fov_scales(cfg)
     rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
-            n, cfg.xres, cfg.yres, sx, sy, *args,
+            f32t.shape[0], cfg.xres, cfg.yres, sx, sy, *args,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
     return Color(out[0], out[1], out[2])
+
+
+def check_tables(tables):
+    """Raise ValueError unless ``tables`` are :func:`pack_scene`'s four
+    tensors, contiguous, on one device."""
+    f32t, i32t, cam, light = tables
+    n, dev = f32t.shape[0], f32t.device
+    check_tensor(f32t, "f32 table", torch.float32, (n, F32_COLS), dev)
+    check_tensor(i32t, "i32 table", torch.int32, (n, I32_COLS), dev)
+    check_tensor(cam, "camera", torch.float32, (1, 8), dev)
+    check_tensor(light, "light", torch.float32, (1, 4), dev)
 
 
 def kernel_args(cfg: RenderConfig) -> list:
@@ -157,12 +166,19 @@ def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
     """Render through the CUDA trace kernel. The scene's tensors must lie on
     a CUDA device; the image is returned there as a Color of ``(H, W)``
     planes. Raises on anything the kernel does not take."""
-    global LAUNCHES
     check_launchable(scene, unsupported_reason(scene, cfg), "trace")
+    return render_tables_kernel(pack_scene(scene), cfg)
+
+
+def render_tables_kernel(tables, cfg: RenderConfig) -> Color:
+    """Launch the trace kernel on packed tables (:func:`pack_scene`'s four,
+    on a CUDA device) that the caller has checked with
+    :func:`unsupported_reason`."""
+    global LAUNCHES
     from ._build import load_cuda_library
 
     lib = load_cuda_library("trace_fwd")
-    img = launch(lib, lib.rt_trace_fwd, scene, cfg, kernel_args(cfg))
+    img = launch(lib, lib.rt_trace_fwd, tables, cfg, kernel_args(cfg))
     LAUNCHES += 1
     return img
 

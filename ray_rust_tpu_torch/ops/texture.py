@@ -33,7 +33,12 @@ def get_uv(rel: Vec3, uvmap, pattern_scale, pattern_angle_scale):
     u = torch.where(uvmap == UVMAP_ZX, rel.z / ps, u)
     v = torch.where(uvmap == UVMAP_ZX, rel.x / ps, v)
     u_ll = atan2(rel.z, rel.x) / pattern_angle_scale
-    v_ll = atan2(torch.sqrt(rel.x * rel.x + rel.z * rel.z), rel.y) / pattern_angle_scale
+    # sqrt has no slope at 0: where rel.x = rel.z = 0 (a hit straight above
+    # or below the origin, under any map) the lat-long branch, even when
+    # not selected, would carry 0 * inf = NaN into rel's gradient
+    q = rel.x * rel.x + rel.z * rel.z
+    r_xz = torch.where(q > 0.0, torch.sqrt(torch.where(q > 0.0, q, 1.0)), 0.0)
+    v_ll = atan2(r_xz, rel.y) / pattern_angle_scale
     u = torch.where(uvmap == UVMAP_LL, u_ll, u)
     v = torch.where(uvmap == UVMAP_LL, v_ll, v)
     return u, v

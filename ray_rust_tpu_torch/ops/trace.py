@@ -42,7 +42,26 @@ from .march import march_single
 from .sky import get_bg
 from .texture import get_uv, lookup_diffuse
 
-__all__ = ["shading", "raytrace", "raymarch", "trace_image"]
+__all__ = ["shading", "phong", "refraction_ray", "raytrace", "raymarch", "trace_image"]
+
+
+def phong(refl_incidence, pn):
+    """Phong term ``refl_incidence ** pn`` where ``pn != 0`` and the
+    incidence is positive, else 0 (render.rs:1036-1046); the unselected
+    power gets base 1, so its gradient stays finite."""
+    ri_safe = torch.where(refl_incidence > 0.0, refl_incidence, 1.0)
+    return torch.where((pn != 0.0) & (refl_incidence > 0.0), torch.pow(ri_safe, pn), 0.0)
+
+
+def refraction_ray(eye: Vec3, n: Vec3, f, fracn):
+    """The pseudo-refraction's bent ray (render.rs:1093-1110) and ``eye.n``:
+    ``normalize(eye + n·sp·(r - 1))`` with ``r = fracn`` leaving the surface
+    (``sp > 0``) and ``1/fracn`` entering it."""
+    sp = eye.dot(n)
+    # |n| ~ 0 with t > 0 is degenerate (1/0 in the reference): use index 1
+    fracn_safe = torch.where((f > 0.0) & (torch.abs(fracn) > 1e-6), fracn, 1.0)
+    bend = sp * (torch.where(sp > 0.0, fracn_safe, 1.0 / fracn_safe) - 1.0)
+    return (eye + Vec3(n.x * bend, n.y * bend, n.z * bend)).normalized(), sp
 
 
 def shading(scene: Scene, cfg: RenderConfig, idx, fields: HitFields, n: Vec3,
@@ -59,10 +78,7 @@ def shading(scene: Scene, cfg: RenderConfig, idx, fields: HitFields, n: Vec3,
     diffuse_intensity = torch.clamp(light_incidence, min=0.0)
     shadow_org = pt + light * F32_EPSILON
     pn = fields.pn
-    refl_incidence = -reflected_to_light.dot(eye)
-    ri_safe = torch.where(refl_incidence > 0.0, refl_incidence, 1.0)
-    reflection_intensity = torch.where(
-        (pn != 0.0) & (refl_incidence > 0.0), torch.pow(ri_safe, pn), 0.0)
+    reflection_intensity = phong(-reflected_to_light.dot(eye), pn)
 
     if cfg.use_raymarching:
         # Shadow march (render.rs:1048-1067): lit when it escapes or runs out
@@ -92,13 +108,8 @@ def shading(scene: Scene, cfg: RenderConfig, idx, fields: HitFields, n: Vec3,
         return base
     # Pseudo-refraction (render.rs:1093-1132): the sub-trace starts at level
     # ``nest`` with the source object ignored.
-    sp = eye.dot(n)
     f = fields.transparency
-    fracn = fields.refraction
-    # |n| ~ 0 with t > 0 is degenerate (1/0 in the reference): use index 1
-    fracn_safe = torch.where((f > 0.0) & (torch.abs(fracn) > 1e-6), fracn, 1.0)
-    bend = sp * (torch.where(sp > 0.0, fracn_safe, 1.0 / fracn_safe) - 1.0)
-    ray = (eye + Vec3(n.x * bend, n.y * bend, n.z * bend)).normalized()
+    ray, sp = refraction_ray(eye, n, f, fields.refraction)
     pt3 = pt + ray * F32_EPSILON
     sub_flags = torch.where(sp < 0.0, OUTONLY, INONLY).to(torch.int32)
     if cfg.use_raymarching:

@@ -5,7 +5,9 @@ device of the scene's tensors:
 
 - CUDA: the trace kernel (``ops/kernel_trace.py``) in trace mode, the march
   kernel (``ops/kernel_march.py``) in march mode, or ``NotImplementedError``
-  naming the ROADMAP item that would cover the request;
+  naming the ROADMAP item that would cover the request. A trace-mode scene
+  that requires grad goes through ``kernel_trace_bwd.TraceRender``: the trace
+  kernel forward, the backward kernel (K2) under autograd;
 - CPU: the plain PyTorch version, differentiable by autograd in trace mode.
 
 March mode has no gradient yet on either device: a march render of a scene
@@ -21,7 +23,7 @@ import torch
 from .config import RenderConfig
 from .models.scene import Scene
 from .models.vec import Color
-from .ops import kernel_march, kernel_trace
+from .ops import kernel_march, kernel_trace, kernel_trace_bwd
 
 __all__ = ["render_color", "render_u8", "to_u8"]
 
@@ -41,9 +43,10 @@ def render_color(scene: Scene, cfg: RenderConfig) -> Color:
     if dev.type != "cuda":
         raise NotImplementedError(f"no render path for device {dev}")
     if grad:
-        raise NotImplementedError(
-            "gradients on the card need the backward kernel, which is not "
-            "ported yet (ROADMAP queue 2, K2); render on the CPU for autograd")
+        reason = kernel_trace_bwd.unsupported_reason(scene, cfg)
+        if reason is not None:
+            raise NotImplementedError(f"no CUDA gradient path: {reason}")
+        return kernel_trace_bwd.render_color_grad(scene, cfg)
     reason = kernels.unsupported_reason(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"no CUDA render path: {reason}")

@@ -251,7 +251,10 @@ def test_cuda_kernel_matches_plain():
         assert got.shape == (cfg.yres, cfg.xres, 3)
         _compare(_img(kt.render_color_plain(scene, cfg)), got, frac_budget=0.02,
                   mean_tol=0.01)
-    # gradients on the card wait for the backward kernel: refused, not faked
+    # a gradient the kernels do not cover is refused, not faked or moved to
+    # the CPU (tests/test_torch_kernel_bwd.py runs the ones they cover)
     light = scene.light.x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K2"):
-        rtt.render_color(scene._replace(light=scene.light._replace(x=light)), cfg)
+    textured = scene._replace(light=scene.light._replace(x=light),
+                              textures=torch.zeros((4, 4, 3), device="cuda"))
+    with pytest.raises(NotImplementedError, match="K1a"):
+        rtt.render_color(textured, cfg)

@@ -132,7 +132,8 @@ def test_cli_refuses_unported_flags(tmp_path):
 
 
 def test_port_imports_without_jax():
-    code = "import sys, ray_rust_tpu_torch, ray_rust_tpu_torch.cli; print('jax' in sys.modules)"
+    code = ("import sys, ray_rust_tpu_torch, ray_rust_tpu_torch.cli, ray_rust_tpu_torch.parallel; "
+            "print('jax' in sys.modules or 'ray_rust_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
                          text=True, check=True)
     assert out.stdout.strip() == "False"
