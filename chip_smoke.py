@@ -7,17 +7,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
-   the trace kernel (K1), the march kernel (K3) and the trace backward
-   (K2); ptxas registers, stack and spills; the march kernel and the
-   backward must each be one function (ptxas reports no device function
-   beside the kernel: everything is inlined);
+   the trace kernel (K1), the march kernel (K3), the trace backward (K2)
+   and the march backward (K4); ptxas registers, stack and spills; the march
+   kernel and the two backwards must each be one function (ptxas reports no
+   device function beside the kernel: everything is inlined);
 3. each kernel against its plain PyTorch version on the card, and against
    its full-depth golden image, each within the JAX package's golden budget:
    at most 2% of pixels off by more than 1e-3, mean difference at most 0.01;
    also at the shape of its main path; the trace backward against torch
    autograd of the plain trace, per scene leaf within relative L2 0.01 (the
    JAX package's budget, tests/test_pallas_bwd.py:84-96), at four small
-   cases and at the training main path's shape;
+   cases and at the training main path's shape; the march backward against
+   torch autograd of the plain march (its implicit VJP), per scene leaf
+   within relative L2 0.02 (tests/test_pallas_bwd.py:306-321), at four small
+   cases and at the march training path's shape, with the share of its
+   image's pixels bit-equal to the march kernel's;
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: trace mode, the CLI at 1920x1080 then ``render_u8`` at
    three camera poses (three viewer requests), one trace kernel launch per
@@ -25,13 +29,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    three ``render_u8`` requests, one march kernel launch per render;
    training, five ``sgd_train_step``s at 1920x1080 on the default scene
    against a target whose red material is 0.1 redder, one trace and one
-   backward kernel launch per step, the loss falling;
+   backward kernel launch per step, the loss falling; march training with
+   glow, five ``sgd_train_step``s at 1280x720 ``-m -g 1.0`` against the same
+   kind of target, one march and one march backward launch per step, the
+   loss falling at every step;
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
    version in turns (3 warm-ups, 10 timed renders each); the forward and
    backward step at 1920x1080 through the kernels and through plain autograd
    in turns, the backward kernel alone, and its plain version (3 warm-ups,
    10 timed calls each; the plain versions one call each with no warm-up,
-   ~32 s a call at 1080p); the march kernel at
+   ~32 s a call at 1080p); the march forward and backward step at 1280x720
+   through the march kernels (3 warm-ups, 10 timed calls) and once through
+   plain autograd, the march backward alone (3 warm-ups, 10 timed calls),
+   its plain version once (phase 3's call at 1280x720); the march kernel at
    1280x720, 1920x1080 and 320x240 (3 warm-ups, 10 timed renders each), the
    plain march once at 320x240 and once at 1280x720 (the comparison of phase
    3: a plain frame takes tens of seconds at any size); each kernel's
@@ -59,11 +69,16 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUDGET = dict(frac=0.02, mean=0.01, tol=1e-3)  # tests/test_parity.py:152-161
 W, H = 1920, 1080  # the trace and training main paths
-MW, MH = 1280, 720  # the march main path
+MW, MH = 1280, 720  # the march main path and the march training path
 GRAD_BUDGET = 0.01  # per scene leaf, relative L2 (tests/test_pallas_bwd.py:84-96)
+MARCH_GRAD_BUDGET = 0.02  # the march's (tests/test_pallas_bwd.py:306-321)
 # The training main path's learning rate on the material colours; at 30 the
 # five steps bring the red back from 0.8 to ~0.9 (tests/test_torch_grad.py).
 TRAIN_LR = 30.0
+# March mode with glow renders about twice as bright; at 10 the five steps
+# bring the red from 0.8 to ~0.9 with the loss falling at every step (the
+# plain path at 64x36 on the CPU).
+MARCH_TRAIN_LR = 10.0
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM rate
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -74,9 +89,10 @@ def compare(name, ref, got):
     diff = np.abs(got - ref)
     frac = float((diff.max(-1) > BUDGET["tol"]).mean())
     mean, mx = float(diff.mean()), float(diff.max())
+    same = float((got == ref).all(-1).mean())
     ok = np.isfinite(got).all() and frac <= BUDGET["frac"] and mean <= BUDGET["mean"]
     print(f"  {name}: {frac:.4%} pixels > {BUDGET['tol']}, mean {mean:.3g}, "
-          f"max {mx:.3g} -> {'ok' if ok else 'FAIL'}")
+          f"max {mx:.3g}, {same:.4%} bit-equal -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"chip_smoke: {name} outside the budget {BUDGET}")
     return mx
@@ -145,9 +161,10 @@ def count_ops(name, mod, cfg):
     return int(ops)
 
 
-def count_bwd_ops(cfg):
-    """The f32 operations of the backward kernel's raycasts (its record pass)
-    on the default scene under ``cfg``: its host build with -DRT_COUNT_OPS."""
+def count_bwd_ops(name, mod, cfg):
+    """The f32 operations of backward kernel ``name``'s record pass
+    (``"trace_bwd"``: its raycasts; ``"march_bwd"``: its SDF steps) on the
+    default scene under ``cfg``: its host build with -DRT_COUNT_OPS."""
     import torch
 
     import ray_rust_tpu_torch as rtt
@@ -156,17 +173,17 @@ def count_bwd_ops(cfg):
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
     from ray_rust_tpu_torch.ops.rays import fov_scales
 
-    lib = _build.build_host_library(_build.BUILD_DIR, "trace_bwd", count_ops=True)
+    lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
     scene, _ = rtt.default_scene(device="cpu")
     tables = kt.pack_scene(scene)
     g = torch.zeros((3, cfg.yres, cfg.xres), dtype=torch.float32)
     block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
     ops = torch.zeros(1, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
-    lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), scene.objects.count, cfg.xres,
-                          cfg.yres, sx, sy, *kb.kernel_args(cfg),
-                          *(plane.data_ptr() for plane in g), block.data_ptr(), None, None, None,
-                          ops.data_ptr())
+    getattr(lib, f"rt_{name}_host")(
+        *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
+        *mod.kernel_args(cfg), *(plane.data_ptr() for plane in g), block.data_ptr(), None, None,
+        None, ops.data_ptr())
     return int(ops)
 
 
@@ -203,6 +220,7 @@ def main() -> int:
     from ray_rust_tpu_torch.models.scene import Camera
     from ray_rust_tpu_torch.ops import _build
     from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
     from ray_rust_tpu_torch.parallel import sgd_train_step
@@ -212,23 +230,24 @@ def main() -> int:
     glow = dict(use_raymarching=True, glow_effect=1.0)
     cfg_march = rtt.RenderConfig(xres=MW, yres=MH, **glow)
     # the main paths' operation counts, on the host while the card works
-    counting = ThreadPoolExecutor(max_workers=3)
+    counting = ThreadPoolExecutor(max_workers=4)
     ops_futures = {"trace_fwd": counting.submit(count_ops, "trace", kt, cfg_main),
                    "march_fwd": counting.submit(count_ops, "march", km, cfg_march),
-                   "trace_bwd": counting.submit(count_bwd_ops, cfg_main)}
+                   "trace_bwd": counting.submit(count_bwd_ops, "trace_bwd", kb, cfg_main),
+                   "march_bwd": counting.submit(count_bwd_ops, "march_bwd", kmb, cfg_march)}
 
     # 2. the builds, one nvcc each, all started together
     t0 = time.time()
-    stems = ("trace_fwd", "march_fwd", "trace_bwd")
+    stems = ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd")
     _build.prebuild(stems)
-    print(f"build: trace_fwd.cu, march_fwd.cu and trace_bwd.cu with nvcc in "
+    print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
           f"{time.time() - t0:.1f} s")
     for stem in stems:
         print(f"  ptxas, {stem}:")
         for line in _build.build_logs[stem].splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print("    " + line.strip())
-    for stem in ("march_fwd", "trace_bwd"):
+    for stem in ("march_fwd", "trace_bwd", "march_bwd"):
         calls = _build.called_functions(_build.build_logs[stem])
         if calls:
             raise SystemExit(f"chip_smoke: {stem}.cu left device functions as calls: {calls}")
@@ -291,19 +310,27 @@ def main() -> int:
 
     print("backward kernel vs torch autograd of the plain version:")
 
-    def grad_case(name, scene, cfg, seed=0):
-        """K2's table cotangents against autograd of the plain trace, mapped
-        to the scene's leaves; returns the largest relative L2."""
+    def grad_case(name, scene, cfg, seed=0, bwd=kb, fwd=kt.render_color_plain,
+                  budget=GRAD_BUDGET):
+        """Backward kernel ``bwd``'s table cotangents against autograd of the
+        plain version, mapped to the scene's leaves, and its image against
+        ``fwd``'s; returns the largest relative L2 and the plain version's ms
+        (one call, CUDA events)."""
         scene = scene.to(dev)
         rng = np.random.default_rng(seed)
         g = rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
                                          .astype(np.float32)).to(dev) for _ in range(3)))
-        got, prim = kb.render_grads_kernel(scene, cfg, g, return_primal=True)
+        got, prim = bwd.render_grads_kernel(scene, cfg, g, return_primal=True)
         torch.cuda.reset_peak_memory_stats()
-        want = kb.render_grads_plain(scene, cfg, g)
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = bwd.render_grads_plain(scene, cfg, g)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
         peak = torch.cuda.max_memory_allocated()
-        agree = float((img(prim) == img(kt.render_color_plain(scene, cfg))).all(-1).mean())
+        agree = float((img(prim) == img(fwd(scene, cfg))).all(-1).mean())
         got, want = kb.leaf_grads(scene, got), kb.leaf_grads(scene, want)
         worst, worst_leaf = 0.0, None
         for path, w in want.items():
@@ -316,13 +343,14 @@ def main() -> int:
             rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-2))
             if rel >= worst:
                 worst, worst_leaf = rel, path
-        ok = worst <= GRAD_BUDGET
-        print(f"  {name}: image bit-equal to the plain forward on {agree:.4%} of pixels, "
-              f"largest leaf relative L2 {worst:.3g} ({worst_leaf}), plain autograd peak "
-              f"{peak / 2**30:.2f} GiB -> {'ok' if ok else 'FAIL'}")
+        ok = worst <= budget
+        print(f"  {name}: image bit-equal to {fwd.__module__}.{fwd.__name__}'s on {agree:.4%} "
+              f"of pixels, "
+              f"largest leaf relative L2 {worst:.3g} ({worst_leaf}), plain autograd "
+              f"{plain_ms:.1f} ms, peak {peak / 2**30:.2f} GiB -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"chip_smoke: {name}: {worst_leaf} off by relative L2 {worst:.3g}")
-        return worst
+        return worst, plain_ms
 
     for name, scene, cfg in [
         ("default 320x240", default, rtt.RenderConfig(xres=320, yres=240)),
@@ -336,7 +364,8 @@ def main() -> int:
     # the main path's shape, or the largest whose plain autograd graph fits
     for pw, ph in ((W, H), (1280, 720), (960, 540)):
         try:
-            bwd_max_err = grad_case(f"default {pw}x{ph}", default, cfg_main.with_(xres=pw, yres=ph))
+            bwd_max_err, _ = grad_case(f"default {pw}x{ph}", default,
+                                       cfg_main.with_(xres=pw, yres=ph))
             break
         except torch.cuda.OutOfMemoryError as e:
             print(f"  default {pw}x{ph}: the plain autograd graph does not fit the card: {e}")
@@ -344,6 +373,35 @@ def main() -> int:
     else:
         raise SystemExit("chip_smoke: the plain autograd graph fits at no shape tried")
     cfg_plain = cfg_main.with_(xres=pw, yres=ph)  # where the plain versions are timed
+
+    print("march backward kernel vs torch autograd of the plain march (implicit VJP):")
+    # K4's image against K3's (the plain march is tens of seconds a frame)
+    mgrad = dict(bwd=kmb, fwd=km.render_color_kernel, budget=MARCH_GRAD_BUDGET)
+    glowing40 = spheres_scene(rtt, 7, 39, glow_dist=3.0)
+    for name, scene, cfg in [
+        ("march default 320x240", default, rtt.RenderConfig(xres=320, yres=240, **glow)),
+        ("march default 320x240 no glow", default,
+         rtt.RenderConfig(xres=320, yres=240, use_raymarching=True)),
+        ("march default 160x120 refraction_unroll=None", default,
+         rtt.RenderConfig(xres=160, yres=120, refraction_unroll=None, **glow)),
+        ("march 40 objects 160x120", glowing40,
+         rtt.RenderConfig(xres=160, yres=120, max_refractions=1, **glow)),
+    ]:
+        grad_case(name, scene, cfg, **mgrad)
+    # the march training path's shape, or the largest whose plain graph fits
+    for pw_m, ph_m in ((MW, MH), (960, 540), (640, 360)):
+        try:
+            march_bwd_max_err, march_bwd_plain_ms = grad_case(
+                f"march default {pw_m}x{ph_m}", default, cfg_march.with_(xres=pw_m, yres=ph_m),
+                **mgrad)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"  march default {pw_m}x{ph_m}: the plain autograd graph does not fit the "
+                  f"card: {e}")
+            torch.cuda.empty_cache()
+    else:
+        raise SystemExit("chip_smoke: the plain march autograd graph fits at no shape tried")
+    cfg_march_plain = cfg_march.with_(xres=pw_m, yres=ph_m)
 
     # 4. the main paths
     poses = [((0.0, -150.0, -300.0), (0.0, -np.pi / 2, -np.pi / 2)),
@@ -400,26 +458,40 @@ def main() -> int:
     def colours(c):
         return type(c)(*(t.detach().clone().requires_grad_() for t in c))
 
-    s = scene_dev._replace(materials=m._replace(diffuse=colours(m.diffuse),
-                                                specular=colours(m.specular)))
-    kt.LAUNCHES = km.LAUNCHES = kb.LAUNCHES = 0
-    t0 = time.time()
-    losses = []
-    for _ in range(5):
-        s, loss = sgd_train_step(s, cfg_main, target, lr=TRAIN_LR)
-        losses.append(float(loss))
-    torch.cuda.synchronize()
-    train_s = time.time() - t0
-    train_launches = (kt.LAUNCHES, kb.LAUNCHES, km.LAUNCHES)
-    print(f"main path, training: 5 sgd_train_step at {W}x{H} in {train_s:.2f} s, launches "
-          f"(trace, backward, march) {train_launches}, losses "
-          + ", ".join(f"{v:.6g}" for v in losses)
-          + f"; red {float(s.materials.diffuse.r[2].detach()):.4f} (target 0.9, start 0.8)")
-    if train_launches != (5, 5, 0):
-        raise SystemExit(f"chip_smoke: want 5 trace, 5 backward and 0 march launches in training, "
-                         f"got {train_launches}")
-    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-        raise SystemExit(f"chip_smoke: the training loss did not fall: {losses}")
+    def train(name, cfg, target, lr, want):
+        """Five sgd_train_step on the material colours against ``target``;
+        the launches (K1, K2, K3, K4) must be ``want``. Returns the losses
+        and the launches."""
+        s = scene_dev._replace(materials=m._replace(diffuse=colours(m.diffuse),
+                                                    specular=colours(m.specular)))
+        kt.LAUNCHES = kb.LAUNCHES = km.LAUNCHES = kmb.LAUNCHES = 0
+        t0 = time.time()
+        losses = []
+        for _ in range(5):
+            s, loss = sgd_train_step(s, cfg, target, lr=lr)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        launches = (kt.LAUNCHES, kb.LAUNCHES, km.LAUNCHES, kmb.LAUNCHES)
+        print(f"main path, {name}: 5 sgd_train_step at {cfg.xres}x{cfg.yres} in {train_s:.2f} s, "
+              f"launches (K1 trace, K2 trace backward, K3 march, K4 march backward) {launches}, "
+              f"losses " + ", ".join(f"{v:.6g}" for v in losses)
+              + f"; red {float(s.materials.diffuse.r[2].detach()):.4f} (target 0.9, start 0.8)")
+        if launches != want:
+            raise SystemExit(f"chip_smoke: want launches {want} in {name}, got {launches}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise SystemExit(f"chip_smoke: the {name} loss did not fall: {losses}")
+        return losses, launches
+
+    _, train_launches = train("training", cfg_main, target, TRAIN_LR, (5, 5, 0, 0))
+    with torch.no_grad():
+        march_target = rtt.render_color(scene_dev._replace(
+            materials=m._replace(diffuse=m.diffuse._replace(r=red))), cfg_march).to_array()
+    march_losses, march_train_launches = train("march training", cfg_march, march_target,
+                                               MARCH_TRAIN_LR, (0, 0, 5, 5))
+    if not all(b < a for a, b in zip(march_losses, march_losses[1:])):
+        raise SystemExit(f"chip_smoke: the march training loss did not fall at every step: "
+                         f"{march_losses}")
 
     # 5. times at the main path's shape, in turns, once the host is free
     ops = {name: f.result() for name, f in ops_futures.items()}
@@ -487,11 +559,27 @@ def main() -> int:
     print(f"  plain 320x240: {plain_320:.1f} ms (one frame)")
     print(f"  plain {MW}x{MH}: {march_plain_ms:.1f} ms (one frame, phase 3)")
 
+    print(f"march + glow forward + backward {MW}x{MH}, default scene, default cfg ({card}):")
+    march_step_ms = cuda_ms(torch, step(rtt.render_color, cfg_march))
+    march_plain_step_ms = cuda_ms(torch, step(km.render_color_plain, cfg_march_plain),
+                                  **plain_reps)
+    print(f"  step (march kernel + march backward kernel at {MW}x{MH}: render, MSE, gradient "
+          f"of every float leaf): {march_step_ms:.3f} ms")
+    print(f"  step (plain autograd with the implicit VJP at {pw_m}x{ph_m}, one call): "
+          f"{march_plain_step_ms:.3f} ms")
+    g_march = planes(cfg_march)
+    march_bwd_ms = cuda_ms(torch, lambda: kmb.render_grads_kernel(scene_dev, cfg_march, g_march,
+                                                                  return_primal=True))
+    print(f"  march backward kernel alone at {MW}x{MH} (wrapper, with the image): "
+          f"{march_bwd_ms:.3f} ms; its plain version at {pw_m}x{ph_m}: "
+          f"{march_bwd_plain_ms:.3f} ms (one call, phase 3)")
+
     # roofline bounds from the operation counts of the main paths' frames
     bounds = {}
-    for name, cfg in (("trace_fwd", cfg_main), ("march_fwd", cfg_march), ("trace_bwd", cfg_main)):
+    for name, cfg in (("trace_fwd", cfg_main), ("march_fwd", cfg_march), ("trace_bwd", cfg_main),
+                      ("march_bwd", cfg_march)):
         nbytes = io_bytes(scene_dev, cfg)
-        if name == "trace_bwd":  # + the cotangent planes read, the block written
+        if name.endswith("_bwd"):  # + the cotangent planes read, the block written
             nbytes += 3 * 4 * cfg.xres * cfg.yres + 4 * (scene_dev.objects.count + 1) * kb.GRAD_COLS
         bounds[name] = roofline(ops[name], nbytes)
         print(f"  bound, {name} {cfg.xres}x{cfg.yres}: {ops[name]} f32 operations, "
@@ -521,6 +609,14 @@ def main() -> int:
         "launches": train_launches[1], "max_abs_err": bwd_max_err, "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["trace_bwd"][0], "bound_by": bounds["trace_bwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "march_bwd", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/march_bwd.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_bwd.py:1060",
+        "launches": march_train_launches[3], "max_abs_err": march_bwd_max_err,
+        "ms": march_bwd_ms, "plain_ms": march_bwd_plain_ms,
+        "bound_ms": bounds["march_bwd"][0], "bound_by": bounds["march_bwd"][1],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

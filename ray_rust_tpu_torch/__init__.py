@@ -1,9 +1,11 @@
 """ray_rust_tpu_torch — the differentiable ray tracer ported to PyTorch and CUDA.
 
 A port of ``ray_rust_tpu`` (JAX) for NVIDIA Hopper GPUs, slice by slice.
-This slice is the trace-mode forward render: the plain PyTorch trace path
-(differentiable on the CPU) and a hand-written CUDA kernel for the card
-(``ops/kernel_trace.py``). It imports ``torch`` and numpy, never JAX.
+It has the forward render in trace mode and in march mode with glow, and
+the gradient in both: the plain PyTorch path (differentiable on the CPU)
+and hand-written CUDA kernels for the card (``ops/kernel_trace.py``,
+``ops/kernel_march.py``, ``ops/kernel_trace_bwd.py``,
+``ops/kernel_march_bwd.py``). It imports ``torch`` and numpy, never JAX.
 """
 
 from .config import RenderConfig

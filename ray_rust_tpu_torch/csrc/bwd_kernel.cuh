@@ -1,0 +1,113 @@
+// The frame the two backward kernels share (trace_bwd.cu, march_bwd.cu): one
+// thread per pixel, the scene tables staged in shared memory, each pixel's
+// cotangents summed into a shared (n+1, 20) block with shared-memory atomics,
+// then the block added to the global one with one atomicAdd per nonzero
+// entry, so a frame takes one global atomic per entry per block rather than
+// one per pixel, site and field, and the summation order changes from run
+// to run. Dynamic shared memory above 48 KB is asked for, so 512 objects fit
+// (88 KB).
+//
+// ``Body::run(s, p, cutoff, cam, ix, iy, g, acc)`` is the per-pixel program:
+// it adds the pixel's cotangents through ``acc`` and returns its colour. It
+// must be forced inline: chip_smoke.py fails when ptxas reports a device
+// function besides the kernel, and a plain __device__ run was left as one.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "trace_bwd_body.cuh"
+
+namespace rt {
+
+constexpr int BWD_BLOCK_X = 32;
+constexpr int BWD_BLOCK_Y = 8;
+
+// The block's shared accumulator, as the per-pixel program adds to it.
+struct SharedAcc {
+  float* block;
+  __host__ __device__ void add(int row, int col, float v) {
+#ifdef __CUDA_ARCH__
+    atomicAdd(&block[row * GRAD_COLS + col], v);
+#endif
+  }
+};
+
+// Shared memory a launch needs for n objects, in bytes: the tables and the
+// block's accumulator.
+inline size_t bwd_smem(int n) {
+  return sizeof(float) * (n * F32_COLS + CAM_COLS + LIGHT_COLS + (n + 1) * GRAD_COLS) +
+         sizeof(int) * n * I32_COLS;
+}
+
+template <class Body, class P>
+__global__ void __launch_bounds__(BWD_BLOCK_X * BWD_BLOCK_Y)
+bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
+           const float* __restrict__ cam, const float* __restrict__ light, int n, P p,
+           float cutoff, const float* __restrict__ g_r, const float* __restrict__ g_g,
+           const float* __restrict__ g_b, float* __restrict__ out_block,
+           float* __restrict__ prim_r, float* __restrict__ prim_g, float* __restrict__ prim_b) {
+  extern __shared__ float smem[];
+  float* s_f32 = smem;
+  int* s_i32 = reinterpret_cast<int*>(s_f32 + n * F32_COLS);
+  float* s_cam = reinterpret_cast<float*>(s_i32 + n * I32_COLS);
+  float* s_light = s_cam + CAM_COLS;
+  float* s_acc = s_light + LIGHT_COLS;
+  const int acc_len = (n + 1) * GRAD_COLS;
+
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  for (int k = tid; k < n * F32_COLS; k += nthreads) s_f32[k] = f32t[k];
+  for (int k = tid; k < n * I32_COLS; k += nthreads) s_i32[k] = i32t[k];
+  if (tid < CAM_COLS) s_cam[tid] = cam[tid];
+  if (tid < LIGHT_COLS) s_light[tid] = light[tid];
+  for (int k = tid; k < acc_len; k += nthreads) s_acc[k] = 0.0f;
+  __syncthreads();
+
+  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+  if (ix < p.xres && iy < p.yres) {  // every thread reaches the barrier below
+    SceneView s;
+    s.f32 = s_f32;
+    s.i32 = s_i32;
+    s.n = n;
+    s.light = v3(s_light[0], s_light[1], s_light[2]);
+    const size_t o = static_cast<size_t>(iy) * p.xres + ix;
+    SharedAcc acc = {s_acc};
+    C3 c = Body::run(s, p, cutoff, s_cam, ix, iy, c3(g_r[o], g_g[o], g_b[o]), acc);
+    if (prim_r != nullptr) {
+      prim_r[o] = c.r;
+      prim_g[o] = c.g;
+      prim_b[o] = c.b;
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < acc_len; k += nthreads) {
+    const float v = s_acc[k];
+    if (v != 0.0f) atomicAdd(&out_block[k], v);
+  }
+}
+
+// Launch bwd_kernel<Body> on ``stream`` of ``device``. ``out_block`` is
+// (n+1, 20) f32 and must hold zeros; the cotangents are added to it. The
+// primal planes may be null. Returns the cudaError_t of the launch
+// (0 = success).
+template <class Body, class P>
+int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float* light, int n,
+               const P& p, float cutoff, const float* g_r, const float* g_g, const float* g_b,
+               float* out_block, float* prim_r, float* prim_g, float* prim_b, int device,
+               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = bwd_smem(n);
+  // above 48 KB a block may take dynamic shared memory only when asked
+  err = cudaFuncSetAttribute(bwd_kernel<Body, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 block(BWD_BLOCK_X, BWD_BLOCK_Y);
+  dim3 grid((p.xres + BWD_BLOCK_X - 1) / BWD_BLOCK_X, (p.yres + BWD_BLOCK_Y - 1) / BWD_BLOCK_Y);
+  bwd_kernel<Body, P><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      f32t, i32t, cam, light, n, p, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g, prim_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace rt

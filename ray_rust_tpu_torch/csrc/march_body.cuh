@@ -31,6 +31,14 @@
 // with -G, with ptxas -O0 or fully inlined ran clean and matched this host
 // build. chip_smoke.py fails when ptxas reports any function of march_fwd.cu
 // besides the kernel.
+//
+// The traversal takes a recorder, as trace_task does in trace_body.cuh: the
+// forward kernel's (NoMarchRecord) records nothing, the march backward's
+// (march_bwd_body.cuh) saves every raymarch call, every lap and the glow
+// argmin, so both kernels run one traversal. Under a recorder whose
+// TRACK_GLOW is set, march_single also keeps the glow argmin's position
+// (before the step), step index and object, as the JAX kernel's record_glow
+// does (ray_rust_tpu/ops/pallas_march.py:210-243).
 #pragma once
 
 #include "trace_body.cuh"
@@ -65,7 +73,8 @@ struct MarchParams {
   float glow;
 };
 
-// One march's outcome (ops/march.py:MarchResult).
+// One march's outcome (ops/march.py:MarchResult); the glow argmin only
+// under a recorder that tracks it.
 struct March {
   float final_dist;
   int idx;
@@ -73,6 +82,19 @@ struct March {
   int iter;
   float travel;
   float min_dist;
+  V3 glow_pos;   // the position before the step that set min_dist
+  int glow_iter; // that step's index, -1 where no glow was seen
+  int glow_obj;  // the object whose glow metric it was
+};
+
+// The forward kernel's recorder: records nothing.
+struct NoMarchRecord {
+  static constexpr bool TRACK_GLOW = false;
+  RT_INLINE int frame(int) { return -1; }
+  RT_INLINE int site(int, V3, int, int, C3, const March&, bool) { return -1; }
+  RT_INLINE void lit(int, bool) {}
+  RT_INLINE void glow(int, int, const March&, bool) {}
+  RT_INLINE void frame_end(int, C3, C3) {}
 };
 
 // One object's SDF: sphere max(|org - p| - r, 0), floor max((p - o).n, 0)
@@ -87,12 +109,15 @@ RT_INLINE float object_distance(const float* o, int kind, V3 pos) {
 
 // Scene SDF (render.rs:1226-1251): nearest distance (strictly closer wins,
 // first index wins ties, object ``ig`` skipped) and its index; with GLOW
-// also the least positive dist * glow_dist (+inf where none is).
+// also the least positive dist * glow_dist (+inf where none is) and the
+// object it came from (the first on ties).
 template <bool GLOW>
-RT_INLINE float distance_estimate(const SceneView& s, V3 pos, int ig, int* idx, float* glow) {
+RT_INLINE float distance_estimate(const SceneView& s, V3 pos, int ig, int* idx, float* glow,
+                                  int* glow_obj) {
   float closest = INFINITY;
   float g = INFINITY;
   *idx = 0;
+  *glow_obj = 0;
   for (int i = 0; i < s.n; ++i) {
     if (i == ig) continue;
     const float* o = s.f32 + i * F32_COLS;
@@ -105,7 +130,10 @@ RT_INLINE float distance_estimate(const SceneView& s, V3 pos, int ig, int* idx, 
     }
     if (GLOW) {
       float gl = d * o[18];
-      if (gl > 0.0f && gl < g) g = gl;
+      if (gl > 0.0f && gl < g) {
+        g = gl;
+        *glow_obj = i;
+      }
     }
   }
   *glow = g;
@@ -114,8 +142,9 @@ RT_INLINE float distance_estimate(const SceneView& s, V3 pos, int ig, int* idx, 
 
 // Sphere tracing (render.rs:1266-1297): the step comes before the stop
 // check, so the result includes the final step. Without GLOW, min_dist is
-// +inf (a shadow march reads only travel and iter).
-template <bool GLOW>
+// +inf (a shadow march reads only travel and iter). With TRACK, the glow
+// argmin is kept as well.
+template <bool GLOW, bool TRACK>
 RT_INLINE March march_single(const SceneView& s, const MarchParams& p, V3 pos, V3 eye,
                                int ig) {
   March m;
@@ -123,30 +152,43 @@ RT_INLINE March march_single(const SceneView& s, const MarchParams& p, V3 pos, V
   m.travel = 0.0f;
   m.iter = 0;
   m.min_dist = INFINITY;
+  if (TRACK) {
+    m.glow_pos = pos;
+    m.glow_iter = -1;
+    m.glow_obj = 0;
+  }
   for (;;) {
-    int idx;
+    int idx, glow_obj;
     float glow;
-    float dist = distance_estimate<GLOW>(s, m.pos, ig, &idx, &glow);
+    float dist = distance_estimate<GLOW>(s, m.pos, ig, &idx, &glow, &glow_obj);
     RT_COUNT(s, OPS_STEP);
+    if (GLOW && glow < m.min_dist) {
+      m.min_dist = glow;
+      if (TRACK) {
+        m.glow_pos = m.pos;
+        m.glow_iter = m.iter;
+        m.glow_obj = glow_obj;
+      }
+    }
     m.pos = add(m.pos, scale(eye, dist));
     m.travel = m.travel + dist;
     m.iter += 1;
-    if (GLOW && glow < m.min_dist) m.min_dist = glow;
     m.final_dist = dist;
     m.idx = idx;
     if (dist < p.eps || dist > p.far_away || m.iter > p.max_iter) return m;
   }
 }
 
-template <int D>
+template <int D, class Rec>
 RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, int lev,
-                        int ig, int flags);
+                        int ig, int flags, Rec& rec, int parent_site);
 
 // March shading (render.rs:1020-1140) of a hit on object ``idx`` at level
-// ``nest``, by the raymarch frame at depth D.
-template <int D>
+// ``nest``, by the raymarch frame at depth D; ``site`` is the recorder's id
+// of the lap.
+template <int D, class Rec>
 RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3 n, V3 pt,
-                           V3 eye, int nest) {
+                           V3 eye, int nest, Rec& rec, int site) {
   const float* o = s.f32 + idx * F32_COLS;
   const int* oi = s.i32 + idx * I32_COLS;
 
@@ -162,8 +204,9 @@ RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3
   // shadow march: lit when it escapes or runs out of steps, or when the
   // shaded object itself is transparent (render.rs:1048-1067)
   float f = o[13];
-  March sh = march_single<false>(s, p, add(pt, scale(s.light, F32_EPS)), s.light, idx);
+  March sh = march_single<false, false>(s, p, add(pt, scale(s.light, F32_EPS)), s.light, idx);
   bool lit = sh.travel >= p.far_away || sh.iter >= p.max_iter || f > 0.0f;
+  rec.lit(site, lit);
   float k1 = lit ? fminf(0.2f + di, 1.0f) : 0.2f;
   float k2 = lit ? refl : 0.0f;
 
@@ -182,7 +225,8 @@ RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3
   int sub_flags = sp_n < 0.0f ? OUTONLY : INONLY;
   C3 fc2;
   if constexpr (D + 1 < MARCH_FRAMES) {
-    fc2 = raymarch<D + 1>(s, p, add(pt, scale(ray, F32_EPS)), ray, nest, idx, sub_flags);
+    fc2 = raymarch<D + 1>(s, p, add(pt, scale(ray, F32_EPS)), ray, nest, idx, sub_flags, rec,
+                          site);
   } else {  // unreachable under the bound: poison the pixel, never drop work
     fc2 = c3(nanf(""), nanf(""), nanf(""));
   }
@@ -191,10 +235,12 @@ RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3
 }
 
 // The march + reflect loop of one ray at level ``lev`` (render.rs:1299-1411),
-// ending with its glow factor.
-template <int D>
+// ending with its glow factor. ``parent_site`` is the recorder's id of the
+// lap whose refraction started it (-1 for the camera ray).
+template <int D, class Rec>
 RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, int lev,
-                        int ig, int flags) {
+                        int ig, int flags, Rec& rec, int parent_site) {
+  const int frame = rec.frame(parent_site);
   C3 fcs = c3(1.0f, 1.0f, 1.0f);
   C3 ret = c3(0.0f, 0.0f, 0.0f);
   float min_min_dist = INFINITY;
@@ -204,11 +250,16 @@ RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, 
   for (int step = 0; step < laps; ++step) {
     const int lev_i = lev + 1 + step;
     if (need_march) {
-      res = p.glow_on ? march_single<true>(s, p, pos, eye, ig)
-                      : march_single<false>(s, p, pos, eye, ig);
+      res = p.glow_on ? march_single<true, Rec::TRACK_GLOW>(s, p, pos, eye, ig)
+                      : march_single<false, Rec::TRACK_GLOW>(s, p, pos, eye, ig);
     }
-    if (res.min_dist < min_min_dist) min_min_dist = res.min_dist;
-    if (!(res.final_dist < p.eps)) {
+    const bool hit = res.final_dist < p.eps;
+    const int site = rec.site(frame, eye, ig, flags, fcs, res, hit);
+    if (res.min_dist < min_min_dist) {
+      min_min_dist = res.min_dist;
+      rec.glow(frame, site, res, hit);
+    }
+    if (!hit) {
       // a miss keeps the lane and its march, and re-adds the sky each lap
       C3 bg = background(p.bg, s.light, eye);
       ret = c3(ret.r + bg.r * fcs.r, ret.g + bg.g * fcs.g, ret.b + bg.b * fcs.b);
@@ -218,7 +269,7 @@ RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, 
     const float* o = s.f32 + res.idx * F32_COLS;
     V3 pt = res.pos;
     V3 n = surface_normal(o, s.i32[res.idx * I32_COLS], pt);
-    C3 face = march_shading<D>(s, p, res.idx, n, pt, eye, lev_i);
+    C3 face = march_shading<D>(s, p, res.idx, n, pt, eye, lev_i, rec, site);
 
     // accumulate with the per-channel IGNORE guards (render.rs:1175-1186)
     if (!(flags & RIGNORE)) {
@@ -245,18 +296,27 @@ RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, 
     ig = res.idx;
     need_march = true;
   }
+  C3 out = ret;
   if (p.glow_on && !(fabsf(min_min_dist) == INFINITY)) {
     float factor = 1.0f + p.glow * powf(0.99f, min_min_dist);
-    ret = c3(ret.r * factor, ret.g * factor, ret.b * factor);
+    out = c3(ret.r * factor, ret.g * factor, ret.b * factor);
   }
-  return ret;
+  rec.frame_end(frame, ret, out);
+  return out;
 }
 
 // The colour of pixel (ix, iy). ``cam`` is the packed camera row.
+template <class Rec>
+RT_INLINE C3 march_pixel(const SceneView& s, const MarchParams& p, const float* cam, int ix,
+                         int iy, Rec& rec) {
+  V3 eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
+  return raymarch<0>(s, p, v3(cam[0], cam[1], cam[2]), eye, 0, -1, 0, rec, -1);
+}
+
 RT_INLINE C3 march_pixel(const SceneView& s, const MarchParams& p, const float* cam, int ix,
                          int iy) {
-  V3 eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
-  return raymarch<0>(s, p, v3(cam[0], cam[1], cam[2]), eye, 0, -1, 0);
+  NoMarchRecord rec;
+  return march_pixel(s, p, cam, ix, iy, rec);
 }
 
 }  // namespace rt

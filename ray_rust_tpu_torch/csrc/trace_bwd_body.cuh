@@ -31,7 +31,8 @@
 //    accumulation with its IGNORE masks, Lambert and Phong (powf), the uv map
 //    and the pattern, the normal, pt = vi + eye*t and the sphere or floor t;
 //    a miss runs the sky's adjoint. The camera ray's adjoint (quaternion
-//    rotation, normalize) ends the sweep. Each site's 19 field cotangents go
+//    rotation, normalize) ends the sweep. The part from the hit point on
+//    (shade_adj) is shared with the march backward (march_bwd_body.cuh). Each site's 19 field cotangents go
 //    to its winner's row through ``acc.add(row, col, v)``; the camera and
 //    light cotangents stay in registers and go to row n at the end.
 //
@@ -409,26 +410,25 @@ struct SiteRecorder {
   }
 };
 
-// The reverse sweep's step for a shading site (a hit). ``gc`` is the
-// cotangent of its trace's colour, ``*g_fcs`` that of the throughput after
-// it (in: from the trace's next site; out: before it), ``g_next_vi`` and
-// ``g_next_eye`` those of the bounced ray when the trace went on (``cont``).
-// Adds the site's colour to ``*col``, its light cotangent to ``*g_light``,
-// its winner's field cotangents through ``acc``, and returns the cotangents
-// of its own ray in ``*g_vi``, ``*g_eye``.
-template <class Acc>
-RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskRec* tasks,
-                   bool cont, C3 gc, V3 g_next_vi, V3 g_next_eye, C3* g_fcs, C3* col,
-                   V3* g_vi, V3* g_eye, V3* g_light, Acc& acc) {
-  const float* o = s.f32 + st.idx * F32_COLS;
-  const int* oi = s.i32 + st.idx * I32_COLS;
+// The adjoint of a shading site from its hit point on, shared with the march
+// backward (march_bwd_body.cuh): object row ``o``/``oi`` hit at ``pt`` by a
+// ray along ``eye`` with throughput ``fcs`` before it, shaded with shadow
+// outcome ``lit``; ``has_child`` when its refraction sub-trace ran, whose
+// colour is ``ch_col`` and whose start-ray cotangents are ``ch_g_vi``,
+// ``ch_g_eye``. ``gc`` is the cotangent of its trace's colour, ``*g_fcs``
+// that of the throughput after it (in: from the trace's next site; out:
+// before it), ``g_next_vi`` and ``g_next_eye`` those of the bounced ray when
+// the trace went on (``cont``). Adds the site's colour to ``*col``, its light
+// cotangent to ``*g_light``, its object's field cotangents to ``g_row``, and
+// returns the cotangents of ``pt`` in ``*gpt`` and of ``eye`` in ``*ge``.
+RT_AD void shade_adj(const SceneView& s, const float* o, const int* oi, V3 eye, V3 pt, C3 fcs,
+                     int flags, bool lit, bool has_child, C3 ch_col, V3 ch_g_vi, V3 ch_g_eye,
+                     bool cont, C3 gc, V3 g_next_vi, V3 g_next_eye, C3* g_fcs, C3* col,
+                     V3* gpt_out, V3* ge_out, V3* g_light, float* g_row) {
   const int kind = oi[0];
-  const V3 vi = st.vi, eye = st.eye, light = s.light;
-  const C3 fcs = st.fcs;
+  const V3 light = s.light;
 
   // the site's forward, as trace_task computed it
-  float t = candidate_t(o, kind, vi, eye, INFINITY, st.flags);
-  V3 pt = add(vi, scale(eye, t));
   V3 rel = sub(pt, v3(o[0], o[1], o[2]));
   V3 n = surface_normal(o, kind, pt);
   float li = dot(light, n);
@@ -438,37 +438,33 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
   float pn = o[12];
   float ri = -dot(rtl, eye);
   float refl = (pn != 0.0f && ri > 0.0f) ? powf(ri, pn) : 0.0f;
-  float k1 = st.lit ? fminf(0.2f + di, 1.0f) : 0.2f;
-  float k2 = st.lit ? refl : 0.0f;
+  float k1 = lit ? fminf(0.2f + di, 1.0f) : 0.2f;
+  float k2 = lit ? refl : 0.0f;
   float u, v;
   get_uv(rel, oi[2], o[15], o[16], &u, &v);
   C3 kd = pattern_diffuse(o, oi[1], u, v);
   C3 base = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
   const float f = o[13];
-  const TaskRec* ch = st.child >= 0 ? &tasks[st.child] : nullptr;
   C3 face = base;
-  if (ch)
-    face = c3(base.r * (1.0f - f) + ch->col.r * f, base.g * (1.0f - f) + ch->col.g * f,
-              base.b * (1.0f - f) + ch->col.b * f);
-
-  float g_row[F32_COLS];
-  for (int k = 0; k < F32_COLS; ++k) g_row[k] = 0.0f;
+  if (has_child)
+    face = c3(base.r * (1.0f - f) + ch_col.r * f, base.g * (1.0f - f) + ch_col.g * f,
+              base.b * (1.0f - f) + ch_col.b * f);
 
   // accumulate with the per-channel IGNORE guards
   C3 gface = c3(0.0f, 0.0f, 0.0f);
-  if (!(st.flags & RIGNORE)) {
+  if (!(flags & RIGNORE)) {
     col->r += face.r * fcs.r;
     gface.r = gc.r * fcs.r;
     g_row[9] = g_fcs->r * fcs.r;
     g_fcs->r = gc.r * face.r + g_fcs->r * o[9];
   }
-  if (!(st.flags & GIGNORE)) {
+  if (!(flags & GIGNORE)) {
     col->g += face.g * fcs.g;
     gface.g = gc.g * fcs.g;
     g_row[10] = g_fcs->g * fcs.g;
     g_fcs->g = gc.g * face.g + g_fcs->g * o[10];
   }
-  if (!(st.flags & BIGNORE)) {
+  if (!(flags & BIGNORE)) {
     col->b += face.b * fcs.b;
     gface.b = gc.b * fcs.b;
     g_row[11] = g_fcs->b * fcs.b;
@@ -487,12 +483,12 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
   }
 
   C3 gbase = gface;
-  if (ch) {  // face = base*(1 - f) + col_child*f; child starts at pt + ray*eps
+  if (has_child) {  // face = base*(1 - f) + col_child*f; child starts at pt + ray*eps
     gbase = c3(gface.r * (1.0f - f), gface.g * (1.0f - f), gface.b * (1.0f - f));
-    g_row[13] += gface.r * (ch->col.r - base.r) + gface.g * (ch->col.g - base.g) +
-                 gface.b * (ch->col.b - base.b);
-    acc3(&gpt, ch->g_vi);
-    V3 gray = add(scale(ch->g_vi, F32_EPS), ch->g_eye);
+    g_row[13] += gface.r * (ch_col.r - base.r) + gface.g * (ch_col.g - base.g) +
+                 gface.b * (ch_col.b - base.b);
+    acc3(&gpt, ch_g_vi);
+    V3 gray = add(scale(ch_g_vi, F32_EPS), ch_g_eye);
     bend_adj(eye, n, o[14], gray, &ge, &gn, &g_row[14]);
   }
 
@@ -507,7 +503,7 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
 
   // Lambert + Phong
   float gdi = 0.0f, grefl = 0.0f;
-  if (st.lit) {
+  if (lit) {
     if (0.2f + di <= 1.0f) gdi = gk1;
     grefl = gk2;
   }
@@ -533,6 +529,35 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
   g_row[0] -= grel.x;
   g_row[1] -= grel.y;
   g_row[2] -= grel.z;
+  *gpt_out = gpt;
+  *ge_out = ge;
+}
+
+// The reverse sweep's step for a shading site (a hit): shade_adj at the hit
+// point pt = vi + eye*t, then pt's cotangent through t (a constant past the
+// cutoff). Arguments as shade_adj's, the child read from ``tasks``; adds the
+// winner's field cotangents through ``acc`` and returns the cotangents of
+// the site's own ray in ``*g_vi``, ``*g_eye``.
+template <class Acc>
+RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskRec* tasks,
+                   bool cont, C3 gc, V3 g_next_vi, V3 g_next_eye, C3* g_fcs, C3* col,
+                   V3* g_vi, V3* g_eye, V3* g_light, Acc& acc) {
+  const float* o = s.f32 + st.idx * F32_COLS;
+  const int* oi = s.i32 + st.idx * I32_COLS;
+  const int kind = oi[0];
+  const V3 vi = st.vi, eye = st.eye;
+  float t = candidate_t(o, kind, vi, eye, INFINITY, st.flags);
+  V3 pt = add(vi, scale(eye, t));
+
+  float g_row[F32_COLS];
+  for (int k = 0; k < F32_COLS; ++k) g_row[k] = 0.0f;
+  const TaskRec* ch = st.child >= 0 ? &tasks[st.child] : nullptr;
+  const C3 zc = c3(0.0f, 0.0f, 0.0f);
+  const V3 zv = v3(0.0f, 0.0f, 0.0f);
+  V3 gpt, ge;
+  shade_adj(s, o, oi, eye, pt, st.fcs, st.flags, st.lit, ch != nullptr, ch ? ch->col : zc,
+            ch ? ch->g_vi : zv, ch ? ch->g_eye : zv, cont, gc, g_next_vi, g_next_eye, g_fcs,
+            col, &gpt, &ge, g_light, g_row);
 
   // pt = vi + eye*t, a constant past the cutoff
   V3 gvi = v3(0.0f, 0.0f, 0.0f);

@@ -33,6 +33,7 @@ __all__ = [
     "kernel_supported",
     "unsupported_reason",
     "render_color_kernel",
+    "render_tables_kernel",
     "render_color_plain",
     "kernel_args",
 ]
@@ -86,12 +87,18 @@ def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
     """Render through the CUDA march kernel. The scene's tensors must lie on
     a CUDA device; the image is returned there as a Color of ``(H, W)``
     planes. Raises on anything the kernel does not take."""
-    global LAUNCHES
     check_launchable(scene, unsupported_reason(scene, cfg), "march")
+    return render_tables_kernel(pack_scene(scene), cfg)
+
+
+def render_tables_kernel(tables, cfg: RenderConfig) -> Color:
+    """Launch the march kernel on packed tables (``pack_scene``'s four, on a
+    CUDA device) that the caller has checked with :func:`unsupported_reason`."""
+    global LAUNCHES
     from ._build import load_cuda_library
 
     lib = load_cuda_library("march_fwd")
-    img = launch(lib, lib.rt_march_fwd, pack_scene(scene), cfg, kernel_args(cfg))
+    img = launch(lib, lib.rt_march_fwd, tables, cfg, kernel_args(cfg))
     LAUNCHES += 1
     return img
 

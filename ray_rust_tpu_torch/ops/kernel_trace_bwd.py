@@ -46,6 +46,8 @@ __all__ = [
     "unsupported_reason",
     "kernel_supported",
     "kernel_args",
+    "launch_grads",
+    "split_block",
     "render_grads_kernel",
     "render_grads_plain",
     "leaf_grads",
@@ -164,32 +166,42 @@ def kernel_args(cfg: RenderConfig) -> list:
     return kernel_trace.kernel_args(cfg) + [float("inf") if cutoff is None else float(cutoff)]
 
 
-def _launch(tables, cfg: RenderConfig, g: Color, return_primal: bool):
-    """Launch the backward kernel on packed tables and image cotangent
-    planes ``g`` on their CUDA device."""
-    global LAUNCHES
-    from ._build import load_cuda_library
-
+def launch_grads(lib, fn, tables, cfg: RenderConfig, args: list, g: Color,
+                 return_primal: bool):
+    """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres,
+    sx, sy, *args, g_r, g_g, g_b, block, prim_r, prim_g, prim_b, device,
+    stream)`` on packed tables and image cotangent planes ``g`` on their
+    CUDA device; returns :func:`split_block`'s three cotangents, and the
+    image the kernel traced with ``return_primal``. Raises if the inputs or
+    the launch are not as the kernel takes them."""
     check_tables(tables)
     f32t, i32t, cam, light = tables
     n, dev = f32t.shape[0], f32t.device
     for name, plane in zip("rgb", g):
         check_tensor(plane, f"cotangent {name}", torch.float32, (cfg.yres, cfg.xres), dev)
-    lib = load_cuda_library("trace_bwd")
     block = torch.zeros((n + 1, GRAD_COLS), dtype=torch.float32, device=dev)
     prim = (torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
             if return_primal else None)
     prim_ptrs = [p.data_ptr() for p in prim] if return_primal else [None] * 3
     sx, sy = fov_scales(cfg)
-    rc = lib.rt_trace_bwd(
-        f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(), n, cfg.xres,
-        cfg.yres, sx, sy, *kernel_args(cfg), *(plane.data_ptr() for plane in g),
-        block.data_ptr(), *prim_ptrs, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(), n, cfg.xres,
+            cfg.yres, sx, sy, *args, *(plane.data_ptr() for plane in g), block.data_ptr(),
+            *prim_ptrs, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"rt_trace_bwd launch failed: {lib.rt_error_string(rc).decode()}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
     grads = split_block(block, n)
     return (grads, Color(prim[0], prim[1], prim[2])) if return_primal else grads
+
+
+def _launch(tables, cfg: RenderConfig, g: Color, return_primal: bool):
+    """Launch the backward kernel (:func:`launch_grads`)."""
+    global LAUNCHES
+    from ._build import load_cuda_library
+
+    lib = load_cuda_library("trace_bwd")
+    out = launch_grads(lib, lib.rt_trace_bwd, tables, cfg, kernel_args(cfg), g, return_primal)
+    LAUNCHES += 1
+    return out
 
 
 def split_block(block: torch.Tensor, n: int):

@@ -6,9 +6,11 @@ PyTorch counterpart of ``ray_rust_tpu/ops/trace.py`` — ``shading``
 (render.rs:1299-1411). Every level is a Python int, so the ray tree
 (reflection chain × refraction recursion) runs as a fixed sequence of tensor
 operations over the whole ``(H, W)`` ray batch, with per-ray masks standing
-in for early exits. Trace mode is differentiable by autograd; march mode is
-forward only. They are the plain versions the CUDA kernels
-(``ops/kernel_trace.py``, ``ops/kernel_march.py``) are held against.
+in for early exits. Trace mode is differentiable by autograd; march mode by
+autograd around the march's implicit VJP (``ops/march.py``), the shadow
+march being a decision only. They are the plain versions the CUDA kernels
+(``ops/kernel_trace.py``, ``ops/kernel_march.py`` and their backward
+modules) are held against.
 
 Reference quirks kept as in the JAX package: hitting object 0 ends the
 bounce loop; throughput cutoff ``r+g+b <= 0.1``; per-channel IGNORE guards;
@@ -82,9 +84,11 @@ def shading(scene: Scene, cfg: RenderConfig, idx, fields: HitFields, n: Vec3,
 
     if cfg.use_raymarching:
         # Shadow march (render.rs:1048-1067): lit when it escapes or runs out
-        # of steps, or when the shaded object itself is transparent.
-        res = march_single(scene, cfg, shadow_org, light.broadcast_to(pt.shape), idx,
-                           active=active, need_glow=False)
+        # of steps, or when the shaded object itself is transparent. A
+        # decision only: no gradient flows through it.
+        with torch.no_grad():
+            res = march_single(scene, cfg, shadow_org, light.broadcast_to(pt.shape), idx,
+                               active=active, need_glow=False)
         lit = ((res.travel_dist >= cfg.far_away) | (res.iter >= cfg.march_max_iter)
                | (fields.transparency > 0.0))
     else:
@@ -223,6 +227,10 @@ def raymarch(scene: Scene, cfg: RenderConfig, vi: Vec3, eye: Vec3, lev: int,
                                    min_min_dist)
         hit = res.final_dist < cfg.march_eps
         pt = res.pos
+        if cfg.grad_distance_cutoff is not None:
+            # knife-edge horizon hits are constants for autograd (forward no-op)
+            near = res.travel_dist < cfg.grad_distance_cutoff
+            pt = pt.where(near, Vec3(*(c.detach() for c in pt)))
         fields = gather_hit_fields(scene, res.idx)
         n = surface_normal_from(fields, pt)
         face = shading(scene, cfg, res.idx, fields, n, pt, eye, lev_i, active=active & hit)

@@ -2,9 +2,12 @@
 
 PyTorch counterpart of ``render_loss`` and ``sgd_train_step`` in
 ``ray_rust_tpu/parallel/train.py``. The gradient is taken through
-``renderer.render_color``: on a CUDA scene in trace mode the trace kernel
-renders and the backward kernel differentiates (``ops/kernel_trace_bwd.py``);
-on the CPU autograd differentiates the plain version.
+``renderer.render_color``: on a CUDA scene the trace kernel renders and the
+trace backward kernel differentiates in trace mode
+(``ops/kernel_trace_bwd.py``), the march kernel and the march backward
+kernel in march mode (``ops/kernel_march_bwd.py``); on the CPU autograd
+differentiates the plain version, a march through its implicit VJP
+(``ops/march.py``).
 """
 
 from __future__ import annotations

@@ -5,14 +5,12 @@ device of the scene's tensors:
 
 - CUDA: the trace kernel (``ops/kernel_trace.py``) in trace mode, the march
   kernel (``ops/kernel_march.py``) in march mode, or ``NotImplementedError``
-  naming the ROADMAP item that would cover the request. A trace-mode scene
-  that requires grad goes through ``kernel_trace_bwd.TraceRender``: the trace
-  kernel forward, the backward kernel (K2) under autograd;
-- CPU: the plain PyTorch version, differentiable by autograd in trace mode.
-
-March mode has no gradient yet on either device: a march render of a scene
-that requires grad raises rather than return an autograd gradient that is
-not the JAX package's implicit one.
+  naming what the kernels do not cover. A scene that requires grad goes
+  through ``kernel_trace_bwd.TraceRender`` (the trace kernel forward, the
+  backward kernel K2) or ``kernel_march_bwd.MarchRender`` (the march kernel
+  forward, the march backward kernel K4) under autograd;
+- CPU: the plain PyTorch version, differentiable by autograd, through the
+  march's implicit VJP in march mode.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ import torch
 from .config import RenderConfig
 from .models.scene import Scene
 from .models.vec import Color
-from .ops import kernel_march, kernel_trace, kernel_trace_bwd
+from .ops import kernel_march, kernel_march_bwd, kernel_trace, kernel_trace_bwd
 
 __all__ = ["render_color", "render_u8", "to_u8"]
 
@@ -32,21 +30,18 @@ def render_color(scene: Scene, cfg: RenderConfig) -> Color:
     """Forward render: scene -> Color of ``(H, W)`` planes on the scene's
     device."""
     dev = scene.device
-    grad = any(t.requires_grad for t in scene.tensors())
-    if cfg.use_raymarching and grad:
-        raise NotImplementedError(
-            "march-mode gradients are not ported yet (ROADMAP queue 1 item 6: the "
-            "implicit VJP _march_while_vjp, and kernel K4)")
-    kernels = kernel_march if cfg.use_raymarching else kernel_trace
+    march = cfg.use_raymarching
+    kernels = kernel_march if march else kernel_trace
     if dev.type == "cpu":
         return kernels.render_color_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render path for device {dev}")
-    if grad:
-        reason = kernel_trace_bwd.unsupported_reason(scene, cfg)
+    if any(t.requires_grad for t in scene.tensors()):
+        grads = kernel_march_bwd if march else kernel_trace_bwd
+        reason = grads.unsupported_reason(scene, cfg)
         if reason is not None:
             raise NotImplementedError(f"no CUDA gradient path: {reason}")
-        return kernel_trace_bwd.render_color_grad(scene, cfg)
+        return grads.render_color_grad(scene, cfg)
     reason = kernels.unsupported_reason(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"no CUDA render path: {reason}")

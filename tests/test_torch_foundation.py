@@ -22,6 +22,8 @@ from ray_rust_tpu_torch.ops.sky import default_sky
 from ray_rust_tpu_torch.utils import fastmath as tfm
 from ray_rust_tpu_torch.utils import modutil as tmu
 
+from .test_torch_kernel_trace import one_torch_thread  # noqa: F401 (module fixture)
+
 
 def _ulp_diff(a, b):
     """Distance in units in the last place between two f32 arrays."""

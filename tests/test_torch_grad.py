@@ -37,6 +37,7 @@ from ray_rust_tpu_torch.ops.texture import get_uv
 from ray_rust_tpu_torch.parallel import render_loss, sgd_train_step
 
 from .test_torch_kernel_bwd import assert_boundary_only
+from .test_torch_kernel_trace import one_torch_thread  # noqa: F401 (module fixture)
 
 CFG = rtt.RenderConfig(xres=32, yres=24, max_refractions=1)  # tests/test_grad.py:22
 

@@ -34,7 +34,8 @@ from ray_rust_tpu_torch.ops.rays import camera_rays, fov_scales
 from ray_rust_tpu_torch.ops.sky import default_sky
 from ray_rust_tpu_torch.ops.trace import phong, refraction_ray
 
-from .test_torch_kernel_trace import _glass_cluster, _many_spheres, _patterns_scene
+from .test_torch_kernel_trace import (  # noqa: F401 (one_torch_thread: module fixture)
+    _glass_cluster, _many_spheres, _patterns_scene, one_torch_thread)
 
 
 def _f32(rng, *shape, lo=-1.0, hi=1.0):

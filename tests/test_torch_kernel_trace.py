@@ -23,6 +23,20 @@ from ray_rust_tpu_torch.ops.rays import fov_scales
 from ray_rust_tpu_torch.ops.sky import BG_IDS
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's tests on one torch thread, then restore the count. The
+    port's tests take small tensors, and tier-1 runs several pytest workers
+    on the machine's cores: each worker's intra-op pool of one thread per
+    core then thrashes, and a plain march gradient at 32x24 runs an order of
+    magnitude slower than on one thread. Every tests/test_torch_*.py file
+    takes this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _compare(ref, got, frac_budget=0.05, tol=1e-3, mean_tol=0.02):
     diff = np.abs(got - ref)
     bad_frac = (diff.max(-1) > tol).mean()

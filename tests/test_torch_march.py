@@ -29,6 +29,8 @@ from ray_rust_tpu_torch.ops.march import distance_estimate, march_single
 from ray_rust_tpu_torch.ops.rays import fov_scales
 from ray_rust_tpu_torch.utils.image import load_png
 
+from .test_torch_kernel_trace import one_torch_thread  # noqa: F401 (module fixture)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GLOW = dict(use_raymarching=True, glow_effect=1.0)
 
@@ -135,8 +137,9 @@ def test_distance_estimate_matches_jax(make):
 
 def test_march_single_matches_jax_while_mode():
     """The same 32x24 primary rays marched by both packages, on >= 98% of
-    lanes: index and iteration count equal, final distance and travel equal
-    to 1e-4 relative (1e-5 absolute near a hit). XLA's compiled loop rounds
+    lanes: index, iteration count and the glow argmin's step equal, final
+    distance, travel and the glow minimum equal to 1e-4 relative (1e-5
+    absolute near a hit). XLA's compiled loop rounds
     the position update apart from eager PyTorch at the ulp, and that drifts
     over hundreds of steps."""
     import jax.numpy as jnp
@@ -154,9 +157,10 @@ def test_march_single_matches_jax_while_mode():
                      rt.Vec3(*map(jnp.asarray, eye_np)), jnp.asarray(ig))
     got = march_single(_port(jax_scene), cfg, rtt.Vec3(*map(torch.from_numpy, vi_np)),
                        rtt.Vec3(*map(torch.from_numpy, eye_np)), torch.from_numpy(ig))
-    for name in ("final_dist", "idx", "iter", "travel_dist"):
+    for name in ("final_dist", "idx", "iter", "travel_dist", "min_dist", "glow_iter"):
         a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
-        same = (a == b) if name in ("idx", "iter") else np.isclose(a, b, rtol=1e-4, atol=1e-5)
+        same = ((a == b) if name in ("idx", "iter", "glow_iter")
+                else np.isclose(a, b, rtol=1e-4, atol=1e-5))
         assert same.mean() >= 0.98, f"{name}: equal on {same.mean():.1%} of lanes"
     assert (got.iter.numpy() > 100).any()  # some lanes graze the floor
 
@@ -167,12 +171,18 @@ def _slice_cfg():
 
 def test_plain_march_matches_jax_render_color():
     """The slice as a whole against the jnp path: <= 2% of pixels > 1e-3,
-    mean <= 0.01."""
-    from ray_rust_tpu.renderer import render_color as jax_render_color
+    mean <= 0.01. The JAX image is ``render_color``'s function (camera rays
+    and ``trace_image``) run eagerly, one march step per while iteration
+    (``march_chunk=1`` regroups no values): jitting the whole march render
+    costs far more XLA compile on a cold cache for the same image."""
+    from ray_rust_tpu.ops.rays import camera_rays as jax_rays
+    from ray_rust_tpu.ops.trace import trace_image as jax_trace_image
 
     cfg = _slice_cfg()
     jax_scene = _default_jax()
-    ref = _img(jax_render_color(jax_scene, _jax_cfg(cfg)))
+    jcfg = _jax_cfg(cfg, march_tiles=1, march_chunk=1)
+    vi, eye = jax_rays(jax_scene.camera.position, jax_scene.camera.rotation, jcfg)
+    ref = _img(jax_trace_image(jax_scene, jcfg, vi, eye))
     got = _img(rtt.render_color(_port(jax_scene), cfg))
     assert got.shape == (24, 32, 3)
     _compare(ref, got, frac_budget=0.02, mean_tol=0.01)
@@ -341,11 +351,24 @@ def test_march_unsupported_reason_textures_and_size():
 
 
 def test_march_render_with_grad_raises():
+    """A CPU march render that requires grad differentiates the plain march
+    through its implicit VJP (finite, nonzero gradients, no kernel launch);
+    only the CUDA gradient path raises, here on CPU tensors."""
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+
     scene, _ = rtt.default_scene(device="cpu")
     light = scene.light.x.clone().requires_grad_()
-    scene = scene._replace(light=scene.light._replace(x=light))
-    with pytest.raises(NotImplementedError, match="K4"):
-        rtt.render_color(scene, rtt.RenderConfig(xres=8, yres=8, **_GLOW))
+    radius = scene.objects.radius.clone().requires_grad_()
+    scene = scene._replace(light=scene.light._replace(x=light),
+                           objects=scene.objects._replace(radius=radius))
+    cfg = rtt.RenderConfig(xres=8, yres=8, march_max_iter=500, **_GLOW)
+    img = rtt.render_color(scene, cfg)
+    g_light, g_radius = torch.autograd.grad(img.r.sum() + img.g.sum(), (light, radius))
+    assert torch.isfinite(g_light) and g_light != 0
+    assert torch.isfinite(g_radius).all() and g_radius.abs().sum() > 0
+    assert km.LAUNCHES == kmb.LAUNCHES == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kmb.render_color_grad(scene, cfg)
 
 
 def test_cli_march_glow_cpu_writes_render_u8(tmp_path):

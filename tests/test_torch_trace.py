@@ -27,6 +27,8 @@ from ray_rust_tpu_torch.ops.rays import camera_rays
 from ray_rust_tpu_torch.ops.trace import trace_image
 from ray_rust_tpu_torch.utils.image import load_png
 
+from .test_torch_kernel_trace import one_torch_thread  # noqa: F401 (module fixture)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
