@@ -8,16 +8,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
    the trace kernel (K1), the march kernel (K3), the trace backward (K2)
-   and the march backward (K4); ptxas registers, stack and spills; the march
-   kernel and the two backwards must each be one function (ptxas reports no
-   device function beside the kernel: everything is inlined);
+   and the march backward (K4); ptxas registers, stack and spills; each
+   kernel must be one function (ptxas reports no device function beside the
+   kernel: everything is inlined, the texture fetch too);
 3. each kernel against its plain PyTorch version on the card, and against
    its full-depth golden image, each within the JAX package's golden budget:
    at most 2% of pixels off by more than 1e-3, mean difference at most 0.01;
-   also at the shape of its main path; the trace backward against torch
+   also at the shape of its main path; the trace kernel with image textures
+   (K1a: the default scene with the goldens' 256x256 noise texture as
+   ``bar.png``) against its plain version at 1920x1080 in Nearest and in
+   Bilinear, and against the two textured goldens (mean at most 0.015,
+   tests/test_parity.py:192-214); the trace backward against torch
    autograd of the plain trace, per scene leaf within relative L2 0.01 (the
    JAX package's budget, tests/test_pallas_bwd.py:84-96), at four small
-   cases and at the training main path's shape; the march backward against
+   cases and at the training main path's shape, and with textures (K2's
+   textured sites) at two small cases and at 1920x1080 in Bilinear, its
+   image bit-equal to the trace kernel's; the march backward against
    torch autograd of the plain march (its implicit VJP), per scene leaf
    within relative L2 0.02 (tests/test_pallas_bwd.py:306-321), at four small
    cases and at the march training path's shape, with the share of its
@@ -27,10 +33,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    three camera poses (three viewer requests), one trace kernel launch per
    render; march mode with glow, the CLI at 1280x720 ``-m -g 1.0`` then
    three ``render_u8`` requests, one march kernel launch per render;
-   training, five ``sgd_train_step``s at 1920x1080 on the default scene
-   against a target whose red material is 0.1 redder, one trace and one
-   backward kernel launch per step, the loss falling; march training with
-   glow, five ``sgd_train_step``s at 1280x720 ``-m -g 1.0`` against the same
+   textured trace, the CLI at 1920x1080 in a directory holding ``bar.png``
+   (its floor must differ from the untextured one) then a Bilinear
+   ``render_u8``, one trace kernel launch each; training, five
+   ``sgd_train_step``s at 1920x1080 on the default scene against a target
+   whose red material is 0.1 redder, one trace and one backward kernel
+   launch per step, the loss falling; the same on the Bilinear textured
+   scene, the loss falling at every step; march training with glow, five
+   ``sgd_train_step``s at 1280x720 ``-m -g 1.0`` against the same
    kind of target, one march and one march backward launch per step, the
    loss falling at every step;
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
@@ -44,7 +54,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its plain version once (phase 3's call at 1280x720); the march kernel at
    1280x720, 1920x1080 and 320x240 (3 warm-ups, 10 timed renders each), the
    plain march once at 320x240 and once at 1280x720 (the comparison of phase
-   3: a plain frame takes tens of seconds at any size); each kernel's
+   3: a plain frame takes tens of seconds at any size); the textured trace
+   kernel at 1920x1080 in both filters, the textured training step and the
+   backward kernel alone on the Bilinear scene (3 warm-ups, 10 timed calls;
+   their plain versions once, in phase 3); each kernel's
    roofline bound from the operation count of its main path's frame, which
    the kernel's body built for the host with -DRT_COUNT_OPS counts on the
    CPU while phases 3 and 4 run (the same body, bit for bit, as the card
@@ -84,17 +97,18 @@ F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def compare(name, ref, got):
-    """Hold ``got`` against ``ref`` ((H, W, 3) arrays) within BUDGET."""
+def compare(name, ref, got, mean_budget=BUDGET["mean"]):
+    """Hold ``got`` against ``ref`` ((H, W, 3) arrays) within BUDGET, with
+    ``mean_budget`` for the mean difference."""
     diff = np.abs(got - ref)
     frac = float((diff.max(-1) > BUDGET["tol"]).mean())
     mean, mx = float(diff.mean()), float(diff.max())
     same = float((got == ref).all(-1).mean())
-    ok = np.isfinite(got).all() and frac <= BUDGET["frac"] and mean <= BUDGET["mean"]
+    ok = np.isfinite(got).all() and frac <= BUDGET["frac"] and mean <= mean_budget
     print(f"  {name}: {frac:.4%} pixels > {BUDGET['tol']}, mean {mean:.3g}, "
           f"max {mx:.3g}, {same:.4%} bit-equal -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"chip_smoke: {name} outside the budget {BUDGET}")
+        raise SystemExit(f"chip_smoke: {name} outside the budget {BUDGET}, mean {mean_budget}")
     return mx
 
 
@@ -134,57 +148,78 @@ def roofline(ops, nbytes):
 def io_bytes(scene, cfg):
     """Bytes a render must move: the packed tables read once (f32 and i32
     rows of 19 and 4 words, camera and light), the three f32 planes
-    written once."""
-    return 4 * (scene.objects.count * (19 + 4) + 8 + 4) + 3 * 4 * cfg.xres * cfg.yres
+    written once; with textures, the atlas's meta rows."""
+    meta = 0 if scene.textures is None else 4 * 4 * scene.textures.data.shape[0]
+    return 4 * (scene.objects.count * (19 + 4) + 8 + 4) + 3 * 4 * cfg.xres * cfg.yres + meta
 
 
-def count_ops(name, mod, cfg):
+def texel_bytes(scene, fetched):
+    """Atlas bytes a frame must read: 16 B for each texture fetch its
+    traversal makes (``fetched``, counted by the host build), but no more
+    than the whole atlas, read once."""
+    if scene.textures is None:
+        return 0
+    return min(fetched, 16 * scene.textures.data[..., 0].numel())
+
+
+def _host_scene(texture_dir, texture_filter):
+    import ray_rust_tpu_torch as rtt
+
+    return rtt.default_scene(texture_dir=texture_dir, texture_filter=texture_filter,
+                             device="cpu")[0]
+
+
+def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     """The f32 operations kernel ``name``'s body (``"trace"`` or
-    ``"march"``) takes on the default scene under ``cfg``: its host build
-    with -DRT_COUNT_OPS, run on the CPU."""
+    ``"march"``) takes on the default scene under ``cfg``, textured from
+    ``texture_dir``, and the texel bytes its texture fetches read: its host
+    build with -DRT_COUNT_OPS, run on the CPU."""
     import torch
 
-    import ray_rust_tpu_torch as rtt
     from ray_rust_tpu_torch.ops import _build
-    from ray_rust_tpu_torch.ops.kernel_trace import pack_scene
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops.rays import fov_scales
 
     lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
-    scene, _ = rtt.default_scene(device="cpu")
-    tables = pack_scene(scene)  # held until the call returns
+    scene = _host_scene(texture_dir, texture_filter)
+    tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)  # held until the call returns
+    tex_args = kt.texture_args(tex, torch.device("cpu")) if name == "trace" else []
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
-    ops = torch.zeros(1, dtype=torch.int64)
+    ops = torch.zeros(2, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
-        sx, sy, *mod.kernel_args(cfg), *(plane.data_ptr() for plane in out), ops.data_ptr())
-    return int(ops)
+        sx, sy, *mod.kernel_args(cfg), *tex_args, *(plane.data_ptr() for plane in out),
+        ops.data_ptr())
+    return int(ops[0]), int(ops[1])
 
 
-def count_bwd_ops(name, mod, cfg):
+def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     """The f32 operations of backward kernel ``name``'s record pass
     (``"trace_bwd"``: its raycasts; ``"march_bwd"``: its SDF steps) on the
-    default scene under ``cfg``: its host build with -DRT_COUNT_OPS."""
+    default scene under ``cfg``, textured from ``texture_dir``, and the texel
+    bytes the record pass's texture fetches read: its host build with
+    -DRT_COUNT_OPS."""
     import torch
 
-    import ray_rust_tpu_torch as rtt
     from ray_rust_tpu_torch.ops import _build
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
     from ray_rust_tpu_torch.ops.rays import fov_scales
 
     lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
-    scene, _ = rtt.default_scene(device="cpu")
-    tables = kt.pack_scene(scene)
+    scene = _host_scene(texture_dir, texture_filter)
+    tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)
+    tex_args = kt.texture_args(tex, torch.device("cpu")) if name == "trace_bwd" else []
     g = torch.zeros((3, cfg.yres, cfg.xres), dtype=torch.float32)
     block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
-    ops = torch.zeros(1, dtype=torch.int64)
+    ops = torch.zeros(2, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
-        *mod.kernel_args(cfg), *(plane.data_ptr() for plane in g), block.data_ptr(), None, None,
-        None, ops.data_ptr())
-    return int(ops)
+        *mod.kernel_args(cfg), *tex_args, *(plane.data_ptr() for plane in g), block.data_ptr(),
+        None, None, None, ops.data_ptr())
+    return int(ops[0]), int(ops[1])
 
 
 def cuda_ms(torch, fn, warm=3, reps=10):
@@ -200,13 +235,37 @@ def cuda_ms(torch, fn, warm=3, reps=10):
     return start.elapsed_time(end) / reps
 
 
+def textured_bwd_scene(rtt):
+    """tests/test_pallas_bwd.py:116-138's scene: a 12x20 noise texture on the
+    floor (Bilinear), seen directly, in a mirror and through glass."""
+    tex = np.random.default_rng(5).integers(0, 256, (12, 20, 3)).astype(np.uint8)
+    mats = [
+        rtt.MaterialSpec(name="texfloor", diffuse=(1.0, 1.0, 0.0), pattern=2,
+                         pattern_scale=300.0, pattern_angle_scale=0.2, texture_filter=1,
+                         texture=tex),
+        rtt.MaterialSpec(name="mirror", specular=(1.0, 1.0, 1.0), pn=24),
+        rtt.MaterialSpec(name="glass", transparency=1.0, refraction=1.5),
+    ]
+    objs = [rtt.FloorSpec("texfloor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0), uvmap=2),
+            rtt.SphereSpec("mirror", 80.0, (0.0, -30.0, 172.0)),
+            rtt.SphereSpec("glass", 100.0, (70.0, -200.0, 150.0))]
+    scene, _ = rtt.build_scene(mats, objs, (0.37, -150.3, -300.0),
+                               (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0))
+    return scene
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    # the textured phases' bar.png lives here
+    with tempfile.TemporaryDirectory() as tex_dir:
+        return run(torch, tex_dir)
 
+
+def run(torch, tex_dir) -> int:
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -224,17 +283,24 @@ def main() -> int:
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
     from ray_rust_tpu_torch.parallel import sgd_train_step
-    from ray_rust_tpu_torch.utils.image import load_png
+    from ray_rust_tpu_torch.utils.image import load_png, save_png
 
     cfg_main = rtt.RenderConfig(xres=W, yres=H)
     glow = dict(use_raymarching=True, glow_effect=1.0)
     cfg_march = rtt.RenderConfig(xres=MW, yres=MH, **glow)
+    # bar.png: the textured goldens' 256x256 noise (tests/goldens/gen_textured.py)
+    save_png(os.path.join(tex_dir, "bar.png"),
+             np.random.default_rng(101).integers(0, 256, (256, 256, 3)).astype(np.uint8))
     # the main paths' operation counts, on the host while the card works
-    counting = ThreadPoolExecutor(max_workers=4)
+    counting = ThreadPoolExecutor(max_workers=6)
     ops_futures = {"trace_fwd": counting.submit(count_ops, "trace", kt, cfg_main),
                    "march_fwd": counting.submit(count_ops, "march", km, cfg_march),
                    "trace_bwd": counting.submit(count_bwd_ops, "trace_bwd", kb, cfg_main),
-                   "march_bwd": counting.submit(count_bwd_ops, "march_bwd", kmb, cfg_march)}
+                   "march_bwd": counting.submit(count_bwd_ops, "march_bwd", kmb, cfg_march),
+                   "trace_fwd_textured": counting.submit(count_ops, "trace", kt, cfg_main,
+                                                         tex_dir, 0),
+                   "trace_bwd_textured": counting.submit(count_bwd_ops, "trace_bwd", kb,
+                                                         cfg_main, tex_dir, 1)}
 
     # 2. the builds, one nvcc each, all started together
     t0 = time.time()
@@ -247,7 +313,7 @@ def main() -> int:
         for line in _build.build_logs[stem].splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print("    " + line.strip())
-    for stem in ("march_fwd", "trace_bwd", "march_bwd"):
+    for stem in stems:
         calls = _build.called_functions(_build.build_logs[stem])
         if calls:
             raise SystemExit(f"chip_smoke: {stem}.cu left device functions as calls: {calls}")
@@ -288,6 +354,22 @@ def main() -> int:
     got, ref, _ = both(default, cfg_main)
     max_abs_err = compare(f"default {W}x{H} (the main path's shape)", ref, got)
 
+    print("textured trace kernel (K1 with K1a) vs plain version and golden:")
+    tex_scenes = {f: rtt.default_scene(texture_dir=tex_dir, texture_filter=f)[0] for f in (0, 1)}
+    if any(s.textures is None for s in tex_scenes.values()):
+        raise SystemExit("chip_smoke: default_scene did not load bar.png")
+    tex_err, tex_plain_ms = {}, {}
+    for f, fname in ((0, "Nearest"), (1, "Bilinear")):
+        got, ref, tex_plain_ms[f] = both(tex_scenes[f], cfg_main)
+        tex_err[f] = compare(f"textured {fname} {W}x{H} (the main path's shape)", ref, got)
+    for gname, f in (("default_textured_nearest_320x240", 0),
+                     ("default_textured_bilinear_160x120", 1)):
+        golden = np.load(os.path.join(HERE, "tests", "goldens", f"{gname}.npz"))["img"]
+        gh, gw = golden.shape[:2]
+        got = img(kt.render_color_kernel(tex_scenes[f], rtt.RenderConfig(
+            xres=gw, yres=gh, refraction_unroll=None)))
+        compare(f"textured kernel vs golden {gname}", golden, got, mean_budget=0.015)
+
     print("march kernel vs plain version:")
     cases = [
         ("march default 320x240", default, rtt.RenderConfig(xres=320, yres=240, **glow)),
@@ -311,11 +393,11 @@ def main() -> int:
     print("backward kernel vs torch autograd of the plain version:")
 
     def grad_case(name, scene, cfg, seed=0, bwd=kb, fwd=kt.render_color_plain,
-                  budget=GRAD_BUDGET):
+                  budget=GRAD_BUDGET, bit_equal=False):
         """Backward kernel ``bwd``'s table cotangents against autograd of the
         plain version, mapped to the scene's leaves, and its image against
-        ``fwd``'s; returns the largest relative L2 and the plain version's ms
-        (one call, CUDA events)."""
+        ``fwd``'s (on every pixel when ``bit_equal``); returns the largest
+        relative L2 and the plain version's ms (one call, CUDA events)."""
         scene = scene.to(dev)
         rng = np.random.default_rng(seed)
         g = rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
@@ -350,6 +432,8 @@ def main() -> int:
               f"{plain_ms:.1f} ms, peak {peak / 2**30:.2f} GiB -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"chip_smoke: {name}: {worst_leaf} off by relative L2 {worst:.3g}")
+        if bit_equal and agree < 1.0:
+            raise SystemExit(f"chip_smoke: {name}: the image is not {fwd.__name__}'s")
         return worst, plain_ms
 
     for name, scene, cfg in [
@@ -373,6 +457,17 @@ def main() -> int:
     else:
         raise SystemExit("chip_smoke: the plain autograd graph fits at no shape tried")
     cfg_plain = cfg_main.with_(xres=pw, yres=ph)  # where the plain versions are timed
+
+    print("textured backward kernel (K2's textured sites) vs torch autograd of the plain "
+          "version, its image vs the trace kernel's:")
+    tex_grad = dict(fwd=kt.render_color_kernel, bit_equal=True)
+    grad_case("textured Bilinear 32x16 (tests/test_pallas_bwd.py:140)", textured_bwd_scene(rtt),
+              rtt.RenderConfig(xres=32, yres=16, max_reflections=2, refraction_unroll=1,
+                               grad_distance_cutoff=2e3), **tex_grad)
+    grad_case("textured Nearest 320x240", tex_scenes[0], rtt.RenderConfig(xres=320, yres=240),
+              **tex_grad)
+    tex_bwd_err, tex_bwd_plain_ms = grad_case(f"textured Bilinear {pw}x{ph}", tex_scenes[1],
+                                              cfg_plain, **tex_grad)
 
     print("march backward kernel vs torch autograd of the plain march (implicit VJP):")
     # K4's image against K3's (the plain march is tens of seconds a frame)
@@ -445,6 +540,35 @@ def main() -> int:
     launches = main_path("trace", [str(W), str(H)], cfg_main, kt, km)
     march_launches = main_path("march", [str(MW), str(MH), "-m", "-g", "1.0"], cfg_march, km, kt)
 
+    # textured trace: the CLI where bar.png lies (the reference's Nearest),
+    # then one Bilinear request
+    png_path = os.path.join(tex_dir, "out.png")
+    cwd = os.getcwd()
+    kt.LAUNCHES = km.LAUNCHES = 0
+    t0 = time.time()
+    os.chdir(tex_dir)
+    try:
+        rc = cli.main([str(W), str(H), "-o", png_path])
+    finally:
+        os.chdir(cwd)
+    frame_bi = rtt.render_u8(tex_scenes[1], cfg_main)
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    tex_launches, stray = kt.LAUNCHES, km.LAUNCHES
+    png = load_png(png_path)
+    print(f"main path, textured trace: CLI {W}x{H} with bar.png + 1 Bilinear render_u8 in "
+          f"{main_s:.2f} s, {tex_launches} kernel launches")
+    if rc != 0 or tex_launches != 2 or stray != 0:
+        raise SystemExit(f"chip_smoke: the textured main path: CLI exit {rc}, want 2 trace and "
+                         f"0 march launches, got {tex_launches} and {stray}")
+    if not np.array_equal(png, rtt.render_u8(tex_scenes[0], cfg_main)):
+        raise SystemExit("chip_smoke: the CLI's PNG with bar.png is not the textured render")
+    floor = slice(3 * H // 4, H)  # rows of floor below the spheres
+    if np.array_equal(png[floor], rtt.render_u8(scene_dev, cfg_main)[floor]):
+        raise SystemExit("chip_smoke: the CLI did not texture the floor with bar.png")
+    if np.array_equal(png, frame_bi):
+        raise SystemExit("chip_smoke: Nearest and Bilinear gave the same image")
+
     # training: the red material 0.1 redder in the target; the material
     # colours train (the camera and the geometry sit on knife edges of this
     # scene, the x = 0 plane and the horizon, where any step flips pixels)
@@ -458,12 +582,13 @@ def main() -> int:
     def colours(c):
         return type(c)(*(t.detach().clone().requires_grad_() for t in c))
 
-    def train(name, cfg, target, lr, want):
-        """Five sgd_train_step on the material colours against ``target``;
-        the launches (K1, K2, K3, K4) must be ``want``. Returns the losses
-        and the launches."""
-        s = scene_dev._replace(materials=m._replace(diffuse=colours(m.diffuse),
-                                                    specular=colours(m.specular)))
+    def train(name, cfg, target, lr, want, base=scene_dev):
+        """Five sgd_train_step on the material colours of ``base`` against
+        ``target``; the launches (K1, K2, K3, K4) must be ``want``. Returns
+        the losses and the launches."""
+        bm = base.materials
+        s = base._replace(materials=bm._replace(diffuse=colours(bm.diffuse),
+                                                specular=colours(bm.specular)))
         kt.LAUNCHES = kb.LAUNCHES = km.LAUNCHES = kmb.LAUNCHES = 0
         t0 = time.time()
         losses = []
@@ -484,6 +609,15 @@ def main() -> int:
         return losses, launches
 
     _, train_launches = train("training", cfg_main, target, TRAIN_LR, (5, 5, 0, 0))
+    tex_bi = tex_scenes[1]
+    with torch.no_grad():
+        tex_target = rtt.render_color(tex_bi._replace(materials=tex_bi.materials._replace(
+            diffuse=tex_bi.materials.diffuse._replace(r=red))), cfg_main).to_array()
+    tex_losses, tex_train_launches = train("textured training (Bilinear)", cfg_main, tex_target,
+                                           TRAIN_LR, (5, 5, 0, 0), base=tex_bi)
+    if not all(b < a for a, b in zip(tex_losses, tex_losses[1:])):
+        raise SystemExit(f"chip_smoke: the textured training loss did not fall at every step: "
+                         f"{tex_losses}")
     with torch.no_grad():
         march_target = rtt.render_color(scene_dev._replace(
             materials=m._replace(diffuse=m.diffuse._replace(r=red))), cfg_march).to_array()
@@ -508,20 +642,20 @@ def main() -> int:
     p_ms = float(np.mean([ms for n, ms in runs if n == "plain"]))
 
     print(f"forward + backward {W}x{H}, default scene, default cfg ({card}):")
-    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
-              for t in scene_dev.tensors()]
-    params = [t for t in leaves if t.requires_grad]
-    s_grad = scene_dev.with_tensors(leaves)
-
-    def step(render, cfg):
-        """Render, MSE against a target 0.05 brighter, gradient of every
-        float leaf: the step without the update."""
+    def step(render, cfg, base=scene_dev):
+        """Render ``base``, MSE against a target 0.05 brighter, gradient of
+        every float leaf (the texture atlas is u8: a constant): the step
+        without the update."""
         target_ = torch.full((cfg.yres, cfg.xres, 3), 0.05, device=dev)
+        leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
+                  for t in base.tensors()]
+        params = [t for t in leaves if t.requires_grad]
+        s_grad = base.with_tensors(leaves)
 
-        def run():
+        def go():
             loss_ = (torch.stack(list(render(s_grad, cfg)), -1) - target_).square().mean()
             torch.autograd.grad(loss_, params, allow_unused=True)
-        return run
+        return go
 
     kernel_step = step(rtt.render_color, cfg_main)
     plain_step = step(kt.render_color_plain, cfg_plain)
@@ -546,6 +680,22 @@ def main() -> int:
                            **plain_reps)
     print(f"  backward kernel alone at {W}x{H} (wrapper, with the image): {bwd_ms:.3f} ms; its "
           f"plain version (autograd of the plain trace) at {pw}x{ph}: {bwd_plain_ms:.3f} ms")
+
+    print(f"textured forward and training step {W}x{H}, default scene with bar.png ({card}):")
+    with torch.no_grad():
+        tex_runs = [(f, cuda_ms(torch, lambda f=f: kt.render_color_kernel(tex_scenes[f], cfg_main)))
+                    for f in (0, 1, 1, 0)]
+    tex_k_ms = {f: float(np.mean([ms for g, ms in tex_runs if g == f])) for f in (0, 1)}
+    for f, ms in tex_runs:
+        print(f"  kernel, {('Nearest', 'Bilinear')[f]}: {ms:.3f} ms/frame (plain "
+              f"{tex_plain_ms[f]:.1f} ms, one frame, phase 3)")
+    tex_step_ms = cuda_ms(torch, step(rtt.render_color, cfg_main, base=tex_bi))
+    tex_bwd_ms = cuda_ms(torch, lambda: kb.render_grads_kernel(tex_bi, cfg_main, g_main,
+                                                               return_primal=True))
+    print(f"  step through the kernels, Bilinear (render, MSE, gradient of every float leaf): "
+          f"{tex_step_ms:.3f} ms")
+    print(f"  backward kernel alone, Bilinear (wrapper, with the image): {tex_bwd_ms:.3f} ms; "
+          f"its plain version at {pw}x{ph}: {tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
     print(f"march + glow forward, default scene, default cfg ({card}):")
     with torch.no_grad():
@@ -576,14 +726,19 @@ def main() -> int:
 
     # roofline bounds from the operation counts of the main paths' frames
     bounds = {}
-    for name, cfg in (("trace_fwd", cfg_main), ("march_fwd", cfg_march), ("trace_bwd", cfg_main),
-                      ("march_bwd", cfg_march)):
-        nbytes = io_bytes(scene_dev, cfg)
-        if name.endswith("_bwd"):  # + the cotangent planes read, the block written
-            nbytes += 3 * 4 * cfg.xres * cfg.yres + 4 * (scene_dev.objects.count + 1) * kb.GRAD_COLS
-        bounds[name] = roofline(ops[name], nbytes)
-        print(f"  bound, {name} {cfg.xres}x{cfg.yres}: {ops[name]} f32 operations, "
-              f"{nbytes} bytes -> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    for name, cfg, scene in (("trace_fwd", cfg_main, scene_dev),
+                             ("march_fwd", cfg_march, scene_dev),
+                             ("trace_bwd", cfg_main, scene_dev),
+                             ("march_bwd", cfg_march, scene_dev),
+                             ("trace_fwd_textured", cfg_main, tex_scenes[0]),
+                             ("trace_bwd_textured", cfg_main, tex_bi)):
+        n_ops, fetched = ops[name]
+        nbytes = io_bytes(scene, cfg) + texel_bytes(scene, fetched)
+        if "_bwd" in name:  # + the cotangent planes read, the block written
+            nbytes += 3 * 4 * cfg.xres * cfg.yres + 4 * (scene.objects.count + 1) * kb.GRAD_COLS
+        bounds[name] = roofline(n_ops, nbytes)
+        print(f"  bound, {name} {cfg.xres}x{cfg.yres}: {n_ops} f32 operations, {nbytes} bytes "
+              f"({fetched} B of texel fetches) -> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
         raise SystemExit("chip_smoke: the port imported jax or the JAX package")
@@ -593,6 +748,15 @@ def main() -> int:
         "replaces": "ray_rust_tpu/ops/pallas_trace.py:1275",
         "launches": launches, "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bounds["trace_fwd"][0], "bound_by": bounds["trace_fwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "trace_fwd_textured", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/trace_fwd.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_trace.py:618",
+        "launches": tex_launches, "max_abs_err": max(tex_err.values()), "ms": tex_k_ms[0],
+        "plain_ms": tex_plain_ms[0],
+        "bound_ms": bounds["trace_fwd_textured"][0],
+        "bound_by": bounds["trace_fwd_textured"][1],
         "library_ms": None,
     }, {
         "name": "march_fwd", "route": "cuda",
@@ -609,6 +773,15 @@ def main() -> int:
         "launches": train_launches[1], "max_abs_err": bwd_max_err, "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["trace_bwd"][0], "bound_by": bounds["trace_bwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "trace_bwd_textured", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/trace_bwd.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_bwd.py:563",
+        "launches": tex_train_launches[1], "max_abs_err": tex_bwd_err, "ms": tex_bwd_ms,
+        "plain_ms": tex_bwd_plain_ms,
+        "bound_ms": bounds["trace_bwd_textured"][0],
+        "bound_by": bounds["trace_bwd_textured"][1],
         "library_ms": None,
     }, {
         "name": "march_bwd", "route": "cuda",

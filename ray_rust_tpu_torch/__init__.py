@@ -17,6 +17,7 @@ from .models.material import (
     PATTERN_CHECKERBOARD,
     PATTERN_GRADATION,
     PATTERN_SOLID,
+    TextureBank,
     UVMAP_LL,
     UVMAP_XY,
     UVMAP_YZ,
@@ -46,6 +47,7 @@ __all__ = [
     "RenderConfig",
     "MaterialSpec",
     "MaterialTable",
+    "TextureBank",
     "Quat",
     "Camera",
     "FloorSpec",

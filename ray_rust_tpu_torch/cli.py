@@ -7,6 +7,8 @@ march mode with an optional glow strength ``-g``::
     python -m ray_rust_tpu_torch.cli 1920 1080 -o out.png
     python -m ray_rust_tpu_torch.cli 1280 720 -m -g 1.0 -o out.png
 
+The floor takes ``bar.png`` from the working directory as its texture when
+that file is an RGB PNG, as the reference does (src/main.rs:169).
 ``-t/--threads`` and ``-p/--port_no`` are accepted for compatibility and
 change nothing. Scene files and the web viewer (``-s``, ``-d``, ``-w``) are
 not ported yet and raise ``NotImplementedError``.

@@ -11,6 +11,10 @@
 // it adds the pixel's cotangents through ``acc`` and returns its colour. It
 // must be forced inline: chip_smoke.py fails when ptxas reports a device
 // function besides the kernel, and a plain __device__ run was left as one.
+// ``Body::TEXTURED`` says whether it reads the texture atlas (the trace
+// backward); then the atlas's meta rows are staged in shared memory beside
+// the tables. The march backward's is false, and its kernel is the one it
+// was before textures.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,19 +36,20 @@ struct SharedAcc {
   }
 };
 
-// Shared memory a launch needs for n objects, in bytes: the tables and the
-// block's accumulator.
-inline size_t bwd_smem(int n) {
+// Shared memory a launch needs for n objects and n_tex textures, in bytes:
+// the tables, the block's accumulator and the texture meta rows.
+inline size_t bwd_smem(int n, int n_tex = 0) {
   return sizeof(float) * (n * F32_COLS + CAM_COLS + LIGHT_COLS + (n + 1) * GRAD_COLS) +
-         sizeof(int) * n * I32_COLS;
+         sizeof(int) * (n * I32_COLS + n_tex * TEX_META_COLS);
 }
 
 template <class Body, class P>
 __global__ void __launch_bounds__(BWD_BLOCK_X * BWD_BLOCK_Y)
 bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
            const float* __restrict__ cam, const float* __restrict__ light, int n, P p,
-           float cutoff, const float* __restrict__ g_r, const float* __restrict__ g_g,
-           const float* __restrict__ g_b, float* __restrict__ out_block,
+           TexArgs tx, float cutoff, const float* __restrict__ g_r,
+           const float* __restrict__ g_g, const float* __restrict__ g_b,
+           float* __restrict__ out_block,
            float* __restrict__ prim_r, float* __restrict__ prim_g, float* __restrict__ prim_b) {
   extern __shared__ float smem[];
   float* s_f32 = smem;
@@ -61,6 +66,10 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   if (tid < CAM_COLS) s_cam[tid] = cam[tid];
   if (tid < LIGHT_COLS) s_light[tid] = light[tid];
   for (int k = tid; k < acc_len; k += nthreads) s_acc[k] = 0.0f;
+  int* s_meta = reinterpret_cast<int*>(s_acc + acc_len);
+  if constexpr (Body::TEXTURED) {
+    for (int k = tid; k < tx.n_tex * TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
+  }
   __syncthreads();
 
   const int ix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -71,6 +80,10 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
     s.i32 = s_i32;
     s.n = n;
     s.light = v3(s_light[0], s_light[1], s_light[2]);
+    if constexpr (Body::TEXTURED) {
+      s.tx = tx;
+      s.tx.meta = s_meta;
+    }
     const size_t o = static_cast<size_t>(iy) * p.xres + ix;
     SharedAcc acc = {s_acc};
     C3 c = Body::run(s, p, cutoff, s_cam, ix, iy, c3(g_r[o], g_g[o], g_b[o]), acc);
@@ -89,16 +102,16 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
 
 // Launch bwd_kernel<Body> on ``stream`` of ``device``. ``out_block`` is
 // (n+1, 20) f32 and must hold zeros; the cotangents are added to it. The
-// primal planes may be null. Returns the cudaError_t of the launch
-// (0 = success).
+// primal planes may be null; ``tx`` is all zero for an untextured scene.
+// Returns the cudaError_t of the launch (0 = success).
 template <class Body, class P>
 int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float* light, int n,
-               const P& p, float cutoff, const float* g_r, const float* g_g, const float* g_b,
-               float* out_block, float* prim_r, float* prim_g, float* prim_b, int device,
-               void* stream) {
+               const P& p, const TexArgs& tx, float cutoff, const float* g_r, const float* g_g,
+               const float* g_b, float* out_block, float* prim_r, float* prim_g, float* prim_b,
+               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = bwd_smem(n);
+  const size_t smem = bwd_smem(n, Body::TEXTURED ? tx.n_tex : 0);
   // above 48 KB a block may take dynamic shared memory only when asked
   err = cudaFuncSetAttribute(bwd_kernel<Body, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -106,7 +119,8 @@ int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float
   dim3 block(BWD_BLOCK_X, BWD_BLOCK_Y);
   dim3 grid((p.xres + BWD_BLOCK_X - 1) / BWD_BLOCK_X, (p.yres + BWD_BLOCK_Y - 1) / BWD_BLOCK_Y);
   bwd_kernel<Body, P><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      f32t, i32t, cam, light, n, p, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g, prim_b);
+      f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g,
+      prim_b);
   return static_cast<int>(cudaGetLastError());
 }
 

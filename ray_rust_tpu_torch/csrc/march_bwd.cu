@@ -30,6 +30,7 @@
 namespace {
 
 struct MarchBody {
+  static constexpr bool TEXTURED = false;
   template <class Acc>
   __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s, const rt::MarchParams& p,
                                                float cutoff, const float* cam, int ix, int iy,
@@ -65,8 +66,8 @@ int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.far_away = far_away;
   p.glow_on = glow_on;
   p.glow = glow;
-  return rt::launch_bwd<MarchBody>(f32t, i32t, cam, light, n, p, cutoff, g_r, g_g, g_b,
-                                   out_block, prim_r, prim_g, prim_b, device, stream);
+  return rt::launch_bwd<MarchBody>(f32t, i32t, cam, light, n, p, rt::TexArgs{}, cutoff, g_r,
+                                   g_g, g_b, out_block, prim_r, prim_g, prim_b, device, stream);
 }
 
 const char* rt_error_string(int code) {

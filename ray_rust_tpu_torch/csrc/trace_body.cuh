@@ -7,10 +7,10 @@
 // loop with its throughput, object-0 and depth exits (render.rs:1142-1224),
 // the nearest-hit scan over all objects (render.rs:993-1018), shading with a
 // shadow ray that passes transparent blockers, Lambert + Phong, procedural
-// patterns, the pseudo-refraction subtree (render.rs:1020-1140) and the sky
-// (src/main.rs:231-260). Every operation is written in the order the plain
-// version (ops/trace.py) evaluates it, in f32, so that a build without
-// contracted multiply-adds rounds as it does.
+// patterns or image textures (K1a), the pseudo-refraction subtree
+// (render.rs:1020-1140) and the sky (src/main.rs:231-260). Every operation
+// is written in the order the plain version (ops/trace.py) evaluates it, in
+// f32, so that a build without contracted multiply-adds rounds as it does.
 //
 // The refraction recursion becomes an explicit per-thread stack of pending
 // sub-traces. A sub-trace's colour enters its parent's pixel linearly, with
@@ -28,23 +28,40 @@
 // (trace_bwd_body.cuh) saves the state of every raycast site, so both run
 // one traversal.
 //
+// Image textures (K1a, replacing ray_rust_tpu/ops/pallas_trace.py:
+// fetch_taps, fetch_texture and _tex_blend): a textured hit reads its texel's
+// 2x2 wrap neighbourhood from the atlas that ops/kernel_trace.py:pack_textures
+// builds, one 16-byte word a texel (four r | g<<8 | b<<16 taps), and blends
+// the taps in f32 as the plain version (ops/texture.py:sample_texture_packed)
+// does. The lookup is arithmetic, not a CUDA texture object: hardware
+// bilinear filtering weighs in 8-bit fixed point and hardware wrapping is
+// not the reference's imod/fimod, so neither would give the plain version's
+// floats. Float-to-int conversions follow torch's on the same device, so the
+// card's build matches the plain version on the card and the host build the
+// plain version on the CPU even where u*w overflows int32 at the horizon.
+//
 // A build with -DRT_COUNT_OPS counts the f32 arithmetic of the object loops
-// (the fewest operations each object test can take) into *SceneView::ops,
-// for the kernels' roofline bound; the ordinary build compiles it away.
+// (the fewest operations each object test can take) into SceneView::ops[0],
+// and the texel bytes the traversal's texture fetches read into ops[1], for
+// the kernels' roofline bound; the ordinary build compiles it away.
 #pragma once
 
 #include <math.h>
 
 #ifdef __CUDACC__
 #define RT_HD __host__ __device__ inline
+#define RT_FI __host__ __device__ __forceinline__
 #else
 #define RT_HD inline
+#define RT_FI inline
 #endif
 
 #ifdef RT_COUNT_OPS
-#define RT_COUNT(s, k) (*(s).ops += static_cast<unsigned long long>(k))
+#define RT_COUNT(s, k) ((s).ops[0] += static_cast<unsigned long long>(k))
+#define RT_COUNT_TEXEL(s) ((s).ops[1] += sizeof(Texel4))
 #else
 #define RT_COUNT(s, k) ((void)0)
+#define RT_COUNT_TEXEL(s) ((void)0)
 #endif
 
 namespace rt {
@@ -57,6 +74,7 @@ constexpr int F32_COLS = 19;  // org xyz, normal xyz, diffuse rgb, specular rgb,
 constexpr int I32_COLS = 4;   // kind, pattern, uvmap, texture id
 constexpr int CAM_COLS = 8;   // position xyz, rotation xyzw, pad
 constexpr int LIGHT_COLS = 4; // direction xyz, pad
+constexpr int TEX_META_COLS = 4;  // width, height, base texel, filter
 
 constexpr int KIND_SPHERE = 0;
 constexpr int PATTERN_CHECKERBOARD = 1;
@@ -64,6 +82,7 @@ constexpr int PATTERN_GRADATION = 2;
 constexpr int UVMAP_YZ = 1;
 constexpr int UVMAP_ZX = 2;
 constexpr int UVMAP_LL = 3;
+constexpr int FILTER_BILINEAR = 1;
 constexpr int OUTONLY = 1;
 constexpr int INONLY = 1 << 1;
 constexpr int RIGNORE = 1 << 2;
@@ -193,14 +212,32 @@ RT_HD C3 background(int bg, V3 light, V3 d) {
   return c3(base_r + glare + dot2, base_gb + glare + dot2, base_gb + glare);
 }
 
-// The packed scene as the body reads it: per-object rows and the light.
+// One atlas texel's 2x2 wrap neighbourhood (TextureBank.packed's taps, x
+// then y), each tap r | g<<8 | b<<16: one 16-byte load.
+struct alignas(16) Texel4 {
+  unsigned int p00, p10, p01, p11;
+};
+
+// The texture atlas as the kernels take it (ops/kernel_trace.py:
+// pack_textures): ``len`` texels, ``stride`` (the widest texture's width) a
+// row, and a (n_tex, TEX_META_COLS) meta table. All zero when the scene has
+// no texture.
+struct TexArgs {
+  const Texel4* tex;
+  const int* meta;
+  int n_tex, stride, len;
+};
+
+// The packed scene as the body reads it: per-object rows, the light and the
+// texture atlas (none by default: the march bodies read no texture).
 struct SceneView {
   const float* f32;  // (n, F32_COLS)
   const int* i32;    // (n, I32_COLS)
   int n;
   V3 light;
+  TexArgs tx = {nullptr, nullptr, 0, 0, 0};
 #ifdef RT_COUNT_OPS
-  unsigned long long* ops;  // this thread's operation count
+  unsigned long long* ops;  // this thread's counts: f32 operations, texel bytes
 #endif
 };
 
@@ -289,6 +326,99 @@ RT_HD C3 pattern_diffuse(const float* o, int pattern, float u, float v) {
   return d;
 }
 
+// f32 -> int32 as torch converts on the same device: the card's conversion
+// saturates (NaN -> 0), the CPU's (x86 cvttss2si) gives INT_MIN for anything
+// out of range.
+RT_FI int f32_to_i32(float x) {
+#ifdef __CUDA_ARCH__
+  return __float2int_rz(x);
+#else
+  return (x >= -2147483648.0f && x < 2147483648.0f) ? static_cast<int>(x)
+                                                      : static_cast<int>(0x80000000u);
+#endif
+}
+
+// Integer modulo via f32 division (modutil.rs:4-6), wrapping in int32 as
+// torch's integer arithmetic does.
+RT_FI int imod(int f, int freq) {
+  const int q = f32_to_i32(floorf(static_cast<float>(f) / static_cast<float>(freq)));
+  return static_cast<int>(static_cast<unsigned>(f) -
+                          static_cast<unsigned>(q) * static_cast<unsigned>(freq));
+}
+
+// (frac, idx) split of the floored modulo (modutil.rs:10-14): returns the
+// fraction and sets *idx.
+RT_FI float fimod(float f, float freq, int* idx) {
+  const float fm = floor_mod(f, freq);
+  *idx = imod(f32_to_i32(fm), f32_to_i32(freq));
+  return fm - floorf(fm);
+}
+
+// Where texture ``tid``'s lookup at (u, v) reads the atlas (render.rs:253-
+// 296): Nearest truncates u*w toward zero, Bilinear floors it and keeps the
+// fractions (*fu, *fv); both wrap by the texture's true size. The flat index
+// is clamped to the atlas (in range for every finite uv) as the plain version
+// and the JAX kernel (pallas_trace.py:674) clamp it. Sets *bilin.
+RT_FI int texel_index(const TexArgs& tx, int tid, float u, float v, bool* bilin, float* fu,
+                      float* fv) {
+  const int* m = tx.meta + TEX_META_COLS * (tid < tx.n_tex ? tid : tx.n_tex - 1);
+  const int w = m[0], h = m[1];
+  const float wf = static_cast<float>(w), hf = static_cast<float>(h);
+  *bilin = m[3] == FILTER_BILINEAR;
+  int ix, iy;
+  if (*bilin) {
+    *fu = fimod(u * wf, wf, &ix);
+    *fv = fimod(v * hf, hf, &iy);
+  } else {
+    ix = imod(f32_to_i32(truncf(u * wf)), w);
+    iy = imod(f32_to_i32(truncf(v * hf)), h);
+  }
+  long long flat = static_cast<long long>(m[2]) + static_cast<long long>(iy) * tx.stride + ix;
+  flat = flat < 0 ? 0 : (flat >= tx.len ? tx.len - 1 : flat);
+  return static_cast<int>(flat);
+}
+
+// One texel's taps: on the card one read-only 16-byte load.
+RT_FI Texel4 load_texel(const Texel4* p) {
+#ifdef __CUDA_ARCH__
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  Texel4 t;
+  t.p00 = q.x;
+  t.p10 = q.y;
+  t.p01 = q.z;
+  t.p11 = q.w;
+  return t;
+#else
+  return *p;
+#endif
+}
+
+RT_FI C3 unpack_tap(unsigned int w) {
+  return c3(static_cast<float>(w & 0xFFu), static_cast<float>((w >> 8) & 0xFFu),
+            static_cast<float>((w >> 16) & 0xFFu));
+}
+
+// The texture colour at (u, v), in [0, 1): texture ``tid`` (>= 0) sampled
+// Nearest or Bilinear, blended in the reference's term order
+// (pixelutil.rs:4-13; ops/texture.py:_blend), then / 256.
+RT_FI C3 fetch_texture(const TexArgs& tx, int tid, float u, float v) {
+  bool bilin;
+  float fu = 0.0f, fv = 0.0f;
+  const Texel4 q = load_texel(tx.tex + texel_index(tx, tid, u, v, &bilin, &fu, &fv));
+  const C3 p00 = unpack_tap(q.p00);
+  if (!bilin) return c3(p00.r / 256.0f, p00.g / 256.0f, p00.b / 256.0f);
+  const C3 p10 = unpack_tap(q.p10), p01 = unpack_tap(q.p01), p11 = unpack_tap(q.p11);
+  const float a = (1.0f - fu) * (1.0f - fv), b = (1.0f - fu) * fv;
+  const float c = fu * (1.0f - fv), d = fu * fv;
+  return c3((a * p00.r + b * p01.r + c * p10.r + d * p11.r) / 256.0f,
+            (a * p00.g + b * p01.g + c * p10.g + d * p11.g) / 256.0f,
+            (a * p00.b + b * p01.b + c * p10.b + d * p11.b) / 256.0f);
+}
+
+// Whether the hit on object row ``oi`` reads a texture: its material has one
+// and the scene carries an atlas (as ops/texture.py:lookup_diffuse).
+RT_FI bool textured(const SceneView& s, const int* oi) { return oi[3] >= 0 && s.tx.n_tex > 0; }
+
 // Sphere (pt - org)/|pt - org| (render.rs:443-445) or the floor's stored
 // face normal (render.rs:553-555), for object row ``o`` of kind ``kind``.
 RT_HD V3 surface_normal(const float* o, int kind, V3 pt) {
@@ -374,7 +504,13 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
 
     float u, v;
     get_uv(sub(pt, org), oi[2], o[15], o[16], &u, &v);
-    C3 kd = pattern_diffuse(o, oi[1], u, v);
+    C3 kd;
+    if (textured(s, oi)) {  // the image replaces the pattern (render.rs:249-316)
+      RT_COUNT_TEXEL(s);
+      kd = fetch_texture(s.tx, oi[3], u, v);
+    } else {
+      kd = pattern_diffuse(o, oi[1], u, v);
+    }
     C3 face = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
 
     bool mr = !(flags & RIGNORE), mg = !(flags & GIGNORE), mb = !(flags & BIGNORE);

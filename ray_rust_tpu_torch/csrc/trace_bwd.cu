@@ -1,7 +1,7 @@
 // Trace-mode backward (K2) for Hopper (sm_90a), one thread per pixel.
 //
 // Replaces ray_rust_tpu/ops/pallas_bwd.py:render_color_pallas_grads_site
-// (the body _make_site_bwd_kernel) for untextured scenes: from the packed
+// (the body _make_site_bwd_kernel), textured sites included: from the packed
 // scene tables and the cotangent planes of the image it computes the
 // cotangent of every object's 19 table columns and of the camera and the
 // light, and optionally the image itself. The per-pixel program lives in
@@ -28,6 +28,7 @@
 namespace {
 
 struct TraceBody {
+  static constexpr bool TEXTURED = true;
   template <class Acc>
   __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s, const rt::Params& p,
                                                float cutoff, const float* cam, int ix, int iy,
@@ -40,13 +41,15 @@ struct TraceBody {
 
 extern "C" {
 
-// Shared memory the launch needs for n objects, in bytes.
-size_t rt_trace_bwd_smem(int n) { return rt::bwd_smem(n); }
+// Shared memory the launch needs for n objects and n_tex textures, in bytes.
+size_t rt_trace_bwd_smem(int n, int n_tex) { return rt::bwd_smem(n, n_tex); }
 
-// Launch the trace backward on ``stream`` of ``device`` (rt::launch_bwd).
+// Launch the trace backward on ``stream`` of ``device`` (rt::launch_bwd);
+// the texture arguments as rt_trace_fwd's (trace_fwd.cu).
 int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, float sx, float sy, int max_reflections,
-                 int refraction_cap, int bg, float cutoff, const float* g_r, const float* g_g,
+                 int refraction_cap, int bg, float cutoff, const void* tex, const int* tex_meta,
+                 int n_tex, int tex_stride, int tex_len, const float* g_r, const float* g_g,
                  const float* g_b, float* out_block, float* prim_r, float* prim_g,
                  float* prim_b, int device, void* stream) {
   rt::Params p;
@@ -57,7 +60,9 @@ int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.max_reflections = max_reflections;
   p.refraction_cap = refraction_cap;
   p.bg = bg;
-  return rt::launch_bwd<TraceBody>(f32t, i32t, cam, light, n, p, cutoff, g_r, g_g, g_b,
+  const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
+                          tex_len};
+  return rt::launch_bwd<TraceBody>(f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b,
                                    out_block, prim_r, prim_g, prim_b, device, stream);
 }
 

@@ -5,7 +5,7 @@
 // It computes what ray_rust_tpu/ops/pallas_bwd.py:render_color_pallas_grads_site
 // computes for one pixel: the pixel's cotangent g pulled back to the packed
 // scene tables (the 19 f32 columns of every object, the camera and the
-// light), for untextured trace-mode scenes. The gradient contract is the
+// light), for trace-mode scenes, textured or not. The gradient contract is the
 // plain version's (ops/trace.py under autograd): the nearest hit's t is a
 // function of the winner's own fields, hit/shadow/pattern decisions are
 // constants, and a hit at t >= grad_distance_cutoff passes no gradient
@@ -29,7 +29,10 @@
 //    the same expression, so it is the same float) and runs the hand-written
 //    adjoint of each step: the bounce, the refraction bend and blend, the
 //    accumulation with its IGNORE masks, Lambert and Phong (powf), the uv map
-//    and the pattern, the normal, pt = vi + eye*t and the sphere or floor t;
+//    and the pattern or the texture (only its bilinear weights depend on uv:
+//    the u8 texels are constants, re-read from the atlas rather than
+//    recorded, and a textured hit passes no cotangent to the material's
+//    diffuse colour), the normal, pt = vi + eye*t and the sphere or floor t;
 //    a miss runs the sky's adjoint. The camera ray's adjoint (quaternion
 //    rotation, normalize) ends the sweep. The part from the hit point on
 //    (shade_adj) is shared with the march backward (march_bwd_body.cuh). Each site's 19 field cotangents go
@@ -356,6 +359,31 @@ RT_AD void pattern_diffuse_adj(const float* o, int pattern, float u, float v, C3
   g_row[8] += g.b;
 }
 
+// Adds the cotangents of (u, v) under fetch_texture (trace_body.cuh), for
+// colour cotangent g: Bilinear through its weights (d fu/du = w, d fv/dv =
+// h, the floors' slopes being 0, as torch's), Nearest none.
+RT_AD void fetch_texture_adj(const TexArgs& tx, int tid, float u, float v, C3 g, float* gu,
+                             float* gv) {
+  bool bilin;
+  float fu = 0.0f, fv = 0.0f;
+  const int k = texel_index(tx, tid, u, v, &bilin, &fu, &fv);
+  if (!bilin) return;
+  const Texel4 q = load_texel(tx.tex + k);
+  const C3 p00 = unpack_tap(q.p00), p10 = unpack_tap(q.p10), p01 = unpack_tap(q.p01),
+           p11 = unpack_tap(q.p11);
+  const C3 gp = c3(g.r / 256.0f, g.g / 256.0f, g.b / 256.0f);
+  // p = (1-fu)(1-fv) p00 + (1-fu) fv p01 + fu (1-fv) p10 + fu fv p11, per channel
+  const float gfu = gp.r * ((1.0f - fv) * (p10.r - p00.r) + fv * (p11.r - p01.r)) +
+                    gp.g * ((1.0f - fv) * (p10.g - p00.g) + fv * (p11.g - p01.g)) +
+                    gp.b * ((1.0f - fv) * (p10.b - p00.b) + fv * (p11.b - p01.b));
+  const float gfv = gp.r * ((1.0f - fu) * (p01.r - p00.r) + fu * (p11.r - p10.r)) +
+                    gp.g * ((1.0f - fu) * (p01.g - p00.g) + fu * (p11.g - p10.g)) +
+                    gp.b * ((1.0f - fu) * (p01.b - p00.b) + fu * (p11.b - p10.b));
+  const int* m = tx.meta + TEX_META_COLS * (tid < tx.n_tex ? tid : tx.n_tex - 1);
+  *gu += gfu * static_cast<float>(m[0]);
+  *gv += gfv * static_cast<float>(m[1]);
+}
+
 // A raycast site's record.
 struct Site {
   V3 vi, eye;  // its ray
@@ -421,6 +449,9 @@ struct SiteRecorder {
 // the trace went on (``cont``). Adds the site's colour to ``*col``, its light
 // cotangent to ``*g_light``, its object's field cotangents to ``g_row``, and
 // returns the cotangents of ``pt`` in ``*gpt`` and of ``eye`` in ``*ge``.
+// ``TEX``: whether the hit may read a texture (the trace backward); the march
+// backward shades untextured scenes only and leaves it false.
+template <bool TEX = false>
 RT_AD void shade_adj(const SceneView& s, const float* o, const int* oi, V3 eye, V3 pt, C3 fcs,
                      int flags, bool lit, bool has_child, C3 ch_col, V3 ch_g_vi, V3 ch_g_eye,
                      bool cont, C3 gc, V3 g_next_vi, V3 g_next_eye, C3* g_fcs, C3* col,
@@ -442,7 +473,8 @@ RT_AD void shade_adj(const SceneView& s, const float* o, const int* oi, V3 eye, 
   float k2 = lit ? refl : 0.0f;
   float u, v;
   get_uv(rel, oi[2], o[15], o[16], &u, &v);
-  C3 kd = pattern_diffuse(o, oi[1], u, v);
+  const bool tex = TEX && textured(s, oi);
+  C3 kd = tex ? fetch_texture(s.tx, oi[3], u, v) : pattern_diffuse(o, oi[1], u, v);
   C3 base = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
   const float f = o[13];
   C3 face = base;
@@ -492,12 +524,15 @@ RT_AD void shade_adj(const SceneView& s, const float* o, const int* oi, V3 eye, 
     bend_adj(eye, n, o[14], gray, &ge, &gn, &g_row[14]);
   }
 
-  // base = kd*k1 + k2; kd from the pattern at uv
+  // base = kd*k1 + k2; kd from the texture or the pattern at uv
   C3 gkd = c3(gbase.r * k1, gbase.g * k1, gbase.b * k1);
   float gk1 = gbase.r * kd.r + gbase.g * kd.g + gbase.b * kd.b;
   float gk2 = gbase.r + gbase.g + gbase.b;
   float gu = 0.0f, gv = 0.0f;
-  pattern_diffuse_adj(o, oi[1], u, v, gkd, g_row, &gu, &gv);
+  if (tex)
+    fetch_texture_adj(s.tx, oi[3], u, v, gkd, &gu, &gv);
+  else
+    pattern_diffuse_adj(o, oi[1], u, v, gkd, g_row, &gu, &gv);
   V3 grel = v3(0.0f, 0.0f, 0.0f);
   get_uv_adj(rel, oi[2], o[15], o[16], gu, gv, &grel, &g_row[15], &g_row[16]);
 
@@ -555,9 +590,9 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
   const C3 zc = c3(0.0f, 0.0f, 0.0f);
   const V3 zv = v3(0.0f, 0.0f, 0.0f);
   V3 gpt, ge;
-  shade_adj(s, o, oi, eye, pt, st.fcs, st.flags, st.lit, ch != nullptr, ch ? ch->col : zc,
-            ch ? ch->g_vi : zv, ch ? ch->g_eye : zv, cont, gc, g_next_vi, g_next_eye, g_fcs,
-            col, &gpt, &ge, g_light, g_row);
+  shade_adj<true>(s, o, oi, eye, pt, st.fcs, st.flags, st.lit, ch != nullptr,
+                  ch ? ch->col : zc, ch ? ch->g_vi : zv, ch ? ch->g_eye : zv, cont, gc,
+                  g_next_vi, g_next_eye, g_fcs, col, &gpt, &ge, g_light, g_row);
 
   // pt = vi + eye*t, a constant past the cutoff
   V3 gvi = v3(0.0f, 0.0f, 0.0f);

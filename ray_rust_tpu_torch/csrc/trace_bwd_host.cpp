@@ -3,7 +3,8 @@
 // tested against torch autograd of the plain PyTorch version where there is
 // no card. Same arguments as rt_trace_bwd in trace_bwd.cu, minus the device
 // and stream. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared
-// -fPIC`` (and -DRT_COUNT_OPS to add the operation count to *ops_total).
+// -fPIC`` (and -DRT_COUNT_OPS to add the operation count to ops_total[0] and
+// the texel bytes of the record pass's texture fetches to ops_total[1]).
 //
 // The rt_*_adj functions expose single adjoint steps for the tests, each
 // over ``m`` cases laid out as flat arrays.
@@ -24,14 +25,16 @@ extern "C" {
 void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
                        const float* light, int n, int xres, int yres, float sx, float sy,
                        int max_reflections, int refraction_cap, int bg, float cutoff,
-                       const float* g_r, const float* g_g, const float* g_b, float* out_block,
-                       float* prim_r, float* prim_g, float* prim_b,
+                       const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                       int tex_len, const float* g_r, const float* g_g, const float* g_b,
+                       float* out_block, float* prim_r, float* prim_g, float* prim_b,
                        unsigned long long* ops_total) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
   s.n = n;
   s.light = rt::v3(light[0], light[1], light[2]);
+  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
 #ifdef RT_COUNT_OPS
   s.ops = ops_total;
 #else
@@ -115,6 +118,21 @@ void rt_pow_adj(int m, const float* ri, const float* pn, const float* g, float* 
     g_ri[i] = 0.0f;
     g_pn[i] = 0.0f;
     rt::pow_adj(ri[i], pn[i], g[i], &g_ri[i], &g_pn[i]);
+  }
+}
+
+// tid, u, v (m), g (3m), the atlas as rt_trace_bwd_host's -> gu, gv (m):
+// the texture fetch's adjoint.
+void rt_fetch_texture_adj(int m, const int* tid, const float* u, const float* v, const float* g,
+                          const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                          int tex_len, float* gu, float* gv) {
+  const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
+                          tex_len};
+  for (int i = 0; i < m; ++i) {
+    gu[i] = 0.0f;
+    gv[i] = 0.0f;
+    rt::fetch_texture_adj(tx, tid[i], u[i], v[i], rt::c3(g[3 * i], g[3 * i + 1], g[3 * i + 2]),
+                          &gu[i], &gv[i]);
   }
 }
 

@@ -9,10 +9,14 @@
 // image is 24 MB of output and the scene at most 512 objects * 92 B = 47 KB,
 // while each pixel runs a data-dependent tree of bounces, shadow rays and
 // refraction sub-traces, each an O(objects) scan. The design is simple and
-// right, not fast: the object tables are staged in shared memory once per
-// block (the raycast reads the same row in every thread, a broadcast; the
-// hit gather reads one row per thread), each thread branches on its own
-// hits, and the refraction recursion is an explicit per-thread stack.
+// right, not fast: the object tables and the texture meta rows are staged in
+// shared memory once per block (the raycast reads the same row in every
+// thread, a broadcast; the hit gather reads one row per thread), each thread
+// branches on its own hits, and the refraction recursion is an explicit
+// per-thread stack. The texture atlas (K1a; 1 MB for one 256x256 texture)
+// stays in global memory: a textured hit reads its texel's four taps in one
+// 16-byte read-only load, and neighbouring pixels of a floor read
+// neighbouring texels, which the L1 and L2 caches serve.
 // The grid covers (H, W) exactly and masks the ragged edge; there is no
 // padding. Built with --fmad=false, so each product and sum rounds on its
 // own as in the plain PyTorch version (ops/trace.py); a later change may
@@ -33,13 +37,14 @@ constexpr int BLOCK_Y = 8;
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
                  const float* __restrict__ cam, const float* __restrict__ light,
-                 int n, rt::Params p, float* __restrict__ out_r,
+                 int n, rt::Params p, rt::TexArgs tx, float* __restrict__ out_r,
                  float* __restrict__ out_g, float* __restrict__ out_b) {
   extern __shared__ float smem[];
   float* s_f32 = smem;
   int* s_i32 = reinterpret_cast<int*>(s_f32 + n * rt::F32_COLS);
   float* s_cam = reinterpret_cast<float*>(s_i32 + n * rt::I32_COLS);
   float* s_light = s_cam + rt::CAM_COLS;
+  int* s_meta = reinterpret_cast<int*>(s_light + rt::LIGHT_COLS);
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
@@ -47,6 +52,7 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   for (int k = tid; k < n * rt::I32_COLS; k += nthreads) s_i32[k] = i32t[k];
   if (tid < rt::CAM_COLS) s_cam[tid] = cam[tid];
   if (tid < rt::LIGHT_COLS) s_light[tid] = light[tid];
+  for (int k = tid; k < tx.n_tex * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
   __syncthreads();
 
   const int ix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -58,6 +64,8 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   s.i32 = s_i32;
   s.n = n;
   s.light = rt::v3(s_light[0], s_light[1], s_light[2]);
+  s.tx = tx;
+  s.tx.meta = s_meta;
   rt::C3 c = rt::trace_pixel(s, p, s_cam, ix, iy);
   const size_t o = static_cast<size_t>(iy) * p.xres + ix;
   out_r[o] = c.r;
@@ -69,20 +77,30 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
 
 extern "C" {
 
-// Shared memory the launch needs for n objects, in bytes.
-size_t rt_trace_fwd_smem(int n) {
+// Shared memory the launch needs for n objects and n_tex textures, in bytes.
+size_t rt_trace_fwd_smem(int n, int n_tex) {
   return sizeof(float) * (n * rt::F32_COLS + rt::CAM_COLS + rt::LIGHT_COLS) +
-         sizeof(int) * n * rt::I32_COLS;
+         sizeof(int) * (n * rt::I32_COLS + n_tex * rt::TEX_META_COLS);
 }
 
 // Launch the trace forward on ``stream`` of ``device``; returns the
-// cudaError_t of the launch (0 = success).
+// cudaError_t of the launch (0 = success). ``tex`` is the atlas of
+// ``tex_len`` 16-byte texels, ``tex_stride`` a row, and ``tex_meta`` its
+// (n_tex, 4) table; null and zeros for an untextured scene.
 int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, float sx, float sy, int max_reflections,
-                 int refraction_cap, int bg, float* out_r, float* out_g, float* out_b,
+                 int refraction_cap, int bg, const void* tex, const int* tex_meta, int n_tex,
+                 int tex_stride, int tex_len, float* out_r, float* out_g, float* out_b,
                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = rt_trace_fwd_smem(n, n_tex);
+  if (smem > 48 * 1024) {  // above 48 KB a block may take dynamic shared memory only when asked
+    err = cudaFuncSetAttribute(trace_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
   rt::Params p;
   p.xres = xres;
   p.yres = yres;
@@ -93,8 +111,8 @@ int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.bg = bg;
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((xres + BLOCK_X - 1) / BLOCK_X, (yres + BLOCK_Y - 1) / BLOCK_Y);
-  trace_fwd_kernel<<<grid, block, rt_trace_fwd_smem(n), static_cast<cudaStream_t>(stream)>>>(
-      f32t, i32t, cam, light, n, p, out_r, out_g, out_b);
+  trace_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      f32t, i32t, cam, light, n, p, tx, out_r, out_g, out_b);
   return static_cast<int>(cudaGetLastError());
 }
 

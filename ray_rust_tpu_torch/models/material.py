@@ -2,9 +2,8 @@
 
 PyTorch counterpart of ``ray_rust_tpu/models/material.py``. Every material
 field is stacked into a table of ``(M,)`` tensors; objects refer to rows by
-index. Image textures (``TextureBank``) come with the textures slice: until
-then a spec that carries a texture is refused by
-:func:`build_material_table`.
+index. Image textures are stacked into one :class:`TextureBank`, and a
+material refers to its texture by ``texture_id``.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.image import PngNotRgb, load_png
 from .vec import Color
 
 __all__ = [
@@ -29,7 +29,9 @@ __all__ = [
     "UVMAP_LL",
     "MaterialSpec",
     "MaterialTable",
+    "TextureBank",
     "build_material_table",
+    "load_texture",
 ]
 
 # RenderPattern (render.rs:44-49)
@@ -68,11 +70,55 @@ class MaterialSpec:
     texture: Optional[np.ndarray] = None  # (H, W, 3) uint8, RGB only
 
     def texture_ok(self, path: str) -> "MaterialSpec":
-        """Record the texture path. Loading images comes with the textures
-        slice; a missing file is ignored quietly as in the reference
-        (render.rs:177-181), so a spec stays untextured here."""
+        """Attach a texture image, quietly ignoring load failure
+        (render.rs:177-181)."""
         self.texture_name = path
+        self.texture = load_texture(path)
         return self
+
+
+# Signatures of image files that PIL, which the JAX package reads textures
+# with, would decode and this port does not: such a file raises rather than
+# leaving the material untextured.
+_OTHER_IMAGES = (b"\xff\xd8\xff", b"BM", b"II*\x00", b"MM\x00*", b"P6")
+
+
+def load_texture(path: str) -> Optional[np.ndarray]:
+    """Load an RGB8 texture (``(H, W, 3)`` uint8), or None where the JAX
+    package's ``load_texture`` gives None: a missing file, a file that is no
+    image, or a PNG that is not RGB (the reference only samples
+    ``DynamicImage::ImageRgb8``, render.rs:251). 16-bit RGB keeps the high
+    byte, as PIL does. An interlaced PNG, or another image format, raises
+    ``ValueError``: the JAX package would texture with it, so None would
+    render a different image."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(12)
+    except OSError:
+        return None
+    if head.startswith(_OTHER_IMAGES) or (head[:4] == b"RIFF" and head[8:12] == b"WEBP"):
+        raise ValueError(f"{path}: textures are read from PNG files only")
+    if not head.startswith(b"\x89PNG\r\n\x1a\n"):
+        return None
+    try:
+        return load_png(path)
+    except PngNotRgb:
+        return None
+
+
+class TextureBank(NamedTuple):
+    """Stacked, zero-padded texture atlas with per-texture true sizes.
+
+    ``packed`` stores each texel's 2x2 wrap-around neighbourhood (p00, p10,
+    p01, p11: x then y, 12 u8 channels), so one lookup serves both filters
+    (``ops/texture.py:sample_texture_packed``) and the trace kernel reads a
+    texel's four taps in one 16-byte load (``ops/kernel_trace.py:
+    pack_textures``)."""
+
+    data: torch.Tensor  # (T, Hmax, Wmax, 3) uint8
+    heights: torch.Tensor  # (T,) int32
+    widths: torch.Tensor  # (T,) int32
+    packed: torch.Tensor  # (T, Hmax, Wmax, 12) uint8
 
 
 class MaterialTable(NamedTuple):
@@ -92,12 +138,36 @@ class MaterialTable(NamedTuple):
     texture_filter: torch.Tensor  # int32
 
 
-def build_material_table(specs: Sequence[MaterialSpec]) -> MaterialTable:
-    """Stack host specs into a :class:`MaterialTable`; ``specs`` order
-    defines material ids."""
-    if any(s.texture is not None for s in specs):
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP queue 2, K1a)")
+def _texture_bank(textures: list) -> TextureBank:
+    hmax = max(t.shape[0] for t in textures)
+    wmax = max(t.shape[1] for t in textures)
+    data = np.zeros((len(textures), hmax, wmax, 3), np.uint8)
+    packed = np.zeros((len(textures), hmax, wmax, 12), np.uint8)
+    for i, t in enumerate(textures):
+        h, w = t.shape[:2]
+        data[i, :h, :w] = t
+        xp = (np.arange(w) + 1) % w
+        yp = (np.arange(h) + 1) % h
+        packed[i, :h, :w, 0:3] = t
+        packed[i, :h, :w, 3:6] = t[:, xp]  # (x+1 wrap, y)
+        packed[i, :h, :w, 6:9] = t[yp, :]  # (x, y+1 wrap)
+        packed[i, :h, :w, 9:12] = t[yp][:, xp]  # (x+1, y+1)
+    sizes = np.asarray([t.shape[:2] for t in textures], np.int32)
+    return TextureBank(torch.from_numpy(data), torch.from_numpy(sizes[:, 0].copy()),
+                       torch.from_numpy(sizes[:, 1].copy()), torch.from_numpy(packed))
+
+
+def build_material_table(specs: Sequence[MaterialSpec]):
+    """Stack host specs into a :class:`MaterialTable` and a
+    :class:`TextureBank` (None when no spec has a texture). Returns
+    ``(table, bank_or_None)``; ``specs`` order defines material ids, and each
+    textured material gets its own texture id, in that order."""
+    textures, tex_ids = [], []
+    for s in specs:
+        tex_ids.append(len(textures) if s.texture is not None else -1)
+        if s.texture is not None:
+            textures.append(np.asarray(s.texture, np.uint8))
+    bank = _texture_bank(textures) if textures else None
 
     def f32(vals):
         return torch.tensor(np.asarray(vals, np.float32))
@@ -105,7 +175,7 @@ def build_material_table(specs: Sequence[MaterialSpec]) -> MaterialTable:
     def i32(vals):
         return torch.tensor(np.asarray(vals, np.int32))
 
-    return MaterialTable(
+    table = MaterialTable(
         diffuse=Color(*(f32([s.diffuse[c] for s in specs]) for c in range(3))),
         specular=Color(*(f32([s.specular[c] for s in specs]) for c in range(3))),
         pn=f32([s.pn for s in specs]),
@@ -116,6 +186,7 @@ def build_material_table(specs: Sequence[MaterialSpec]) -> MaterialTable:
         pattern=i32([s.pattern for s in specs]),
         pattern_scale=f32([s.pattern_scale for s in specs]),
         pattern_angle_scale=f32([s.pattern_angle_scale for s in specs]),
-        texture_id=i32([-1] * len(specs)),
+        texture_id=i32(tex_ids),
         texture_filter=i32([s.texture_filter for s in specs]),
     )
+    return table, bank

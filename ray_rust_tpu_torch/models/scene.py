@@ -11,14 +11,14 @@ is raised rather than a silent CPU scene.
 leaves keyed by dotted field path (``"objects.org.x"``), the layout
 :func:`scene_to_numpy` writes for any scene of the same structure — including
 the JAX package's, whose field names are the same. That is how one scene is
-carried into both packages.
+carried into both packages, its texture atlas too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import typing
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ import torch
 from .material import (
     MaterialSpec,
     MaterialTable,
+    TextureBank,
     UVMAP_XY,
     build_material_table,
 )
@@ -93,7 +94,7 @@ class Scene(NamedTuple):
     materials: MaterialTable
     camera: Camera
     light: Vec3  # normalized direction toward the light
-    textures: None = None  # image textures come with the textures slice
+    textures: Optional[TextureBank] = None
 
     @property
     def device(self) -> torch.device:
@@ -147,7 +148,7 @@ def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
     (render.rs:1187-1189). The camera quaternion and the light are computed
     on the host, so every device gets the same values."""
     mat_ids = {m.name: i for i, m in enumerate(materials)}
-    table = build_material_table(materials)
+    table, bank = build_material_table(materials)
 
     kinds, orgs, radii, normals, mats, uvmaps = [], [], [], [], [], []
     for o in objects:
@@ -187,6 +188,7 @@ def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
         materials=table,
         camera=Camera.from_pyr(v3(*camera_position), v3(*camera_pyr)),
         light=v3(*light).normalized(),
+        textures=bank,
     ).to(device)
     meta = SceneMeta(
         material_names=tuple(m.name for m in materials),
@@ -196,11 +198,13 @@ def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
     return scene, meta
 
 
-def default_scene(texture_dir: str = ".", device="cuda"):
+def default_scene(texture_dir: str = ".", texture_filter: int = 0, device="cuda"):
     """The reference's built-in scene (src/main.rs:154-276): a floor, two
-    mirror spheres, a red sphere and a glass sphere. The floor texture
-    ``bar.png`` is not loaded yet, so the floor keeps its gradation
-    pattern, as the reference does when the file is absent."""
+    mirror spheres, a red sphere and a glass sphere. The floor takes the
+    texture ``<texture_dir>/bar.png`` where that is an RGB PNG
+    (:func:`~.material.load_texture`), filtered by ``texture_filter`` (0 =
+    Nearest, the reference's default, render.rs:59-63; 1 = Bilinear), and
+    keeps its gradation pattern otherwise."""
     import os
 
     from .material import PATTERN_GRADATION, UVMAP_ZX
@@ -212,6 +216,7 @@ def default_scene(texture_dir: str = ".", device="cuda"):
         pattern=PATTERN_GRADATION,
         pattern_scale=300.0,
         pattern_angle_scale=0.2,
+        texture_filter=texture_filter,
     ).texture_ok(os.path.join(texture_dir, "bar.png"))
     mirror = MaterialSpec(name="mirror", specular=(1.0, 1.0, 1.0), pn=24)
     red = MaterialSpec(name="red", diffuse=(0.8, 0.0, 0.0), pn=24,
@@ -243,6 +248,9 @@ def _leaf_paths(tree, prefix=""):
         path = prefix + name
         if hasattr(leaf, "_fields"):
             yield from _leaf_paths(leaf, path + ".")
+        elif hasattr(leaf, "packed"):  # the JAX package's TextureBank, a class
+            for field in TextureBank._fields:
+                yield f"{path}.{field}", getattr(leaf, field)
         else:
             yield path, leaf
 
@@ -258,23 +266,32 @@ def scene_to_numpy(scene) -> dict:
     return out
 
 
+def _leaf_dtype(a: np.ndarray) -> torch.dtype:
+    """f32 for float leaves; uint8 (the texture atlas) stays uint8; other
+    integer leaves become int32."""
+    if a.dtype == np.uint8:
+        return torch.uint8
+    return torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32
+
+
 def scene_from_numpy(leaves: dict, device="cuda") -> Scene:
     """Build a :class:`Scene` on ``device`` from :func:`scene_to_numpy`'s
-    layout. Float leaves become f32 tensors, integer leaves int32 tensors."""
-    if any(k.split(".")[0] == "textures" for k in leaves):
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP queue 2, K1a)")
+    layout. Float leaves become f32 tensors, uint8 leaves stay uint8, other
+    integer leaves become int32; an optional part (the textures) is None
+    when no leaf lies under it."""
 
     def build(cls, prefix):
         fields = []
         for name, typ in typing.get_type_hints(cls).items():
             path = prefix + name
-            if typ is type(None):
-                fields.append(None)
-            elif typ is torch.Tensor:
+            if typing.get_origin(typ) is Union:  # Optional[...]
+                typ = next(a for a in typing.get_args(typ) if a is not type(None))
+                if not any(k.startswith(path + ".") for k in leaves):
+                    fields.append(None)
+                    continue
+            if typ is torch.Tensor:
                 a = np.asarray(leaves[path])
-                dtype = torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32
-                fields.append(torch.tensor(a, dtype=dtype, device=device))
+                fields.append(torch.tensor(a, dtype=_leaf_dtype(a), device=device))
             else:  # a nested NamedTuple
                 fields.append(build(typ, path + "."))
         return cls(*fields)

@@ -19,11 +19,13 @@ __all__ = ["HitFields", "gather_hit_fields", "surface_normal_from"]
 
 
 class HitFields(NamedTuple):
-    """All per-hit fields the untextured shading/bounce path needs."""
+    """All per-hit fields the shading/bounce path needs."""
 
     kind: torch.Tensor  # int32
     uvmap: torch.Tensor  # int32
     pattern: torch.Tensor  # int32
+    texture_id: torch.Tensor  # int32, -1 = none
+    texture_filter: torch.Tensor  # int32
 
     org: Vec3
     normal: Vec3
@@ -45,6 +47,8 @@ def gather_hit_fields(scene: Scene, idx) -> HitFields:
         kind=objs.kind[idx],
         uvmap=objs.uvmap[idx],
         pattern=mats.pattern[m],
+        texture_id=mats.texture_id[m],
+        texture_filter=mats.texture_filter[m],
         org=objs.org.take(idx),
         normal=objs.normal.take(idx),
         diffuse=mats.diffuse.take(m),

@@ -56,7 +56,8 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     if not cfg.use_raymarching:
         return "trace mode runs in the trace kernel (K1, ops/kernel_trace.py)"
     if scene.textures is not None:
-        return "image textures are not ported yet (ROADMAP queue 2, K1a)"
+        return ("textured march: the march kernels do not read image textures yet "
+                "(ROADMAP queue 1 item 3)")
     if scene.objects.count > KERNEL_OBJECT_MAX:
         return f"more than {KERNEL_OBJECT_MAX} objects"
     if cfg.bg not in BG_IDS:

@@ -3,11 +3,12 @@
 Counterpart of ``ray_rust_tpu/ops/pallas_trace.py``. The kernel
 (``csrc/trace_fwd.cu``, per-pixel body ``csrc/trace_body.cuh``) replaces the
 Pallas kernel ``render_color_pallas``: camera rays, the reflection loop,
-nearest-hit scans, shading with shadow rays, patterns, the refraction
-subtree and the sky, one thread per pixel, for untextured trace-mode scenes
-of up to 512 objects. Every object is scanned for every ray; the JAX
-kernel's per-tile cull for large scenes is exact, so it changes no pixel, and
-it is later work.
+nearest-hit scans, shading with shadow rays, patterns and image textures
+(K1a), the refraction subtree and the sky, one thread per pixel, for
+trace-mode scenes of up to 512 objects. Every object is scanned for every
+ray; the JAX kernel's per-tile cull for large scenes is exact, so it changes
+no pixel, and it is later work. The texture atlas goes to the kernel as
+:func:`pack_textures` lays it out.
 
 :func:`render_color_kernel` launches the kernel or raises; it never falls
 back. :func:`render_color_plain` computes the same function with PyTorch
@@ -30,6 +31,8 @@ from .trace import trace_image
 
 __all__ = [
     "pack_scene",
+    "pack_textures",
+    "texture_args",
     "kernel_supported",
     "unsupported_reason",
     "render_color_kernel",
@@ -44,6 +47,8 @@ LAUNCHES = 0
 KERNEL_OBJECT_MAX = 512  # the tables must fit one block's shared memory
 STACK_CAP = 16  # csrc/trace_body.cuh: rt::STACK_CAP
 F32_COLS, I32_COLS = 19, 4
+TEX_META_COLS = 4  # csrc/trace_body.cuh: rt::TEX_META_COLS
+TEXTURE_MAX = 1024  # the meta rows share the block's shared memory with the tables
 
 
 def pack_scene(scene: Scene):
@@ -81,12 +86,59 @@ def pack_scene(scene: Scene):
     return f32t, i32t, cam_t, light_t
 
 
+def pack_textures(scene: Scene):
+    """The kernel's texture atlas, or None for an untextured scene:
+    ``(atlas, meta)``. ``atlas`` is ``(T, Hmax, Wmax, 4)`` int32, 16 bytes a
+    texel holding its four taps (``TextureBank.packed``'s p00, p10,
+    p01, p11) as ``r | g<<8 | b<<16`` words, texture-major with row stride
+    ``Wmax``: the layout of the JAX package's ``_pack_textures``
+    (``pallas_trace.py:200-265``) without its 128-lane chunks. ``meta`` is
+    ``(T, 4)`` int32 rows ``[width, height, base texel, filter]``, the
+    filter of the texture's owner material (by scatter-max, so a texture
+    shared by a Nearest and a Bilinear material is Bilinear, as there)."""
+    bank = scene.textures
+    if bank is None:
+        return None
+    t, hmax, wmax = bank.packed.shape[:3]
+    q = bank.packed.to(torch.int32).reshape(t * hmax * wmax, 4, 3)
+    atlas = (q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)).reshape(t, hmax, wmax, 4)
+    mats = scene.materials
+    tid = mats.texture_id.long()
+    owner_filt = torch.where(tid >= 0, mats.texture_filter, 0).to(torch.int32)
+    filt = torch.zeros(t, dtype=torch.int32, device=atlas.device).scatter_reduce(
+        0, tid.clamp(0, t - 1), owner_filt, reduce="amax")
+    base = torch.arange(t, dtype=torch.int32, device=atlas.device) * (hmax * wmax)
+    meta = torch.stack([bank.widths.to(torch.int32), bank.heights.to(torch.int32), base, filt],
+                       dim=1).contiguous()
+    return atlas, meta
+
+
+def texture_args(tex, device) -> list:
+    """The launcher's texture arguments (also those of the host builds) for
+    :func:`pack_textures`'s pair on ``device``, or for None: the atlas and
+    meta pointers, the texture count, the row stride and the atlas length in
+    texels. Raises unless the pair is as the kernels take it."""
+    if tex is None:
+        return [None, None, 0, 0, 0]
+    atlas, meta = tex
+    t, hmax, wmax = atlas.shape[:3]
+    check_tensor(atlas, "texture atlas", torch.int32, (t, hmax, wmax, 4), device)
+    check_tensor(meta, "texture meta", torch.int32, (t, TEX_META_COLS), device)
+    if atlas.data_ptr() % 16:
+        raise ValueError("the texture atlas must be 16-byte aligned")
+    return [atlas.data_ptr(), meta.data_ptr(), t, wmax, t * hmax * wmax]
+
+
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the kernel cannot render ``scene`` under ``cfg``, or None."""
     if cfg.use_raymarching:
         return "march mode runs in the march kernel (K3, ops/kernel_march.py)"
     if scene.textures is not None:
-        return "image textures are not ported yet (ROADMAP queue 2, K1a)"
+        t, hmax, wmax = scene.textures.packed.shape[:3]
+        if t > TEXTURE_MAX:
+            return f"more than {TEXTURE_MAX} textures"
+        if t * hmax * wmax >= 2**31:
+            return "a texture atlas of 2^31 texels or more"
     if scene.objects.count > KERNEL_OBJECT_MAX:
         return f"more than {KERNEL_OBJECT_MAX} objects"
     if cfg.bg not in BG_IDS:
@@ -98,8 +150,9 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """Trace mode, untextured, at most 512 objects (the JAX kernel's
-    ``pallas_supported`` for untextured scenes)."""
+    """Trace mode, at most 512 objects, textured or not (the JAX kernel's
+    ``pallas_supported`` with its in-kernel textures, for atlases within
+    its cap)."""
     return unsupported_reason(scene, cfg) is None
 
 
@@ -121,8 +174,9 @@ def launch(lib, fn, tables, cfg: RenderConfig, args: list) -> Color:
     """Call launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres, sx, sy,
     *args, out_r, out_g, out_b, device, stream)`` on the current stream
     with the packed scene ``tables`` (:func:`pack_scene`'s four) and return
-    the image; raises if the tables or the launch are not as the kernel
-    takes them."""
+    the image (``args``: the kernel's ``kernel_args``, and for the trace
+    kernel :func:`texture_args`); raises if the tables or the launch are not
+    as the kernel takes them."""
     check_tables(tables)
     f32t, i32t, cam, light = tables
     dev = f32t.device
@@ -167,18 +221,20 @@ def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
     a CUDA device; the image is returned there as a Color of ``(H, W)``
     planes. Raises on anything the kernel does not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace")
-    return render_tables_kernel(pack_scene(scene), cfg)
+    return render_tables_kernel(pack_scene(scene), cfg, pack_textures(scene))
 
 
-def render_tables_kernel(tables, cfg: RenderConfig) -> Color:
+def render_tables_kernel(tables, cfg: RenderConfig, tex=None) -> Color:
     """Launch the trace kernel on packed tables (:func:`pack_scene`'s four,
-    on a CUDA device) that the caller has checked with
+    on a CUDA device) and texture atlas ``tex`` (:func:`pack_textures`'s
+    pair, or None) that the caller has checked with
     :func:`unsupported_reason`."""
     global LAUNCHES
     from ._build import load_cuda_library
 
     lib = load_cuda_library("trace_fwd")
-    img = launch(lib, lib.rt_trace_fwd, tables, cfg, kernel_args(cfg))
+    args = kernel_args(cfg) + texture_args(tex, tables[0].device)
+    img = launch(lib, lib.rt_trace_fwd, tables, cfg, args)
     LAUNCHES += 1
     return img
 

@@ -3,18 +3,20 @@ version, and the autograd pairing of the two trace kernels.
 
 Counterpart of ``ray_rust_tpu/ops/pallas_bwd.py``. The kernel
 (``csrc/trace_bwd.cu``, per-pixel body ``csrc/trace_bwd_body.cuh``) replaces
-the Pallas kernel ``render_color_pallas_grads_site`` for untextured
-trace-mode scenes of up to 512 objects: from the packed scene tables and the
-cotangent of the image it gives the cotangents of the f32 table ``(N, 19)``,
-the camera ``(1, 8)`` and the light ``(1, 4)``. It records each pixel's
-raycast sites with the forward kernel's own traversal, then runs a
-hand-written adjoint over them backwards; the JAX kernel's pruned replay
-variants are not carried over.
+the Pallas kernel ``render_color_pallas_grads_site`` for trace-mode scenes of
+up to 512 objects, textured or not: from the packed scene tables, the
+texture atlas and the cotangent of the image it gives the cotangents of the
+f32 table ``(N, 19)``, the camera ``(1, 8)`` and the light ``(1, 4)``. It
+records each pixel's raycast sites with the forward kernel's own traversal,
+then runs a hand-written adjoint over them backwards; at a textured hit only
+the bilinear weights depend on the uv (the u8 texels get no gradient). The
+JAX kernel's pruned replay variants are not carried over.
 
 :class:`TraceRender` pairs the forward kernel with it, as ``_fast_fn``
 (``pallas_trace.py:1670-1701``) pairs the JAX kernels: its forward launches
 the trace kernel on the packed tables and saves nothing else, its backward
-launches this kernel. :func:`render_color_grad` wraps the scene's
+launches this kernel; the atlas rides along as a constant.
+:func:`render_color_grad` wraps the scene's
 differentiable :func:`pack_scene` around it, so autograd carries the table
 cotangents to the scene's leaves, through the object->material gather (the
 counterpart of ``jax.vjp(pack_f32, scene)``).
@@ -37,7 +39,15 @@ from ..models.quat import Quat
 from ..models.scene import Camera, ObjectTable, Scene, scene_to_numpy
 from ..models.vec import Color, Vec3
 from . import kernel_trace
-from .kernel_trace import F32_COLS, check_launchable, check_tables, check_tensor, pack_scene
+from .kernel_trace import (
+    F32_COLS,
+    check_launchable,
+    check_tables,
+    check_tensor,
+    pack_scene,
+    pack_textures,
+    texture_args,
+)
 from .rays import fov_scales
 
 __all__ = [
@@ -112,15 +122,16 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """Trace mode, untextured, at most 512 objects, at most ``SITE_CAP``
-    raycast sites per pixel."""
+    """Trace mode, at most 512 objects, textured or not, at most
+    ``SITE_CAP`` raycast sites per pixel."""
     return unsupported_reason(scene, cfg) is None
 
 
-def _scene_from_tables(f32t, i32t, cam, light) -> Scene:
+def _scene_from_tables(f32t, i32t, cam, light, textures, texture_filter) -> Scene:
     """A scene whose leaves are the tables' columns, one material per
-    object: it renders as the scene the tables were packed from, and its
-    gradient is the tables' cotangent."""
+    object, with the texture bank ``textures`` (or None) and each object's
+    texture filter ``texture_filter``: it renders as the scene the tables
+    were packed from, and its gradient is the tables' cotangent."""
     n = f32t.shape[0]
 
     def col(k):
@@ -137,13 +148,13 @@ def _scene_from_tables(f32t, i32t, cam, light) -> Scene:
         diffuse=Color(col(6), col(7), col(8)), specular=Color(col(9), col(10), col(11)),
         pn=col(12), transparency=col(13), refraction=col(14), glow_dist=col(18),
         frac=Color(ones, ones, ones), pattern=i32t[:, 1], pattern_scale=col(15),
-        pattern_angle_scale=col(16), texture_id=i32t[:, 3],
-        texture_filter=torch.zeros_like(i32t[:, 3]))
+        pattern_angle_scale=col(16), texture_id=i32t[:, 3], texture_filter=texture_filter)
     c = cam[0]
     pad = c[7]  # pyr is not rendered: the pad stands in
     camera = Camera(position=Vec3(c[0], c[1], c[2]), pyr=Vec3(pad, pad, pad),
                     rotation=Quat(c[3], c[4], c[5], c[6]))
-    return Scene(objects, materials, camera, Vec3(light[0, 0], light[0, 1], light[0, 2]))
+    return Scene(objects, materials, camera, Vec3(light[0, 0], light[0, 1], light[0, 2]),
+                 textures)
 
 
 def render_grads_plain(scene: Scene, cfg: RenderConfig, g: Color):
@@ -152,8 +163,10 @@ def render_grads_plain(scene: Scene, cfg: RenderConfig, g: Color):
     tables. Returns ``(g_f32t (N, 19), g_cam (1, 8), g_light (1, 4))``."""
     f32t, i32t, cam, light = (t.detach() for t in pack_scene(scene))
     wrt = tuple(t.requires_grad_() for t in (f32t, cam, light))
+    filt = scene.materials.texture_filter[scene.objects.mat.long()]
     with torch.enable_grad():
-        img = kernel_trace.render_color_plain(_scene_from_tables(f32t, i32t, cam, light), cfg)
+        img = kernel_trace.render_color_plain(
+            _scene_from_tables(f32t, i32t, cam, light, scene.textures, filt), cfg)
         grads = torch.autograd.grad(tuple(img), wrt, tuple(g), allow_unused=True)
     return tuple(torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads))
 
@@ -170,7 +183,9 @@ def launch_grads(lib, fn, tables, cfg: RenderConfig, args: list, g: Color,
                  return_primal: bool):
     """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres,
     sx, sy, *args, g_r, g_g, g_b, block, prim_r, prim_g, prim_b, device,
-    stream)`` on packed tables and image cotangent planes ``g`` on their
+    stream)`` (``args``: :func:`kernel_args` and, for this kernel,
+    :func:`kernel_trace.texture_args`) on packed tables and image cotangent
+    planes ``g`` on their
     CUDA device; returns :func:`split_block`'s three cotangents, and the
     image the kernel traced with ``return_primal``. Raises if the inputs or
     the launch are not as the kernel takes them."""
@@ -193,13 +208,15 @@ def launch_grads(lib, fn, tables, cfg: RenderConfig, args: list, g: Color,
     return (grads, Color(prim[0], prim[1], prim[2])) if return_primal else grads
 
 
-def _launch(tables, cfg: RenderConfig, g: Color, return_primal: bool):
-    """Launch the backward kernel (:func:`launch_grads`)."""
+def _launch(tables, tex, cfg: RenderConfig, g: Color, return_primal: bool):
+    """Launch the backward kernel (:func:`launch_grads`) on packed tables and
+    texture atlas ``tex`` (:func:`kernel_trace.pack_textures`)."""
     global LAUNCHES
     from ._build import load_cuda_library
 
     lib = load_cuda_library("trace_bwd")
-    out = launch_grads(lib, lib.rt_trace_bwd, tables, cfg, kernel_args(cfg), g, return_primal)
+    args = kernel_args(cfg) + texture_args(tex, tables[0].device)
+    out = launch_grads(lib, lib.rt_trace_bwd, tables, cfg, args, g, return_primal)
     LAUNCHES += 1
     return out
 
@@ -222,7 +239,8 @@ def render_grads_kernel(scene: Scene, cfg: RenderConfig, g: Color,
     take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace backward")
     tables = tuple(t.detach() for t in pack_scene(scene))
-    return _launch(tables, cfg, Color(*(c.contiguous() for c in g)), return_primal)
+    return _launch(tables, pack_textures(scene), cfg, Color(*(c.contiguous() for c in g)),
+                   return_primal)
 
 
 def leaf_grads(scene: Scene, table_grads) -> dict:
@@ -242,21 +260,24 @@ def leaf_grads(scene: Scene, table_grads) -> dict:
 class TraceRender(torch.autograd.Function):
     """The image as a function of the packed tables: the forward kernel in
     the forward pass, the backward kernel in the backward pass. The i32
-    table and the config get no gradient."""
+    table, the texture atlas and its meta (None for an untextured scene)
+    and the config get no gradient."""
 
     @staticmethod
-    def forward(ctx, f32t, cam, light, i32t, cfg):
-        ctx.save_for_backward(f32t, cam, light, i32t)
+    def forward(ctx, f32t, cam, light, i32t, atlas, meta, cfg):
+        ctx.save_for_backward(f32t, cam, light, i32t, atlas, meta)
         ctx.cfg = cfg
-        img = kernel_trace.render_tables_kernel((f32t, i32t, cam, light), cfg)
+        tex = None if atlas is None else (atlas, meta)
+        img = kernel_trace.render_tables_kernel((f32t, i32t, cam, light), cfg, tex)
         return img.r, img.g, img.b
 
     @staticmethod
     def backward(ctx, g_r, g_g, g_b):
-        f32t, cam, light, i32t = ctx.saved_tensors
+        f32t, cam, light, i32t, atlas, meta = ctx.saved_tensors
         g = Color(*(c.contiguous() for c in (g_r, g_g, g_b)))
-        g_f32t, g_cam, g_light = _launch((f32t, i32t, cam, light), ctx.cfg, g, False)
-        return g_f32t, g_cam, g_light, None, None
+        tex = None if atlas is None else (atlas, meta)
+        g_f32t, g_cam, g_light = _launch((f32t, i32t, cam, light), tex, ctx.cfg, g, False)
+        return g_f32t, g_cam, g_light, None, None, None, None
 
 
 def render_color_grad(scene: Scene, cfg: RenderConfig) -> Color:
@@ -265,4 +286,5 @@ def render_color_grad(scene: Scene, cfg: RenderConfig) -> Color:
     kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace backward")
     f32t, i32t, cam, light = pack_scene(scene)
-    return Color(*TraceRender.apply(f32t, cam, light, i32t, cfg))
+    atlas, meta = pack_textures(scene) or (None, None)
+    return Color(*TraceRender.apply(f32t, cam, light, i32t, atlas, meta, cfg))

@@ -1,9 +1,11 @@
 """Host-side image IO: PNG write/read and the debug gradient prefill.
 
 PyTorch-port counterpart of ``ray_rust_tpu/utils/image.py``. The PNG codec is
-a short writer over the standard library's ``zlib``, so it needs neither PIL
-nor a native toolchain. :func:`load_png` reads back the files
-:func:`save_png` writes: 8-bit RGB, rows without a filter.
+written over the standard library's ``zlib`` and numpy, so it needs neither
+PIL nor a native toolchain. :func:`encode_png` writes 8-bit RGB rows without
+a filter; :func:`load_png` reads any non-interlaced RGB PNG of bit depth 8
+or 16 with the five row filters, the files a texture comes in
+(:func:`ray_rust_tpu_torch.models.material.load_texture`).
 """
 
 from __future__ import annotations
@@ -13,9 +15,15 @@ import zlib
 
 import numpy as np
 
-__all__ = ["save_png", "encode_png", "load_png", "gradient_prefill"]
+__all__ = ["save_png", "encode_png", "load_png", "PngNotRgb", "gradient_prefill"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_COLOUR_RGB = 2
+
+
+class PngNotRgb(ValueError):
+    """A valid PNG whose pixels are not RGB (grey, grey-alpha, palette or
+    RGBA): the images the reference does not sample as textures."""
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -41,16 +49,63 @@ def save_png(path: str, data: np.ndarray) -> None:
         f.write(encode_png(data))
 
 
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
+    """Undo the row filters (PNG spec 9.2) of ``raw``: ``h`` rows of a filter
+    byte and ``stride`` bytes, ``bpp`` bytes a pixel."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, row = int(raw[y, 0]), raw[y, 1:]
+        if kind == 0:  # None
+            cur = row.copy()
+        elif kind == 1:  # Sub: a running sum along each byte of the pixel
+            cur = np.cumsum(row.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            cur = row + prev
+        elif kind in (3, 4):  # Average, Paeth: each byte needs its left result
+            cur = bytearray(row.tobytes())
+            up = prev.tolist()
+            for i in range(stride):
+                left = cur[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    pred = (left + up[i]) >> 1
+                else:
+                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"{path}: row {y} has unknown filter type {kind}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
 def load_png(path: str) -> np.ndarray:
-    """Read a PNG written by :func:`save_png` into an ``(H, W, 3)`` uint8 array."""
+    """Read an RGB PNG into an ``(H, W, 3)`` uint8 array: bit depth 8, or 16
+    with the high byte of each sample kept (as PIL's ``RGB;16B`` mode does),
+    any of the five row filters. Raises :class:`PngNotRgb` for grey,
+    grey-alpha, palette and RGBA files, and ``ValueError`` for a file that is
+    not a PNG, is damaged, or is interlaced (Adam7), which this reader does
+    not decode."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None
-    while pos < len(blob):
+    while pos + 8 <= len(blob):
         (n,) = struct.unpack(">I", blob[pos:pos + 4])
         kind, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
+        if len(data) != n or blob[pos + 8 + n:pos + 12 + n] != struct.pack(
+                ">I", zlib.crc32(kind + data) & 0xFFFFFFFF):
+            raise ValueError(f"{path}: damaged {kind!r} chunk")
         pos += 12 + n
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", data)
@@ -58,13 +113,23 @@ def load_png(path: str) -> np.ndarray:
             idat.append(data)
         elif kind == b"IEND":
             break
+    if hdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
-    if (depth, ctype, interlace) != (8, 2, 0):
-        raise ValueError(f"{path}: only 8-bit RGB non-interlaced PNGs are read")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * 3)
-    if raw[:, 0].any():
-        raise ValueError(f"{path}: only rows without a filter (type 0) are read")
-    return raw[:, 1:].reshape(h, w, 3).copy()
+    if ctype != _COLOUR_RGB:
+        raise PngNotRgb(f"{path}: colour type {ctype}, not RGB")
+    if depth not in (8, 16):
+        raise ValueError(f"{path}: RGB at bit depth {depth}")
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not read")
+    bpp = 3 * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"{path}: {raw.size} bytes of pixel data for {w}x{h}")
+    px = _unfilter(raw.reshape(h, 1 + w * bpp), h, w * bpp, bpp, path)
+    if depth == 16:  # big-endian samples: keep the high byte
+        px = px[:, 0::2]
+    return np.ascontiguousarray(px.reshape(h, w, 3))
 
 
 def gradient_prefill(width: int, height: int) -> np.ndarray:

@@ -35,7 +35,8 @@ from ray_rust_tpu_torch.ops.sky import default_sky
 from ray_rust_tpu_torch.ops.trace import phong, refraction_ray
 
 from .test_torch_kernel_trace import (  # noqa: F401 (one_torch_thread: module fixture)
-    _glass_cluster, _many_spheres, _patterns_scene, one_torch_thread)
+    _glass_cluster, _many_spheres, _patterns_scene, one_torch_thread, textured_scene,
+    two_texture_scene)
 
 
 def _f32(rng, *shape, lo=-1.0, hi=1.0):
@@ -95,8 +96,12 @@ def test_unsupported_reason_adds_the_site_cap():
     assert "sites" in kb.unsupported_reason(scene, cfg.with_(max_reflections=4,
                                                               refraction_unroll=None))
     assert "K3" in kb.unsupported_reason(scene, cfg.with_(use_raymarching=True))
-    textured = scene._replace(textures=torch.zeros((4, 4, 3)))
-    assert "K1a" in kb.unsupported_reason(textured, cfg)
+    tex = np.zeros((4, 4, 3), np.uint8)
+    textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
+                                  [rtt.SphereSpec("t", 10.0, (0.0, 0.0, 50.0))],
+                                  (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                  device="cpu")
+    assert kb.unsupported_reason(textured, cfg) is None  # K2 takes textured sites
     with pytest.raises(ValueError, match="CUDA tensors"):
         kb.render_grads_kernel(scene, cfg, Color(*(torch.zeros(8, 8) for _ in range(3))))
     assert kb.LAUNCHES == 0
@@ -194,13 +199,14 @@ def test_pow_adjoint(host_lib):
 def _host_grads(lib, scene, cfg, g):
     """The host build's table cotangents and image for cotangent planes g."""
     tables = kt.pack_scene(scene)
+    tex = kt.pack_textures(scene)  # held until the call returns
     f32t, i32t, cam, light = tables
     n = f32t.shape[0]
     block = torch.zeros((n + 1, kb.GRAD_COLS))
     prim = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
     lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
-                          *kb.kernel_args(cfg),
+                          *kb.kernel_args(cfg), *kt.texture_args(tex, torch.device("cpu")),
                           *(c.data_ptr() for c in g), block.data_ptr(),
                           *(p.data_ptr() for p in prim), None)
     return kb.split_block(block, n), np.stack([p.numpy() for p in prim], -1)
@@ -249,6 +255,11 @@ _HOST_CASES = {
     "seventy_spheres": (lambda: _many_spheres(rtt, 70), rtt.RenderConfig(xres=48, yres=24)),
     "patterns_black_bg": (lambda: _patterns_scene(rtt),
                           rtt.RenderConfig(xres=48, yres=32, bg="black")),
+    # tests/test_pallas_bwd.py:140-149: the textured sites
+    "textured_bilinear": (lambda: textured_scene(rtt, 1, camera=(0.37, -150.3, -300.0)),
+                          rtt.RenderConfig(xres=32, yres=16, max_reflections=2,
+                                           refraction_unroll=1, grad_distance_cutoff=2e3)),
+    "two_textures": (lambda: two_texture_scene(rtt), rtt.RenderConfig(xres=48, yres=16)),
 }
 
 

@@ -138,6 +138,49 @@ def _glass_cluster(pkg):
     return scene
 
 
+def textured_scene(pkg, filt, camera=(0.0, -150.0, -300.0)):
+    """tests/test_pallas.py:572-594's scene: a 12x20 noise texture on the
+    floor, seen directly, in a mirror and through glass; ``camera``
+    (0.37, -150.3, -300.0) gives tests/test_pallas_bwd.py:116-138's."""
+    tex = np.random.default_rng(5).integers(0, 256, (12, 20, 3)).astype(np.uint8)
+    mats = [
+        pkg.MaterialSpec(name="texfloor", diffuse=(1.0, 1.0, 0.0), pattern=2,
+                         pattern_scale=300.0, pattern_angle_scale=0.2,
+                         texture_filter=filt, texture=tex),
+        pkg.MaterialSpec(name="mirror", specular=(1.0, 1.0, 1.0), pn=24),
+        pkg.MaterialSpec(name="glass", transparency=1.0, refraction=1.5),
+    ]
+    objs = [
+        pkg.FloorSpec("texfloor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0), uvmap=2),
+        pkg.SphereSpec("mirror", 80.0, (0.0, -30.0, 172.0)),
+        pkg.SphereSpec("glass", 100.0, (70.0, -200.0, 150.0)),
+    ]
+    kw = {"device": "cpu"} if pkg is rtt else {}
+    scene, _ = pkg.build_scene(mats, objs, camera, (0.0, -np.pi / 2, -np.pi / 2),
+                               (50.0, 60.0, -50.0), **kw)
+    return scene
+
+
+def two_texture_scene(pkg):
+    """tests/test_pallas.py:679-722's scene: a 200x128 Bilinear floor
+    texture and a 9x14 Nearest one on a sphere."""
+    rng = np.random.default_rng(23)
+    mats = [
+        pkg.MaterialSpec(name="texfloor", diffuse=(1.0, 1.0, 0.0), pattern_scale=300.0,
+                         pattern_angle_scale=0.2, texture_filter=1,
+                         texture=rng.integers(0, 256, (200, 128, 3)).astype(np.uint8)),
+        pkg.MaterialSpec(name="texball", diffuse=(0.5, 0.5, 0.5), pattern_scale=80.0,
+                         texture_filter=0,
+                         texture=rng.integers(0, 256, (9, 14, 3)).astype(np.uint8)),
+    ]
+    objs = [pkg.FloorSpec("texfloor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0), uvmap=2),
+            pkg.SphereSpec("texball", 120.0, (30.0, -160.0, 180.0))]
+    kw = {"device": "cpu"} if pkg is rtt else {}
+    scene, _ = pkg.build_scene(mats, objs, (0.3, -150.0, -300.0),
+                               (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0), **kw)
+    return scene
+
+
 def test_pack_scene_equals_jax():
     rt, pallas_trace = _jax()
     for jax_scene in (rt.default_scene()[0], _many_spheres(rt, 70)):
@@ -159,29 +202,27 @@ def test_plain_matches_pallas_interpret():
 
 
 def test_kernel_supported_agrees_with_pallas_supported():
-    """The CUDA kernel covers what the Pallas kernel covers without its
-    in-kernel textures (``pallas_textures=False``)."""
+    """The CUDA kernel covers what the Pallas kernel covers with its
+    in-kernel textures on (the default), for atlases within the Pallas
+    kernel's cap."""
     rt, pallas_trace = _jax()
     pallas_supported = pallas_trace.pallas_supported
     cfg = rtt.RenderConfig(xres=32, yres=24)
     default = rt.default_scene()[0]
     big = _many_spheres(rt, 512)
     assert big.objects.count == 513
-    cases = [(default, cfg), (default, cfg.with_(use_raymarching=True)), (big, cfg)]
-    for jax_scene, c in cases:
-        assert kt.kernel_supported(_port(jax_scene), c) == pallas_supported(jax_scene, _jax_cfg(c))
-    assert kt.kernel_supported(_port(default), cfg)
-    assert not kt.kernel_supported(_port(big), cfg)
-
     tex = np.zeros((4, 4, 3), np.uint8)
     jax_tex, _ = rt.build_scene([rt.MaterialSpec(name="t", texture=tex)],
                                 [rt.SphereSpec("t", 10.0, (0.0, 0.0, 50.0))],
                                 (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
-    assert not pallas_supported(jax_tex, _jax_cfg(cfg).with_(pallas_textures=False))
-    with pytest.raises(NotImplementedError):
-        _port(jax_tex)
-    textured = _port(default)._replace(textures=tex)  # a scene carrying an atlas
-    assert not kt.kernel_supported(textured, cfg)
+    cases = [(default, cfg), (default, cfg.with_(use_raymarching=True)), (big, cfg),
+             (jax_tex, cfg), (jax_tex, cfg.with_(use_raymarching=True))]
+    for jax_scene, c in cases:
+        assert kt.kernel_supported(_port(jax_scene), c) == pallas_supported(jax_scene, _jax_cfg(c))
+    assert kt.kernel_supported(_port(default), cfg)
+    assert not kt.kernel_supported(_port(big), cfg)
+    assert kt.kernel_supported(_port(jax_tex), cfg)
+    assert _port(jax_tex).textures.data.dtype == torch.uint8
 
 
 def test_cpu_render_takes_plain_version():
@@ -216,11 +257,13 @@ def host_lib(tmp_path_factory):
 
 def _host_render(lib, scene, cfg):
     f32t, i32t, cam, light = kt.pack_scene(scene)
+    tex = kt.pack_textures(scene)  # held until the call returns
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
     sx, sy = fov_scales(cfg)
     lib.rt_trace_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
                       scene.objects.count, cfg.xres, cfg.yres, sx, sy, cfg.max_reflections,
-                      cfg.refraction_cap(), BG_IDS[cfg.bg], out[0].data_ptr(),
+                      cfg.refraction_cap(), BG_IDS[cfg.bg],
+                      *kt.texture_args(tex, torch.device("cpu")), out[0].data_ptr(),
                       out[1].data_ptr(), out[2].data_ptr(), None)
     return out.permute(1, 2, 0).numpy()
 
@@ -238,6 +281,11 @@ _HOST_CASES = {
     "seventy_spheres": (lambda: _many_spheres(rtt, 70),
                         rtt.RenderConfig(xres=48, yres=24, max_reflections=2,
                                          refraction_unroll=1)),
+    "textured_nearest": (lambda: textured_scene(rtt, 0),
+                         rtt.RenderConfig(xres=64, yres=48, max_reflections=2,
+                                          refraction_unroll=2)),
+    "two_textures": (lambda: two_texture_scene(rtt),
+                     rtt.RenderConfig(xres=160, yres=32, max_reflections=1, refraction_unroll=0)),
 }
 
 
@@ -266,9 +314,14 @@ def test_cuda_kernel_matches_plain():
         _compare(_img(kt.render_color_plain(scene, cfg)), got, frac_budget=0.02,
                   mean_tol=0.01)
     # a gradient the kernels do not cover is refused, not faked or moved to
-    # the CPU (tests/test_torch_kernel_bwd.py runs the ones they cover)
-    light = scene.light.x.clone().requires_grad_()
-    textured = scene._replace(light=scene.light._replace(x=light),
-                              textures=torch.zeros((4, 4, 3), device="cuda"))
-    with pytest.raises(NotImplementedError, match="K1a"):
-        rtt.render_color(textured, cfg)
+    # the CPU (tests/test_torch_kernel_bwd.py runs the ones they cover): a
+    # textured scene in march mode
+    tex = np.zeros((4, 4, 3), np.uint8)
+    textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
+                                  [rtt.SphereSpec("t", 10.0, (0.0, 0.0, 50.0))],
+                                  (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    light = textured.light.x.clone().requires_grad_()
+    textured = textured._replace(light=textured.light._replace(x=light))
+    march = cfg.with_(use_raymarching=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        rtt.render_color(textured, march)

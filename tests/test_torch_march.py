@@ -341,8 +341,13 @@ def test_march_unsupported_reason_names_what_is_missing(change, names):
 
 def test_march_unsupported_reason_textures_and_size():
     cfg = rtt.RenderConfig(xres=8, yres=8, **_GLOW)
-    scene, _ = rtt.default_scene(device="cpu")
-    assert "textures" in km.unsupported_reason(scene._replace(textures=np.zeros(1)), cfg)
+    tex = np.zeros((4, 4, 3), np.uint8)
+    textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
+                                  [rtt.SphereSpec("t", 10.0, (0.0, 0.0, 50.0))],
+                                  (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                  device="cpu")
+    reason = km.unsupported_reason(textured, cfg)
+    assert "textures" in reason and "queue 1 item 3" in reason
     big = rtt.build_scene(
         [rtt.MaterialSpec(name="m")],
         [rtt.SphereSpec("m", 1.0, (float(i), 0.0, 100.0)) for i in range(513)],
