@@ -7,10 +7,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
-   the trace kernel (K1), the march kernel (K3), the trace backward (K2)
-   and the march backward (K4); ptxas registers, stack and spills; each
-   kernel must be one function (ptxas reports no device function beside the
-   kernel: everything is inlined, the texture fetch too);
+   the trace kernel (K1), the march kernel (K3), the trace backward (K2),
+   the march backward (K4) and the re-trace gradient oracle (K5); ptxas
+   registers, stack and spills; each kernel must be one function (ptxas
+   reports no device function beside the kernel: everything is inlined, the
+   texture fetch too);
 3. each kernel against its plain PyTorch version on the card, and against
    its full-depth golden image, each within the JAX package's golden budget:
    at most 2% of pixels off by more than 1e-3, mean difference at most 0.01;
@@ -27,7 +28,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    torch autograd of the plain march (its implicit VJP), per scene leaf
    within relative L2 0.02 (tests/test_pallas_bwd.py:306-321), at four small
    cases and at the march training path's shape, with the share of its
-   image's pixels bit-equal to the march kernel's;
+   image's pixels bit-equal to the march kernel's; the re-trace gradient
+   oracle against torch autograd of the plain trace, per scene leaf within
+   relative L2 0.01, at 320x240 (its image bit-equal to the trace kernel's)
+   and, beside the trace backward against the same plain call, at the
+   gradient oracle's main path's shape and cotangent planes;
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: trace mode, the CLI at 1920x1080 then ``render_u8`` at
    three camera poses (three viewer requests), one trace kernel launch per
@@ -42,7 +47,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scene, the loss falling at every step; march training with glow, five
    ``sgd_train_step``s at 1280x720 ``-m -g 1.0`` against the same
    kind of target, one march and one march backward launch per step, the
-   loss falling at every step;
+   loss falling at every step; the gradient oracle, ``render_grads_retrace``
+   at 1920x1080 on the default scene with cotangent planes from numpy seed
+   0, ceil(105 / lanes) re-trace launches, its cotangent against the trace
+   backward's per scene leaf within relative L2 0.01 (the JAX oracle test's
+   budget, tests/test_pallas_bwd.py:250-260) and its image bit-equal to the
+   trace kernel's on every pixel;
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
    version in turns (3 warm-ups, 10 timed renders each); the forward and
    backward step at 1920x1080 through the kernels and through plain autograd
@@ -57,11 +67,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    3: a plain frame takes tens of seconds at any size); the textured trace
    kernel at 1920x1080 in both filters, the textured training step and the
    backward kernel alone on the Bilinear scene (3 warm-ups, 10 timed calls;
-   their plain versions once, in phase 3); each kernel's
+   their plain versions once, in phase 3); the re-trace oracle and the trace
+   backward at 1920x1080 in turns (3 warm-ups, 10 timed calls each; their
+   plain version is the trace backward's, timed above); each kernel's
    roofline bound from the operation count of its main path's frame, which
    the kernel's body built for the host with -DRT_COUNT_OPS counts on the
    CPU while phases 3 and 4 run (the same body, bit for bit, as the card
-   runs).
+   runs); the re-trace oracle's bound is the trace backward's, since it
+   computes the same function on the same inputs (its forward-mode
+   operations over every launch, counted the same way, are printed beside
+   it as a diagnostic).
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.
@@ -222,6 +237,27 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     return int(ops[0]), int(ops[1])
 
 
+def count_retrace_ops(cfg):
+    """The f32 operations of every launch of the re-trace oracle's
+    cotangent on the default scene under ``cfg``: its host build with
+    -DRT_COUNT_OPS (the value scans' object tests, and every forward-mode
+    operation with its tangents). A diagnostic: the oracle's bound is the
+    trace backward's, whose function it computes."""
+    import torch
+
+    from ray_rust_tpu_torch.ops import _build
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_retrace as kr
+
+    lib = _build.build_host_library(_build.BUILD_DIR, "trace_retrace", count_ops=True)
+    scene = _host_scene(".", 0)
+    g = [torch.zeros((cfg.yres, cfg.xres), dtype=torch.float32) for _ in range(3)]
+    ops = torch.zeros(2, dtype=torch.int64)
+    kr.launch_all(lib.rt_trace_retrace_host, lib.rt_trace_retrace_lanes(), kt.pack_scene(scene),
+                  cfg, g, False, (ops.data_ptr(),))
+    return int(ops[0]), 0
+
+
 def cuda_ms(torch, fn, warm=3, reps=10):
     for _ in range(warm):
         fn()
@@ -282,6 +318,7 @@ def run(torch, tex_dir) -> int:
     from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.ops import kernel_trace_retrace as kr
     from ray_rust_tpu_torch.parallel import sgd_train_step
     from ray_rust_tpu_torch.utils.image import load_png, save_png
 
@@ -300,11 +337,12 @@ def run(torch, tex_dir) -> int:
                    "trace_fwd_textured": counting.submit(count_ops, "trace", kt, cfg_main,
                                                          tex_dir, 0),
                    "trace_bwd_textured": counting.submit(count_bwd_ops, "trace_bwd", kb,
-                                                         cfg_main, tex_dir, 1)}
+                                                         cfg_main, tex_dir, 1),
+                   "trace_retrace": counting.submit(count_retrace_ops, cfg_main)}
 
     # 2. the builds, one nvcc each, all started together
     t0 = time.time()
-    stems = ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd")
+    stems = ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd", "trace_retrace")
     _build.prebuild(stems)
     print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
           f"{time.time() - t0:.1f} s")
@@ -392,27 +430,11 @@ def run(torch, tex_dir) -> int:
 
     print("backward kernel vs torch autograd of the plain version:")
 
-    def grad_case(name, scene, cfg, seed=0, bwd=kb, fwd=kt.render_color_plain,
-                  budget=GRAD_BUDGET, bit_equal=False):
-        """Backward kernel ``bwd``'s table cotangents against autograd of the
-        plain version, mapped to the scene's leaves, and its image against
-        ``fwd``'s (on every pixel when ``bit_equal``); returns the largest
-        relative L2 and the plain version's ms (one call, CUDA events)."""
-        scene = scene.to(dev)
-        rng = np.random.default_rng(seed)
-        g = rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
-                                         .astype(np.float32)).to(dev) for _ in range(3)))
-        got, prim = bwd.render_grads_kernel(scene, cfg, g, return_primal=True)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = bwd.render_grads_plain(scene, cfg, g)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
-        peak = torch.cuda.max_memory_allocated()
-        agree = float((img(prim) == img(fwd(scene, cfg))).all(-1).mean())
+    def leaf_err(name, scene, got, want):
+        """The largest relative L2 (norm floor 1e-2) of table cotangents
+        ``got`` against ``want`` over the scene's leaves, and its leaf; every
+        leaf of ``got`` must be finite (``pattern_scale`` is checked finite
+        only)."""
         got, want = kb.leaf_grads(scene, got), kb.leaf_grads(scene, want)
         worst, worst_leaf = 0.0, None
         for path, w in want.items():
@@ -425,16 +447,49 @@ def run(torch, tex_dir) -> int:
             rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-2))
             if rel >= worst:
                 worst, worst_leaf = rel, path
-        ok = worst <= budget
-        print(f"  {name}: image bit-equal to {fwd.__module__}.{fwd.__name__}'s on {agree:.4%} "
-              f"of pixels, "
-              f"largest leaf relative L2 {worst:.3g} ({worst_leaf}), plain autograd "
-              f"{plain_ms:.1f} ms, peak {peak / 2**30:.2f} GiB -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"chip_smoke: {name}: {worst_leaf} off by relative L2 {worst:.3g}")
-        if bit_equal and agree < 1.0:
-            raise SystemExit(f"chip_smoke: {name}: the image is not {fwd.__name__}'s")
-        return worst, plain_ms
+        return worst, worst_leaf
+
+    def grad_case(name, scene, cfg, seed=0, bwd=kb, fwd=kt.render_color_plain,
+                  budget=GRAD_BUDGET, bit_equal=False, kernels=None):
+        """The table cotangents of each kernel wrapper in ``kernels`` (by
+        default ``[bwd.render_grads_kernel]``) against one call of autograd
+        of the plain version ``bwd.render_grads_plain`` on the same inputs,
+        mapped to the scene's leaves, and each one's image against ``fwd``'s
+        (on every pixel when ``bit_equal``); returns each kernel's largest
+        relative L2 and the plain version's ms (one call, CUDA events)."""
+        scene = scene.to(dev)
+        rng = np.random.default_rng(seed)
+        g = rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
+                                         .astype(np.float32)).to(dev) for _ in range(3)))
+        kernels = kernels or [bwd.render_grads_kernel]
+        outs = [k(scene, cfg, g, return_primal=True) for k in kernels]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = bwd.render_grads_plain(scene, cfg, g)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        ref = img(fwd(scene, cfg))
+        errs = []
+        for k, (got, prim) in zip(kernels, outs):
+            label = name if len(kernels) == 1 else f"{name}, {k.__name__}"
+            agree = float((img(prim) == ref).all(-1).mean())
+            worst, worst_leaf = leaf_err(label, scene, got, want)
+            ok = worst <= budget
+            print(f"  {label}: image bit-equal to {fwd.__module__}.{fwd.__name__}'s on "
+                  f"{agree:.4%} of pixels, largest leaf relative L2 {worst:.3g} ({worst_leaf}), "
+                  f"plain autograd {plain_ms:.1f} ms, peak {peak / 2**30:.2f} GiB -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {label}: {worst_leaf} off by relative L2 "
+                                 f"{worst:.3g}")
+            if bit_equal and agree < 1.0:
+                raise SystemExit(f"chip_smoke: {label}: the image is not {fwd.__name__}'s")
+            errs.append(worst)
+        return errs, plain_ms
 
     for name, scene, cfg in [
         ("default 320x240", default, rtt.RenderConfig(xres=320, yres=240)),
@@ -445,11 +500,14 @@ def run(torch, tex_dir) -> int:
         ("101 objects 160x120", spheres_scene(rtt, 11, 100), rtt.RenderConfig(xres=160, yres=120)),
     ]:
         grad_case(name, scene, cfg)
-    # the main path's shape, or the largest whose plain autograd graph fits
+    # the main path's shape, or the largest whose plain autograd graph fits;
+    # the trace backward and the re-trace oracle (the gradient oracle's main
+    # path: the same cotangent planes) against one plain call
     for pw, ph in ((W, H), (1280, 720), (960, 540)):
         try:
-            bwd_max_err, _ = grad_case(f"default {pw}x{ph}", default,
-                                       cfg_main.with_(xres=pw, yres=ph))
+            (bwd_max_err, retrace_max_err), _ = grad_case(
+                f"default {pw}x{ph}", default, cfg_main.with_(xres=pw, yres=ph),
+                kernels=[kb.render_grads_kernel, kr.render_grads_retrace])
             break
         except torch.cuda.OutOfMemoryError as e:
             print(f"  default {pw}x{ph}: the plain autograd graph does not fit the card: {e}")
@@ -466,7 +524,7 @@ def run(torch, tex_dir) -> int:
                                grad_distance_cutoff=2e3), **tex_grad)
     grad_case("textured Nearest 320x240", tex_scenes[0], rtt.RenderConfig(xres=320, yres=240),
               **tex_grad)
-    tex_bwd_err, tex_bwd_plain_ms = grad_case(f"textured Bilinear {pw}x{ph}", tex_scenes[1],
+    (tex_bwd_err,), tex_bwd_plain_ms = grad_case(f"textured Bilinear {pw}x{ph}", tex_scenes[1],
                                               cfg_plain, **tex_grad)
 
     print("march backward kernel vs torch autograd of the plain march (implicit VJP):")
@@ -486,7 +544,7 @@ def run(torch, tex_dir) -> int:
     # the march training path's shape, or the largest whose plain graph fits
     for pw_m, ph_m in ((MW, MH), (960, 540), (640, 360)):
         try:
-            march_bwd_max_err, march_bwd_plain_ms = grad_case(
+            (march_bwd_max_err,), march_bwd_plain_ms = grad_case(
                 f"march default {pw_m}x{ph_m}", default, cfg_march.with_(xres=pw_m, yres=ph_m),
                 **mgrad)
             break
@@ -497,6 +555,11 @@ def run(torch, tex_dir) -> int:
     else:
         raise SystemExit("chip_smoke: the plain march autograd graph fits at no shape tried")
     cfg_march_plain = cfg_march.with_(xres=pw_m, yres=ph_m)
+
+    print("re-trace gradient oracle (K5) vs torch autograd of the plain trace, its image vs "
+          "the trace kernel's:")
+    grad_case("retrace default 320x240", default, rtt.RenderConfig(xres=320, yres=240), bwd=kr,
+              kernels=[kr.render_grads_retrace], fwd=kt.render_color_kernel, bit_equal=True)
 
     # 4. the main paths
     poses = [((0.0, -150.0, -300.0), (0.0, -np.pi / 2, -np.pi / 2)),
@@ -627,6 +690,39 @@ def run(torch, tex_dir) -> int:
         raise SystemExit(f"chip_smoke: the march training loss did not fall at every step: "
                          f"{march_losses}")
 
+    # the gradient oracle at the trace main path's shape, held against K2
+    rng = np.random.default_rng(0)
+    g_oracle = rtt.Color(*(torch.from_numpy(rng.standard_normal((H, W)).astype(np.float32))
+                           .to(dev) for _ in range(3)))
+    kr.LAUNCHES = 0
+    t0 = time.time()
+    oracle, oracle_img = kr.render_grads_retrace(scene_dev, cfg_main, g_oracle,
+                                                 return_primal=True)
+    torch.cuda.synchronize()
+    oracle_s = time.time() - t0
+    retrace_launches = kr.LAUNCHES
+    lanes = _build.load_cuda_library("trace_retrace").rt_trace_retrace_lanes()
+    want_launches = -(-kr.n_out(scene_dev.objects.count) // lanes)
+    # the oracle's use: the trace backward held against it (each was held
+    # against plain autograd on these inputs in phase 3)
+    retrace_err, retrace_leaf = leaf_err(
+        "the gradient oracle", scene_dev, oracle,
+        kb.render_grads_kernel(scene_dev, cfg_main, g_oracle))
+    oracle_same = float((img(oracle_img) == img(kt.render_color_kernel(scene_dev, cfg_main)))
+                        .all(-1).mean())
+    print(f"main path, gradient oracle: render_grads_retrace {W}x{H} in {oracle_s:.2f} s, "
+          f"{retrace_launches} re-trace launches ({lanes} lanes), largest leaf relative L2 "
+          f"against the trace backward {retrace_err:.3g} ({retrace_leaf}), image bit-equal to "
+          f"the trace kernel's on {oracle_same:.4%} of pixels")
+    if retrace_launches != want_launches:
+        raise SystemExit(f"chip_smoke: want {want_launches} re-trace launches, got "
+                         f"{retrace_launches}")
+    if not retrace_err <= GRAD_BUDGET:
+        raise SystemExit(f"chip_smoke: the oracle and the trace backward differ in "
+                         f"{retrace_leaf} by relative L2 {retrace_err:.3g}")
+    if oracle_same < 1.0:
+        raise SystemExit("chip_smoke: the oracle's image is not the trace kernel's")
+
     # 5. times at the main path's shape, in turns, once the host is free
     ops = {name: f.result() for name, f in ops_futures.items()}
     counting.shutdown()
@@ -697,6 +793,19 @@ def run(torch, tex_dir) -> int:
     print(f"  backward kernel alone, Bilinear (wrapper, with the image): {tex_bwd_ms:.3f} ms; "
           f"its plain version at {pw}x{ph}: {tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
+    print(f"gradient oracle {W}x{H}, default scene, default cfg ({card}):")
+    oracle_fn = lambda: kr.render_grads_retrace(scene_dev, cfg_main, g_main,  # noqa: E731
+                                                 return_primal=True)
+    bwd_fn = lambda: kb.render_grads_kernel(scene_dev, cfg_main, g_main,  # noqa: E731
+                                            return_primal=True)
+    oracle_runs = [("oracle", cuda_ms(torch, oracle_fn)), ("backward", cuda_ms(torch, bwd_fn)),
+                   ("backward", cuda_ms(torch, bwd_fn)), ("oracle", cuda_ms(torch, oracle_fn))]
+    for name, ms in oracle_runs:
+        print(f"  {name} kernel (wrapper, with the image): {ms:.3f} ms per cotangent")
+    retrace_ms = float(np.mean([ms for n, ms in oracle_runs if n == "oracle"]))
+    print(f"  their plain version (autograd of the plain trace) at {pw}x{ph}: "
+          f"{bwd_plain_ms:.3f} ms (one call, above)")
+
     print(f"march + glow forward, default scene, default cfg ({card}):")
     with torch.no_grad():
         march_ms = {}
@@ -734,11 +843,21 @@ def run(torch, tex_dir) -> int:
                              ("trace_bwd_textured", cfg_main, tex_bi)):
         n_ops, fetched = ops[name]
         nbytes = io_bytes(scene, cfg) + texel_bytes(scene, fetched)
-        if "_bwd" in name:  # + the cotangent planes read, the block written
+        if "_bwd" in name:
+            # + the cotangent planes read, the block written
             nbytes += 3 * 4 * cfg.xres * cfg.yres + 4 * (scene.objects.count + 1) * kb.GRAD_COLS
         bounds[name] = roofline(n_ops, nbytes)
         print(f"  bound, {name} {cfg.xres}x{cfg.yres}: {n_ops} f32 operations, {nbytes} bytes "
               f"({fetched} B of texel fetches) -> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    # the re-trace oracle computes the trace backward's function on the same
+    # inputs, so the least time for its work is the trace backward's bound;
+    # its forward-mode operations over every launch are only a diagnostic
+    bounds["trace_retrace"] = bounds["trace_bwd"]
+    dual_ops = ops["trace_retrace"][0]
+    print(f"  bound, trace_retrace {W}x{H}: the trace backward's, {bounds['trace_retrace'][0]:.4f} "
+          f"ms ({bounds['trace_retrace'][1]}); its forward-mode operations over "
+          f"{retrace_launches} launches (diagnostic, not the bound): {dual_ops} -> "
+          f"{roofline(dual_ops, 0)[0]:.4f} ms")
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
         raise SystemExit("chip_smoke: the port imported jax or the JAX package")
@@ -790,6 +909,14 @@ def run(torch, tex_dir) -> int:
         "launches": march_train_launches[3], "max_abs_err": march_bwd_max_err,
         "ms": march_bwd_ms, "plain_ms": march_bwd_plain_ms,
         "bound_ms": bounds["march_bwd"][0], "bound_by": bounds["march_bwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "trace_retrace", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/trace_retrace.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_trace.py:1555",
+        "launches": retrace_launches, "max_abs_err": retrace_max_err, "ms": retrace_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bounds["trace_retrace"][0], "bound_by": bounds["trace_retrace"][1],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

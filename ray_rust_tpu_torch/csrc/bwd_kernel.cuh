@@ -1,6 +1,7 @@
-// The frame the two backward kernels share (trace_bwd.cu, march_bwd.cu): one
-// thread per pixel, the scene tables staged in shared memory, each pixel's
-// cotangents summed into a shared (n+1, 20) block with shared-memory atomics,
+// The frame the gradient kernels share (trace_bwd.cu, march_bwd.cu and the
+// re-trace oracle trace_retrace.cu): one thread per pixel, the scene tables
+// staged in shared memory, each pixel's cotangents summed into a shared
+// (n+1, 20) block with shared-memory atomics,
 // then the block added to the global one with one atomicAdd per nonzero
 // entry, so a frame takes one global atomic per entry per block rather than
 // one per pixel, site and field, and the summation order changes from run
@@ -13,8 +14,9 @@
 // function besides the kernel, and a plain __device__ run was left as one.
 // ``Body::TEXTURED`` says whether it reads the texture atlas (the trace
 // backward); then the atlas's meta rows are staged in shared memory beside
-// the tables. The march backward's is false, and its kernel is the one it
-// was before textures.
+// the tables. The march backward's and the re-trace's are false, and the
+// march backward's kernel is the one it was before textures. ``P`` is the
+// body's parameter struct (the re-trace's carries its first seeded entry).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -40,6 +40,19 @@
 // card's build matches the plain version on the card and the host build the
 // plain version on the CPU even where u*w overflows int32 at the horizon.
 //
+// The untextured trace is generic over its scalar type T (forward-mode
+// derivatives, K5: dual.cuh, trace_retrace.cu). With T = float it is the
+// forward's code. With T = Dual<L> every value is the float trace's own,
+// operation for operation, and the tangents are the derivatives by L seeded
+// entries of the tables, whose rows the body reads seeded (table_row; the
+// camera row's entries follow the objects'): every decision (winner, flags,
+// lit, cont, pattern cell) is taken on the value, each nearest-hit scan
+// runs on the values and recomputes only the winner's t in T, the shadow
+// scan runs on the values alone, and a hit at t >= SceneViewT::cutoff
+// keeps its point as a constant (the JAX kernel's grad_distance_cutoff,
+// pallas_trace.py:984-988). The texture fetch stays float-only. Every function is forced inline (RT_FI): the kernels are one
+// function each, and chip_smoke.py fails when ptxas reports another.
+//
 // A build with -DRT_COUNT_OPS counts the f32 arithmetic of the object loops
 // (the fewest operations each object test can take) into SceneView::ops[0],
 // and the texel bytes the traversal's texture fetches read into ops[1], for
@@ -48,11 +61,13 @@
 
 #include <math.h>
 
+#include <type_traits>
+
+#include "dual.cuh"
+
 #ifdef __CUDACC__
-#define RT_HD __host__ __device__ inline
 #define RT_FI __host__ __device__ __forceinline__
 #else
-#define RT_HD inline
 #define RT_FI inline
 #endif
 
@@ -106,47 +121,66 @@ constexpr float TANPIO8_F = 0.4142135623730950f;
 constexpr float SKY_A = 50.0f * PI_F;  // rounded in f32, as the plain version
 constexpr float TWO_PI_F = 2.0f * PI_F;
 
-struct V3 {
-  float x, y, z;
+template <class T>
+struct V3T {
+  T x, y, z;
 };
-struct C3 {
-  float r, g, b;
+template <class T>
+struct C3T {
+  T r, g, b;
 };
+using V3 = V3T<float>;
+using C3 = C3T<float>;
 
-RT_HD V3 v3(float x, float y, float z) {
-  V3 v;
+template <class T>
+RT_FI V3T<T> v3(T x, T y, T z) {
+  V3T<T> v;
   v.x = x;
   v.y = y;
   v.z = z;
   return v;
 }
-RT_HD C3 c3(float r, float g, float b) {
-  C3 c;
+template <class T>
+RT_FI C3T<T> c3(T r, T g, T b) {
+  C3T<T> c;
   c.r = r;
   c.g = g;
   c.b = b;
   return c;
 }
-RT_HD V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-RT_HD V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-RT_HD V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-RT_HD float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-RT_HD bool is_finite(float x) { return fabsf(x) < INFINITY; }
+template <class T>
+RT_FI V3T<T> add(V3T<T> a, V3T<T> b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+template <class T>
+RT_FI V3T<T> sub(V3T<T> a, V3T<T> b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+template <class T, class S>
+RT_FI V3T<T> scale(V3T<T> a, S s) { return v3(a.x * s, a.y * s, a.z * s); }
+template <class T>
+RT_FI T dot(V3T<T> a, V3T<T> b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+RT_FI bool is_finite(float x) { return fabsf(x) < INFINITY; }
+// the values of a vector, and the vector with its tangents cut (dual.cuh)
+template <class T>
+RT_FI V3 val3(V3T<T> a) { return v3(val(a.x), val(a.y), val(a.z)); }
+template <class T>
+RT_FI V3T<T> stop3(V3T<T> a) { return v3(stop(a.x), stop(a.y), stop(a.z)); }
 
 // v / sqrt(v.v), a sqrt then a divide (vec3.rs:36-39); 0 at zero length.
-RT_HD V3 normalized(V3 v) {
-  float sq = dot(v, v);
-  if (!(sq > 0.0f)) return v3(0.0f, 0.0f, 0.0f);
-  float ln = sqrtf(sq);
+template <class T>
+RT_FI V3T<T> normalized(V3T<T> v) {
+  T sq = dot(v, v);
+  if (!(sq > 0.0f)) return V3T<T>{0.0f, 0.0f, 0.0f};
+  T ln = sqrtf(sq);
   return v3(v.x / ln, v.y / ln, v.z / ln);
 }
 
 // Hamilton product (quat.rs:63-72); quaternions as (x, y, z, w).
-struct Q4 {
-  float x, y, z, w;
+template <class T>
+struct Q4T {
+  T x, y, z, w;
 };
-RT_HD Q4 qmul(Q4 a, Q4 b) {
-  Q4 q;
+using Q4 = Q4T<float>;
+template <class T>
+RT_FI Q4T<T> qmul(Q4T<T> a, Q4T<T> b) {
+  Q4T<T> q;
   q.x = a.y * b.z - a.z * b.y + a.x * b.w + a.w * b.x;
   q.y = a.z * b.x - a.x * b.z + a.y * b.w + a.w * b.y;
   q.z = a.x * b.y - a.y * b.x + a.z * b.w + a.w * b.z;
@@ -155,10 +189,12 @@ RT_HD Q4 qmul(Q4 a, Q4 b) {
 }
 
 // Cephes atanf / asinf (utils/fastmath.py), not the libm functions.
-RT_HD float cephes_atan(float x) {
+template <class T>
+RT_FI T cephes_atan(T x) {
   float sign = x < 0.0f ? -1.0f : 1.0f;
-  float a = fabsf(x);
-  float xr, y0;
+  T a = fabsf(x);
+  T xr;
+  float y0;
   if (a > TAN3PIO8_F) {
     xr = -1.0f / a;
     y0 = PIO2_F;
@@ -169,46 +205,50 @@ RT_HD float cephes_atan(float x) {
     xr = a;
     y0 = 0.0f;
   }
-  float z = xr * xr;
-  float p = (((8.05374449538e-2f * z - 1.38776856032e-1f) * z + 1.99777106478e-1f) * z -
-             3.33329491539e-1f) * z * xr + xr;
+  T z = xr * xr;
+  T p = (((8.05374449538e-2f * z - 1.38776856032e-1f) * z + 1.99777106478e-1f) * z -
+         3.33329491539e-1f) * z * xr + xr;
   return sign * (y0 + p);
 }
 
-RT_HD float cephes_atan2(float y, float x) {
-  if (x == 0.0f) return y > 0.0f ? PIO2_F : (y < 0.0f ? -PIO2_F : 0.0f);
-  float z = cephes_atan(y / x);
+template <class T>
+RT_FI T cephes_atan2(T y, T x) {
+  if (x == 0.0f) return T(y > 0.0f ? PIO2_F : (y < 0.0f ? -PIO2_F : 0.0f));
+  T z = cephes_atan(y / x);
   float w = x < 0.0f ? (y < 0.0f ? -PI_F : PI_F) : 0.0f;
   return w + z;
 }
 
-RT_HD float cephes_asin(float x) {
+template <class T>
+RT_FI T cephes_asin(T x) {
   float sign = x < 0.0f ? -1.0f : 1.0f;
-  float a = fminf(fabsf(x), 1.0f);
+  T a = fminf(fabsf(x), 1.0f);
   bool big = a > 0.5f;
-  float z = big ? 0.5f * (1.0f - a) : a * a;
-  float xr = big ? sqrtf(z) : a;
-  float p = ((((4.2163199048e-2f * z + 2.4181311049e-2f) * z + 4.5470025998e-2f) * z +
+  T z = big ? 0.5f * (1.0f - a) : a * a;
+  T xr = big ? sqrtf(z) : a;
+  T p = ((((4.2163199048e-2f * z + 2.4181311049e-2f) * z + 4.5470025998e-2f) * z +
               7.4953002686e-2f) * z + 1.6666752422e-1f) * z * xr + xr;
   return sign * (big ? PIO2_F - 2.0f * p : p);
 }
 
 // f - floor(f/freq)*freq (modutil.rs:1-3)
-RT_HD float floor_mod(float f, float freq) { return f - floorf(f / freq) * freq; }
+template <class T>
+RT_FI T floor_mod(T f, float freq) { return f - floorf(f / freq) * freq; }
 
 // Stripe-grid sky with sun glare (ops/sky.py:default_sky).
-RT_HD C3 background(int bg, V3 light, V3 d) {
-  if (bg == BG_BLACK) return c3(0.0f, 0.0f, 0.0f);
-  float phi = cephes_atan2(d.z, d.x);
-  float the = cephes_asin(fminf(fmaxf(d.y, -1.0f), 1.0f));
-  float dp = fmodf(SKY_A + phi * 10.0f * PI_F, TWO_PI_F) - PI_F;
-  float dt = fmodf(SKY_A + the * 10.0f * PI_F, TWO_PI_F) - PI_F;
-  float base_r = 0.5f / (15.0f * (dp * dp * dt * dt) + 1.0f);
-  float base_gb = 0.25f - d.y / 4.0f;
-  float ld = dot(light, d);
-  if (ld > 0.9995f) return c3(2.0f, 2.0f, 2.0f);
-  float glare = ld > 0.995f ? (ld - 0.995f) * 150.0f : 0.0f;
-  float dot2 = ld > 0.9f ? (ld - 0.9f) * 5.0f : 0.0f;
+template <class T>
+RT_FI C3T<T> background(int bg, V3T<T> light, V3T<T> d) {
+  if (bg == BG_BLACK) return C3T<T>{0.0f, 0.0f, 0.0f};
+  T phi = cephes_atan2(d.z, d.x);
+  T the = cephes_asin(fminf(fmaxf(d.y, -1.0f), 1.0f));
+  T dp = fmodf(SKY_A + phi * 10.0f * PI_F, TWO_PI_F) - PI_F;
+  T dt = fmodf(SKY_A + the * 10.0f * PI_F, TWO_PI_F) - PI_F;
+  T base_r = 0.5f / (15.0f * (dp * dp * dt * dt) + 1.0f);
+  T base_gb = 0.25f - d.y / 4.0f;
+  T ld = dot(light, d);
+  if (ld > 0.9995f) return C3T<T>{2.0f, 2.0f, 2.0f};
+  T glare = ld > 0.995f ? (ld - 0.995f) * 150.0f : 0.0f;
+  T dot2 = ld > 0.9f ? (ld - 0.9f) * 5.0f : 0.0f;
   return c3(base_r + glare + dot2, base_gb + glare + dot2, base_gb + glare);
 }
 
@@ -229,17 +269,35 @@ struct TexArgs {
 };
 
 // The packed scene as the body reads it: per-object rows, the light and the
-// texture atlas (none by default: the march bodies read no texture).
-struct SceneView {
+// texture atlas (none by default: the march bodies read no texture). A
+// Dual<L> trace also carries the entry of the cotangent block (object rows
+// of F32_COLS, then the camera's 7 and the light's 3 columns) that its
+// tangent lane 0 is seeded at, and the gradient's distance cutoff.
+template <class T>
+struct SceneViewT {
   const float* f32;  // (n, F32_COLS)
   const int* i32;    // (n, I32_COLS)
   int n;
-  V3 light;
+  V3T<T> light;
   TexArgs tx = {nullptr, nullptr, 0, 0, 0};
+  int seed = 0;
+  float cutoff = INFINITY;
 #ifdef RT_COUNT_OPS
   unsigned long long* ops;  // this thread's counts: f32 operations, texel bytes
 #endif
 };
+using SceneView = SceneViewT<float>;
+
+// Object i's f32 row as a T trace reads it: the row itself for float, its
+// entries seeded in their tangent lanes for Dual<L>.
+template <class T>
+RT_FI auto table_row(const SceneViewT<T>& s, int i) {
+  if constexpr (is_dual_v<T>) {
+    return T::row(s.f32 + i * F32_COLS, i * F32_COLS - s.seed);
+  } else {
+    return s.f32 + i * F32_COLS;
+  }
+}
 
 // Render parameters: image size, 2*fov in f32, depth caps, background id.
 struct Params {
@@ -250,32 +308,35 @@ struct Params {
   int bg;
 };
 
-// One object's intersection parameter, or +inf (ops/intersect.py).
-RT_HD float candidate_t(const float* o, int kind, V3 vi, V3 eye, float t_run, int flags) {
-  V3 wpt = sub(vi, v3(o[0], o[1], o[2]));
+// One object's intersection parameter, or +inf (ops/intersect.py), for
+// object row ``o`` (table_row).
+template <class R, class T>
+RT_FI T candidate_t(R o, int kind, V3T<T> vi, V3T<T> eye, float t_run, int flags) {
+  V3T<T> wpt = sub(vi, V3T<T>{o[0], o[1], o[2]});
   if (kind == KIND_SPHERE) {
-    float r = o[17];
-    float b = 2.0f * dot(eye, wpt);
-    float c = dot(wpt, wpt) - r * r;
-    float d2 = b * b - 4.0f * c;
-    if (!(d2 >= F32_EPS)) return INFINITY;
-    float d = sqrtf(d2);
-    float t0 = (-b - d) / 2.0f;
-    float t1 = t0 + d;
+    T r = o[17];
+    T b = 2.0f * dot(eye, wpt);
+    T c = dot(wpt, wpt) - r * r;
+    T d2 = b * b - 4.0f * c;
+    if (!(d2 >= F32_EPS)) return T(INFINITY);
+    T d = sqrtf(d2);
+    T t0 = (-b - d) / 2.0f;
+    T t1 = t0 + d;
     if (!(flags & OUTONLY) && t0 >= 0.0f && t0 < t_run) return t0;
     if (!(flags & INONLY) && t1 > 0.0f && t1 < t_run) return t1;
-    return INFINITY;
+    return T(INFINITY);
   }
-  V3 nrm = v3(o[3], o[4], o[5]);
-  float w = dot(nrm, eye);
-  if (!(w < 0.0f)) return INFINITY;
-  float t0 = -dot(nrm, wpt) / w;
-  return (t0 >= 0.0f && t0 < t_run) ? t0 : INFINITY;
+  V3T<T> nrm = {o[3], o[4], o[5]};
+  T w = dot(nrm, eye);
+  if (!(w < 0.0f)) return T(INFINITY);
+  T t0 = -dot(nrm, wpt) / w;
+  return (t0 >= 0.0f && t0 < t_run) ? t0 : T(INFINITY);
 }
 
-// Nearest hit: strictly closer wins, first index wins ties, object ``ig``
-// skipped. Returns t (+inf on a miss, with *idx = 0).
-RT_HD float raycast(const SceneView& s, V3 vi, V3 eye, int ig, int flags, int* idx) {
+// Nearest hit on the values: strictly closer wins, first index wins ties,
+// object ``ig`` skipped. Returns t (+inf on a miss, with *idx = 0).
+template <class T>
+RT_FI float nearest_t(const SceneViewT<T>& s, V3 vi, V3 eye, int ig, int flags, int* idx) {
   float t = INFINITY;
   *idx = 0;
   for (int i = 0; i < s.n; ++i) {
@@ -291,7 +352,22 @@ RT_HD float raycast(const SceneView& s, V3 vi, V3 eye, int ig, int flags, int* i
   return t;
 }
 
-RT_HD void get_uv(V3 rel, int uvmap, float ps, float pas, float* u, float* v) {
+// The nearest hit's t in T: the scan on the values, then for a Dual<L>
+// trace the winner's t again from its seeded row. Without the running
+// bound the winner takes the same root, so the value is the scan's.
+template <class T>
+RT_FI T raycast(const SceneViewT<T>& s, V3T<T> vi, V3T<T> eye, int ig, int flags, int* idx) {
+  if constexpr (is_dual_v<T>) {
+    const float t = nearest_t(s, val3(vi), val3(eye), ig, flags, idx);
+    if (!is_finite(t)) return T(t);
+    return candidate_t(table_row(s, *idx), s.i32[*idx * I32_COLS], vi, eye, INFINITY, flags);
+  } else {
+    return nearest_t(s, vi, eye, ig, flags, idx);
+  }
+}
+
+template <class T>
+RT_FI void get_uv(V3T<T> rel, int uvmap, T ps, T pas, T* u, T* v) {
   if (uvmap == UVMAP_YZ) {
     *u = rel.y / ps;
     *v = rel.z / ps;
@@ -308,21 +384,23 @@ RT_HD void get_uv(V3 rel, int uvmap, float ps, float pas, float* u, float* v) {
 }
 
 // floor(x) as int32, saturating where it does not fit.
-RT_HD int floor_to_int(float x) {
+RT_FI int floor_to_int(float x) {
   float f = floorf(x);
   if (f >= 2147483648.0f) return 2147483647;
   if (!(f >= -2147483648.0f)) return (int)0x80000000u;
   return (int)f;
 }
 
-// Procedural pattern colour (render.rs:301-314).
-RT_HD C3 pattern_diffuse(const float* o, int pattern, float u, float v) {
-  C3 d = c3(o[6], o[7], o[8]);
+// Procedural pattern colour (render.rs:301-314) of object row ``o``.
+template <class R, class T>
+RT_FI C3T<T> pattern_diffuse(R o, int pattern, T u, T v) {
+  C3T<T> d = {o[6], o[7], o[8]};
   if (pattern == PATTERN_GRADATION)
     return c3(d.r * floor_mod(u, 1.0f), d.g * floor_mod(v, 1.0f), d.b);
   // checkerboard: black where floor(u) + floor(v) is even
-  if (pattern == PATTERN_CHECKERBOARD && ((floor_to_int(u) ^ floor_to_int(v)) & 1) == 0)
-    return c3(0.0f, 0.0f, 0.0f);
+  if (pattern == PATTERN_CHECKERBOARD &&
+      ((floor_to_int(val(u)) ^ floor_to_int(val(v))) & 1) == 0)
+    return C3T<T>{0.0f, 0.0f, 0.0f};
   return d;
 }
 
@@ -417,40 +495,54 @@ RT_FI C3 fetch_texture(const TexArgs& tx, int tid, float u, float v) {
 
 // Whether the hit on object row ``oi`` reads a texture: its material has one
 // and the scene carries an atlas (as ops/texture.py:lookup_diffuse).
-RT_FI bool textured(const SceneView& s, const int* oi) { return oi[3] >= 0 && s.tx.n_tex > 0; }
+template <class T>
+RT_FI bool textured(const SceneViewT<T>& s, const int* oi) {
+  return oi[3] >= 0 && s.tx.n_tex > 0;
+}
 
 // Sphere (pt - org)/|pt - org| (render.rs:443-445) or the floor's stored
 // face normal (render.rs:553-555), for object row ``o`` of kind ``kind``.
-RT_HD V3 surface_normal(const float* o, int kind, V3 pt) {
-  return kind == KIND_SPHERE ? normalized(sub(pt, v3(o[0], o[1], o[2]))) : v3(o[3], o[4], o[5]);
+template <class R, class T>
+RT_FI V3T<T> surface_normal(R o, int kind, V3T<T> pt) {
+  return kind == KIND_SPHERE ? normalized(sub(pt, V3T<T>{o[0], o[1], o[2]}))
+                             : V3T<T>{o[3], o[4], o[5]};
 }
 
 // The camera ray of pixel (ix, iy) (render.rs:808-815):
-// normalize(rot * (1, ey, ez, 0) * conj(rot)). ``cam`` is the packed camera row.
-RT_HD V3 camera_ray(int xres, int yres, float sx, float sy, const float* cam, int ix, int iy) {
+// normalize(rot * (1, ey, ez, 0) * conj(rot)). ``cam`` is the packed camera
+// row, or a Dual trace's seeded view of it.
+template <class R>
+RT_FI auto camera_ray(int xres, int yres, float sx, float sy, R cam, int ix, int iy) {
+  using T = std::decay_t<decltype(cam[0])>;
   float ey = (float)(ix - xres / 2) * sx / (float)xres;
   float ez = -(float)(iy - yres / 2) * sy / (float)yres;
-  Q4 q = {cam[3], cam[4], cam[5], cam[6]};
-  Q4 qc = {-q.x, -q.y, -q.z, q.w};
-  Q4 e = {1.0f, ey, ez, 0.0f};
-  Q4 r = qmul(qmul(q, e), qc);
+  Q4T<T> q = {cam[3], cam[4], cam[5], cam[6]};
+  Q4T<T> qc = {-q.x, -q.y, -q.z, q.w};
+  Q4T<T> e = {1.0f, ey, ez, 0.0f};
+  Q4T<T> r = qmul(qmul(q, e), qc);
   return normalized(v3(r.x, r.y, r.z));
 }
 
 // A pending trace: start ray, level, ignored object, flags, the weight its
 // colour carries into the pixel, and the recorder's id of the site that
 // pushed it (-1 for the camera ray).
-struct Task {
-  V3 vi, eye;
-  C3 w;
+template <class T>
+struct TaskT {
+  V3T<T> vi, eye;
+  C3T<T> w;
   int lev, ig, flags;
   int parent;
 };
+using Task = TaskT<float>;
 
-// The forward kernel's recorder: records nothing.
+// The forward kernel's recorder (and the re-trace's): records nothing.
 struct NoRecord {
-  RT_HD void task(const Task&) {}
-  RT_HD int site(V3, V3, C3, int, int, bool, bool) { return -1; }
+  template <class Tk>
+  RT_FI void task(const Tk&) {}
+  template <class V, class C>
+  RT_FI int site(V, V, C, int, int, bool, bool) {
+    return -1;
+  }
 };
 
 // Run one trace (render.rs:1142-1224) and add its weighted colour to *out;
@@ -458,78 +550,85 @@ struct NoRecord {
 // start and ``rec.site`` each raycast site: its ray, throughput, flags,
 // winner, hit and shadow outcome; the id it returns is the parent of the
 // site's refraction sub-trace.
-template <class Rec>
-RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* out,
-                      Task* stack, int* sp, Rec& rec) {
+template <class T, class Rec>
+RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& tk, C3T<T>* out,
+                      TaskT<T>* stack, int* sp, Rec& rec) {
   rec.task(tk);
-  V3 vi = tk.vi, eye = tk.eye;
+  V3T<T> vi = tk.vi, eye = tk.eye;
   int ig = tk.ig, flags = tk.flags;
-  C3 fcs = c3(1.0f, 1.0f, 1.0f);
+  C3T<T> fcs = {1.0f, 1.0f, 1.0f};
   int n_iters = p.max_reflections - tk.lev > 1 ? p.max_reflections - tk.lev : 1;
   for (int step = 0; step < n_iters; ++step) {
     int lev = tk.lev + 1 + step;
     int idx;
-    float t = raycast(s, vi, eye, ig, flags, &idx);
+    T t = raycast(s, vi, eye, ig, flags, &idx);
     if (!is_finite(t)) {
       rec.site(vi, eye, fcs, flags, idx, false, false);
       // a miss picks up the background once, unguarded (render.rs:1212-1217)
-      C3 bg = background(p.bg, s.light, eye);
+      C3T<T> bg = background(p.bg, s.light, eye);
       out->r += tk.w.r * (bg.r * fcs.r);
       out->g += tk.w.g * (bg.g * fcs.g);
       out->b += tk.w.b * (bg.b * fcs.b);
       return;
     }
-    const float* o = s.f32 + idx * F32_COLS;
+    const auto o = table_row(s, idx);
     const int* oi = s.i32 + idx * I32_COLS;
-    V3 pt = add(vi, scale(eye, t));
-    V3 org = v3(o[0], o[1], o[2]);
-    V3 n = surface_normal(o, oi[0], pt);
+    V3T<T> pt = add(vi, scale(eye, t));
+    if constexpr (is_dual_v<T>) {  // a hit past the cutoff is a constant point
+      if (!(val(t) < s.cutoff)) pt = stop3(pt);
+    }
+    V3T<T> org = {o[0], o[1], o[2]};
+    V3T<T> n = surface_normal(o, oi[0], pt);
 
     // Lambert + Phong (render.rs:1024-1046)
-    float li = dot(s.light, n);
-    float ln2 = 2.0f * li;
-    V3 rtl = sub(v3(n.x * ln2, n.y * ln2, n.z * ln2), s.light);
-    float di = fmaxf(li, 0.0f);
-    float pn = o[12];
-    float ri = -dot(rtl, eye);
-    float refl = (pn != 0.0f && ri > 0.0f) ? powf(ri, pn) : 0.0f;
+    T li = dot(s.light, n);
+    T ln2 = 2.0f * li;
+    V3T<T> rtl = sub(v3(n.x * ln2, n.y * ln2, n.z * ln2), s.light);
+    T di = fmaxf(li, 0.0f);
+    T pn = o[12];
+    T ri = -dot(rtl, eye);
+    T refl = (pn != 0.0f && ri > 0.0f) ? powf(ri, pn) : 0.0f;
 
-    // shadow ray: lit when it escapes or its blocker is transparent
+    // shadow ray, on the values: lit when it escapes or its blocker is
+    // transparent
     int i_s;
-    float t_s = raycast(s, add(pt, scale(s.light, F32_EPS)), s.light, idx, 0, &i_s);
+    float t_s = nearest_t(s, add(val3(pt), scale(val3(s.light), F32_EPS)), val3(s.light), idx,
+                          0, &i_s);
     bool lit = !is_finite(t_s) || s.f32[i_s * F32_COLS + 13] > 0.0f;
     const int site = rec.site(vi, eye, fcs, flags, idx, true, lit);
-    float k1 = lit ? fminf(0.2f + di, 1.0f) : 0.2f;
-    float k2 = lit ? refl : 0.0f;
+    T k1 = lit ? fminf(0.2f + di, 1.0f) : 0.2f;
+    T k2 = lit ? refl : 0.0f;
 
-    float u, v;
+    T u, v;
     get_uv(sub(pt, org), oi[2], o[15], o[16], &u, &v);
-    C3 kd;
-    if (textured(s, oi)) {  // the image replaces the pattern (render.rs:249-316)
+    C3T<T> kd;
+    if constexpr (is_dual_v<T>) {  // the re-trace takes untextured scenes
+      kd = pattern_diffuse(o, oi[1], u, v);
+    } else if (textured(s, oi)) {  // the image replaces the pattern (render.rs:249-316)
       RT_COUNT_TEXEL(s);
       kd = fetch_texture(s.tx, oi[3], u, v);
     } else {
       kd = pattern_diffuse(o, oi[1], u, v);
     }
-    C3 face = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
+    C3T<T> face = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
 
     bool mr = !(flags & RIGNORE), mg = !(flags & GIGNORE), mb = !(flags & BIGNORE);
-    float f = o[13];
+    T f = o[13];
     if (lev < p.refraction_cap && f > 0.0f) {
       // pseudo-refraction (render.rs:1093-1132): bend, ignore the source
-      float sp_n = dot(eye, n);
-      float fracn = fabsf(o[14]) > 1e-6f ? o[14] : 1.0f;
-      float bend = sp_n * ((sp_n > 0.0f ? fracn : 1.0f / fracn) - 1.0f);
-      V3 ray = normalized(add(eye, v3(n.x * bend, n.y * bend, n.z * bend)));
-      Task c;
+      T sp_n = dot(eye, n);
+      T fracn = fabsf(o[14]) > 1e-6f ? o[14] : 1.0f;
+      T bend = sp_n * ((sp_n > 0.0f ? fracn : 1.0f / fracn) - 1.0f);
+      V3T<T> ray = normalized(add(eye, v3(n.x * bend, n.y * bend, n.z * bend)));
+      TaskT<T> c;
       c.vi = add(pt, scale(ray, F32_EPS));
       c.eye = ray;
       c.lev = lev;
       c.ig = idx;
       c.flags = sp_n < 0.0f ? OUTONLY : INONLY;
       c.parent = site;
-      c.w = c3(mr ? tk.w.r * (fcs.r * f) : 0.0f, mg ? tk.w.g * (fcs.g * f) : 0.0f,
-               mb ? tk.w.b * (fcs.b * f) : 0.0f);
+      c.w = C3T<T>{mr ? tk.w.r * (fcs.r * f) : 0.0f, mg ? tk.w.g * (fcs.g * f) : 0.0f,
+                   mb ? tk.w.b * (fcs.b * f) : 0.0f};
       if (*sp < STACK_CAP) {
         stack[(*sp)++] = c;
       } else {  // unreachable under the bound: poison the pixel, never drop work
@@ -552,13 +651,14 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
       fcs.b = fcs.b * o[11];
     }
 
-    bool cont = idx != 0 && fcs.r + fcs.g + fcs.b > 0.1f && lev < p.max_reflections;
+    bool cont = idx != 0 && val(fcs.r) + val(fcs.g) + val(fcs.b) > 0.1f &&
+                lev < p.max_reflections;
     if (!cont) return;
     // mirror bounce + entry/exit flag flip (render.rs:1199-1211)
-    float en2 = -2.0f * dot(eye, n);
-    V3 new_eye = add(eye, v3(n.x * en2, n.y * en2, n.z * en2));
-    flags = dot(n, new_eye) < 0.0f ? ((flags & ~INONLY) | OUTONLY)
-                                   : ((flags & ~OUTONLY) | INONLY);
+    T en2 = -2.0f * dot(eye, n);
+    V3T<T> new_eye = add(eye, v3(n.x * en2, n.y * en2, n.z * en2));
+    flags = dot(val3(n), val3(new_eye)) < 0.0f ? ((flags & ~INONLY) | OUTONLY)
+                                               : ((flags & ~OUTONLY) | INONLY);
     vi = pt;
     eye = new_eye;
     ig = idx;
@@ -566,27 +666,35 @@ RT_HD void trace_task(const SceneView& s, const Params& p, const Task& tk, C3* o
 }
 
 // The colour of pixel (ix, iy). ``cam`` is the packed camera row.
-template <class Rec>
-RT_HD C3 trace_pixel(const SceneView& s, const Params& p, const float* cam, int ix, int iy,
-                     Rec& rec) {
-  Task stack[STACK_CAP];
-  stack[0].vi = v3(cam[0], cam[1], cam[2]);
-  stack[0].eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
-  stack[0].w = c3(1.0f, 1.0f, 1.0f);
+template <class T, class Rec>
+RT_FI C3T<T> trace_pixel(const SceneViewT<T>& s, const Params& p, const float* cam, int ix,
+                         int iy, Rec& rec) {
+  TaskT<T> stack[STACK_CAP];
+  if constexpr (is_dual_v<T>) {  // the camera's entries follow the objects'
+    const auto c = T::row(cam, s.n * F32_COLS - s.seed);
+    stack[0].vi = V3T<T>{c[0], c[1], c[2]};
+    stack[0].eye = camera_ray(p.xres, p.yres, p.sx, p.sy, c, ix, iy);
+  } else {  // the row itself: through a helper, ptxas gave K1 two more registers
+    stack[0].vi = V3T<T>{cam[0], cam[1], cam[2]};
+    stack[0].eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
+  }
+  stack[0].w = C3T<T>{1.0f, 1.0f, 1.0f};
   stack[0].lev = 0;
   stack[0].ig = -1;
   stack[0].flags = 0;
   stack[0].parent = -1;
   int sp = 1;
-  C3 out = c3(0.0f, 0.0f, 0.0f);
+  C3T<T> out = {0.0f, 0.0f, 0.0f};
   while (sp > 0) {
-    Task tk = stack[--sp];
+    TaskT<T> tk = stack[--sp];
     trace_task(s, p, tk, &out, stack, &sp, rec);
   }
   return out;
 }
 
-RT_HD C3 trace_pixel(const SceneView& s, const Params& p, const float* cam, int ix, int iy) {
+template <class T>
+RT_FI C3T<T> trace_pixel(const SceneViewT<T>& s, const Params& p, const float* cam, int ix,
+                         int iy) {
   NoRecord rec;
   return trace_pixel(s, p, cam, ix, iy, rec);
 }

@@ -1,7 +1,7 @@
 """Build and load the port's native kernels from ``ray_rust_tpu_torch/csrc``.
 
 The CUDA kernels (``trace_fwd.cu``, ``march_fwd.cu``, ``trace_bwd.cu``,
-``march_bwd.cu``) are compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a plain
+``march_bwd.cu``, ``trace_retrace.cu``) are compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a plain
 C interface, which are loaded with ``ctypes``. A library's file name carries
 a hash of the sources and flags, so an edited source is rebuilt and a stale
 library is never loaded. The builds go to ``ray_rust_tpu_torch/_build/``
@@ -12,7 +12,8 @@ compiler each.
 
 :func:`build_host_library` compiles a kernel's per-pixel body for the CPU
 with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
-``csrc/trace_bwd_host.cpp``, ``csrc/march_bwd_host.cpp``), for the
+``csrc/trace_bwd_host.cpp``, ``csrc/march_bwd_host.cpp``,
+``csrc/trace_retrace_host.cpp``), for the
 tests; with ``count_ops=True`` it builds it with ``-DRT_COUNT_OPS``, which
 adds the f32 operations the body takes to a counter, for the kernels'
 roofline bound.
@@ -59,12 +60,20 @@ _MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _
 # the atlas), the three cotangent planes, the block, the three primal planes
 _BWD_ARGS = _TRACE_CFG + [_F] + _TEX_ARGS + [_P] * 7
 _MARCH_BWD_ARGS = _MARCH_ARGS[:-3] + [_F] + [_P] * 7
+# the re-trace gradient: the trace backward's, with the launch's first
+# seeded entry in place of the atlas
+_RETRACE_ARGS = _TRACE_CFG + [_F, _I] + [_P] * 7
 _CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march_fwd", _MARCH_ARGS),
              "trace_bwd": ("rt_trace_bwd", _BWD_ARGS),
-             "march_bwd": ("rt_march_bwd", _MARCH_BWD_ARGS)}
+             "march_bwd": ("rt_march_bwd", _MARCH_BWD_ARGS),
+             "trace_retrace": ("rt_trace_retrace", _RETRACE_ARGS)}
 _HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host", _MARCH_ARGS),
              "trace_bwd": ("rt_trace_bwd_host", _BWD_ARGS),
-             "march_bwd": ("rt_march_bwd_host", _MARCH_BWD_ARGS)}
+             "march_bwd": ("rt_march_bwd_host", _MARCH_BWD_ARGS),
+             "trace_retrace": ("rt_trace_retrace_host", _RETRACE_ARGS)}
+# Other functions a library exports (its CUDA and host builds alike):
+# name -> (argtypes, restype).
+_EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I)}}
 
 # Each build's compiler output (for nvcc, ptxas's registers, stack and
 # spills), by library stem.
@@ -111,11 +120,12 @@ def _compile(compiler: list, main_src: Path, out_dir: Path, stem: str) -> tuple:
     return out, proc.stderr
 
 
-def _bind(path: Path, fn_name: str, argtypes: list, restype) -> ctypes.CDLL:
+def _bind(path: Path, fn_name: str, argtypes: list, restype, extra=None) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = restype
+    for name, (args, res) in [(fn_name, (argtypes, restype))] + list((extra or {}).items()):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = res
     return lib
 
 
@@ -125,10 +135,12 @@ def _compile_cuda(name: str) -> Path:
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"``,
-    ``"march_fwd"``, ``"trace_bwd"`` or ``"march_bwd"``)."""
+    ``"march_fwd"``, ``"trace_bwd"``, ``"march_bwd"`` or
+    ``"trace_retrace"``)."""
     if name not in _cuda_libs:
         fn_name, argtypes = _CUDA_FNS[name]
-        lib = _bind(_compile_cuda(name), fn_name, argtypes + [_I, _P], _I)
+        lib = _bind(_compile_cuda(name), fn_name, argtypes + [_I, _P], _I,
+                    _EXTRA_FNS.get(name, {}))
         lib.rt_error_string.argtypes = [_I]
         lib.rt_error_string.restype = ctypes.c_char_p
         _cuda_libs[name] = lib
@@ -156,10 +168,10 @@ def called_functions(ptxas_log: str) -> list:
 
 def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
     """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
-    a CPU loop (``rt_trace_host``, ``rt_march_host``, ``rt_trace_bwd_host``
-    or ``rt_march_bwd_host``)."""
+    a CPU loop (``rt_trace_host``, ``rt_march_host``, ``rt_trace_bwd_host``,
+    ``rt_march_bwd_host`` or ``rt_trace_retrace_host``)."""
     stem = f"{name}_host" + ("_ops" if count_ops else "")
     path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
                        CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)
     fn_name, argtypes = _HOST_FNS[name]
-    return _bind(path, fn_name, argtypes + [_P], None)
+    return _bind(path, fn_name, argtypes + [_P], None, _EXTRA_FNS.get(name, {}))
