@@ -26,9 +26,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    textured sites) at two small cases and at 1920x1080 in Bilinear, its
    image bit-equal to the trace kernel's; the march backward against
    torch autograd of the plain march (its implicit VJP), per scene leaf
-   within relative L2 0.02 (tests/test_pallas_bwd.py:306-321), at four small
-   cases and at the march training path's shape, with the share of its
-   image's pixels bit-equal to the march kernel's; the re-trace gradient
+   within relative L2 0.02 (tests/test_pallas_bwd.py:306-321) on the pixels
+   where its image agrees with the plain version's within 1e-4 (each other
+   pixel on a decision boundary, tests/test_pallas_bwd.py:29-72), at four
+   small cases and at the march training path's shape, its image the march
+   kernel's bit for bit; the march kernel with the floor tail off
+   (``march_floor_skip=False``) bit-equal to its plain version at 1280x720,
+   and with it on against it off at 1280x720 and on the JAX package's two
+   floor-tail scenes (tests/test_pallas.py:264-322), knife-edge pixels only
+   (at most 0.5% of pixels off by more than 1e-3, each on a decision
+   boundary: tests/test_pallas.py:238-261); the re-trace gradient
    oracle against torch autograd of the plain trace, per scene leaf within
    relative L2 0.01, at 320x240 (its image bit-equal to the trace kernel's)
    and, beside the trace backward against the same plain call, at the
@@ -63,8 +70,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain autograd, the march backward alone (3 warm-ups, 10 timed calls),
    its plain version once (phase 3's call at 1280x720); the march kernel at
    1280x720, 1920x1080 and 320x240 (3 warm-ups, 10 timed renders each), the
-   plain march once at 320x240 and once at 1280x720 (the comparison of phase
-   3: a plain frame takes tens of seconds at any size); the textured trace
+   plain march once at 1280x720 (the comparison of phase 3: a plain frame
+   takes tens of seconds at any size); the textured trace
    kernel at 1920x1080 in both filters, the textured training step and the
    backward kernel alone on the Bilinear scene (3 warm-ups, 10 timed calls;
    their plain versions once, in phase 3); the re-trace oracle and the trace
@@ -76,7 +83,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    runs); the re-trace oracle's bound is the trace backward's, since it
    computes the same function on the same inputs (its forward-mode
    operations over every launch, counted the same way, are printed beside
-   it as a diagnostic).
+   it as a diagnostic); the floor tail on and off in turns (on, off, off,
+   on) at 1280x720: the march kernel, the march backward and the march
+   training step (3 warm-ups, 10 calls each), beside the longest pixel's
+   operations and object passes from the counting builds, on and off (the
+   march bounds are the tail's counts; the step-by-step ones are printed as
+   a diagnostic).
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.
@@ -110,6 +122,10 @@ MARCH_TRAIN_LR = 10.0
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM rate
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# The floor tail's contract against the step-by-step march
+# (tests/test_pallas.py:238-261): pixels off by more than 1e-3 at most 0.5%,
+# each with a local contrast above 0.05 in the step-by-step image.
+KNIFE_EDGE = dict(frac=0.005, tol=1e-3, contrast=0.05)
 
 
 def compare(name, ref, got, mean_budget=BUDGET["mean"]):
@@ -125,6 +141,52 @@ def compare(name, ref, got, mean_budget=BUDGET["mean"]):
     if not ok:
         raise SystemExit(f"chip_smoke: {name} outside the budget {BUDGET}, mean {mean_budget}")
     return mx
+
+
+def off_boundary(ref, bad):
+    """How many of the pixels ``bad`` lie off a decision boundary: local
+    contrast at most KNIFE_EDGE's in the 3x3 neighbourhood of ``ref``."""
+    lum = ref.mean(-1)
+    pad = np.pad(lum, 1, mode="edge")
+    h, w = lum.shape
+    win = np.stack([pad[r:r + h, c:c + w] for r in range(3) for c in range(3)])
+    return int((bad & (win.max(0) - win.min(0) <= KNIFE_EDGE["contrast"])).sum())
+
+
+def knife_edge_only(name, on, off):
+    """Hold image ``on`` against ``off`` ((H, W, 3) arrays) to KNIFE_EDGE:
+    few pixels differ, each on a decision boundary of ``off``."""
+    diff = np.abs(on - off).max(-1)
+    bad = diff > KNIFE_EDGE["tol"]
+    flat = off_boundary(off, bad)
+    ok = np.isfinite(on).all() and bad.mean() <= KNIFE_EDGE["frac"] and flat == 0
+    print(f"  {name}: {bad.mean():.4%} pixels > {KNIFE_EDGE['tol']} (max {diff.max():.3g}), "
+          f"{flat} of them off a decision boundary -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {name} is not knife-edge-only ({KNIFE_EDGE})")
+
+
+def floor_tail_scenes(rtt):
+    """tests/test_pallas.py:264-322's two floor-tail scenes with their
+    configs: the branch matrix and the escape-glow regression."""
+    down = (0.0, -np.pi / 2, -np.pi / 2)
+    mats = [rtt.MaterialSpec(name="glowfloor", diffuse=(0.8, 0.8, 0.2), glow_dist=3.0),
+            rtt.MaterialSpec(name="glowball", diffuse=(0.8, 0.2, 0.2), glow_dist=4.0),
+            rtt.MaterialSpec(name="dull", diffuse=(0.3, 0.3, 0.6))]
+    objs = [rtt.FloorSpec("glowfloor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0)),
+            rtt.SphereSpec("glowball", 80.0, (400.0, -100.0, 600.0)),
+            rtt.SphereSpec("dull", 60.0, (0.0, -180.0, 1500.0))]
+    matrix = rtt.build_scene(mats, objs, (0.0, -295.0, -300.0), down, (50.0, 60.0, -50.0))[0]
+    mats = [rtt.MaterialSpec(name="floor", diffuse=(0.9, 0.9, 0.3)),
+            rtt.MaterialSpec(name="glow", diffuse=(0.9, 0.1, 0.1), glow_dist=1.0)]
+    objs = [rtt.FloorSpec("floor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0)),
+            rtt.SphereSpec("glow", 100.0, (0.0, -150.0, 2000.0))]
+    escape = rtt.build_scene(mats, objs, (0.0, -295.0, -300.0), down, (50.0, 60.0, -50.0))[0]
+    march = dict(xres=64, yres=48, use_raymarching=True, max_refractions=1)
+    return [("branch matrix 64x48", matrix,
+             rtt.RenderConfig(glow_effect=1.5, march_max_iter=600, **march)),
+            ("escape-glow regression 64x48", escape,
+             rtt.RenderConfig(glow_effect=2.0, march_max_iter=2000, **march))]
 
 
 def img(col):
@@ -188,10 +250,14 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     """The f32 operations kernel ``name``'s body (``"trace"`` or
     ``"march"``) takes on the default scene under ``cfg``, textured from
     ``texture_dir``, and the texel bytes its texture fetches read: its host
-    build with -DRT_COUNT_OPS, run on the CPU."""
+    build with -DRT_COUNT_OPS, run on the CPU. A march body also gives the
+    most operations of one pixel, the object passes and the most passes of
+    one pixel and the marches the never-converges test ended
+    (``kernel_march.OPS_SLOTS`` counts in all)."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
+    from ray_rust_tpu_torch.ops import kernel_march as km
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops.rays import fov_scales
 
@@ -200,13 +266,13 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)  # held until the call returns
     tex_args = kt.texture_args(tex, torch.device("cpu")) if name == "trace" else []
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
-    ops = torch.zeros(2, dtype=torch.int64)
+    ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
         sx, sy, *mod.kernel_args(cfg), *tex_args, *(plane.data_ptr() for plane in out),
         ops.data_ptr())
-    return int(ops[0]), int(ops[1])
+    return tuple(int(v) for v in ops)
 
 
 def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
@@ -214,10 +280,12 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     (``"trace_bwd"``: its raycasts; ``"march_bwd"``: its SDF steps) on the
     default scene under ``cfg``, textured from ``texture_dir``, and the texel
     bytes the record pass's texture fetches read: its host build with
-    -DRT_COUNT_OPS."""
+    -DRT_COUNT_OPS (all ``kernel_march.OPS_SLOTS`` counts, as
+    :func:`count_ops`)."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
+    from ray_rust_tpu_torch.ops import kernel_march as km
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
     from ray_rust_tpu_torch.ops.rays import fov_scales
@@ -228,13 +296,13 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     tex_args = kt.texture_args(tex, torch.device("cpu")) if name == "trace_bwd" else []
     g = torch.zeros((3, cfg.yres, cfg.xres), dtype=torch.float32)
     block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
-    ops = torch.zeros(2, dtype=torch.int64)
+    ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
         *mod.kernel_args(cfg), *tex_args, *(plane.data_ptr() for plane in g), block.data_ptr(),
         None, None, None, ops.data_ptr())
-    return int(ops[0]), int(ops[1])
+    return tuple(int(v) for v in ops)
 
 
 def count_retrace_ops(cfg):
@@ -325,6 +393,7 @@ def run(torch, tex_dir) -> int:
     cfg_main = rtt.RenderConfig(xres=W, yres=H)
     glow = dict(use_raymarching=True, glow_effect=1.0)
     cfg_march = rtt.RenderConfig(xres=MW, yres=MH, **glow)
+    cfg_march_off = cfg_march.with_(march_floor_skip=False)  # the step-by-step march
     # bar.png: the textured goldens' 256x256 noise (tests/goldens/gen_textured.py)
     save_png(os.path.join(tex_dir, "bar.png"),
              np.random.default_rng(101).integers(0, 256, (256, 256, 3)).astype(np.uint8))
@@ -334,6 +403,9 @@ def run(torch, tex_dir) -> int:
                    "march_fwd": counting.submit(count_ops, "march", km, cfg_march),
                    "trace_bwd": counting.submit(count_bwd_ops, "trace_bwd", kb, cfg_main),
                    "march_bwd": counting.submit(count_bwd_ops, "march_bwd", kmb, cfg_march),
+                   "march_fwd_off": counting.submit(count_ops, "march", km, cfg_march_off),
+                   "march_bwd_off": counting.submit(count_bwd_ops, "march_bwd", kmb,
+                                                    cfg_march_off),
                    "trace_fwd_textured": counting.submit(count_ops, "trace", kt, cfg_main,
                                                          tex_dir, 0),
                    "trace_bwd_textured": counting.submit(count_bwd_ops, "trace_bwd", kb,
@@ -427,6 +499,18 @@ def run(torch, tex_dir) -> int:
     compare("march kernel vs golden default_march_glow_160x120", golden, got)
     got, ref, march_plain_ms = both(default, cfg_march, km)
     march_max_abs_err = compare(f"march default {MW}x{MH} (the main path's shape)", ref, got)
+    print("march kernel, floor tail off vs plain version, and on vs off:")
+    off = img(km.render_color_kernel(default.to(dev), cfg_march_off))
+    same = float((off == ref).all(-1).mean())
+    print(f"  tail off, default {MW}x{MH}: bit-equal to the plain version on {same:.4%} of pixels "
+          f"-> {'ok' if same == 1.0 else 'FAIL'}")
+    if same < 1.0:
+        raise SystemExit("chip_smoke: the march kernel with the tail off is not its plain version")
+    knife_edge_only(f"tail on vs off, default {MW}x{MH}", got, off)
+    for name, scene, cfg in floor_tail_scenes(rtt):
+        scene = scene.to(dev)
+        knife_edge_only(f"tail on vs off, {name}", img(km.render_color_kernel(scene, cfg)),
+                        img(km.render_color_kernel(scene, cfg.with_(march_floor_skip=False))))
 
     print("backward kernel vs torch autograd of the plain version:")
 
@@ -450,17 +534,31 @@ def run(torch, tex_dir) -> int:
         return worst, worst_leaf
 
     def grad_case(name, scene, cfg, seed=0, bwd=kb, fwd=kt.render_color_plain,
-                  budget=GRAD_BUDGET, bit_equal=False, kernels=None):
+                  budget=GRAD_BUDGET, bit_equal=False, kernels=None, agree_with=None):
         """The table cotangents of each kernel wrapper in ``kernels`` (by
         default ``[bwd.render_grads_kernel]``) against one call of autograd
         of the plain version ``bwd.render_grads_plain`` on the same inputs,
         mapped to the scene's leaves, and each one's image against ``fwd``'s
         (on every pixel when ``bit_equal``); returns each kernel's largest
-        relative L2 and the plain version's ms (one call, CUDA events)."""
+        relative L2 and the plain version's ms (one call, CUDA events).
+        With ``agree_with`` (a function giving the plain version's image),
+        the JAX package's two steps (tests/test_pallas_bwd.py:29-72,
+        306-321): ``fwd``'s image agrees with it within 1e-4 on more than
+        90% of pixels, each other pixel on a decision boundary, and the
+        cotangent planes are zero there."""
         scene = scene.to(dev)
         rng = np.random.default_rng(seed)
         g = rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
                                          .astype(np.float32)).to(dev) for _ in range(3)))
+        if agree_with is not None:
+            ref_img = img(agree_with(scene, cfg))
+            agree = np.abs(img(fwd(scene, cfg)) - ref_img).max(-1) < 1e-4
+            flat = off_boundary(ref_img, ~agree)
+            print(f"  {name}: forwards agree on {agree.mean():.4%} of pixels, "
+                  f"{int((~agree).sum())} masked, {flat} of them off a decision boundary")
+            if not agree.mean() > 0.9 or flat:
+                raise SystemExit(f"chip_smoke: {name}: the forwards disagree off the boundaries")
+            g = rtt.Color(*(c * torch.from_numpy(agree).to(dev) for c in g))
         kernels = kernels or [bwd.render_grads_kernel]
         outs = [k(scene, cfg, g, return_primal=True) for k in kernels]
         torch.cuda.reset_peak_memory_stats()
@@ -527,9 +625,13 @@ def run(torch, tex_dir) -> int:
     (tex_bwd_err,), tex_bwd_plain_ms = grad_case(f"textured Bilinear {pw}x{ph}", tex_scenes[1],
                                               cfg_plain, **tex_grad)
 
-    print("march backward kernel vs torch autograd of the plain march (implicit VJP):")
-    # K4's image against K3's (the plain march is tens of seconds a frame)
-    mgrad = dict(bwd=kmb, fwd=km.render_color_kernel, budget=MARCH_GRAD_BUDGET)
+    print("march backward kernel vs torch autograd of the plain march (implicit VJP), its "
+          "image vs the march kernel's:")
+    # K4's image against K3's bit for bit; the floor tail flips knife-edge
+    # pixels against the plain march, so the cotangent covers the pixels
+    # where K3's image agrees with the plain version's
+    mgrad = dict(bwd=kmb, fwd=km.render_color_kernel, budget=MARCH_GRAD_BUDGET, bit_equal=True,
+                 agree_with=km.render_color_plain)
     glowing40 = spheres_scene(rtt, 7, 39, glow_dist=3.0)
     for name, scene, cfg in [
         ("march default 320x240", default, rtt.RenderConfig(xres=320, yres=240, **glow)),
@@ -544,9 +646,15 @@ def run(torch, tex_dir) -> int:
     # the march training path's shape, or the largest whose plain graph fits
     for pw_m, ph_m in ((MW, MH), (960, 540), (640, 360)):
         try:
+            # at the main path's frame the plain image is the march kernel's
+            # with the tail off (bit for bit on this frame, phase 3), a
+            # thousandth of the plain march's time
+            main_frame = (pw_m, ph_m) == (MW, MH)
             (march_bwd_max_err,), march_bwd_plain_ms = grad_case(
                 f"march default {pw_m}x{ph_m}", default, cfg_march.with_(xres=pw_m, yres=ph_m),
-                **mgrad)
+                **{**mgrad, "agree_with": (
+                    (lambda s, c: km.render_color_kernel(s, c.with_(march_floor_skip=False)))
+                    if main_frame else km.render_color_plain)})
             break
         except torch.cuda.OutOfMemoryError as e:
             print(f"  march default {pw_m}x{ph_m}: the plain autograd graph does not fit the "
@@ -813,9 +921,6 @@ def run(torch, tex_dir) -> int:
             c = cfg_march.with_(xres=w, yres=h)
             march_ms[(w, h)] = cuda_ms(torch, lambda c=c: km.render_color_kernel(scene_dev, c))
             print(f"  kernel {w}x{h}: {march_ms[(w, h)]:.3f} ms/frame")
-        c = cfg_march.with_(xres=320, yres=240)
-        plain_320 = cuda_ms(torch, lambda: km.render_color_plain(scene_dev, c), warm=0, reps=1)
-    print(f"  plain 320x240: {plain_320:.1f} ms (one frame)")
     print(f"  plain {MW}x{MH}: {march_plain_ms:.1f} ms (one frame, phase 3)")
 
     print(f"march + glow forward + backward {MW}x{MH}, default scene, default cfg ({card}):")
@@ -833,6 +938,25 @@ def run(torch, tex_dir) -> int:
           f"{march_bwd_ms:.3f} ms; its plain version at {pw_m}x{ph_m}: "
           f"{march_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
+    print(f"floor tail on and off in turns, {MW}x{MH}, default scene, -m -g 1.0 ({card}):")
+    tail_runs = []
+    for tag, c in (("on", cfg_march), ("off", cfg_march_off), ("off", cfg_march_off),
+                   ("on", cfg_march)):
+        with torch.no_grad():
+            k3_ms = cuda_ms(torch, lambda c=c: km.render_color_kernel(scene_dev, c))
+        k4_ms = cuda_ms(torch, lambda c=c: kmb.render_grads_kernel(scene_dev, c, g_march,
+                                                                   return_primal=True))
+        step_ms = cuda_ms(torch, step(rtt.render_color, c))
+        tail_runs.append((tag, k3_ms, k4_ms, step_ms))
+        print(f"  tail {tag}: march kernel {k3_ms:.3f} ms/frame, march backward {k4_ms:.3f} ms "
+              f"(with the image), march training step {step_ms:.3f} ms")
+    for name in ("march_fwd", "march_bwd"):
+        for tag, key in (("on", name), ("off", f"{name}_off")):
+            n_ops, _, px_ops, passes, px_passes, never = ops[key]
+            print(f"  counts, {name} {MW}x{MH}, tail {tag}: {n_ops} f32 operations, "
+                  f"{passes} object passes, {never} marches ended by the never-converges "
+                  f"test; the longest pixel {px_ops} operations, {px_passes} object passes")
+
     # roofline bounds from the operation counts of the main paths' frames
     bounds = {}
     for name, cfg, scene in (("trace_fwd", cfg_main, scene_dev),
@@ -841,7 +965,7 @@ def run(torch, tex_dir) -> int:
                              ("march_bwd", cfg_march, scene_dev),
                              ("trace_fwd_textured", cfg_main, tex_scenes[0]),
                              ("trace_bwd_textured", cfg_main, tex_bi)):
-        n_ops, fetched = ops[name]
+        n_ops, fetched = ops[name][:2]
         nbytes = io_bytes(scene, cfg) + texel_bytes(scene, fetched)
         if "_bwd" in name:
             # + the cotangent planes read, the block written
@@ -849,6 +973,10 @@ def run(torch, tex_dir) -> int:
         bounds[name] = roofline(n_ops, nbytes)
         print(f"  bound, {name} {cfg.xres}x{cfg.yres}: {n_ops} f32 operations, {nbytes} bytes "
               f"({fetched} B of texel fetches) -> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+        if name.startswith("march"):  # the step-by-step march's work, a diagnostic
+            off_ops = ops[f"{name}_off"][0]
+            print(f"    with the floor tail off (diagnostic, not the bound): {off_ops} f32 "
+                  f"operations -> {roofline(off_ops, nbytes)[0]:.4f} ms")
     # the re-trace oracle computes the trace backward's function on the same
     # inputs, so the least time for its work is the trace backward's bound;
     # its forward-mode operations over every launch are only a diagnostic

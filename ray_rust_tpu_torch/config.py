@@ -1,8 +1,9 @@
 """Static render configuration.
 
 PyTorch counterpart of ``ray_rust_tpu/config.py``. It keeps the semantic
-fields only; the JAX package's TPU tiling and kernel switches have no
-meaning here. A render runs on the device of the scene's tensors.
+fields, and of the JAX package's kernel switches only ``march_floor_skip``,
+which the march kernels take; the TPU tiling knobs have no meaning here. A
+render runs on the device of the scene's tensors.
 """
 
 from __future__ import annotations
@@ -46,6 +47,16 @@ class RenderConfig:
     raymarch_max_reflections: int = REF_MAX_REFLECTIONS
 
     bg: str = "default_sky"  # background shader registry key
+
+    # The march kernels' closed-form floor tail (csrc/march_body.cuh:
+    # floor_tail, the JAX package's field of the same name): while a floor
+    # wins the SDF the remaining distances form h*rho^k (rho = 1 + e.n), so
+    # the stop step, travel, end state and sampled glow minimum have closed
+    # forms, resolved up to the first travel where another object would tie
+    # the floor. Equal to the step-by-step march up to f32 rounding, which
+    # flips only knife-edge pixels. Kernels only: the plain march ignores it
+    # and stays the exact step-by-step oracle.
+    march_floor_skip: bool = True
 
     # Backward hygiene: hits farther than this are constants for autograd
     # (knife-edge horizon rays). The forward is unchanged. None disables.

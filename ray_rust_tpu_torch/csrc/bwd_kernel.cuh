@@ -45,8 +45,14 @@ inline size_t bwd_smem(int n, int n_tex = 0) {
          sizeof(int) * (n * I32_COLS + n_tex * TEX_META_COLS);
 }
 
+// Two blocks an SM: at most 128 registers a thread. The trace backward and
+// the re-trace fit that by themselves; left to its heuristic, ptxas gave
+// the march backward 255 registers and one block an SM, 37% slower on an
+// H100 than at 128 with its spills (PERF.md §6).
+constexpr int BWD_MIN_BLOCKS = 2;
+
 template <class Body, class P>
-__global__ void __launch_bounds__(BWD_BLOCK_X * BWD_BLOCK_Y)
+__global__ void __launch_bounds__(BWD_BLOCK_X * BWD_BLOCK_Y, BWD_MIN_BLOCKS)
 bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
            const float* __restrict__ cam, const float* __restrict__ light, int n, P p,
            TexArgs tx, float cutoff, const float* __restrict__ g_r,

@@ -32,13 +32,59 @@
 // build. chip_smoke.py fails when ptxas reports any function of march_fwd.cu
 // besides the kernel.
 //
+// What bounds a march is its slowest thread: a block holds its SM slot until
+// its last warp ends, and a pixel's marches run one SDF sweep after another.
+// A ray that grazes the floor near the horizon crawls toward it (or away
+// from it) in steps that shrink (or grow) by a factor rho = 1 + e.n each,
+// thousands of them, up to the march_max_iter cap. Two shortcuts of the JAX
+// kernel cut that chain short (MarchParams::floor_skip, the config's
+// march_floor_skip, turns the first off; the plain version has neither):
+//
+// - The floor tail (floor_tail, ray_rust_tpu/ops/pallas_march.py:_floor_tail).
+//   While a floor wins the SDF, the k-th distance is h*rho^k, so the stop
+//   step (a hit, an escape past far_away or the cap), the travel, the end
+//   state and the sampled glow minimum have closed forms. They hold up to
+//   s_break, the first travel where another object would tie the floor (a
+//   sphere's root is quadratic, a floor's linear): a stop before it
+//   finishes the march at once; a march that another object interrupts
+//   steps on (the JAX kernel fast-forwards it to s_break). The reference's
+//   f32 position update stalls once a step moves no coordinate that the
+//   floor's distance reads, so a grazing ray can stop short of eps and run
+//   to the cap: the tail predicts that stall (freeze_distance) and misses
+//   where the reference misses. The JAX kernel keeps the objects' ray
+//   constants as tile-shaped arrays and so takes the tail only up to 64
+//   objects; here each of the tail's two object passes recomputes them from
+//   the row in shared memory and the lane's position and direction, so no
+//   thread holds an array per object and the tail applies at every N the
+//   kernels take. A march tries it at its first step won by a floor, then
+//   every FLOOR_TAIL_PERIOD steps while a floor wins. The sums are
+//   evaluated from e.n itself (log1pf, expm1f) rather than from the rounded
+//   rho, so a grazing ray's end point stays on the floor to f32 rounding.
+// - The never-converges shortcut (never_converges, pallas_march.py:168-189)
+//   for marches that keep no glow (shadow marches, and primaries without
+//   glow): where every object stays more than 2*eps from the whole forward
+//   ray, no sample can come within eps, so the march ends by escape or cap,
+//   which give the same lit and miss decisions; it ends before its first
+//   step. With it, a closed-form tail of such a march may also ignore an
+//   object that clears its whole escape corridor by 2*eps.
+//
+// The closed forms round apart from the step-by-step loop, and logf, expf
+// and ceilf come from libdevice on the card and glibc on the host, so a
+// stop step may move by one on knife-edge lanes: the tail's contract is the
+// JAX package's, an image equal to the step-by-step one but for a sliver of
+// pixels on decision boundaries (tests/test_torch_march.py). Not carried
+// over: the JAX kernel's ray-parametric step form (pallas_march.py:85-97,
+// 127-147), which rounds differently and only saves arithmetic.
+//
 // The traversal takes a recorder, as trace_task does in trace_body.cuh: the
 // forward kernel's (NoMarchRecord) records nothing, the march backward's
 // (march_bwd_body.cuh) saves every raymarch call, every lap and the glow
 // argmin, so both kernels run one traversal. Under a recorder whose
 // TRACK_GLOW is set, march_single also keeps the glow argmin's position
 // (before the step), step index and object, as the JAX kernel's record_glow
-// does (ray_rust_tpu/ops/pallas_march.py:210-243).
+// does (ray_rust_tpu/ops/pallas_march.py:210-243); a floor tail keeps the
+// first of the samples whose f32 glow ties the least (first_tied_sample),
+// as the stepped march does, where the JAX tail keeps the last.
 #pragma once
 
 #include "trace_body.cuh"
@@ -53,12 +99,64 @@ namespace rt {
 
 constexpr int MARCH_FRAMES = 10;  // ops/kernel_march.py: FRAME_CAP
 
-// f32 operations (add, sub, mul, div, sqrt) of one object's SDF, of the
-// glow metric, and of one march step's update.
+// A march tries the floor tail at its first step won by a floor, then every
+// FLOOR_TAIL_PERIOD steps while a floor wins. Each try costs up to two
+// object passes: trying at every step slowed the 720p march kernel by ~30%,
+// periods past 64 lose the tail's gain on long marches, and 16-64 lie within
+// the spread of one build (a sweep on an H100, PERF.md §6).
+constexpr int FLOOR_TAIL_PERIOD = 32;
+
+// f32 operations (add, sub, mul, div, sqrt; logf, log1pf, expf, expm1f,
+// ceilf and floorf one each) of one object's SDF, of the glow metric, of
+// one march step's update, and of the shortcuts: the floor tail's set-up,
+// its s_break pass per sphere and floor (and the escape clearance of a
+// march without glow), one sample offset, the resolution, its glow pass per
+// glowing sphere and floor (and per candidate sample, and the first sample
+// that ties a floor's glow argmin), and the never-converges test per sphere
+// and floor.
 constexpr int OPS_SPHERE_SDF = 10;
 constexpr int OPS_FLOOR_SDF = 8;
 constexpr int OPS_GLOW = 1;
 constexpr int OPS_STEP = 7;
+constexpr int OPS_TAIL_SETUP = 12;
+constexpr int OPS_TAIL_SPHERE = 36;
+constexpr int OPS_TAIL_FLOOR = 16;
+constexpr int OPS_TAIL_CLEAR_SPHERE = 8;
+constexpr int OPS_TAIL_CLEAR_FLOOR = 2;
+constexpr int OPS_TAIL_OFFSET = 4;
+constexpr int OPS_TAIL_RESOLVE = 21;
+constexpr int OPS_TAIL_GLOW_SPHERE = 25;
+constexpr int OPS_TAIL_GLOW_FLOOR = 13;
+constexpr int OPS_TAIL_CAND_SPHERE = 10;
+constexpr int OPS_TAIL_CAND_FLOOR = 7;
+constexpr int OPS_TAIL_FREEZE = 6;
+constexpr int OPS_TAIL_TIE = 11;
+constexpr int OPS_TAIL_DRIFT_SPHERE = 20;
+constexpr int OPS_TAIL_DRIFT_FLOOR = 7;
+constexpr int OPS_CLEAR_SPHERE = 22;
+constexpr int OPS_CLEAR_FLOOR = 14;
+
+// A -DRT_COUNT_OPS build also counts the object passes (SDF sweeps, the
+// tail's passes, the never-converges test) into SceneView::ops[3]: the
+// serial chain of a thread, and the marches the never-converges test ended
+// into ops[5]. The host loops keep each pixel's largest operation and pass
+// counts in ops[2] and ops[4].
+#ifdef RT_COUNT_OPS
+#define RT_COUNT_PASS(s) ((s).ops[3] += 1ull)
+#define RT_COUNT_NEVER(s) ((s).ops[5] += 1ull)
+#define RT_PIXEL_COUNT_BEGIN(ops) \
+  const unsigned long long rt_ops0 = (ops)[0], rt_pass0 = (ops)[3]
+#define RT_PIXEL_COUNT_END(ops)                                              \
+  do {                                                                       \
+    if ((ops)[0] - rt_ops0 > (ops)[2]) (ops)[2] = (ops)[0] - rt_ops0;        \
+    if ((ops)[3] - rt_pass0 > (ops)[4]) (ops)[4] = (ops)[3] - rt_pass0;      \
+  } while (0)
+#else
+#define RT_COUNT_PASS(s) ((void)0)
+#define RT_COUNT_NEVER(s) ((void)0)
+#define RT_PIXEL_COUNT_BEGIN(ops) ((void)0)
+#define RT_PIXEL_COUNT_END(ops) ((void)0)
+#endif
 
 // March-mode render parameters.
 struct MarchParams {
@@ -71,6 +169,7 @@ struct MarchParams {
   float eps, far_away;
   int glow_on;
   float glow;
+  int floor_skip;  // march_floor_skip: try the closed-form floor tail
 };
 
 // One march's outcome (ops/march.py:MarchResult); the glow argmin only
@@ -140,10 +239,376 @@ RT_INLINE float distance_estimate(const SceneView& s, V3 pos, int ig, int* idx, 
   return closest;
 }
 
+// The never-converges test (ray_rust_tpu/ops/pallas_march.py:168-189): true
+// when every object but ``ig`` stays more than 2*eps from the whole forward
+// ray pos + e*t, t >= 0. A sphere's least distance is perp - r past its
+// closest approach and its distance at ``pos`` before it; a floor clears
+// only where the ray does not descend toward it.
+RT_INLINE bool never_converges(const SceneView& s, const MarchParams& p, V3 pos, V3 eye,
+                               int ig) {
+  RT_COUNT_PASS(s);
+  for (int i = 0; i < s.n; ++i) {
+    if (i == ig) continue;
+    const float* o = s.f32 + i * F32_COLS;
+    float dmin;
+    if (s.i32[i * I32_COLS] == KIND_SPHERE) {
+      RT_COUNT(s, OPS_CLEAR_SPHERE);
+      V3 w = sub(v3(o[0], o[1], o[2]), pos);
+      float s_star = dot(w, eye);
+      V3 pv = sub(w, scale(eye, s_star));
+      float perp2 = dot(pv, pv);
+      dmin = (s_star > 0.0f ? sqrtf(perp2) : sqrtf(perp2 + s_star * s_star)) - o[17];
+    } else {
+      RT_COUNT(s, OPS_CLEAR_FLOOR);
+      V3 nrm = v3(o[3], o[4], o[5]);
+      dmin = dot(eye, nrm) >= 0.0f ? dot(sub(pos, v3(o[0], o[1], o[2])), nrm) : -INFINITY;
+    }
+    if (!(dmin > 2.0f * p.eps)) return false;
+  }
+  return true;
+}
+
+// The first travel t >= 0 at which a sphere (radius r, its centre at travel
+// s_star along the ray and perp2 from it squared) comes within h + a*t of
+// the ray's point: the lower root of (1 - a^2) t^2 - 2 (s* + a (r + h)) t +
+// (perp2 + s*^2) - (r + h)^2 = 0, 0 where it is within already and +inf
+// where it never is. |a| >= 0.99 gives 0: no claim.
+RT_INLINE float sphere_tie(float s_star, float perp2, float r, float h, float a) {
+  if (!(fabsf(a) < 0.99f)) return 0.0f;
+  const float A2 = fmaxf(1.0f - a * a, 1e-4f) * 2.0f;
+  const float rh = r + h;
+  const float B = -2.0f * (s_star + a * rh);
+  const float C = perp2 + s_star * s_star - rh * rh;
+  const float D = B * B - 2.0f * A2 * C;
+  const float sqrtD = sqrtf(fmaxf(D, 0.0f));
+  const float r_lo = (-B - sqrtD) / A2;
+  const float r_hi = (-B + sqrtD) / A2;
+  return D < 0.0f ? INFINITY : r_lo > 0.0f ? r_lo : r_hi > 0.0f ? 0.0f : INFINITY;
+}
+
+// Half the float spacing at x: the largest step that leaves x as it is.
+RT_INLINE float half_spacing(float x) {
+  int e2;
+  frexpf(x, &e2);
+  return ldexpf(1.0f, e2 - 25);
+}
+
+// The floor distance below which a march toward floor ``o`` may stall in
+// f32, over its approach from ``pos`` to travel ``t_end``: a step moves
+// coordinate i by e_i*d, which rounds to nothing under half the float
+// spacing at p_i, and the SDF of a floor reads only the coordinates where
+// its normal is nonzero. So the distance stops falling once every such
+// coordinate along which the ray descends has frozen: below the least over
+// them of half the spacing over |e_i|, the spacing taken at the wider end of
+// the approach. *exact is set where each of those coordinates keeps one
+// spacing over the whole approach, so that the stall comes at that distance.
+RT_INLINE float freeze_distance(const SceneView& s, const float* o, V3 pos, V3 eye, float t_end,
+                                bool* exact) {
+  const float n[3] = {o[3], o[4], o[5]};
+  const float pc[3] = {pos.x, pos.y, pos.z};
+  const float ec[3] = {eye.x, eye.y, eye.z};
+  float f = INFINITY;
+  *exact = true;
+  for (int i = 0; i < 3; ++i) {
+    if (!(n[i] * ec[i] < 0.0f)) continue;  // the distance does not fall along i
+    RT_COUNT(s, OPS_TAIL_FREEZE);
+    const float p1 = pc[i] + ec[i] * t_end;
+    const float h0 = half_spacing(pc[i]), h1 = half_spacing(p1);
+    *exact = *exact && h0 == h1 && (pc[i] < 0.0f) == (p1 < 0.0f) && pc[i] != 0.0f;
+    f = fminf(f, fmaxf(h0, h1) / fabsf(ec[i]));
+  }
+  return f;
+}
+
+// The travel from sample 0 to sample i of a floor tail whose first step is
+// h and whose steps grow by rho = 1 + a: h*(rho^i - 1)/a, with log_rho =
+// log1p(a) (i steps of h where rho rounds to 1).
+RT_INLINE float tail_offset(float h, float a, float log_rho, float i) {
+  return log_rho != 0.0f ? h * (expm1f(i * log_rho) / a) : h * i;
+}
+
+// The first sample from 0 to k whose glow the stepped march reads as g, the
+// f32 glow of a floor's distance d = d0 + sl*t (sl < 0) at sample k of a
+// tail (step h, rho = 1 + a). On a grazing ray that distance falls by less
+// than its float spacing a step, so the stepped march reads one glow value
+// over a run of samples and keeps the first of them (distance_estimate's
+// strict <), where the closed form would take the last: the sample whose
+// distance first rounds to at most D, the largest distance whose glow
+// rounds to g (within two spacings of d, as gd*d and d lie within a binade).
+RT_INLINE float first_tied_sample(float d, float g, float gd, float d0, float sl, float h,
+                                  float a, float log_rho, float k) {
+  float D = d;
+  for (int j = 0; j < 3; ++j) {
+    const float up = nextafterf(D, INFINITY);
+    if (!(up * gd == g)) break;
+    D = up;
+  }
+  const float t = ((D - d0) + half_spacing(D)) / sl;  // travel where d reaches D's rounding
+  float kt;
+  if (log_rho != 0.0f) {
+    const float q = t * a / h;
+    kt = q > -1.0f ? ceilf(log1pf(q) / log_rho) : k;
+  } else {
+    kt = ceilf(t / h);
+  }
+  return fminf(fmaxf(kt, 0.0f), k);
+}
+
+// The closed-form floor tail (ray_rust_tpu/ops/pallas_march.py:_floor_tail,
+// over the lane's position). ``m`` is the march at its sample 0: position
+// m.pos, m.iter steps taken, glow already updated with this sample, whose
+// SDF is h, won by floor ``win``. Where the march stops (a hit, an escape,
+// the cap or a stall) before s_break, finishes ``m`` there and returns
+// true; else returns false and the caller steps on.
+template <bool GLOW, bool TRACK>
+RT_INLINE bool floor_tail(const SceneView& s, const MarchParams& p, V3 eye, int ig, float h,
+                          int win, March& m) {
+  const float* ow = s.f32 + win * F32_COLS;
+  const float a = dot(eye, v3(ow[3], ow[4], ow[5]));  // rho - 1
+  RT_COUNT_PASS(s);
+  RT_COUNT(s, OPS_TAIL_SETUP);
+  if (!(h > p.eps && h < p.far_away && 1.0f + a > 1e-6f)) return false;
+  const float log_rho = log1pf(a);
+  // the undisturbed stop: the first k with h*rho^k < eps (rho < 1) or
+  // > far_away (rho > 1), or the iteration cap
+  const float k_cap = static_cast<float>(p.max_iter - m.iter);
+  float k_stop = k_cap;
+  if (log_rho != 0.0f) {
+    const float k_geo = ceilf((logf(a < 0.0f ? p.eps : p.far_away) - logf(h)) / log_rho);
+    k_stop = fminf(k_geo, k_cap);
+  }
+  k_stop = fmaxf(k_stop, 0.0f);
+  // Toward the floor, the reference's f32 update may stall (freeze_distance)
+  // before the stop: where some coordinate still moves at the last distance
+  // (eps for a hit) it does not; where the stall distance is exact, the
+  // march is geometric up to sample k_frz, then d_stall a step to the cap,
+  // a miss; else where it stalls is not known, and the loop steps.
+  bool frozen = false;
+  float k_frz = 0.0f;
+  if (a < 0.0f) {
+    RT_COUNT(s, OPS_TAIL_OFFSET + 3);
+    bool exact;
+    const float f = freeze_distance(s, ow, m.pos, eye, tail_offset(h, a, log_rho, k_stop), &exact);
+    const float d_last = k_stop < k_cap ? p.eps : h * expf(k_stop * log_rho);
+    if (!(f < d_last)) {
+      if (!exact) return false;
+      k_frz = fmaxf(ceilf(logf(f / h) / log_rho), 0.0f);
+      frozen = k_frz < k_cap;
+      if (frozen) k_stop = k_cap;
+    }
+  }
+  // The stalled stretch [S_frz, S_end]: a step there moves coordinate i by
+  // e_i*d_stall rounded to its float spacing, off the ray's by at most the
+  // lesser of half that spacing (largest at an end of the stretch) and
+  // |e_i|*d_stall. So the lane stays inside the cone d_stall + c*(t - S_frz)
+  // around the ray, c those summed over d_stall, and an object outside the
+  // cone never wins the SDF there.
+  float S_frz = 0.0f, d_stall = 0.0f, S_end = 0.0f, c_drift = 0.0f;
+  if (frozen) {
+    RT_COUNT(s, 2 * OPS_TAIL_OFFSET + 12 + 6 * OPS_TAIL_FREEZE);
+    S_frz = tail_offset(h, a, log_rho, k_frz);
+    d_stall = h * expf(k_frz * log_rho);
+    S_end = S_frz + (k_cap - k_frz + 1.0f) * d_stall;
+    const V3 p0 = add(m.pos, scale(eye, S_frz)), p1 = add(m.pos, scale(eye, S_end));
+    c_drift = (fminf(half_spacing(fmaxf(fabsf(p0.x), fabsf(p1.x))), fabsf(eye.x) * d_stall) +
+               fminf(half_spacing(fmaxf(fabsf(p0.y), fabsf(p1.y))), fabsf(eye.y) * d_stall) +
+               fminf(half_spacing(fmaxf(fabsf(p0.z), fabsf(p1.z))), fabsf(eye.z) * d_stall)) /
+              d_stall;
+  }
+  bool drift_clear = true;
+  // a march without glow may ignore an object that clears its whole escape
+  // corridor [0, S_stop] by 2*eps: it cannot converge anywhere on it
+  constexpr bool CLEAR = !GLOW && !TRACK;
+  float S_stop = 0.0f;
+  if (CLEAR && a > 0.0f) {
+    RT_COUNT(s, OPS_TAIL_OFFSET + 1);
+    S_stop = tail_offset(h, a, log_rho, k_stop + 1.0f);
+  }
+
+  // s_break: the first travel at which another object would tie the floor,
+  // whose distance there is h + a*t
+  float s_break = INFINITY;
+  for (int i = 0; i < s.n; ++i) {
+    if (i == win || i == ig) continue;
+    const float* o = s.f32 + i * F32_COLS;
+    float sb, d_min;
+    if (s.i32[i * I32_COLS] == KIND_SPHERE) {
+      RT_COUNT(s, OPS_TAIL_SPHERE);
+      V3 w = sub(v3(o[0], o[1], o[2]), m.pos);
+      float s_star = dot(w, eye);
+      V3 pv = sub(w, scale(eye, s_star));
+      float perp2 = dot(pv, pv);
+      float wlen2 = perp2 + s_star * s_star;
+      float r = o[17];
+      sb = sphere_tie(s_star, perp2, r, h, a);
+      if (CLEAR && a > 0.0f) {
+        RT_COUNT(s, OPS_TAIL_CLEAR_SPHERE);
+        float dS = sqrtf(perp2 + (S_stop - s_star) * (S_stop - s_star));
+        bool interior = s_star > 0.0f && s_star < S_stop;
+        d_min = fminf(fminf(sqrtf(wlen2), dS), interior ? sqrtf(perp2) : INFINITY) - r;
+        if (d_min > 2.0f * p.eps) sb = INFINITY;
+      }
+      if (frozen) {  // outside the cone, or (a steep cone) its widest end
+        RT_COUNT(s, OPS_TAIL_DRIFT_SPHERE);
+        const float dt = fminf(fmaxf(s_star, S_frz), S_end) - s_star;
+        drift_clear = drift_clear &&
+                      (c_drift < 0.99f
+                           ? sphere_tie(s_star - S_frz, perp2, r, d_stall, c_drift) > S_end - S_frz
+                           : sqrtf(perp2 + dt * dt) - r > d_stall + c_drift * (S_end - S_frz));
+      }
+    } else {
+      RT_COUNT(s, OPS_TAIL_FLOOR);
+      V3 nrm = v3(o[3], o[4], o[5]);
+      float d0 = dot(sub(m.pos, v3(o[0], o[1], o[2])), nrm);
+      float sl = dot(eye, nrm);
+      float sl_a = sl - a;
+      sb = d0 > h ? (sl_a >= 0.0f ? INFINITY : (d0 - h) / fmaxf(-sl_a, 1e-12f)) : 0.0f;
+      if (CLEAR && a > 0.0f) {
+        RT_COUNT(s, OPS_TAIL_CLEAR_FLOOR);
+        d_min = fminf(d0, d0 + sl * S_stop);
+        if (d_min > 2.0f * p.eps) sb = INFINITY;
+      }
+      if (frozen) {  // affine along the ray, as the cone: its ends decide
+        RT_COUNT(s, OPS_TAIL_DRIFT_FLOOR);
+        drift_clear = drift_clear && d0 + sl * S_frz > d_stall &&
+                      d0 + sl * S_end > d_stall + c_drift * (S_end - S_frz);
+      }
+    }
+    s_break = fminf(s_break, sb);
+    if (!(s_break > 0.0f)) return false;  // no sample past the first is safe
+  }
+
+  // k_safe: the last sample strictly before s_break; offset(k) < s_break
+  // <=> k < log1p(s_break*a/h)/log_rho (every sample where a < 0 and
+  // s_break lies past the tail's limit h/-a)
+  RT_COUNT(s, OPS_TAIL_RESOLVE);
+  float k_bound;
+  if (log_rho != 0.0f) {
+    const float q = s_break * a / h;
+    k_bound = q > -1.0f ? log1pf(q) / log_rho : 3e7f;
+  } else {
+    k_bound = s_break / h;
+  }
+  const float k_safe = ceilf(fminf(k_bound, 3e7f)) - 1.0f;
+  // The tail takes a march that stops inside the safe zone (a stall, also
+  // with its stretch clear). One that another object would interrupt steps
+  // on, as the reference does: the JAX kernel fast-forwards it to s_break,
+  // which here moved K4's gradient off autograd's by 5% for under 0.1% of the
+  // work (PERF.md §6).
+  if (frozen ? !(drift_clear && k_frz <= k_safe) : !(k_stop <= k_safe)) return false;
+  const float kf = frozen ? k_frz : k_stop;
+  const int k = static_cast<int>(kf);
+  const float fd = h * expf(kf * log_rho);
+  // the sample the logs stop at must stop as evaluated, or the loop steps
+  if (!frozen && kf < k_cap && !(a < 0.0f ? fd < p.eps : fd > p.far_away)) return false;
+  const float S = frozen ? S_end : tail_offset(h, a, log_rho, kf + 1.0f);
+
+  if (GLOW) {
+    // the glow minimum over samples 1..k (sample 0 is the step's own): an
+    // object's distance along the ray is convex (sphere) or affine (floor)
+    // in the travel, so its least sample is the last one or one of the two
+    // that bracket its continuous minimum
+    RT_COUNT_PASS(s);
+    float best_v = INFINITY, best_i = 0.0f, best_t = 0.0f;
+    int best_j = 0;
+    bool best_floor = false;  // a floor's sample, not a stall's stretch
+    for (int i = 0; i < s.n; ++i) {
+      if (i == ig) continue;
+      const float* o = s.f32 + i * F32_COLS;
+      const float gd = o[18];
+      if (!(gd > 0.0f)) continue;  // its glow metric is never > 0
+      const bool sph = s.i32[i * I32_COLS] == KIND_SPHERE;
+      float s_star = 0.0f, perp2 = 0.0f, d0 = 0.0f, sl = 0.0f;
+      float cand[3];
+      int nc = 0;
+      if (sph) {
+        RT_COUNT(s, OPS_TAIL_GLOW_SPHERE);
+        V3 w = sub(v3(o[0], o[1], o[2]), m.pos);
+        s_star = dot(w, eye);
+        V3 pv = sub(w, scale(eye, s_star));
+        perp2 = dot(pv, pv);
+        const float s_rel = fminf(fmaxf(s_star, 0.0f), S);
+        const float i_star = log_rho != 0.0f
+                                 ? log1pf(fmaxf(s_rel * a / h, -0.99999994f)) / log_rho
+                                 : s_rel / h;
+        const float i1 = fminf(fmaxf(floorf(i_star), 0.0f), kf);
+        const float i2 = fminf(i1 + 1.0f, kf);
+        if (i1 > 0.0f) cand[nc++] = i1;
+        if (i2 > i1) cand[nc++] = i2;
+        if (kf > i2) cand[nc++] = kf;
+      } else {
+        RT_COUNT(s, OPS_TAIL_GLOW_FLOOR);
+        V3 nrm = v3(o[3], o[4], o[5]);
+        d0 = dot(sub(m.pos, v3(o[0], o[1], o[2])), nrm);
+        sl = dot(eye, nrm);
+        if (kf > 0.0f) cand[nc++] = kf;
+      }
+      // a stall's stretch: the sphere's nearest point on it and its end,
+      // another floor's end (the winner's distance stays d_stall there)
+      float drift_t[2];
+      int nd = 0;
+      if (frozen) {
+        if (sph) drift_t[nd++] = fminf(fmaxf(s_star, S_frz), S_end);
+        if (sph || i != win) drift_t[nd++] = S_end;
+      }
+      for (int c = 0; c < nc + nd; ++c) {
+        RT_COUNT(s, sph ? OPS_TAIL_CAND_SPHERE : OPS_TAIL_CAND_FLOOR);
+        const float t = c < nc ? tail_offset(h, a, log_rho, cand[c]) : drift_t[c - nc];
+        float d;
+        if (sph) {
+          const float dt = t - s_star;
+          d = fmaxf(sqrtf(perp2 + dt * dt) - o[17], 0.0f);
+        } else {
+          d = fmaxf(d0 + sl * t, 0.0f);
+        }
+        const float g = d * gd;
+        if (g > 0.0f && g < best_v) {
+          best_v = g;
+          best_t = t;
+          best_i = c < nc ? cand[c] : fminf(kf + floorf((t - S_frz) / d_stall), k_cap);
+          best_j = i;
+          best_floor = !sph && c < nc;
+        }
+      }
+    }
+    if (best_v < m.min_dist) {
+      m.min_dist = best_v;
+      if (TRACK) {
+        RT_COUNT(s, 6);
+        if (best_floor) {  // the loop's slope, d0 and distance, recomputed
+          const float* o = s.f32 + best_j * F32_COLS;
+          const V3 nrm = v3(o[3], o[4], o[5]);
+          const float sl = dot(eye, nrm);
+          RT_COUNT(s, 5);
+          if (sl < 0.0f) {
+            RT_COUNT(s, OPS_TAIL_TIE + OPS_TAIL_OFFSET + 10);
+            const float d0 = dot(sub(m.pos, v3(o[0], o[1], o[2])), nrm);
+            const float d = fmaxf(d0 + sl * best_t, 0.0f);
+            best_i = first_tied_sample(d, best_v, o[18], d0, sl, h, a, log_rho, best_i);
+            best_t = tail_offset(h, a, log_rho, best_i);
+          }
+        }
+        m.glow_pos = add(m.pos, scale(eye, best_t));
+        m.glow_iter = m.iter + static_cast<int>(best_i);
+        m.glow_obj = best_j;
+      }
+    }
+  }
+
+  m.pos = add(m.pos, scale(eye, S));
+  m.travel = m.travel + S;
+  // a stall ends at the cap, missing: its distance stays above eps
+  m.iter += frozen ? static_cast<int>(k_cap) + 1 : k + 1;
+  m.final_dist = frozen ? fmaxf(d_stall, p.eps) : fd;
+  m.idx = win;
+  return true;
+}
+
 // Sphere tracing (render.rs:1266-1297): the step comes before the stop
 // check, so the result includes the final step. Without GLOW, min_dist is
 // +inf (a shadow march reads only travel and iter). With TRACK, the glow
-// argmin is kept as well.
+// argmin is kept as well. With p.floor_skip, floor tails resolve in closed
+// form; without GLOW and TRACK, a march that cannot converge ends at once.
 template <bool GLOW, bool TRACK>
 RT_INLINE March march_single(const SceneView& s, const MarchParams& p, V3 pos, V3 eye,
                                int ig) {
@@ -157,11 +622,21 @@ RT_INLINE March march_single(const SceneView& s, const MarchParams& p, V3 pos, V
     m.glow_iter = -1;
     m.glow_obj = 0;
   }
+  if (!GLOW && !TRACK && never_converges(s, p, pos, eye, ig)) {
+    RT_COUNT_NEVER(s);
+    m.pos = add(pos, scale(eye, p.far_away));
+    m.travel = p.far_away;
+    m.iter = 1;
+    m.final_dist = p.far_away;
+    m.idx = 0;
+    return m;
+  }
+  int next_try = p.floor_skip ? 0 : 0x7fffffff;  // the step that may try the floor tail
   for (;;) {
     int idx, glow_obj;
     float glow;
     float dist = distance_estimate<GLOW>(s, m.pos, ig, &idx, &glow, &glow_obj);
-    RT_COUNT(s, OPS_STEP);
+    RT_COUNT_PASS(s);
     if (GLOW && glow < m.min_dist) {
       m.min_dist = glow;
       if (TRACK) {
@@ -170,6 +645,11 @@ RT_INLINE March march_single(const SceneView& s, const MarchParams& p, V3 pos, V
         m.glow_obj = glow_obj;
       }
     }
+    if (m.iter >= next_try && s.i32[idx * I32_COLS] != KIND_SPHERE) {
+      if (floor_tail<GLOW, TRACK>(s, p, eye, ig, dist, idx, m)) return m;
+      next_try = m.iter + FLOOR_TAIL_PERIOD;
+    }
+    RT_COUNT(s, OPS_STEP);
     m.pos = add(m.pos, scale(eye, dist));
     m.travel = m.travel + dist;
     m.iter += 1;

@@ -8,18 +8,20 @@
 // optionally the image itself (the march kernel's, bit for bit). The
 // per-pixel program lives in march_bwd_body.cuh.
 //
-// What bounds it: per-thread arithmetic and divergence, not bytes. It reads
-// the tables and three f32 planes and writes an (n+1, 20) block and at most
-// three planes, while each pixel re-runs the forward's whole traversal (its
-// marches and shadow marches, hundreds to thousands of O(objects) SDF steps)
-// before a reverse sweep over at most MARCH_SITE_CAP recorded laps, which
-// costs a few SDF sweeps. So it takes at least the march forward's time. The
-// design is simple and right, not fast, in the trace backward's frame
-// (bwd_kernel.cuh: tables in shared memory, a shared (n+1, 20) accumulator,
-// one global atomic per nonzero entry per block, summed in an order that
-// changes from run to run). The JAX kernel's tile gates and floor-tail
-// shortcut are not carried over. Built with --fmad=false, as the forward
-// kernels.
+// What bounds it: its slowest thread, not bytes. It reads the tables and
+// three f32 planes and writes an (n+1, 20) block and at most three planes,
+// while each pixel re-runs the forward's whole traversal (its record pass:
+// marches and shadow marches, one O(objects) SDF sweep after another) before
+// a reverse sweep over at most MARCH_SITE_CAP recorded laps, which costs a
+// few SDF sweeps. The record pass is K3's march body, floor tail and
+// never-converges shortcut included (march_body.cuh), so it is as short as
+// K3's; what is left is the reverse sweep and its records, held to 128
+// registers with ~8 KB of stack a thread (ptxas). The design is simple and
+// right, not fast, in the trace backward's frame (bwd_kernel.cuh: tables in
+// shared memory, a shared (n+1, 20) accumulator, one global atomic per
+// nonzero entry per block, summed in an order that changes from run to
+// run). The JAX kernel's tile gates are not carried over. Built with
+// --fmad=false, as the forward kernels.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_march_bwd.py).
@@ -50,7 +52,7 @@ size_t rt_march_bwd_smem(int n) { return rt::bwd_smem(n); }
 int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, float sx, float sy, int refraction_cap, int bg,
                  int max_laps, int max_iter, float eps, float far_away, int glow_on, float glow,
-                 float cutoff, const float* g_r, const float* g_g, const float* g_b,
+                 int floor_skip, float cutoff, const float* g_r, const float* g_g, const float* g_b,
                  float* out_block, float* prim_r, float* prim_g, float* prim_b, int device,
                  void* stream) {
   rt::MarchParams p;
@@ -66,6 +68,7 @@ int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.far_away = far_away;
   p.glow_on = glow_on;
   p.glow = glow;
+  p.floor_skip = floor_skip;
   return rt::launch_bwd<MarchBody>(f32t, i32t, cam, light, n, p, rt::TexArgs{}, cutoff, g_r,
                                    g_g, g_b, out_block, prim_r, prim_g, prim_b, device, stream);
 }

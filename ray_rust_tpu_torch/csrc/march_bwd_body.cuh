@@ -20,10 +20,17 @@
 // 1. Record: the forward kernel's own traversal (march_body.cuh:march_pixel
 //    with a MarchRecorder), the same marches, shadow marches and laps in
 //    the same order, so the pixel's colour is the forward kernel's bit for
-//    bit. For every raymarch call (a frame: the camera ray's, each
-//    refraction sub-march) it saves the lap that started it, its colour
-//    before and after its glow factor, and the glow argmin (value, position,
-//    object, whether it was the hit of its march, and its lap). For every
+//    bit. This pass is what bounds the kernel, as the traversal bounds K3:
+//    its slowest thread's serial SDF sweeps; the floor tail and the
+//    never-converges shortcut of march_body.cuh shorten it here as there.
+//    A march that the tail resolves records its argmin sample as the
+//    stepped march would (the sample's position, step index and object;
+//    of a run of samples whose f32 glow ties, the first), so ``gend``
+//    below holds exactly where the argmin was the last sample. For every
+//    raymarch call (a frame: the camera ray's, each refraction sub-march)
+//    it saves the lap that started it, its colour before and after its
+//    glow factor, and the glow argmin (value, position, object, whether it
+//    was the hit of its march, and its lap). For every
 //    lap that ran (a site) it saves the direction the lap marched, the end point,
 //    the travel, the throughput before the lap, flags, the ignored object,
 //    the winner, hit and lit, the next lap of its frame and the sub-march it

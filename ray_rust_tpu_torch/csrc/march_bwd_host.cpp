@@ -3,7 +3,8 @@
 // tested against torch autograd of the plain PyTorch version where there is
 // no card. Same arguments as rt_march_bwd in march_bwd.cu, minus the device
 // and stream. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared
-// -fPIC`` (and -DRT_COUNT_OPS to add the operation count to *ops_total).
+// -fPIC`` (and -DRT_COUNT_OPS to count into ops_total[0..5] as
+// march_host.cpp does).
 
 #include "march_bwd_body.cuh"
 
@@ -20,7 +21,8 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
                                   const float* light, int n, int xres, int yres, float sx,
                                   float sy, int refraction_cap, int bg, int max_laps,
                                   int max_iter, float eps, float far_away, int glow_on,
-                                  float glow, float cutoff, const float* g_r, const float* g_g,
+                                  float glow, int floor_skip, float cutoff, const float* g_r,
+                                  const float* g_g,
                                   const float* g_b, float* out_block, float* prim_r,
                                   float* prim_g, float* prim_b, unsigned long long* ops_total) {
   rt::SceneView s;
@@ -46,12 +48,15 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
   p.far_away = far_away;
   p.glow_on = glow_on;
   p.glow = glow;
+  p.floor_skip = floor_skip;
   HostAcc acc = {out_block};
   for (int iy = 0; iy < yres; ++iy) {
     for (int ix = 0; ix < xres; ++ix) {
       const long o = static_cast<long>(iy) * xres + ix;
+      RT_PIXEL_COUNT_BEGIN(ops_total);
       rt::C3 c = rt::march_pixel_grad(s, p, cutoff, cam, ix, iy,
                                       rt::c3(g_r[o], g_g[o], g_b[o]), acc);
+      RT_PIXEL_COUNT_END(ops_total);
       if (prim_r != nullptr) {
         prim_r[o] = c.r;
         prim_g[o] = c.g;

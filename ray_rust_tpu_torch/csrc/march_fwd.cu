@@ -6,20 +6,28 @@
 // the sky, uv maps, patterns, the normal and the camera ray with the trace
 // kernel's body (trace_body.cuh).
 //
-// What bounds it: per-thread arithmetic and divergence, not bytes. A 720p
-// image is 11 MB of output and the scene at most 512 objects * 92 B = 47 KB,
-// while each pixel runs hundreds to thousands of SDF steps (a horizon-grazing
-// ray about 1 500, and its shadow march too), each an O(objects) sweep. The
-// design is simple and right, not fast: the object tables are staged in
-// shared memory once per block (every thread of a warp reads the same row
-// at once, a broadcast), each thread runs its own march loops, and the
-// refraction recursion is a chain of template instances, one per depth,
-// inlined into one program. The TPU kernel's tile tricks are not
-// carried over: no tile-wide while loop or tile skip, no ray-parametric lap
-// form, no closed-form floor-tail fast-forward, no never-converges
-// shortcut; warps diverge where their pixels' step counts differ. Built with
-// --fmad=false, so each product and sum rounds on its own as in the plain
-// PyTorch version (ops/trace.py:raymarch).
+// What bounds it: its slowest thread's serial SDF steps, not bytes or total
+// work. A 720p image is 11 MB of output and the scene at most 512 objects *
+// 92 B = 47 KB, while a pixel runs its marches one O(objects) sweep after
+// another, and a block holds its SM slot until its last warp ends. With
+// every march stepped, a horizon-grazing ray crawls to the 10 000-step cap
+// (10 209 object passes for the longest 720p pixel), so the kernel's time barely
+// grows with the pixel count. Two shortcuts of the JAX kernel cut that chain
+// (march_body.cuh): the closed-form floor tail, which resolves a floor-won
+// march's remaining steps at once, stall of the reference's f32 update
+// included, and the never-converges shortcut, which ends a shadow march that
+// no object can stop before its first step; the longest 720p pixel then
+// takes 2 311 passes, a ray that crawls along a mirror sphere's rim. The
+// design is otherwise simple: the object tables are staged in shared memory
+// once per block (every thread of a warp reads the same row at once, a
+// broadcast), each thread runs its own march loops, and the refraction
+// recursion is a chain of template instances, one per depth, inlined into
+// one program. Not carried over: the tile-wide while loop and tile skip, and
+// the ray-parametric step form (pallas_march.py:85-97,127-147), which rounds
+// differently and only saves arithmetic; warps diverge where their pixels'
+// step counts differ. Built with --fmad=false, so each product and sum
+// rounds on its own as in the plain PyTorch version (ops/trace.py:raymarch);
+// with march_floor_skip off the kernel is that version bit for bit.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_march.py).
@@ -83,8 +91,8 @@ size_t rt_march_fwd_smem(int n) {
 int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, float sx, float sy, int refraction_cap, int bg,
                  int max_laps, int max_iter, float eps, float far_away, int glow_on,
-                 float glow, float* out_r, float* out_g, float* out_b, int device,
-                 void* stream) {
+                 float glow, int floor_skip, float* out_r, float* out_g, float* out_b,
+                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   rt::MarchParams p;
@@ -100,6 +108,7 @@ int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.far_away = far_away;
   p.glow_on = glow_on;
   p.glow = glow;
+  p.floor_skip = floor_skip;
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((xres + BLOCK_X - 1) / BLOCK_X, (yres + BLOCK_Y - 1) / BLOCK_Y);
   march_fwd_kernel<<<grid, block, rt_march_fwd_smem(n), static_cast<cudaStream_t>(stream)>>>(

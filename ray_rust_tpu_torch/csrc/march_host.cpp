@@ -3,15 +3,18 @@
 // against the plain PyTorch version where there is no card. Same arguments
 // as rt_march_fwd in march_fwd.cu, minus the device and stream. Build with
 // ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and
-// -DRT_COUNT_OPS to add the operation count to *ops_total).
+// -DRT_COUNT_OPS to count into ops_total[0..5]: f32 operations, texel bytes
+// (none), the largest per pixel, object passes, the largest per pixel, the
+// marches the never-converges test ended).
 
 #include "march_body.cuh"
 
 extern "C" void rt_march_host(const float* f32t, const int* i32t, const float* cam,
                               const float* light, int n, int xres, int yres, float sx,
                               float sy, int refraction_cap, int bg, int max_laps, int max_iter,
-                              float eps, float far_away, int glow_on, float glow, float* out_r,
-                              float* out_g, float* out_b, unsigned long long* ops_total) {
+                              float eps, float far_away, int glow_on, float glow,
+                              int floor_skip, float* out_r, float* out_g, float* out_b,
+                              unsigned long long* ops_total) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
@@ -35,9 +38,12 @@ extern "C" void rt_march_host(const float* f32t, const int* i32t, const float* c
   p.far_away = far_away;
   p.glow_on = glow_on;
   p.glow = glow;
+  p.floor_skip = floor_skip;
   for (int iy = 0; iy < yres; ++iy) {
     for (int ix = 0; ix < xres; ++ix) {
+      RT_PIXEL_COUNT_BEGIN(ops_total);
       rt::C3 c = rt::march_pixel(s, p, cam, ix, iy);
+      RT_PIXEL_COUNT_END(ops_total);
       const long o = static_cast<long>(iy) * xres + ix;
       out_r[o] = c.r;
       out_g[o] = c.g;

@@ -16,7 +16,8 @@ with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
 ``csrc/trace_retrace_host.cpp``), for the
 tests; with ``count_ops=True`` it builds it with ``-DRT_COUNT_OPS``, which
 adds the f32 operations the body takes to a counter, for the kernels'
-roofline bound.
+roofline bound (the march bodies also count object passes and each pixel's
+largest counts, ``kernel_march.OPS_SLOTS``).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ _F = ctypes.c_float
 _TRACE_CFG = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
 _TEX_ARGS = [_P, _P, _I, _I, _I]
 _TRACE_ARGS = _TRACE_CFG + _TEX_ARGS + [_P, _P, _P]
-_MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F,
+_MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I,
                _P, _P, _P]
 # the backward kernels: the forward's render arguments, the cutoff, (trace:
 # the atlas), the three cotangent planes, the block, the three primal planes

@@ -15,6 +15,11 @@ computes the same function with PyTorch operations; the renderer takes it
 for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernel
 against it. The scene tables are the trace kernel's
 (``kernel_trace.pack_scene``; column 18 holds ``glow_dist``).
+
+``RenderConfig.march_floor_skip`` (on by default, as in the JAX package)
+lets the kernel resolve a march's floor tail in closed form; the plain
+version ignores it and stays the exact step-by-step march. With it off the
+kernel steps as the plain version does.
 """
 
 from __future__ import annotations
@@ -42,6 +47,12 @@ __all__ = [
 LAUNCHES = 0
 
 KERNEL_OBJECT_MAX = 512  # the tables must fit one block's shared memory
+# The counters a -DRT_COUNT_OPS host build of a march body fills
+# (csrc/march_body.cuh): f32 operations, texel bytes (none), the most
+# operations of one pixel, object passes (SDF sweeps and the shortcuts'
+# passes), the most passes of one pixel, the marches the never-converges
+# test ended.
+OPS_SLOTS = 6
 # The kernel's raymarch frames (csrc/march_body.cuh: rt::MARCH_FRAMES). A
 # raymarch at level L runs laps at levels L+1 .. L+max(1, R-L) for
 # R = raymarch_max_reflections, and a lap at level l < cap starts a
@@ -81,7 +92,7 @@ def kernel_args(cfg: RenderConfig) -> list:
     glow_on = cfg.glow_effect is not None
     return [cfg.refraction_cap(), BG_IDS[cfg.bg], cfg.raymarch_max_reflections,
             cfg.march_max_iter, cfg.march_eps, cfg.far_away, int(glow_on),
-            float(np.float32(cfg.glow_effect)) if glow_on else 0.0]
+            float(np.float32(cfg.glow_effect)) if glow_on else 0.0, int(cfg.march_floor_skip)]
 
 
 def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:

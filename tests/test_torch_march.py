@@ -29,6 +29,7 @@ from ray_rust_tpu_torch.ops.march import distance_estimate, march_single
 from ray_rust_tpu_torch.ops.rays import fov_scales
 from ray_rust_tpu_torch.utils.image import load_png
 
+from .test_torch_kernel_bwd import assert_boundary_only
 from .test_torch_kernel_trace import one_torch_thread  # noqa: F401 (module fixture)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -262,10 +263,155 @@ def test_op_counting_build_changes_no_pixel(tmp_path, host_lib):
     counting = _build.build_host_library(tmp_path, "march", count_ops=True)
     scene = rtt.default_scene(device="cpu")[0]
     cfg = rtt.RenderConfig(xres=16, yres=12, march_max_iter=2000, **_GLOW)
-    ops = torch.zeros(1, dtype=torch.int64)
+    ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
     got = _host_render(counting, scene, cfg, ops)
     np.testing.assert_array_equal(got, _host_render(host_lib, scene, cfg))
-    assert int(ops) > 16 * 12 * 5 * 8
+    assert int(ops[0]) > 16 * 12 * 5 * 8
+
+
+# -- the floor tail (march_floor_skip) and the never-converges shortcut -------
+# Twins of tests/test_pallas.py:219-347: the same scenes and configs, with the
+# march body's host build with the tail on held against it off under the JAX
+# package's contract for the shortcut, knife-edge pixels only.
+
+
+def test_march_floor_skip_is_the_jax_field():
+    import ray_rust_tpu as rt
+
+    assert rtt.RenderConfig().march_floor_skip is rt.RenderConfig().march_floor_skip is True
+    cfg = rtt.RenderConfig(**_GLOW)
+    assert km.kernel_args(cfg)[-1] == 1
+    assert km.kernel_args(cfg.with_(march_floor_skip=False))[-1] == 0
+
+
+def assert_knife_edge_only(on, off, frac_budget=0.005, tol=1e-3, contrast=0.05):
+    """tests/test_pallas.py:_assert_knife_edge_only: the two images are equal
+    but for at most ``frac_budget`` of pixels, each on a decision boundary
+    (local contrast above ``contrast`` in the step-by-step image ``off``)."""
+    diff = np.abs(on - off).max(-1)
+    bad = diff > tol
+    assert bad.mean() <= frac_budget, (
+        f"{bad.mean():.2%} pixels differ > {tol} (budget {frac_budget:.1%}); max {diff.max():.4f}")
+    assert_boundary_only(off, ~bad, contrast)
+
+
+def _skip_pair(lib, scene, cfg):
+    """The host build's image with the floor tail on and off."""
+    return (_host_render(lib, scene, cfg.with_(march_floor_skip=True)),
+            _host_render(lib, scene, cfg.with_(march_floor_skip=False)))
+
+
+def _branch_matrix(pkg):
+    """tests/test_pallas.py:264-293's scene: a glowing floor seen from 5 units
+    above (rho < 1 hits, cap stops near the horizon, rho > 1 escapes), a
+    glowing sphere off to the side (an interior glow argmin) and a dull
+    sphere in the escape corridor (the tail must stop short of it)."""
+    mats = [pkg.MaterialSpec(name="glowfloor", diffuse=(0.8, 0.8, 0.2), glow_dist=3.0),
+            pkg.MaterialSpec(name="glowball", diffuse=(0.8, 0.2, 0.2), glow_dist=4.0),
+            pkg.MaterialSpec(name="dull", diffuse=(0.3, 0.3, 0.6))]
+    objs = [pkg.FloorSpec("glowfloor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0)),
+            pkg.SphereSpec("glowball", 80.0, (400.0, -100.0, 600.0)),
+            pkg.SphereSpec("dull", 60.0, (0.0, -180.0, 1500.0))]
+    return pkg.build_scene(mats, objs, (0.0, -295.0, -300.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0), **_on_cpu(pkg))[0]
+
+
+def _escape_glow(pkg):
+    """tests/test_pallas.py:296-322's scene: rays escaping 5 units above the
+    floor pass a glowing sphere far down the corridor."""
+    mats = [pkg.MaterialSpec(name="floor", diffuse=(0.9, 0.9, 0.3)),
+            pkg.MaterialSpec(name="glow", diffuse=(0.9, 0.1, 0.1), glow_dist=1.0)]
+    objs = [pkg.FloorSpec("floor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0)),
+            pkg.SphereSpec("glow", 100.0, (0.0, -150.0, 2000.0))]
+    return pkg.build_scene(mats, objs, (0.0, -295.0, -300.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0), **_on_cpu(pkg))[0]
+
+
+def test_host_floor_skip_branch_matrix(host_lib):
+    """Every branch of the tail on one scene, on against off; and on against
+    the plain version within the JAX test's budget for the kernel against
+    its oracle (5% of pixels, mean 0.03)."""
+    scene = _branch_matrix(rtt)
+    cfg = rtt.RenderConfig(xres=64, yres=48, use_raymarching=True, glow_effect=1.5,
+                           max_refractions=1, march_max_iter=600)
+    on, off = _skip_pair(host_lib, scene, cfg)
+    assert_knife_edge_only(on, off)
+    _compare(_img(km.render_color_plain(scene, cfg)), on, frac_budget=0.05, mean_tol=0.03)
+
+
+def test_host_floor_skip_escape_glow_regression(host_lib):
+    """A glowing sphere beyond the floor's initial distance must stop the
+    escape branch's tail, or the glow argmin comes out too coarse."""
+    cfg = rtt.RenderConfig(xres=64, yres=48, use_raymarching=True, glow_effect=2.0,
+                           max_refractions=1, march_max_iter=2000)
+    assert_knife_edge_only(*_skip_pair(host_lib, _escape_glow(rtt), cfg))
+
+
+@pytest.mark.parametrize("case", ["branch_matrix", "escape_glow"])
+def test_host_floor_skip_matches_jax_march(host_lib, case):
+    """The tail-on host build against the JAX package's step-by-step march
+    (its jnp ``trace_image``, one step per while iteration) on the same
+    scene, knife-edge pixels only: the tail is held to the reference, not
+    only to the port's own step-by-step build."""
+    from ray_rust_tpu.ops.rays import camera_rays as jax_rays
+    from ray_rust_tpu.ops.trace import trace_image as jax_trace_image
+
+    make, glow, max_iter = {"branch_matrix": (_branch_matrix, 1.5, 600),
+                            "escape_glow": (_escape_glow, 2.0, 2000)}[case]
+    cfg = rtt.RenderConfig(xres=64, yres=48, use_raymarching=True, glow_effect=glow,
+                           max_refractions=1, march_max_iter=max_iter)
+    assert cfg.march_floor_skip
+    jax_scene = make(_jax())
+    jcfg = _jax_cfg(cfg, march_tiles=1, march_chunk=1)
+    vi, eye = jax_rays(jax_scene.camera.position, jax_scene.camera.rotation, jcfg)
+    ref = _img(jax_trace_image(jax_scene, jcfg, vi, eye))
+    assert_knife_edge_only(_host_render(host_lib, _port(jax_scene), cfg), ref)
+
+
+@pytest.mark.parametrize("size", [(64, 48), (160, 120)], ids=["64x48", "160x120"])
+def test_host_floor_skip_ab_default_scene(host_lib, size):
+    """On against off on the default scene with glow, where the horizon band
+    is resolved: the rays that stall in f32 above eps at the far horizon
+    (csrc/march_body.cuh:freeze_distance) must miss as the step-by-step
+    march does."""
+    cfg = rtt.RenderConfig(xres=size[0], yres=size[1], march_max_iter=2000,
+                           max_refractions=1, **_GLOW)
+    assert_knife_edge_only(*_skip_pair(host_lib, rtt.default_scene(device="cpu")[0], cfg))
+
+
+def test_never_converges_shortcut_changes_no_pixel(tmp_path):
+    """Shadow marches, and primaries without glow, that no object can stop
+    end before their first step. On the 71-object scene, whose floor's
+    shadow rays pass among 70 spheres, the counting build ends dozens of
+    marches so at 16x12, and with the floor tail off its image is the plain
+    version's (which has no shortcut) to the rounding of powf: every lit
+    and miss decision is the same."""
+    scene = _seventy_spheres(rtt)
+    counting = _build.build_host_library(tmp_path, "march", count_ops=True)
+    for glow in (1.0, None):
+        cfg = rtt.RenderConfig(xres=16, yres=12, use_raymarching=True, glow_effect=glow,
+                               march_max_iter=2000, march_floor_skip=False)
+        ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
+        got = _host_render(counting, scene, cfg, ops)
+        np.testing.assert_allclose(got, _img(km.render_color_plain(scene, cfg)), rtol=0,
+                                   atol=1e-5)
+        assert int(ops[5]) > 50
+
+
+def test_floor_tail_cuts_the_longest_pixel(tmp_path):
+    """The counting build on the default scene at the full 10 000-step
+    budget: the tail cuts the operations, the most operations of one pixel
+    and the most object passes of one pixel (its serial chain), which the
+    step-by-step march spends at the cap on horizon rays."""
+    counting = _build.build_host_library(tmp_path, "march", count_ops=True)
+    scene = rtt.default_scene(device="cpu")[0]
+    cfg = rtt.RenderConfig(xres=64, yres=48, **_GLOW)
+    on, off = (torch.zeros(km.OPS_SLOTS, dtype=torch.int64) for _ in range(2))
+    _host_render(counting, scene, cfg, on)
+    _host_render(counting, scene, cfg.with_(march_floor_skip=False), off)
+    assert int(off[4]) > cfg.march_max_iter  # a pixel marches to the cap
+    assert int(on[0]) < int(off[0]) and int(on[2]) < int(off[2])
+    assert 4 * int(on[4]) < int(off[4])
 
 
 def test_march_tree_bounds():

@@ -244,9 +244,11 @@ def _host_grads(lib, scene, cfg, g):
 @pytest.mark.parametrize("glow", [1.0, None], ids=["glow", "no_glow"])
 @pytest.mark.parametrize("depth", [1, 4])
 def test_host_build_of_march_backward_matches_autograd(host_lib, glow, depth):
+    # the step-by-step march, which the plain version is (the floor tail's
+    # own budgets: test_host_build_of_march_backward_with_floor_tail)
     scene = rtt.default_scene(device="cpu")[0]
     cfg = rtt.RenderConfig(xres=32, yres=24, use_raymarching=True, glow_effect=glow,
-                           march_max_iter=512, refraction_unroll=depth)
+                           march_max_iter=512, refraction_unroll=depth, march_floor_skip=False)
     assert kmb.kernel_supported(scene, cfg)
     rng = np.random.default_rng(depth)
     planes = [torch.from_numpy(rng.uniform(-1, 1, (cfg.yres, cfg.xres)).astype(np.float32))
@@ -261,13 +263,79 @@ def test_host_build_of_march_backward_matches_autograd(host_lib, glow, depth):
     assert_leaf_grads_close(scene, got, kmb.render_grads_plain(scene, cfg, g), 1e-3)
 
 
+@pytest.fixture(scope="module")
+def march_host_lib(tmp_path_factory):
+    return _build.build_host_library(tmp_path_factory.mktemp("march_host"), "march")
+
+
+def _glowing_sphere_field():
+    """tests/test_parity.py:75-102's seeded field (floor and 39 spheres, seed
+    7) with its first material, the floor's, glowing (glow_dist 3): many
+    horizon rays whose glow argmin the floor tail resolves."""
+    rng = np.random.default_rng(7)
+    mats = [rtt.MaterialSpec(name="m0", diffuse=(0.9, 0.4, 0.2), specular=(0.3, 0.3, 0.3),
+                             pn=8, glow_dist=3.0),
+            rtt.MaterialSpec(name="m1", diffuse=(0.1, 0.5, 0.9), specular=(0.0, 0.0, 0.0), pn=0)]
+    objs = [rtt.FloorSpec("m0", (0.0, -100.0, 0.0), (0.0, 1.0, 0.0))]
+    for _ in range(39):
+        c = rng.uniform(-300, 300, 3)
+        c[2] = rng.uniform(100, 600)
+        r = rng.uniform(10, 50)
+        objs.append(rtt.SphereSpec(f"m{int(rng.integers(0, 2))}", float(r),
+                                   tuple(float(v) for v in c)))
+    return rtt.build_scene(mats, objs, (0.0, 0.0, -400.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0), device="cpu")[0]
+
+
+_TAIL_CASES = {
+    "glow": (lambda: rtt.default_scene(device="cpu")[0], dict(glow_effect=1.0)),
+    "no_glow": (lambda: rtt.default_scene(device="cpu")[0], dict(glow_effect=None)),
+    # the horizon rays' argmin is the floor's glow at the tail's last samples,
+    # whose f32 distances tie over a run of samples
+    "forty_glowing_spheres": (_glowing_sphere_field, dict(glow_effect=1.0, max_refractions=1)),
+}
+
+
+@pytest.mark.parametrize("case", list(_TAIL_CASES))
+def test_host_build_of_march_backward_with_floor_tail(host_lib, march_host_lib, case):
+    """K4's body with the floor tail on (the default) against autograd of the
+    plain march at the JAX package's budgets: the forwards agree on more
+    than 90% of pixels, every other one on a decision boundary
+    (tests/test_pallas_bwd.py:29-72), then relative L2 <= 0.02 per leaf on
+    the agreeing pixels (:306-321); its image is the march body's (K3's host
+    build, tail on) bit for bit."""
+    make, kw = _TAIL_CASES[case]
+    scene = make()
+    cfg = rtt.RenderConfig(xres=32, yres=24, use_raymarching=True, march_max_iter=2000, **kw)
+    assert cfg.march_floor_skip
+    rng = np.random.default_rng(7)
+    planes = [torch.from_numpy(rng.uniform(-1, 1, (cfg.yres, cfg.xres)).astype(np.float32))
+              for _ in range(3)]
+    _, prim = _host_grads(host_lib, scene, cfg, planes)
+    f32t, i32t, cam, light = kt.pack_scene(scene)
+    k3 = torch.empty((3, cfg.yres, cfg.xres))
+    sx, sy = fov_scales(cfg)
+    march_host_lib.rt_march_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(),
+                                 light.data_ptr(), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
+                                 *km.kernel_args(cfg), *(c.data_ptr() for c in k3), None)
+    np.testing.assert_array_equal(prim, np.stack([c.numpy() for c in k3], -1))
+    ref = _img(km.render_color_plain(scene, cfg))
+    agree = np.abs(prim - ref).max(-1) < 1e-4
+    assert agree.mean() > 0.9
+    assert_boundary_only(ref, agree)
+    g = Color(*(p * torch.from_numpy(agree) for p in planes))
+    got, _ = _host_grads(host_lib, scene, cfg, g)
+    assert_leaf_grads_close(scene, got, kmb.render_grads_plain(scene, cfg, g), 0.02)
+
+
 @pytest.mark.cuda
 def test_cuda_march_gradient_goes_through_the_backward_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     scene = rtt.default_scene(device="cuda")[0]
+    # the step-by-step march, whose image is the plain version's bit for bit
     cfg = rtt.RenderConfig(xres=64, yres=48, use_raymarching=True, glow_effect=1.0,
-                           march_max_iter=2000)
+                           march_max_iter=2000, march_floor_skip=False)
     rng = np.random.default_rng(5)
     g = Color(*(torch.from_numpy(rng.uniform(-1, 1, (48, 64)).astype(np.float32)).cuda()
                 for _ in range(3)))
