@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
    the trace kernel (K1), the march kernel (K3), the trace backward (K2),
    the march backward (K4) and the re-trace gradient oracle (K5); ptxas
-   registers, stack and spills; each kernel must be one function (ptxas
+   registers, stack and spills (the trace backward is built for three record
+   caps, one kernel each), and the march backward and the re-trace oracle
+   must keep theirs (PINNED_PTXAS); each kernel must be one function (ptxas
    reports no device function beside the kernel: everything is inlined, the
    texture fetch too);
 3. each kernel against its plain PyTorch version on the card, and against
@@ -21,8 +23,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Bilinear, and against the two textured goldens (mean at most 0.015,
    tests/test_parity.py:192-214); the trace backward against torch
    autograd of the plain trace, per scene leaf within relative L2 0.01 (the
-   JAX package's budget, tests/test_pallas_bwd.py:84-96), at four small
-   cases and at the training main path's shape, and with textures (K2's
+   JAX package's budget, tests/test_pallas_bwd.py:84-96), at six small
+   cases (among them a 70-sphere field, where the lanes of a warp hit
+   different objects, and 4 reflections at refraction_unroll=None, 63 sites
+   a pixel at most) and at the training main path's shape, and with textures (K2's
    textured sites) at two small cases and at 1920x1080 in Bilinear, its
    image bit-equal to the trace kernel's; the march backward against
    torch autograd of the plain march (its implicit VJP), per scene leaf
@@ -63,9 +67,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
    version in turns (3 warm-ups, 10 timed renders each); the forward and
    backward step at 1920x1080 through the kernels and through plain autograd
-   in turns, the backward kernel alone, and its plain version (3 warm-ups,
-   10 timed calls each; the plain versions one call each with no warm-up,
-   ~32 s a call at 1080p); the march forward and backward step at 1280x720
+   in turns, the backward kernel through its wrapper and alone (on tables
+   packed once) in turns, beside the host counts of its accumulator's adds,
+   their distinct (warp, entry) pairs and the sites, and its plain version
+   (3 warm-ups, 10 timed calls each; the plain versions one call each with
+   no warm-up, ~32 s a call at 1080p); the march forward and backward step at 1280x720
    through the march kernels (3 warm-ups, 10 timed calls) and once through
    plain autograd, the march backward alone (3 warm-ups, 10 timed calls),
    its plain version once (phase 3's call at 1280x720); the march kernel at
@@ -73,7 +79,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain march once at 1280x720 (the comparison of phase 3: a plain frame
    takes tens of seconds at any size); the textured trace
    kernel at 1920x1080 in both filters, the textured training step and the
-   backward kernel alone on the Bilinear scene (3 warm-ups, 10 timed calls;
+   backward kernel through its wrapper and alone on the Bilinear scene (3
+   warm-ups, 10 timed calls;
    their plain versions once, in phase 3); the re-trace oracle and the trace
    backward at 1920x1080 in turns (3 warm-ups, 10 timed calls each; their
    plain version is the trace backward's, timed above); each kernel's
@@ -91,13 +98,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    a diagnostic).
 
 The last two lines are JSON: the kernel table, then
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
+its public wrapper (for K1 and K2 packing included); the trace backward's
+two entries also give ``alone_ms``, the kernel alone on tables packed once.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -126,6 +136,10 @@ HBM_BYTES_PER_S = 3.35e12
 # (tests/test_pallas.py:238-261): pixels off by more than 1e-3 at most 0.5%,
 # each with a local contrast above 0.05 in the step-by-step image.
 KNIFE_EDGE = dict(frac=0.005, tol=1e-3, contrast=0.05)
+# ptxas figures the march backward and the re-trace oracle keep while the
+# trace backward, which shares their frame (csrc/bwd_kernel.cuh), changes:
+# registers, stack frame, spill stores and spill loads in bytes (PERF.md §6)
+PINNED_PTXAS = {"march_bwd": (128, 8168, 4188, 5512), "trace_retrace": (127, 1984, 0, 0)}
 
 
 def compare(name, ref, got, mean_budget=BUDGET["mean"]):
@@ -215,6 +229,15 @@ def spheres_scene(rtt, seed, n_spheres, glow_dist=0.0):
     return scene
 
 
+def ptxas_figures(log):
+    """Each kernel's (registers, stack frame, spill stores, spill loads)
+    in a ``ptxas -v`` log, in the log's order."""
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", log)
+    regs = re.findall(r"Used (\d+) registers", log)
+    return [(int(r), *map(int, f)) for r, f in zip(regs, frames)]
+
+
 def roofline(ops, nbytes):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``ops`` f32 operations and ``nbytes`` bytes moved once."""
@@ -281,7 +304,9 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     default scene under ``cfg``, textured from ``texture_dir``, and the texel
     bytes the record pass's texture fetches read: its host build with
     -DRT_COUNT_OPS (all ``kernel_march.OPS_SLOTS`` counts, as
-    :func:`count_ops`)."""
+    :func:`count_ops`; the trace backward's slots 2-5 are its accumulator's
+    adds, their distinct (warp, entry) pairs, the sites and the most sites of
+    one pixel, csrc/trace_bwd_host.cpp, for cotangent 1 on every pixel)."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
@@ -293,15 +318,16 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
     scene = _host_scene(texture_dir, texture_filter)
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)
-    tex_args = kt.texture_args(tex, torch.device("cpu")) if name == "trace_bwd" else []
-    g = torch.zeros((3, cfg.yres, cfg.xres), dtype=torch.float32)
+    trace = name == "trace_bwd"
+    args = kb.launch_args(cfg, tex, torch.device("cpu")) if trace else mod.kernel_args(cfg)
+    g = (torch.ones if trace else torch.zeros)((3, cfg.yres, cfg.xres), dtype=torch.float32)
     block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
     ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
-        *mod.kernel_args(cfg), *tex_args, *(plane.data_ptr() for plane in g), block.data_ptr(),
-        None, None, None, ops.data_ptr())
+        *args, *(plane.data_ptr() for plane in g), block.data_ptr(), None, None, None,
+        ops.data_ptr())
     return tuple(int(v) for v in ops)
 
 
@@ -337,6 +363,23 @@ def cuda_ms(torch, fn, warm=3, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def training_step(torch, render, cfg, base):
+    """The training step without the update, as a function of no arguments:
+    render ``base`` with ``render`` under ``cfg``, MSE against a target 0.05
+    brighter, the gradient of every float leaf (the texture atlas is u8: a
+    constant)."""
+    target = torch.full((cfg.yres, cfg.xres, 3), 0.05, device=base.device)
+    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
+              for t in base.tensors()]
+    params = [t for t in leaves if t.requires_grad]
+    s_grad = base.with_tensors(leaves)
+
+    def go():
+        loss = (torch.stack(list(render(s_grad, cfg)), -1) - target).square().mean()
+        torch.autograd.grad(loss, params, allow_unused=True)
+    return go
 
 
 def textured_bwd_scene(rtt):
@@ -427,6 +470,11 @@ def run(torch, tex_dir) -> int:
         calls = _build.called_functions(_build.build_logs[stem])
         if calls:
             raise SystemExit(f"chip_smoke: {stem}.cu left device functions as calls: {calls}")
+    for stem, want in PINNED_PTXAS.items():
+        got = ptxas_figures(_build.build_logs[stem])
+        print(f"  {stem}: (registers, stack, spill stores, spill loads) {got}, pinned {want}")
+        if got != [want]:
+            raise SystemExit(f"chip_smoke: {stem}.cu left its ptxas figures {want}: {got}")
 
     dev = torch.device("cuda", 0)
 
@@ -596,6 +644,11 @@ def run(torch, tex_dir) -> int:
         ("40 objects 320x240", spheres_scene(rtt, 7, 39),
          rtt.RenderConfig(xres=320, yres=240, max_refractions=1)),
         ("101 objects 160x120", spheres_scene(rtt, 11, 100), rtt.RenderConfig(xres=160, yres=120)),
+        # lanes of a warp that hit different objects (the scatter's groups)
+        ("70 spheres 160x120", spheres_scene(rtt, 3, 70), rtt.RenderConfig(xres=160, yres=120)),
+        # 63 sites a pixel at most: the trace backward's 64-site records
+        ("default 160x120 4 reflections refraction_unroll=None", default,
+         rtt.RenderConfig(xres=160, yres=120, max_reflections=4, refraction_unroll=None)),
     ]:
         grad_case(name, scene, cfg)
     # the main path's shape, or the largest whose plain autograd graph fits;
@@ -847,19 +900,7 @@ def run(torch, tex_dir) -> int:
 
     print(f"forward + backward {W}x{H}, default scene, default cfg ({card}):")
     def step(render, cfg, base=scene_dev):
-        """Render ``base``, MSE against a target 0.05 brighter, gradient of
-        every float leaf (the texture atlas is u8: a constant): the step
-        without the update."""
-        target_ = torch.full((cfg.yres, cfg.xres, 3), 0.05, device=dev)
-        leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
-                  for t in base.tensors()]
-        params = [t for t in leaves if t.requires_grad]
-        s_grad = base.with_tensors(leaves)
-
-        def go():
-            loss_ = (torch.stack(list(render(s_grad, cfg)), -1) - target_).square().mean()
-            torch.autograd.grad(loss_, params, allow_unused=True)
-        return go
+        return training_step(torch, render, cfg, base)
 
     kernel_step = step(rtt.render_color, cfg_main)
     plain_step = step(kt.render_color_plain, cfg_plain)
@@ -878,12 +919,31 @@ def run(torch, tex_dir) -> int:
                                             .astype(np.float32)).to(dev) for _ in range(3)))
 
     g_main, g_plain = planes(cfg_main), planes(cfg_plain)
-    bwd_ms = cuda_ms(torch, lambda: kb.render_grads_kernel(scene_dev, cfg_main, g_main,
-                                                           return_primal=True))
+
+    def bwd_times(scene, name):
+        """The backward kernel at the main path's shape, with the image, in
+        turns through its wrapper (packing included) and alone on tables
+        packed once; returns the means (wrapper, alone)."""
+        tables = tuple(t.detach() for t in kt.pack_scene(scene))
+        tex = kt.pack_textures(scene)
+        fns = {"wrapper": lambda: kb.render_grads_kernel(scene, cfg_main, g_main,
+                                                         return_primal=True),
+               "alone": lambda: kb.render_grads_tables(tables, tex, cfg_main, g_main, True)}
+        runs = [(k, cuda_ms(torch, fns[k])) for k in ("wrapper", "alone", "alone", "wrapper")]
+        for k, ms in runs:
+            print(f"  backward kernel, {name} {W}x{H} with the image, "
+                  f"{'through its wrapper' if k == 'wrapper' else 'alone on packed tables'}: "
+                  f"{ms:.3f} ms")
+        return tuple(float(np.mean([ms for kind, ms in runs if kind == k])) for k in fns)
+
+    bwd_ms, bwd_alone_ms = bwd_times(scene_dev, "untextured")
+    _, _, adds, pairs, sites, most = ops["trace_bwd"]
+    print(f"  host counts, {W}x{H}, cotangent 1 on every pixel: {adds} accumulator adds lane "
+          f"by lane, {pairs} distinct (warp of 32 pixels, entry) pairs, {sites} sites "
+          f"({sites / (W * H):.3f} a pixel, at most {most})")
     bwd_plain_ms = cuda_ms(torch, lambda: kb.render_grads_plain(scene_dev, cfg_plain, g_plain),
                            **plain_reps)
-    print(f"  backward kernel alone at {W}x{H} (wrapper, with the image): {bwd_ms:.3f} ms; its "
-          f"plain version (autograd of the plain trace) at {pw}x{ph}: {bwd_plain_ms:.3f} ms")
+    print(f"  its plain version (autograd of the plain trace) at {pw}x{ph}: {bwd_plain_ms:.3f} ms")
 
     print(f"textured forward and training step {W}x{H}, default scene with bar.png ({card}):")
     with torch.no_grad():
@@ -894,12 +954,10 @@ def run(torch, tex_dir) -> int:
         print(f"  kernel, {('Nearest', 'Bilinear')[f]}: {ms:.3f} ms/frame (plain "
               f"{tex_plain_ms[f]:.1f} ms, one frame, phase 3)")
     tex_step_ms = cuda_ms(torch, step(rtt.render_color, cfg_main, base=tex_bi))
-    tex_bwd_ms = cuda_ms(torch, lambda: kb.render_grads_kernel(tex_bi, cfg_main, g_main,
-                                                               return_primal=True))
     print(f"  step through the kernels, Bilinear (render, MSE, gradient of every float leaf): "
           f"{tex_step_ms:.3f} ms")
-    print(f"  backward kernel alone, Bilinear (wrapper, with the image): {tex_bwd_ms:.3f} ms; "
-          f"its plain version at {pw}x{ph}: {tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
+    tex_bwd_ms, tex_bwd_alone_ms = bwd_times(tex_bi, "Bilinear")
+    print(f"  its plain version at {pw}x{ph}: {tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
     print(f"gradient oracle {W}x{H}, default scene, default cfg ({card}):")
     oracle_fn = lambda: kr.render_grads_retrace(scene_dev, cfg_main, g_main,  # noqa: E731
@@ -1018,7 +1076,7 @@ def run(torch, tex_dir) -> int:
         "source": "ray_rust_tpu_torch/csrc/trace_bwd.cu",
         "replaces": "ray_rust_tpu/ops/pallas_bwd.py:563",
         "launches": train_launches[1], "max_abs_err": bwd_max_err, "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms,
+        "alone_ms": bwd_alone_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["trace_bwd"][0], "bound_by": bounds["trace_bwd"][1],
         "library_ms": None,
     }, {
@@ -1026,7 +1084,7 @@ def run(torch, tex_dir) -> int:
         "source": "ray_rust_tpu_torch/csrc/trace_bwd.cu",
         "replaces": "ray_rust_tpu/ops/pallas_bwd.py:563",
         "launches": tex_train_launches[1], "max_abs_err": tex_bwd_err, "ms": tex_bwd_ms,
-        "plain_ms": tex_bwd_plain_ms,
+        "alone_ms": tex_bwd_alone_ms, "plain_ms": tex_bwd_plain_ms,
         "bound_ms": bounds["trace_bwd_textured"][0],
         "bound_by": bounds["trace_bwd_textured"][1],
         "library_ms": None,

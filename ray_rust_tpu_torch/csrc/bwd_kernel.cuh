@@ -1,17 +1,25 @@
 // The frame the gradient kernels share (trace_bwd.cu, march_bwd.cu and the
 // re-trace oracle trace_retrace.cu): one thread per pixel, the scene tables
 // staged in shared memory, each pixel's cotangents summed into a shared
-// (n+1, 20) block with shared-memory atomics,
-// then the block added to the global one with one atomicAdd per nonzero
-// entry, so a frame takes one global atomic per entry per block rather than
-// one per pixel, site and field, and the summation order changes from run
-// to run. Dynamic shared memory above 48 KB is asked for, so 512 objects fit
-// (88 KB).
+// (n+1, 20) block through the body's accumulator, then the block added to
+// the global one with one atomicAdd per nonzero entry, so a frame takes one
+// global atomic per entry per block rather than one per pixel, site and
+// field, and the summation order changes from run to run. Dynamic shared
+// memory above 48 KB is asked for, so 512 objects fit (88 KB).
 //
 // ``Body::run(s, p, cutoff, cam, ix, iy, g, acc)`` is the per-pixel program:
 // it adds the pixel's cotangents through ``acc`` and returns its colour. It
 // must be forced inline: chip_smoke.py fails when ptxas reports a device
 // function besides the kernel, and a plain __device__ run was left as one.
+// ``Body::Acc`` is its accumulator, built as ``{block}`` on the shared block;
+// every thread of the block, in the image or not, calls ``acc.flush(n)``
+// after the body and before the block goes to global memory, so an
+// accumulator may hold sums in registers and reduce them over whole warps
+// there. ``Body::BLOCK_X``, ``BLOCK_Y`` and ``MIN_BLOCKS`` are its launch
+// shape: the block, and the blocks an SM that __launch_bounds__ asks ptxas
+// to fit (so at most 65536 / (BLOCK_X * BLOCK_Y * MIN_BLOCKS) registers a
+// thread). Every body takes BwdFrame's shape; the trace backward brings its
+// own accumulator.
 // ``Body::TEXTURED`` says whether it reads the texture atlas (the trace
 // backward); then the atlas's meta rows are staged in shared memory beside
 // the tables. The march backward's and the re-trace's are false, and the
@@ -25,10 +33,8 @@
 
 namespace rt {
 
-constexpr int BWD_BLOCK_X = 32;
-constexpr int BWD_BLOCK_Y = 8;
-
-// The block's shared accumulator, as the per-pixel program adds to it.
+// The block's shared accumulator, as the per-pixel program adds to it: one
+// shared atomicAdd per entry and lane.
 struct SharedAcc {
   float* block;
   __host__ __device__ void add(int row, int col, float v) {
@@ -36,6 +42,7 @@ struct SharedAcc {
     atomicAdd(&block[row * GRAD_COLS + col], v);
 #endif
   }
+  __device__ void flush(int) {}
 };
 
 // Shared memory a launch needs for n objects and n_tex textures, in bytes:
@@ -45,14 +52,21 @@ inline size_t bwd_smem(int n, int n_tex = 0) {
          sizeof(int) * (n * I32_COLS + n_tex * TEX_META_COLS);
 }
 
-// Two blocks an SM: at most 128 registers a thread. The trace backward and
-// the re-trace fit that by themselves; left to its heuristic, ptxas gave
-// the march backward 255 registers and one block an SM, 37% slower on an
-// H100 than at 128 with its spills (PERF.md §6).
-constexpr int BWD_MIN_BLOCKS = 2;
+// The launch shape of every body and the accumulator of the march backward
+// and the re-trace: 32x8 threads and two blocks an SM, so at most 128
+// registers a thread (the re-trace fits that by itself; left to its
+// heuristic, ptxas gave the march backward 255 registers and one block an
+// SM, 37% slower on an H100 than at 128 with its spills, PERF.md §6), and
+// the per-lane shared accumulator.
+struct BwdFrame {
+  static constexpr int BLOCK_X = 32;
+  static constexpr int BLOCK_Y = 8;
+  static constexpr int MIN_BLOCKS = 2;
+  using Acc = SharedAcc;
+};
 
 template <class Body, class P>
-__global__ void __launch_bounds__(BWD_BLOCK_X * BWD_BLOCK_Y, BWD_MIN_BLOCKS)
+__global__ void __launch_bounds__(Body::BLOCK_X * Body::BLOCK_Y, Body::MIN_BLOCKS)
 bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
            const float* __restrict__ cam, const float* __restrict__ light, int n, P p,
            TexArgs tx, float cutoff, const float* __restrict__ g_r,
@@ -82,7 +96,8 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
 
   const int ix = blockIdx.x * blockDim.x + threadIdx.x;
   const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (ix < p.xres && iy < p.yres) {  // every thread reaches the barrier below
+  typename Body::Acc acc = {s_acc};
+  if (ix < p.xres && iy < p.yres) {  // every thread reaches the flush and the barrier
     SceneView s;
     s.f32 = s_f32;
     s.i32 = s_i32;
@@ -93,7 +108,6 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
       s.tx.meta = s_meta;
     }
     const size_t o = static_cast<size_t>(iy) * p.xres + ix;
-    SharedAcc acc = {s_acc};
     C3 c = Body::run(s, p, cutoff, s_cam, ix, iy, c3(g_r[o], g_g[o], g_b[o]), acc);
     if (prim_r != nullptr) {
       prim_r[o] = c.r;
@@ -101,6 +115,7 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
       prim_b[o] = c.b;
     }
   }
+  acc.flush(n);
   __syncthreads();
   for (int k = tid; k < acc_len; k += nthreads) {
     const float v = s_acc[k];
@@ -124,8 +139,10 @@ int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float
   err = cudaFuncSetAttribute(bwd_kernel<Body, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 block(BWD_BLOCK_X, BWD_BLOCK_Y);
-  dim3 grid((p.xres + BWD_BLOCK_X - 1) / BWD_BLOCK_X, (p.yres + BWD_BLOCK_Y - 1) / BWD_BLOCK_Y);
+  static_assert(Body::BLOCK_X * Body::BLOCK_Y % 32 == 0, "whole warps: acc.flush may shuffle");
+  dim3 block(Body::BLOCK_X, Body::BLOCK_Y);
+  dim3 grid((p.xres + Body::BLOCK_X - 1) / Body::BLOCK_X,
+            (p.yres + Body::BLOCK_Y - 1) / Body::BLOCK_Y);
   bwd_kernel<Body, P><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g,
       prim_b);

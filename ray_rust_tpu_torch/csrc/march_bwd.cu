@@ -31,7 +31,7 @@
 
 namespace {
 
-struct MarchBody {
+struct MarchBody : rt::BwdFrame {
   static constexpr bool TEXTURED = false;
   template <class Acc>
   __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s, const rt::MarchParams& p,

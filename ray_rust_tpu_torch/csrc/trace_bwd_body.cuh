@@ -35,22 +35,37 @@
 //    diffuse colour), the normal, pt = vi + eye*t and the sphere or floor t;
 //    a miss runs the sky's adjoint. The camera ray's adjoint (quaternion
 //    rotation, normalize) ends the sweep. The part from the hit point on
-//    (shade_adj) is shared with the march backward (march_bwd_body.cuh). Each site's 19 field cotangents go
-//    to its winner's row through ``acc.add(row, col, v)``; the camera and
-//    light cotangents stay in registers and go to row n at the end.
+//    (shade_adj) is shared with the march backward (march_bwd_body.cuh).
 //
-// A site's record is 56 bytes and a task's 48, so the two local arrays take
-// SITE_CAP * 104 bytes a thread (3.6 KB at SITE_CAP = 35, the count of
-// refraction_unroll=None at 3 reflections; ops/kernel_trace_bwd.py refuses
-// configurations with more sites), beside the forward's task stack. A
-// record that would overflow turns the pixel and the block to NaN rather
-// than drop a site.
+// The body hands its cotangents to an accumulator ``acc`` a whole row at a
+// time: each hit's 19 field cotangents to its winner's row through
+// ``acc.add_row(row, g_row)``, and at the end the pixel's camera and light
+// cotangents (CAM_GRADS of them, kept in registers through the sweep)
+// through ``acc.add_cam(n, g_cam)``. The host build (trace_bwd_host.cpp)
+// adds each nonzero entry as it comes; the kernel (trace_bwd.cu) sums each
+// row over the lanes of a warp that add to it before one lane adds to the
+// block. ``acc.add(row, col, v)`` adds one entry (the overflow's poison).
+//
+// The records are sized from the config: trace_pixel_grad<CAP> keeps CAP
+// sites and CAP tasks (a task holds at least one site) in two local arrays,
+// 56 and 48 bytes a record, and the kernel is built for each cap of
+// SITE_CAPS; ops/kernel_trace_bwd.py launches the smallest cap at or above
+// the config's site count (count_sites: 11 at the default config, 191 at 6
+// reflections and refraction_unroll=None, the most the forward kernel
+// takes). A record that would overflow turns the pixel and the block to NaN
+// rather than drop a site.
+//
+// A build with -DRT_COUNT_OPS also counts each pixel's sites into
+// SceneView::ops[4] and keeps the most sites of one pixel in ops[5]
+// (trace_bwd_host.cpp counts the accumulator's adds into ops[2..3]).
 //
 // Every function is forced inline (RT_AD), so the kernel is one straight
 // program: real device calls between the march kernel's levels faulted on
 // the card (ROADMAP queue 3), and chip_smoke.py fails when ptxas reports a
 // function of trace_bwd.cu besides the kernel.
 #pragma once
+
+#include <type_traits>
 
 #include "trace_body.cuh"
 
@@ -62,11 +77,27 @@
 
 namespace rt {
 
-constexpr int SITE_CAP = 35;   // ops/kernel_trace_bwd.py: SITE_CAP
 // Row width of the cotangent block: rows 0..n-1 hold the objects' 19
 // columns, row n the camera position xyz and rotation xyzw, then the light
-// xyz (10 columns).
+// xyz (CAM_GRADS columns).
 constexpr int GRAD_COLS = 20;
+constexpr int CAM_GRADS = 10;
+
+// Call ``f(std::integral_constant<int, CAP>{})`` for the record cap ``cap``,
+// one of the caps the kernel is built for (ops/kernel_trace_bwd.py:
+// SITE_CAPS); returns f's result, or -1 for another cap.
+template <class F>
+inline int with_site_cap(int cap, F&& f) {
+  switch (cap) {
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 192:
+      return f(std::integral_constant<int, 192>{});
+  }
+  return -1;
+}
 
 RT_AD void acc3(V3* a, V3 b) {
   a->x += b.x;
@@ -401,8 +432,9 @@ struct TaskRec {
   V3 g_vi, g_eye;  // cotangents of its start ray, from the reverse sweep
 };
 
-// The recorder trace_task calls (trace_body.cuh): sites and tasks in
-// execution order.
+// The recorder trace_task calls (trace_body.cuh): up to CAP sites and CAP
+// tasks in execution order.
+template <int CAP>
 struct SiteRecorder {
   Site* sites;
   TaskRec* tasks;
@@ -410,7 +442,7 @@ struct SiteRecorder {
   bool overflow;
 
   RT_AD void task(const Task& tk) {
-    if (n_tasks >= SITE_CAP) {  // a task holds at least one site, so never
+    if (n_tasks >= CAP) {  // a task holds at least one site, so never
       overflow = true;
       return;
     }
@@ -420,7 +452,7 @@ struct SiteRecorder {
   }
 
   RT_AD int site(V3 vi, V3 eye, C3 fcs, int flags, int idx, bool hit, bool lit) {
-    if (n_sites >= SITE_CAP || overflow) {
+    if (n_sites >= CAP || overflow) {
       overflow = true;
       return -1;
     }
@@ -601,31 +633,34 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
     acc3(&ge, scale(gpt, t));
     candidate_t_adj(o, kind, vi, eye, st.flags, dot(gpt, eye), &gvi, &ge, g_row);
   }
-  for (int k = 0; k < F32_COLS; ++k)
-    if (g_row[k] != 0.0f) acc.add(st.idx, k, g_row[k]);
+  acc.add_row(st.idx, g_row);
   *g_vi = gvi;
   *g_eye = ge;
 }
 
 // The pixel's cotangent g pulled back to the scene tables through ``acc``
-// (rows 0..n-1: the objects' 19 columns; row n: camera, light). Returns the
-// pixel's colour (trace_pixel's).
-template <class Acc>
+// (rows 0..n-1: the objects' 19 columns; row n: camera, light), recording
+// at most CAP sites. Returns the pixel's colour (trace_pixel's).
+template <int CAP, class Acc>
 RT_AD C3 trace_pixel_grad(const SceneView& s, const Params& p, float cutoff, const float* cam,
                           int ix, int iy, C3 g, Acc& acc) {
-  Site sites[SITE_CAP];
-  TaskRec tasks[SITE_CAP];
-  SiteRecorder rec;
+  Site sites[CAP];
+  TaskRec tasks[CAP];
+  SiteRecorder<CAP> rec;
   rec.sites = sites;
   rec.tasks = tasks;
   rec.n_sites = 0;
   rec.n_tasks = 0;
   rec.overflow = false;
   C3 out = trace_pixel(s, p, cam, ix, iy, rec);
-  if (rec.overflow) {  // unreachable under SITE_CAP: poison, never drop a site
+  if (rec.overflow) {  // unreachable at the wrapper's cap: poison, never drop a site
     acc.add(s.n, 0, nanf(""));
     return c3(nanf(""), nanf(""), nanf(""));
   }
+#ifdef RT_COUNT_OPS
+  s.ops[4] += rec.n_sites;
+  if (static_cast<unsigned long long>(rec.n_sites) > s.ops[5]) s.ops[5] = rec.n_sites;
+#endif
 
   V3 g_light = v3(0.0f, 0.0f, 0.0f);
   V3 g_vi = v3(0.0f, 0.0f, 0.0f), g_eye = v3(0.0f, 0.0f, 0.0f);
@@ -661,10 +696,9 @@ RT_AD C3 trace_pixel_grad(const SceneView& s, const Params& p, float cutoff, con
   // the camera ray's trace is task 0: its start is the camera
   if (rec.n_sites > 0) {
     Q4 gq = camera_ray_adj(p.xres, p.yres, p.sx, p.sy, cam, ix, iy, tasks[0].g_eye);
-    const float gcam[10] = {tasks[0].g_vi.x, tasks[0].g_vi.y, tasks[0].g_vi.z,
-                            gq.x, gq.y, gq.z, gq.w, g_light.x, g_light.y, g_light.z};
-    for (int k = 0; k < 10; ++k)
-      if (gcam[k] != 0.0f) acc.add(s.n, k, gcam[k]);
+    const float gcam[CAM_GRADS] = {tasks[0].g_vi.x, tasks[0].g_vi.y, tasks[0].g_vi.z,
+                                   gq.x, gq.y, gq.z, gq.w, g_light.x, g_light.y, g_light.z};
+    acc.add_cam(s.n, gcam);
   }
   return out;
 }

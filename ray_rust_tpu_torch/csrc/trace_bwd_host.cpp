@@ -2,12 +2,21 @@
 // plain loop over the pixels on the CPU, so the kernel's adjoint can be
 // tested against torch autograd of the plain PyTorch version where there is
 // no card. Same arguments as rt_trace_bwd in trace_bwd.cu, minus the device
-// and stream. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared
-// -fPIC`` (and -DRT_COUNT_OPS to add the operation count to ops_total[0] and
-// the texel bytes of the record pass's texture fetches to ops_total[1]).
+// and stream; a record cap the kernel is not built for leaves NaN in the
+// block. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC``
+// (and -DRT_COUNT_OPS to add to ops_total: [0] the operation count, [1] the
+// texel bytes of the record pass's texture fetches, [2] the accumulator's
+// adds, [3] the distinct (warp, block entry) pairs among them, a warp being
+// 32 pixels of a row, [4] the sites, [5] the most sites of one pixel).
+//
+// The host accumulator adds each nonzero entry as it comes, lane by lane,
+// as the kernel's accumulator did before it summed over a warp; the pairs
+// are the fewest adds a warp-aggregated scatter can reach.
 //
 // The rt_*_adj functions expose single adjoint steps for the tests, each
 // over ``m`` cases laid out as flat arrays.
+
+#include <vector>
 
 #include "trace_bwd_body.cuh"
 
@@ -15,7 +24,37 @@ namespace {
 
 struct HostAcc {
   float* block;
-  void add(int row, int col, float v) { block[row * rt::GRAD_COLS + col] += v; }
+#ifdef RT_COUNT_OPS
+  unsigned long long* ops;
+  std::vector<char> seen;  // entries this warp has added to
+  std::vector<int> touched;
+
+  void new_warp() {
+    for (int a : touched) seen[a] = 0;
+    touched.clear();
+  }
+#endif
+
+  void add(int row, int col, float v) {
+    const int a = row * rt::GRAD_COLS + col;
+    block[a] += v;
+#ifdef RT_COUNT_OPS
+    ++ops[2];
+    if (!seen[a]) {
+      seen[a] = 1;
+      touched.push_back(a);
+      ++ops[3];
+    }
+#endif
+  }
+  void add_row(int row, const float (&g)[rt::F32_COLS]) {
+    for (int k = 0; k < rt::F32_COLS; ++k)
+      if (g[k] != 0.0f) add(row, k, g[k]);
+  }
+  void add_cam(int row, const float (&g)[rt::CAM_GRADS]) {
+    for (int k = 0; k < rt::CAM_GRADS; ++k)
+      if (g[k] != 0.0f) add(row, k, g[k]);
+  }
 };
 
 }  // namespace
@@ -25,7 +64,7 @@ extern "C" {
 void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
                        const float* light, int n, int xres, int yres, float sx, float sy,
                        int max_reflections, int refraction_cap, int bg, float cutoff,
-                       const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                       int site_cap, const void* tex, const int* tex_meta, int n_tex, int tex_stride,
                        int tex_len, const float* g_r, const float* g_g, const float* g_b,
                        float* out_block, float* prim_r, float* prim_g, float* prim_b,
                        unsigned long long* ops_total) {
@@ -48,19 +87,31 @@ void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
   p.max_reflections = max_reflections;
   p.refraction_cap = refraction_cap;
   p.bg = bg;
-  HostAcc acc = {out_block};
-  for (int iy = 0; iy < yres; ++iy) {
-    for (int ix = 0; ix < xres; ++ix) {
-      const long o = static_cast<long>(iy) * xres + ix;
-      rt::C3 c = rt::trace_pixel_grad(s, p, cutoff, cam, ix, iy,
-                                      rt::c3(g_r[o], g_g[o], g_b[o]), acc);
-      if (prim_r != nullptr) {
-        prim_r[o] = c.r;
-        prim_g[o] = c.g;
-        prim_b[o] = c.b;
+  HostAcc acc;
+  acc.block = out_block;
+#ifdef RT_COUNT_OPS
+  acc.ops = ops_total;
+  acc.seen.assign(static_cast<size_t>(n + 1) * rt::GRAD_COLS, 0);
+#endif
+  const int rc = rt::with_site_cap(site_cap, [&](auto cap) {
+    for (int iy = 0; iy < yres; ++iy) {
+      for (int ix = 0; ix < xres; ++ix) {
+#ifdef RT_COUNT_OPS
+        if (ix % 32 == 0) acc.new_warp();
+#endif
+        const long o = static_cast<long>(iy) * xres + ix;
+        rt::C3 c = rt::trace_pixel_grad<decltype(cap)::value>(
+            s, p, cutoff, cam, ix, iy, rt::c3(g_r[o], g_g[o], g_b[o]), acc);
+        if (prim_r != nullptr) {
+          prim_r[o] = c.r;
+          prim_g[o] = c.g;
+          prim_b[o] = c.b;
+        }
       }
     }
-  }
+    return 0;
+  });
+  if (rc != 0) out_block[0] = nanf("");
 }
 
 // light (3), d (3m), g (3m) -> g_light (3m), g_d (3m): default sky.

@@ -35,7 +35,7 @@
 
 namespace {
 
-struct RetraceBody {
+struct RetraceBody : rt::BwdFrame {
   static constexpr bool TEXTURED = false;
   template <class Acc>
   __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s,

@@ -58,8 +58,9 @@ _TRACE_ARGS = _TRACE_CFG + _TEX_ARGS + [_P, _P, _P]
 _MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I,
                _P, _P, _P]
 # the backward kernels: the forward's render arguments, the cutoff, (trace:
-# the atlas), the three cotangent planes, the block, the three primal planes
-_BWD_ARGS = _TRACE_CFG + [_F] + _TEX_ARGS + [_P] * 7
+# the record cap and the atlas), the three cotangent planes, the block, the
+# three primal planes
+_BWD_ARGS = _TRACE_CFG + [_F, _I] + _TEX_ARGS + [_P] * 7
 _MARCH_BWD_ARGS = _MARCH_ARGS[:-3] + [_F] + [_P] * 7
 # the re-trace gradient: the trace backward's, with the launch's first
 # seeded entry in place of the atlas

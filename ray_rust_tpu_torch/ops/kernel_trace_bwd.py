@@ -9,8 +9,11 @@ texture atlas and the cotangent of the image it gives the cotangents of the
 f32 table ``(N, 19)``, the camera ``(1, 8)`` and the light ``(1, 4)``. It
 records each pixel's raycast sites with the forward kernel's own traversal,
 then runs a hand-written adjoint over them backwards; at a textured hit only
-the bilinear weights depend on the uv (the u8 texels get no gradient). The
-JAX kernel's pruned replay variants are not carried over.
+the bilinear weights depend on the uv (the u8 texels get no gradient). Its
+records are sized from the config: it is built for each record cap of
+:data:`SITE_CAPS`, and :func:`site_cap` picks the smallest that holds the
+config's sites. The JAX kernel's pruned replay variants are not carried
+over.
 
 :class:`TraceRender` pairs the forward kernel with it, as ``_fast_fn``
 (``pallas_trace.py:1670-1701``) pairs the JAX kernels: its forward launches
@@ -51,14 +54,17 @@ from .kernel_trace import (
 from .rays import fov_scales
 
 __all__ = [
-    "SITE_CAP",
+    "SITE_CAPS",
     "count_sites",
+    "site_cap",
     "unsupported_reason",
     "kernel_supported",
     "kernel_args",
+    "launch_args",
     "launch_grads",
     "split_block",
     "render_grads_kernel",
+    "render_grads_tables",
     "render_grads_plain",
     "leaf_grads",
     "TraceRender",
@@ -68,9 +74,11 @@ __all__ = [
 # Launches of the backward kernel since import (or since a caller reset it).
 LAUNCHES = 0
 
-# Raycast sites a pixel may record (csrc/trace_bwd_body.cuh: rt::SITE_CAP):
-# refraction_unroll=None at 3 reflections needs 35.
-SITE_CAP = 35
+# The record caps the kernel is built for (csrc/trace_bwd_body.cuh:
+# rt::with_site_cap): the default config's 11 sites, refraction_unroll=None
+# up to 4 reflections (63), and up to 191, the most of any config the
+# forward kernel takes (6 reflections, refraction_unroll=None).
+SITE_CAPS = (16, 64, 192)
 GRAD_COLS = 20  # the kernel's block: object rows of 19, then camera 7 + light 3
 
 
@@ -108,22 +116,26 @@ def count_sites(cfg: RenderConfig) -> int:
     return _count(_site_nodes(cfg))
 
 
+def site_cap(cfg: RenderConfig) -> int:
+    """The record cap the kernel is launched with under ``cfg``: the
+    smallest of :data:`SITE_CAPS` that holds :func:`count_sites`."""
+    sites = count_sites(cfg)
+    for cap in SITE_CAPS:
+        if cap >= sites:
+            return cap
+    raise ValueError(f"{sites} raycast sites per pixel; the backward kernel is built for at "
+                     f"most {SITE_CAPS[-1]}")
+
+
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the two trace kernels cannot take a gradient of ``scene`` under
-    ``cfg``, or None: the forward kernel's reasons, and the site cap."""
-    reason = kernel_trace.unsupported_reason(scene, cfg)
-    if reason is not None:
-        return reason
-    sites = count_sites(cfg)
-    if sites > SITE_CAP:
-        return (f"{sites} raycast sites per pixel; the backward kernel records at "
-                f"most {SITE_CAP}")
-    return None
+    ``cfg``, or None: the forward kernel's reasons (every config it takes
+    has a record cap)."""
+    return kernel_trace.unsupported_reason(scene, cfg)
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """Trace mode, at most 512 objects, textured or not, at most
-    ``SITE_CAP`` raycast sites per pixel."""
+    """Trace mode, at most 512 objects, textured or not."""
     return unsupported_reason(scene, cfg) is None
 
 
@@ -179,12 +191,20 @@ def kernel_args(cfg: RenderConfig) -> list:
     return kernel_trace.kernel_args(cfg) + [float("inf") if cutoff is None else float(cutoff)]
 
 
+def launch_args(cfg: RenderConfig, tex, device) -> list:
+    """This kernel's arguments after the image size and field of view (also
+    its host build's): :func:`kernel_args`, the record cap
+    (:func:`site_cap`) and :func:`kernel_trace.texture_args` of atlas
+    ``tex`` on ``device``."""
+    return kernel_args(cfg) + [site_cap(cfg)] + texture_args(tex, device)
+
+
 def launch_grads(lib, fn, tables, cfg: RenderConfig, args: list, g: Color,
                  return_primal: bool):
     """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres,
     sx, sy, *args, g_r, g_g, g_b, block, prim_r, prim_g, prim_b, device,
-    stream)`` (``args``: :func:`kernel_args` and, for this kernel,
-    :func:`kernel_trace.texture_args`) on packed tables and image cotangent
+    stream)`` (``args``: :func:`launch_args` for this kernel, the march
+    backward's ``kernel_args`` for it) on packed tables and image cotangent
     planes ``g`` on their
     CUDA device; returns :func:`split_block`'s three cotangents, and the
     image the kernel traced with ``return_primal``. Raises if the inputs or
@@ -208,14 +228,17 @@ def launch_grads(lib, fn, tables, cfg: RenderConfig, args: list, g: Color,
     return (grads, Color(prim[0], prim[1], prim[2])) if return_primal else grads
 
 
-def _launch(tables, tex, cfg: RenderConfig, g: Color, return_primal: bool):
-    """Launch the backward kernel (:func:`launch_grads`) on packed tables and
-    texture atlas ``tex`` (:func:`kernel_trace.pack_textures`)."""
+def render_grads_tables(tables, tex, cfg: RenderConfig, g: Color, return_primal: bool = False):
+    """Launch the backward kernel (:func:`launch_grads`) on packed tables
+    (:func:`pack_scene`'s four, on a CUDA device) and texture atlas ``tex``
+    (:func:`kernel_trace.pack_textures`'s pair, or None) that the caller
+    has checked with :func:`unsupported_reason`: the kernel without the
+    packing."""
     global LAUNCHES
     from ._build import load_cuda_library
 
     lib = load_cuda_library("trace_bwd")
-    args = kernel_args(cfg) + texture_args(tex, tables[0].device)
+    args = launch_args(cfg, tex, tables[0].device)
     out = launch_grads(lib, lib.rt_trace_bwd, tables, cfg, args, g, return_primal)
     LAUNCHES += 1
     return out
@@ -239,8 +262,8 @@ def render_grads_kernel(scene: Scene, cfg: RenderConfig, g: Color,
     take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace backward")
     tables = tuple(t.detach() for t in pack_scene(scene))
-    return _launch(tables, pack_textures(scene), cfg, Color(*(c.contiguous() for c in g)),
-                   return_primal)
+    return render_grads_tables(tables, pack_textures(scene), cfg,
+                               Color(*(c.contiguous() for c in g)), return_primal)
 
 
 def leaf_grads(scene: Scene, table_grads) -> dict:
@@ -276,7 +299,7 @@ class TraceRender(torch.autograd.Function):
         f32t, cam, light, i32t, atlas, meta = ctx.saved_tensors
         g = Color(*(c.contiguous() for c in (g_r, g_g, g_b)))
         tex = None if atlas is None else (atlas, meta)
-        g_f32t, g_cam, g_light = _launch((f32t, i32t, cam, light), tex, ctx.cfg, g, False)
+        g_f32t, g_cam, g_light = render_grads_tables((f32t, i32t, cam, light), tex, ctx.cfg, g)
         return g_f32t, g_cam, g_light, None, None, None, None
 
 

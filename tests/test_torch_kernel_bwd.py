@@ -1,12 +1,14 @@
 """The trace backward (ops/kernel_trace_bwd.py) against torch autograd.
 
-On the CPU: the site count against the JAX package's static site tree, the
-support check, each hand-written adjoint step of the kernel's per-pixel body
-(``csrc/trace_bwd_body.cuh``) against autograd of its plain counterpart, and
-the whole body built for the host with g++ against ``render_grads_plain``
-(autograd of the plain trace). The kernel itself runs only on a card; this
-file imports the JAX package only inside the test that compares with it, so
-the card test also runs where JAX is not installed:
+On the CPU: the site count and the record cap against the JAX package's
+static site tree, the support check, each hand-written adjoint step of the
+kernel's per-pixel body (``csrc/trace_bwd_body.cuh``) against autograd of
+its plain counterpart, the whole body built for the host with g++ against
+``render_grads_plain`` (autograd of the plain trace), at every record cap,
+and its counting build. The kernel itself runs only on a card (the
+``cuda`` tests: against autograd on three scenes, and two launches against
+each other); this file imports the JAX package only inside the tests that
+compare with it, so the card tests also run where JAX is not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernel_bwd.py``.
 
 Gradient budget: the forwards of the two sides are compared first, and the
@@ -28,6 +30,7 @@ import ray_rust_tpu_torch as rtt
 from ray_rust_tpu_torch.models.quat import Quat
 from ray_rust_tpu_torch.models.vec import Color, Vec3
 from ray_rust_tpu_torch.ops import _build
+from ray_rust_tpu_torch.ops import kernel_march as km
 from ray_rust_tpu_torch.ops import kernel_trace as kt
 from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
 from ray_rust_tpu_torch.ops.rays import camera_rays, fov_scales
@@ -85,16 +88,45 @@ def test_site_count_equals_jax_site_tree():
         want = _count_sites(_site_nodes(rt.RenderConfig(**kw)))
         assert kb.count_sites(rtt.RenderConfig(**kw)) == want
     assert kb.count_sites(rtt.RenderConfig()) == 11
-    assert kb.count_sites(rtt.RenderConfig(refraction_unroll=None)) == kb.SITE_CAP == 35
+    assert kb.count_sites(rtt.RenderConfig(refraction_unroll=None)) == 35
+    assert kb.site_cap(rtt.RenderConfig(refraction_unroll=None)) == 64
+
+
+@pytest.mark.parametrize("reflections", range(1, 7))
+def test_site_cap_is_the_smallest_that_holds_the_jax_site_tree(reflections):
+    """Every config the forward kernel takes (at most 6 reflections) gets
+    the smallest record cap that holds the JAX package's static site count."""
+    from ray_rust_tpu.ops.pallas_bwd import _count_sites, _site_nodes
+
+    import ray_rust_tpu as rt
+
+    scene, _ = rtt.default_scene(device="cpu")
+    for unroll in (0, 1, 2, 4, None):
+        kw = dict(max_reflections=reflections, refraction_unroll=unroll)
+        sites = _count_sites(_site_nodes(rt.RenderConfig(**kw)))
+        cfg = rtt.RenderConfig(xres=8, yres=8, **kw)
+        assert kt.unsupported_reason(scene, cfg) is None
+        assert kb.unsupported_reason(scene, cfg) is None
+        assert kb.site_cap(cfg) == min(c for c in kb.SITE_CAPS if c >= sites), kw
+    if reflections == 6:
+        assert kb.site_cap(rtt.RenderConfig(max_reflections=6, refraction_unroll=None)) == 192
 
 
 def test_unsupported_reason_adds_the_site_cap():
+    """The backward kernel takes every config the forward kernel takes
+    (4 reflections at refraction_unroll=None: 63 sites) and refuses the
+    others with the forward kernel's reason."""
     scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=8)
     assert kb.unsupported_reason(scene, cfg) is None
     assert kb.unsupported_reason(scene, cfg.with_(refraction_unroll=None)) is None
-    assert "sites" in kb.unsupported_reason(scene, cfg.with_(max_reflections=4,
-                                                              refraction_unroll=None))
+    assert kb.unsupported_reason(scene, cfg.with_(max_reflections=4,
+                                                  refraction_unroll=None)) is None
+    deep = cfg.with_(max_reflections=7)
+    assert kb.unsupported_reason(scene, deep) == kt.unsupported_reason(scene, deep)
+    assert "task stack" in kb.unsupported_reason(scene, deep)
+    with pytest.raises(ValueError, match="sites"):
+        kb.site_cap(deep.with_(refraction_unroll=None))
     assert "K3" in kb.unsupported_reason(scene, cfg.with_(use_raymarching=True))
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
@@ -206,7 +238,7 @@ def _host_grads(lib, scene, cfg, g):
     prim = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
     lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
-                          *kb.kernel_args(cfg), *kt.texture_args(tex, torch.device("cpu")),
+                          *kb.launch_args(cfg, tex, torch.device("cpu")),
                           *(c.data_ptr() for c in g), block.data_ptr(),
                           *(p.data_ptr() for p in prim), None)
     return kb.split_block(block, n), np.stack([p.numpy() for p in prim], -1)
@@ -260,6 +292,14 @@ _HOST_CASES = {
                           rtt.RenderConfig(xres=32, yres=16, max_reflections=2,
                                            refraction_unroll=1, grad_distance_cutoff=2e3)),
     "two_textures": (lambda: two_texture_scene(rtt), rtt.RenderConfig(xres=48, yres=16)),
+    # the larger record caps: 63 sites (cap 64) and 191 (cap 192), where a
+    # pixel of this frame records 17 (test_counting_build_changes_no_cotangent)
+    "sixty_three_sites": (lambda: _glass_cluster(rtt),
+                          rtt.RenderConfig(xres=16, yres=8, max_reflections=4,
+                                           refraction_unroll=None)),
+    "one_ninety_one_sites": (lambda: _glass_cluster(rtt),
+                             rtt.RenderConfig(xres=16, yres=8, max_reflections=6,
+                                              refraction_unroll=None)),
 }
 
 
@@ -278,6 +318,44 @@ def test_host_build_of_backward_body_matches_autograd(host_lib, case):
     g = Color(*(p * torch.from_numpy(agree) for p in planes))
     got, _ = _host_grads(host_lib, scene, cfg, g)
     assert_leaf_grads_close(scene, got, kb.render_grads_plain(scene, cfg, g), 1e-3)
+
+
+def _count_host(lib, scene, cfg, g):
+    """The counting build's table cotangents and its counts
+    (``kernel_march.OPS_SLOTS`` slots, csrc/trace_bwd_host.cpp)."""
+    tables = kt.pack_scene(scene)
+    n = tables[0].shape[0]
+    block = torch.zeros((n + 1, kb.GRAD_COLS))
+    ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
+    sx, sy = fov_scales(cfg)
+    lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
+                          *kb.launch_args(cfg, None, torch.device("cpu")),
+                          *(c.data_ptr() for c in g), block.data_ptr(), None, None, None,
+                          ops.data_ptr())
+    return kb.split_block(block, n), [int(v) for v in ops]
+
+
+def test_counting_build_changes_no_cotangent(host_lib, tmp_path):
+    """The -DRT_COUNT_OPS build gives the same cotangent bit for bit, and
+    counts the accumulator's adds (one per nonzero entry and pixel), the
+    distinct (warp of 32 pixels of a row, entry) pairs among them, and the
+    sites; the 191-site case has a pixel past the smallest record cap."""
+    lib = _build.build_host_library(tmp_path, "trace_bwd", count_ops=True)
+    scene = rtt.default_scene(device="cpu")[0]
+    cfg = rtt.RenderConfig(xres=32, yres=16)
+    g = [torch.ones(cfg.yres, cfg.xres) for _ in range(3)]
+    got, ops = _count_host(lib, scene, cfg, g)
+    want, _ = _host_grads(host_lib, scene, cfg, g)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    _, _, adds, pairs, sites, most = ops
+    pixels = cfg.xres * cfg.yres
+    assert 0 < pairs <= adds and pairs <= 16 * (kb.GRAD_COLS * (scene.objects.count + 1))
+    assert adds >= 10 * pixels  # at least the camera row of every pixel
+    assert pixels <= sites <= most * pixels and 1 < most <= kb.count_sites(cfg)
+    make, deep = _HOST_CASES["one_ninety_one_sites"]
+    ones = [torch.ones(deep.yres, deep.xres) for _ in range(3)]
+    assert _count_host(lib, make(), deep, ones)[1][5] > kb.SITE_CAPS[0]
 
 
 @pytest.mark.cuda
@@ -303,3 +381,48 @@ def test_cuda_gradient_goes_through_the_backward_kernel():
         assert np.isfinite(a).all(), path
         if "pattern_scale" not in path:
             assert _rel(a, w.cpu().numpy()) <= 0.01, path
+
+
+# The card's kernel against autograd of the plain version, per scene leaf
+# within the JAX package's 0.01: a field where the lanes of a warp hit
+# different objects (the scatter's winner groups), the Bilinear textured
+# sites, and 4 reflections at refraction_unroll=None (63 sites, the 64-site
+# records; pixels of this frame record up to 20).
+_CUDA_CASES = {
+    "seventy_spheres": (lambda: _many_spheres(rtt, 70), rtt.RenderConfig(xres=160, yres=120)),
+    "textured_bilinear": (lambda: textured_scene(rtt, 1), rtt.RenderConfig(xres=160, yres=120)),
+    "sixty_three_sites": (lambda: _glass_cluster(rtt),
+                          rtt.RenderConfig(xres=160, yres=120, max_reflections=4,
+                                           refraction_unroll=None)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_CUDA_CASES))
+def test_cuda_backward_kernel_matches_autograd(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    make, cfg = _CUDA_CASES[case]
+    scene = make().to("cuda")
+    rng = np.random.default_rng(6)
+    g = Color(*(torch.from_numpy(_f32(rng, cfg.yres, cfg.xres)).cuda() for _ in range(3)))
+    got, prim = kb.render_grads_kernel(scene, cfg, g, return_primal=True)
+    np.testing.assert_array_equal(_img(prim), _img(kt.render_color_kernel(scene, cfg)))
+    assert_leaf_grads_close(scene, got, kb.render_grads_plain(scene, cfg, g), 0.01)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_repeats_itself():
+    """Two launches on the same inputs give finite cotangents within 1e-5
+    relative of each other: the warps' sums reach the block and the global
+    cotangent by atomics, in an order that changes from run to run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _many_spheres(rtt, 70).to("cuda")
+    cfg = rtt.RenderConfig(xres=320, yres=240)
+    rng = np.random.default_rng(7)
+    g = Color(*(torch.from_numpy(_f32(rng, cfg.yres, cfg.xres)).cuda() for _ in range(3)))
+    first, second = (kb.render_grads_kernel(scene, cfg, g) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 1e-5 * float(b.norm())

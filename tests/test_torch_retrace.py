@@ -105,8 +105,8 @@ def _bwd_host(libs, scene, cfg, g):
     prim = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
     libs["trace_bwd"].rt_trace_bwd_host(
-        *(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy, *kb.kernel_args(cfg),
-        *kt.texture_args(None, torch.device("cpu")), *(c.data_ptr() for c in g),
+        *(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
+        *kb.launch_args(cfg, None, torch.device("cpu")), *(c.data_ptr() for c in g),
         block.data_ptr(), *(p.data_ptr() for p in prim), None)
     return kb.split_block(block, n), _img(prim)
 
