@@ -10,7 +10,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the trace kernel (K1), the march kernel (K3), the trace backward (K2),
    the march backward (K4) and the re-trace gradient oracle (K5); ptxas
    registers, stack and spills (the trace backward is built for three record
-   caps, one kernel each), and the march backward and the re-trace oracle
+   caps, one kernel each), and the trace backward and the march backward
    must keep theirs (PINNED_PTXAS); each kernel must be one function (ptxas
    reports no device function beside the kernel: everything is inlined, the
    texture fetch too);
@@ -60,7 +60,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kind of target, one march and one march backward launch per step, the
    loss falling at every step; the gradient oracle, ``render_grads_retrace``
    at 1920x1080 on the default scene with cotangent planes from numpy seed
-   0, ceil(105 / lanes) re-trace launches, its cotangent against the trace
+   0, one re-trace launch, its cotangent against the trace
    backward's per scene leaf within relative L2 0.01 (the JAX oracle test's
    budget, tests/test_pallas_bwd.py:250-260) and its image bit-equal to the
    trace kernel's on every pixel;
@@ -81,17 +81,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel at 1920x1080 in both filters, the textured training step and the
    backward kernel through its wrapper and alone on the Bilinear scene (3
    warm-ups, 10 timed calls;
-   their plain versions once, in phase 3); the re-trace oracle and the trace
-   backward at 1920x1080 in turns (3 warm-ups, 10 timed calls each; their
-   plain version is the trace backward's, timed above); each kernel's
-   roofline bound from the operation count of its main path's frame, which
-   the kernel's body built for the host with -DRT_COUNT_OPS counts on the
-   CPU while phases 3 and 4 run (the same body, bit for bit, as the card
-   runs); the re-trace oracle's bound is the trace backward's, since it
-   computes the same function on the same inputs (its forward-mode
-   operations over every launch, counted the same way, are printed beside
-   it as a diagnostic); the floor tail on and off in turns (on, off, off,
-   on) at 1280x720: the march kernel, the march backward and the march
+   their plain versions once, in phase 3); the re-trace oracle through its
+   wrapper and alone on tables packed once, and the trace backward, at
+   1920x1080 in turns (3 warm-ups, 10 timed calls each; their plain version
+   is the trace backward's, timed above), beside the oracle's host counts:
+   its Dual passes (their mean, their most, and the mean over rows of 32
+   pixels of the longest) and the pixels by their distinct winners; each
+   kernel's roofline bound from the operation count of its main path's
+   frame, which the kernel's body built for the host with -DRT_COUNT_OPS
+   counts on the CPU while phases 3 and 4 run (the same body, bit for bit,
+   as the card runs); the re-trace oracle's bound is the trace backward's,
+   since it computes the same function on the same inputs (its value
+   pass's and forward-mode operations, counted the same way, are printed
+   beside it as a diagnostic); the floor tail on and off in turns (on, off,
+   off, on) at 1280x720: the march kernel, the march backward and the march
    training step (3 warm-ups, 10 calls each), beside the longest pixel's
    operations and object passes from the counting builds, on and off (the
    march bounds are the tail's counts; the step-by-step ones are printed as
@@ -99,8 +102,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
-its public wrapper (for K1 and K2 packing included); the trace backward's
-two entries also give ``alone_ms``, the kernel alone on tables packed once.
+its public wrapper (for K1, K2 and K5 packing included); the trace
+backward's two entries and the re-trace oracle's also give ``alone_ms``,
+the kernel alone on tables packed once.
 """
 
 from __future__ import annotations
@@ -136,10 +140,12 @@ HBM_BYTES_PER_S = 3.35e12
 # (tests/test_pallas.py:238-261): pixels off by more than 1e-3 at most 0.5%,
 # each with a local contrast above 0.05 in the step-by-step image.
 KNIFE_EDGE = dict(frac=0.005, tol=1e-3, contrast=0.05)
-# ptxas figures the march backward and the re-trace oracle keep while the
-# trace backward, which shares their frame (csrc/bwd_kernel.cuh), changes:
-# registers, stack frame, spill stores and spill loads in bytes (PERF.md §6)
-PINNED_PTXAS = {"march_bwd": (128, 8168, 4188, 5512), "trace_retrace": (127, 1984, 0, 0)}
+# ptxas figures the trace backward (one kernel a record cap: 16, 64, 192)
+# and the march backward keep while the re-trace oracle, which shares their
+# frame (csrc/bwd_kernel.cuh) and the trace body, changes: registers, stack
+# frame, spill stores and spill loads in bytes, by kernel (PERF.md §6)
+PINNED_PTXAS = {"trace_bwd": [(119, 2512, 0, 0), (119, 7504, 0, 0), (119, 20816, 0, 0)],
+                "march_bwd": [(128, 8168, 4188, 5512)]}
 
 
 def compare(name, ref, got, mean_budget=BUDGET["mean"]):
@@ -332,11 +338,14 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
 
 
 def count_retrace_ops(cfg):
-    """The f32 operations of every launch of the re-trace oracle's
-    cotangent on the default scene under ``cfg``: its host build with
-    -DRT_COUNT_OPS (the value scans' object tests, and every forward-mode
-    operation with its tangents). A diagnostic: the oracle's bound is the
-    trace backward's, whose function it computes."""
+    """The re-trace oracle's counts for one cotangent on the default scene
+    under ``cfg``: its host build with -DRT_COUNT_OPS, all
+    ``kernel_trace_retrace.OPS_SLOTS`` (the value pass's object tests and
+    every forward-mode operation with its tangents, the Dual passes, the
+    most passes of one pixel, the sum over rows of 32 pixels of their
+    longest pixel's passes, the histogram of distinct winners a pixel).
+    The operations are a diagnostic: the oracle's bound is the trace
+    backward's, whose function it computes."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
@@ -346,10 +355,10 @@ def count_retrace_ops(cfg):
     lib = _build.build_host_library(_build.BUILD_DIR, "trace_retrace", count_ops=True)
     scene = _host_scene(".", 0)
     g = [torch.zeros((cfg.yres, cfg.xres), dtype=torch.float32) for _ in range(3)]
-    ops = torch.zeros(2, dtype=torch.int64)
-    kr.launch_all(lib.rt_trace_retrace_host, lib.rt_trace_retrace_lanes(), kt.pack_scene(scene),
-                  cfg, g, False, (ops.data_ptr(),))
-    return int(ops[0]), 0
+    ops = torch.zeros(kr.OPS_SLOTS, dtype=torch.int64)
+    kr.launch_all(lib.rt_trace_retrace_host, kt.pack_scene(scene), cfg, g, False,
+                  (ops.data_ptr(),))
+    return tuple(int(v) for v in ops)
 
 
 def cuda_ms(torch, fn, warm=3, reps=10):
@@ -473,7 +482,7 @@ def run(torch, tex_dir) -> int:
     for stem, want in PINNED_PTXAS.items():
         got = ptxas_figures(_build.build_logs[stem])
         print(f"  {stem}: (registers, stack, spill stores, spill loads) {got}, pinned {want}")
-        if got != [want]:
+        if sorted(got) != sorted(want):
             raise SystemExit(f"chip_smoke: {stem}.cu left its ptxas figures {want}: {got}")
 
     dev = torch.device("cuda", 0)
@@ -863,7 +872,7 @@ def run(torch, tex_dir) -> int:
     oracle_s = time.time() - t0
     retrace_launches = kr.LAUNCHES
     lanes = _build.load_cuda_library("trace_retrace").rt_trace_retrace_lanes()
-    want_launches = -(-kr.n_out(scene_dev.objects.count) // lanes)
+    want_launches = 1  # one launch a cotangent
     # the oracle's use: the trace backward held against it (each was held
     # against plain autograd on these inputs in phase 3)
     retrace_err, retrace_leaf = leaf_err(
@@ -872,7 +881,7 @@ def run(torch, tex_dir) -> int:
     oracle_same = float((img(oracle_img) == img(kt.render_color_kernel(scene_dev, cfg_main)))
                         .all(-1).mean())
     print(f"main path, gradient oracle: render_grads_retrace {W}x{H} in {oracle_s:.2f} s, "
-          f"{retrace_launches} re-trace launches ({lanes} lanes), largest leaf relative L2 "
+          f"{retrace_launches} re-trace launch ({lanes} lanes a pass), largest leaf relative L2 "
           f"against the trace backward {retrace_err:.3g} ({retrace_leaf}), image bit-equal to "
           f"the trace kernel's on {oracle_same:.4%} of pixels")
     if retrace_launches != want_launches:
@@ -960,17 +969,29 @@ def run(torch, tex_dir) -> int:
     print(f"  its plain version at {pw}x{ph}: {tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
     print(f"gradient oracle {W}x{H}, default scene, default cfg ({card}):")
-    oracle_fn = lambda: kr.render_grads_retrace(scene_dev, cfg_main, g_main,  # noqa: E731
-                                                 return_primal=True)
-    bwd_fn = lambda: kb.render_grads_kernel(scene_dev, cfg_main, g_main,  # noqa: E731
-                                            return_primal=True)
-    oracle_runs = [("oracle", cuda_ms(torch, oracle_fn)), ("backward", cuda_ms(torch, bwd_fn)),
-                   ("backward", cuda_ms(torch, bwd_fn)), ("oracle", cuda_ms(torch, oracle_fn))]
+    oracle_tables = tuple(t.detach() for t in kt.pack_scene(scene_dev))
+    oracle_fns = {
+        "oracle kernel (wrapper, with the image)":
+            lambda: kr.render_grads_retrace(scene_dev, cfg_main, g_main, return_primal=True),
+        "oracle kernel alone on packed tables, with the image":
+            lambda: kr.render_grads_tables(oracle_tables, cfg_main, g_main, True),
+        "backward kernel (wrapper, with the image)":
+            lambda: kb.render_grads_kernel(scene_dev, cfg_main, g_main, return_primal=True)}
+    names = list(oracle_fns)
+    oracle_runs = [(k, cuda_ms(torch, oracle_fns[k])) for k in names + names[::-1]]
     for name, ms in oracle_runs:
-        print(f"  {name} kernel (wrapper, with the image): {ms:.3f} ms per cotangent")
-    retrace_ms = float(np.mean([ms for n, ms in oracle_runs if n == "oracle"]))
+        print(f"  {name}: {ms:.3f} ms per cotangent")
+    retrace_ms, retrace_alone_ms = (float(np.mean([ms for k, ms in oracle_runs if k == name]))
+                                    for name in names[:2])
     print(f"  their plain version (autograd of the plain trace) at {pw}x{ph}: "
           f"{bwd_plain_ms:.3f} ms (one call, above)")
+    counts = ops["trace_retrace"]
+    hist = counts[kr.HIST_SLOT:]
+    print(f"  host counts, {W}x{H}: Dual passes of {lanes} lanes {counts[2]} "
+          f"({counts[2] / (W * H):.4f} a pixel, at most {counts[3]}; a row of 32 pixels' "
+          f"longest {counts[4] / (H * -(-W // 32)):.4f} on average; seeding every entry "
+          f"{-(-kr.n_out(scene_dev.objects.count) // lanes)}); pixels by distinct winners "
+          + ", ".join(f"{w}: {c}" for w, c in enumerate(hist) if c))
 
     print(f"march + glow forward, default scene, default cfg ({card}):")
     with torch.no_grad():
@@ -1037,13 +1058,12 @@ def run(torch, tex_dir) -> int:
                   f"operations -> {roofline(off_ops, nbytes)[0]:.4f} ms")
     # the re-trace oracle computes the trace backward's function on the same
     # inputs, so the least time for its work is the trace backward's bound;
-    # its forward-mode operations over every launch are only a diagnostic
+    # its forward-mode operations are only a diagnostic
     bounds["trace_retrace"] = bounds["trace_bwd"]
     dual_ops = ops["trace_retrace"][0]
     print(f"  bound, trace_retrace {W}x{H}: the trace backward's, {bounds['trace_retrace'][0]:.4f} "
-          f"ms ({bounds['trace_retrace'][1]}); its forward-mode operations over "
-          f"{retrace_launches} launches (diagnostic, not the bound): {dual_ops} -> "
-          f"{roofline(dual_ops, 0)[0]:.4f} ms")
+          f"ms ({bounds['trace_retrace'][1]}); its value pass and forward-mode operations "
+          f"(diagnostic, not the bound): {dual_ops} -> {roofline(dual_ops, 0)[0]:.4f} ms")
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
         raise SystemExit("chip_smoke: the port imported jax or the JAX package")
@@ -1101,7 +1121,7 @@ def run(torch, tex_dir) -> int:
         "source": "ray_rust_tpu_torch/csrc/trace_retrace.cu",
         "replaces": "ray_rust_tpu/ops/pallas_trace.py:1555",
         "launches": retrace_launches, "max_abs_err": retrace_max_err, "ms": retrace_ms,
-        "plain_ms": bwd_plain_ms,
+        "alone_ms": retrace_alone_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["trace_retrace"][0], "bound_by": bounds["trace_retrace"][1],
         "library_ms": None,
     }]}))

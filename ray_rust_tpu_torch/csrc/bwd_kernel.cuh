@@ -18,13 +18,13 @@
 // there. ``Body::BLOCK_X``, ``BLOCK_Y`` and ``MIN_BLOCKS`` are its launch
 // shape: the block, and the blocks an SM that __launch_bounds__ asks ptxas
 // to fit (so at most 65536 / (BLOCK_X * BLOCK_Y * MIN_BLOCKS) registers a
-// thread). Every body takes BwdFrame's shape; the trace backward brings its
-// own accumulator.
+// thread). Every body takes BwdFrame's shape; the trace backward and the
+// re-trace bring their own accumulators.
 // ``Body::TEXTURED`` says whether it reads the texture atlas (the trace
 // backward); then the atlas's meta rows are staged in shared memory beside
 // the tables. The march backward's and the re-trace's are false, and the
 // march backward's kernel is the one it was before textures. ``P`` is the
-// body's parameter struct (the re-trace's carries its first seeded entry).
+// body's parameter struct.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,12 +52,11 @@ inline size_t bwd_smem(int n, int n_tex = 0) {
          sizeof(int) * (n * I32_COLS + n_tex * TEX_META_COLS);
 }
 
-// The launch shape of every body and the accumulator of the march backward
-// and the re-trace: 32x8 threads and two blocks an SM, so at most 128
-// registers a thread (the re-trace fits that by itself; left to its
-// heuristic, ptxas gave the march backward 255 registers and one block an
-// SM, 37% slower on an H100 than at 128 with its spills, PERF.md §6), and
-// the per-lane shared accumulator.
+// The launch shape of every body and the accumulator of the march backward:
+// 32x8 threads and two blocks an SM, so at most 128 registers a thread (left
+// to its heuristic, ptxas gave the march backward 255 registers and one
+// block an SM, 37% slower on an H100 than at 128 with its spills, PERF.md
+// §6), and the per-lane shared accumulator.
 struct BwdFrame {
   static constexpr int BLOCK_X = 32;
   static constexpr int BLOCK_Y = 8;

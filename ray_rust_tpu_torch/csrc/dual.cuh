@@ -1,6 +1,7 @@
 // Forward-mode numbers for the re-trace gradient (K5, trace_retrace.cu):
 // Dual<L> is one f32 value and L f32 tangents, the derivatives of the value
-// by L seeded entries of the scene tables.
+// by L seeded entries of the scene tables (a pixel's local entries,
+// trace_body.cuh:object_entry).
 //
 // The value of every operation is the same f32 operation, on the same
 // operands in the same order, as the float code it replaces, so a body
@@ -73,6 +74,14 @@ struct Dual {
   }
   // the row at p, its entry c seeded in lane k0 + c
   static RT_DI SeededRow<L> row(const float* p, int k0) { return SeededRow<L>{p, k0}; }
+  // NaN in the value and every tangent: a pixel whose derivatives are lost
+  static RT_DI Dual poison() {
+    Dual r;
+    r.v = nanf("");
+#pragma unroll
+    for (int k = 0; k < L; ++k) r.d[k] = r.v;
+    return r;
+  }
 
   friend RT_DI Dual stop(const Dual& a) { return Dual(a.v); }
   friend RT_DI float val(const Dual& a) { return a.v; }

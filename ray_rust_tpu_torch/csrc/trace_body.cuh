@@ -41,17 +41,22 @@
 // plain version on the CPU even where u*w overflows int32 at the horizon.
 //
 // The untextured trace is generic over its scalar type T (forward-mode
-// derivatives, K5: dual.cuh, trace_retrace.cu). With T = float it is the
-// forward's code. With T = Dual<L> every value is the float trace's own,
-// operation for operation, and the tangents are the derivatives by L seeded
-// entries of the tables, whose rows the body reads seeded (table_row; the
-// camera row's entries follow the objects'): every decision (winner, flags,
-// lit, cont, pattern cell) is taken on the value, each nearest-hit scan
-// runs on the values and recomputes only the winner's t in T, the shadow
-// scan runs on the values alone, and a hit at t >= SceneViewT::cutoff
-// keeps its point as a constant (the JAX kernel's grad_distance_cutoff,
-// pallas_trace.py:984-988). The texture fetch stays float-only. Every function is forced inline (RT_FI): the kernels are one
-// function each, and chip_smoke.py fails when ptxas reports another.
+// derivatives, K5: dual.cuh, trace_retrace_body.cuh). With T = float it is
+// the forward's code. With T = Dual<L> every value is the float trace's own,
+// operation for operation, and the tangents are the derivatives by L of the
+// pixel's local entries: the camera's 7, the light's 3, then the 19 columns
+// of each object in SceneViewT::mask (the winners of the pixel's float
+// trace), compacted in index order (object_entry). The body reads seeded
+// entries in three places only: the winner's row (table_row), the camera row
+// and the light; every decision (winner, flags, lit, cont, pattern cell) is
+// taken on the value, each nearest-hit scan runs on the values and
+// recomputes only the winner's t in T, the shadow scan runs on the values
+// alone, and a hit at t >= SceneViewT::cutoff keeps its point as a constant
+// (the JAX kernel's grad_distance_cutoff, pallas_trace.py:984-988). A Dual
+// trace that wins an object outside the mask turns the pixel's tangents to
+// NaN rather than drop its entries. The texture fetch stays float-only.
+// Every function is forced inline (RT_FI): the kernels are one function
+// each, and chip_smoke.py fails when ptxas reports another.
 //
 // A build with -DRT_COUNT_OPS counts the f32 arithmetic of the object loops
 // (the fewest operations each object test can take) into SceneView::ops[0],
@@ -268,11 +273,30 @@ struct TexArgs {
   int n_tex, stride, len;
 };
 
+// A Dual trace's local entries (K5): the camera's 7 (position xyz,
+// rotation xyzw) from 0, the light's 3 from LIGHT_ENTRY, then F32_COLS for
+// each object of the pixel's winner mask, in index order.
+constexpr int LIGHT_ENTRY = 7;
+constexpr int SCENE_ENTRIES = 10;
+
+RT_FI int popcount64(unsigned long long x) {
+#ifdef __CUDA_ARCH__
+  return __popcll(x);
+#else
+  return __builtin_popcountll(x);
+#endif
+}
+
+// The local entry of column 0 of object i (a bit of ``mask``, i < 64).
+RT_FI int object_entry(unsigned long long mask, int i) {
+  return SCENE_ENTRIES + F32_COLS * popcount64(mask & ((1ull << i) - 1ull));
+}
+
 // The packed scene as the body reads it: per-object rows, the light and the
 // texture atlas (none by default: the march bodies read no texture). A
-// Dual<L> trace also carries the entry of the cotangent block (object rows
-// of F32_COLS, then the camera's 7 and the light's 3 columns) that its
-// tangent lane 0 is seeded at, and the gradient's distance cutoff.
+// Dual<L> trace also carries the local entry its tangent lane 0 is seeded
+// at, the objects whose rows it seeds (bit i for object i: N <= 64) and the
+// gradient's distance cutoff.
 template <class T>
 struct SceneViewT {
   const float* f32;  // (n, F32_COLS)
@@ -281,6 +305,7 @@ struct SceneViewT {
   V3T<T> light;
   TexArgs tx = {nullptr, nullptr, 0, 0, 0};
   int seed = 0;
+  unsigned long long mask = 0;
   float cutoff = INFINITY;
 #ifdef RT_COUNT_OPS
   unsigned long long* ops;  // this thread's counts: f32 operations, texel bytes
@@ -289,11 +314,11 @@ struct SceneViewT {
 using SceneView = SceneViewT<float>;
 
 // Object i's f32 row as a T trace reads it: the row itself for float, its
-// entries seeded in their tangent lanes for Dual<L>.
+// entries seeded at their local entries for Dual<L>.
 template <class T>
 RT_FI auto table_row(const SceneViewT<T>& s, int i) {
   if constexpr (is_dual_v<T>) {
-    return T::row(s.f32 + i * F32_COLS, i * F32_COLS - s.seed);
+    return T::row(s.f32 + i * F32_COLS, object_entry(s.mask, i) - s.seed);
   } else {
     return s.f32 + i * F32_COLS;
   }
@@ -572,6 +597,9 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
       return;
     }
     const auto o = table_row(s, idx);
+    if constexpr (is_dual_v<T>) {  // a winner outside the mask: poison, never drop
+      if (!((s.mask >> idx) & 1ull)) out->r = out->g = out->b = T::poison();
+    }
     const int* oi = s.i32 + idx * I32_COLS;
     V3T<T> pt = add(vi, scale(eye, t));
     if constexpr (is_dual_v<T>) {  // a hit past the cutoff is a constant point
@@ -670,8 +698,8 @@ template <class T, class Rec>
 RT_FI C3T<T> trace_pixel(const SceneViewT<T>& s, const Params& p, const float* cam, int ix,
                          int iy, Rec& rec) {
   TaskT<T> stack[STACK_CAP];
-  if constexpr (is_dual_v<T>) {  // the camera's entries follow the objects'
-    const auto c = T::row(cam, s.n * F32_COLS - s.seed);
+  if constexpr (is_dual_v<T>) {  // the camera's entries are local 0-6
+    const auto c = T::row(cam, -s.seed);
     stack[0].vi = V3T<T>{c[0], c[1], c[2]};
     stack[0].eye = camera_ray(p.xres, p.yres, p.sx, p.sy, c, ix, iy);
   } else {  // the row itself: through a helper, ptxas gave K1 two more registers

@@ -4,10 +4,14 @@
 // the plain PyTorch version and against the trace backward's host build
 // where there is no card. Same arguments as rt_trace_retrace in
 // trace_retrace.cu, minus the device and stream. Build with ``g++
-// -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and -DRT_COUNT_OPS to
-// add the f32 operations of the call to ops_total[0]: the value scans'
-// object tests as the forward counts them, and every Dual operation with
-// its tangents).
+// -std=c++17 -O2 -ffp-contract=off -shared -fPIC``, and with -DRT_COUNT_OPS
+// to add the call's counts to ``ops_total`` (ops/kernel_trace_retrace.py:
+// OPS_SLOTS): the f32 operations (the value pass's object tests as the
+// forward counts them, and every Dual operation with its tangents), the
+// texel bytes (none: K5 takes untextured scenes), the Dual passes, the most
+// passes of one pixel, the sum over rows of 32 pixels (a warp of the
+// kernel's 32-wide blocks) of their longest pixel's passes, then the pixels
+// with w distinct winners for w = 0 .. 64.
 
 #include "trace_retrace_body.cuh"
 
@@ -15,8 +19,16 @@ namespace {
 
 struct HostAcc {
   float* block;
+  int n;
   void add(int row, int col, float v) { block[row * rt::GRAD_COLS + col] += v; }
+  void add_scene(int e, float v) { block[n * rt::GRAD_COLS + e] += v; }
 };
+
+#ifdef RT_COUNT_OPS
+// slot 0 the operations, 1 the texel bytes (untextured: none)
+constexpr int SLOT_PASSES = 2, SLOT_MOST = 3, SLOT_WARP = 4, SLOT_HIST = 5;
+constexpr int WARP_X = 32;
+#endif
 
 }  // namespace
 
@@ -27,7 +39,7 @@ int rt_trace_retrace_lanes() { return rt::RETRACE_LANES; }
 void rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
                            const float* light, int n, int xres, int yres, float sx, float sy,
                            int max_reflections, int refraction_cap, int bg, float cutoff,
-                           int seed, const float* g_r, const float* g_g, const float* g_b,
+                           const float* g_r, const float* g_g, const float* g_b,
                            float* out_block, float* prim_r, float* prim_g, float* prim_b,
                            unsigned long long* ops_total) {
   rt::SceneView s;
@@ -49,17 +61,32 @@ void rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
   p.max_reflections = max_reflections;
   p.refraction_cap = refraction_cap;
   p.bg = bg;
-  HostAcc acc = {out_block};
+  HostAcc acc = {out_block, n};
   for (int iy = 0; iy < yres; ++iy) {
+#ifdef RT_COUNT_OPS
+    unsigned long long warp_most = 0;
+#endif
     for (int ix = 0; ix < xres; ++ix) {
       const long o = static_cast<long>(iy) * xres + ix;
-      rt::C3 c = rt::retrace_pixel<rt::RETRACE_LANES>(s, p, cutoff, seed, cam, ix, iy,
-                                                      rt::c3(g_r[o], g_g[o], g_b[o]), acc);
+      unsigned long long mask;
+      rt::C3 c = rt::retrace_pixel<rt::RETRACE_LANES>(
+          s, p, cutoff, cam, ix, iy, rt::c3(g_r[o], g_g[o], g_b[o]), acc, mask);
       if (prim_r != nullptr) {
         prim_r[o] = c.r;
         prim_g[o] = c.g;
         prim_b[o] = c.b;
       }
+#ifdef RT_COUNT_OPS
+      const unsigned long long passes = rt::retrace_passes<rt::RETRACE_LANES>(mask);
+      ops_total[SLOT_PASSES] += passes;
+      if (passes > ops_total[SLOT_MOST]) ops_total[SLOT_MOST] = passes;
+      if (passes > warp_most) warp_most = passes;
+      if (ix % WARP_X == WARP_X - 1 || ix == xres - 1) {
+        ops_total[SLOT_WARP] += warp_most;
+        warp_most = 0;
+      }
+      ops_total[SLOT_HIST + rt::popcount64(mask)] += 1;
+#endif
     }
   }
 #ifdef RT_COUNT_OPS

@@ -62,9 +62,9 @@ _MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _
 # three primal planes
 _BWD_ARGS = _TRACE_CFG + [_F, _I] + _TEX_ARGS + [_P] * 7
 _MARCH_BWD_ARGS = _MARCH_ARGS[:-3] + [_F] + [_P] * 7
-# the re-trace gradient: the trace backward's, with the launch's first
-# seeded entry in place of the atlas
-_RETRACE_ARGS = _TRACE_CFG + [_F, _I] + [_P] * 7
+# the re-trace gradient: the trace backward's, without the record cap and
+# the atlas
+_RETRACE_ARGS = _TRACE_CFG + [_F] + [_P] * 7
 _CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march_fwd", _MARCH_ARGS),
              "trace_bwd": ("rt_trace_bwd", _BWD_ARGS),
              "march_bwd": ("rt_march_bwd", _MARCH_BWD_ARGS),

@@ -5,15 +5,16 @@ Counterpart of ``ray_rust_tpu/ops/pallas_trace.py:render_color_pallas_grads``.
 The kernel (``csrc/trace_retrace.cu``, per-pixel body
 ``csrc/trace_retrace_body.cuh``) computes the trace-mode table cotangent by
 a second mechanism, independent of the trace backward's site replay (K2,
-:mod:`.kernel_trace_bwd`): it runs the forward kernel's own trace body in
-forward-mode numbers (``csrc/dual.cuh``), each launch carrying the
-derivatives by ``lanes`` consecutive entries of the ``n_out = 19 N + 10``
-live entries (object rows of 19, then the camera's 7 and the light's 3),
-and sums ``g . d img / d entry`` over the pixels. The wrapper launches
-``ceil(n_out / lanes)`` times; the first launch also writes the image, which
-is the forward kernel's bit for bit. Like the JAX function it takes
-untextured scenes of at most 64 objects, and no config flag routes a
-gradient through it: it is the oracle that K2 is held against.
+:mod:`.kernel_trace_bwd`): each pixel first runs the forward kernel's float
+trace, which gives its colour (the forward kernel's image bit for bit) and
+its winners, then runs the same trace body in forward-mode numbers
+(``csrc/dual.cuh``) over its live entries only, two a pass: the
+camera's 7, the light's 3 and the 19 of each object it hits, of the
+``n_out = 19 N + 10`` entries of the block. It sums ``g . d img / d entry``
+over the pixels. One launch computes the whole cotangent. Like the JAX
+function it takes untextured scenes of at most 64 objects (the winners of a
+pixel are one 64-bit mask), and no config flag routes a gradient through it:
+it is the oracle that K2 is held against.
 
 :func:`render_grads_retrace` launches the kernel on a CUDA scene or raises;
 it never falls back. On a CPU scene it returns the plain version. K5 computes
@@ -44,16 +45,23 @@ __all__ = [
     "n_out",
     "unsupported_reason",
     "launch_all",
+    "render_grads_tables",
     "render_grads_retrace",
     "render_grads_plain",
 ]
 
 # Launches of the re-trace kernel since import (or since a caller reset it):
-# ceil(n_out / lanes) for each cotangent.
+# one for each cotangent.
 LAUNCHES = 0
 
 OBJECT_MAX = 64  # the JAX kernel's cap (pallas_trace.py:_KERNEL_UNROLL_MAX)
 SCENE_ENTRIES = 10  # camera position xyz, rotation xyzw, light xyz
+# The counting host build's slots (csrc/trace_retrace_host.cpp): f32
+# operations, texel bytes (none), Dual passes, the most passes of one pixel,
+# the sum over rows of 32 pixels of their longest pixel's passes, then from
+# HIST_SLOT the pixels with w distinct winners for w = 0 .. OBJECT_MAX.
+HIST_SLOT = 5
+OPS_SLOTS = HIST_SLOT + OBJECT_MAX + 1
 
 
 def n_out(n_objects: int) -> int:
@@ -74,39 +82,40 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     return kernel_trace.unsupported_reason(scene, cfg)
 
 
-def launch_all(fn, lanes: int, tables, cfg: RenderConfig, g: Color, return_primal: bool,
-               tail: tuple):
+def launch_all(fn, tables, cfg: RenderConfig, g: Color, return_primal: bool, tail: tuple):
     """Run launcher ``fn`` (the kernel's ``rt_trace_retrace`` or its host
-    build's ``rt_trace_retrace_host``) once for each ``lanes`` entries of the
-    block, as ``fn(tables, n, xres, yres, sx, sy, *kernel_args(cfg), seed,
-    g_r, g_g, g_b, block, prim_r, prim_g, prim_b, *tail)``, the primal planes
-    with the first launch only. ``tail`` is the device and stream, or the
-    host build's operation counter. Returns the three table cotangents and,
-    with ``return_primal``, the image. Raises if a launch returns non-zero."""
+    build's ``rt_trace_retrace_host``) once, as ``fn(tables, n, xres, yres,
+    sx, sy, *kernel_args(cfg), g_r, g_g, g_b, block, prim_r, prim_g,
+    prim_b, *tail)``. ``tail`` is the device and stream, or the host build's
+    operation counter. Returns the three table cotangents and, with
+    ``return_primal``, the image. Raises on more than OBJECT_MAX objects
+    (a pixel's winners are one 64-bit mask) and if the launch returns
+    non-zero."""
     check_tables(tables)
     f32t, i32t, cam, light = tables
     n, dev = f32t.shape[0], f32t.device
+    if n > OBJECT_MAX:
+        raise ValueError(f"the re-trace kernel takes at most {OBJECT_MAX} objects, got {n}")
     for name, plane in zip("rgb", g):
         check_tensor(plane, f"cotangent {name}", torch.float32, (cfg.yres, cfg.xres), dev)
     block = torch.zeros((n + 1, GRAD_COLS), dtype=torch.float32, device=dev)
     prim = (torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
             if return_primal else None)
     sx, sy = fov_scales(cfg)
-    args = kernel_args(cfg)
-    for seed in range(0, n_out(n), lanes):
-        prims = [p.data_ptr() for p in prim] if return_primal and seed == 0 else [None] * 3
-        rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(), n,
-                cfg.xres, cfg.yres, sx, sy, *args, seed, *(plane.data_ptr() for plane in g),
-                block.data_ptr(), *prims, *tail)
-        if rc:
-            raise RuntimeError(f"{fn.__name__} launch failed: error {rc}")
+    prims = [p.data_ptr() for p in prim] if return_primal else [None] * 3
+    rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(), n,
+            cfg.xres, cfg.yres, sx, sy, *kernel_args(cfg), *(plane.data_ptr() for plane in g),
+            block.data_ptr(), *prims, *tail)
+    if rc:
+        raise RuntimeError(f"{fn.__name__} launch failed: error {rc}")
     grads = split_block(block, n)
     return (grads, Color(prim[0], prim[1], prim[2])) if return_primal else grads
 
 
-def _launch(tables, cfg: RenderConfig, g: Color, return_primal: bool):
-    """Launch the re-trace kernel on packed tables on their CUDA device,
-    counting each launch."""
+def render_grads_tables(tables, cfg: RenderConfig, g: Color, return_primal: bool = False):
+    """The re-trace kernel on packed tables on their CUDA device (the
+    kernel alone, without :func:`render_grads_retrace`'s checks and
+    packing), counting its launch; returns as :func:`launch_all`."""
     from ._build import load_cuda_library
 
     lib = load_cuda_library("trace_retrace")
@@ -122,8 +131,7 @@ def _launch(tables, cfg: RenderConfig, g: Color, return_primal: bool):
         LAUNCHES += 1
         return 0
 
-    return launch_all(fn, lib.rt_trace_retrace_lanes(), tables, cfg, g, return_primal,
-                      (dev.index, stream))
+    return launch_all(fn, tables, cfg, g, return_primal, (dev.index, stream))
 
 
 def render_grads_retrace(scene: Scene, cfg: RenderConfig, g: Color,
@@ -144,4 +152,4 @@ def render_grads_retrace(scene: Scene, cfg: RenderConfig, g: Color,
         return (grads, kernel_trace.render_color_plain(scene, cfg)) if return_primal else grads
     check_launchable(scene, reason, "re-trace gradient")
     tables = tuple(t.detach() for t in pack_scene(scene))
-    return _launch(tables, cfg, g, return_primal)
+    return render_grads_tables(tables, cfg, g, return_primal)

@@ -10,6 +10,10 @@ forward's trace body in forward-mode numbers) built for the host with g++:
 - against the JAX package's ``render_color_pallas_grads`` in interpret mode
   on one numpy scene (marked slow: two interpret-mode kernels);
 - its image bit-equal to the forward's host build;
+- on 64 objects that all win pixels: the 64-bit winner mask and the compact
+  seeding of a pixel's winners, against autograd;
+- its counting build: the histogram of distinct winners a pixel and the
+  Dual passes it implies;
 - the support check and the CPU routing.
 
 The kernel itself runs only on a card; this file imports the JAX package
@@ -56,6 +60,24 @@ def _camera_x(scene, x):
         x=torch.tensor(x, dtype=torch.float32))))
 
 
+def _sphere_grid():
+    """A reflective floor and 63 reflective spheres in a 9x7 grid facing the
+    camera: at 48x36 every one of the 64 objects wins some pixel, so the
+    winner masks reach bits 32-63 and the compact slots of a pixel's winners
+    run past the 32nd object."""
+    mats = [rtt.MaterialSpec(name="floor", diffuse=(0.9, 0.9, 0.2), specular=(0.2, 0.2, 0.2),
+                             pn=4)] + [
+        rtt.MaterialSpec(name=f"m{i}", diffuse=(0.3 + 0.15 * i, 0.8 - 0.1 * i, 0.5),
+                         specular=(0.4, 0.4, 0.4), pn=8) for i in range(4)]
+    objs = [rtt.FloorSpec("floor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0))] + [
+        rtt.SphereSpec(f"m{k % 4}", 24.0, (-240.0 + 60.0 * (k % 9), -250.0 + 45.0 * (k // 9),
+                                           300.0 + 10.0 * (k // 9)))
+        for k in range(63)]
+    scene, _ = rtt.build_scene(mats, objs, (0.0, -150.0, -300.0),
+                               (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0), device="cpu")
+    return scene
+
+
 def _diffuse_pair():
     """tests/test_pallas.py:453's scene: a floor and a sphere, both diffuse."""
     mats = [rtt.MaterialSpec(name="d", diffuse=(0.5, 0.6, 0.7))]
@@ -92,8 +114,8 @@ def _img(col):
 def _retrace_host(libs, scene, cfg, g):
     """K5's host build: the table cotangents and the image."""
     lib = libs["trace_retrace"]
-    grads, prim = kr.launch_all(lib.rt_trace_retrace_host, lib.rt_trace_retrace_lanes(),
-                                kt.pack_scene(scene), cfg, Color(*g), True, (None,))
+    grads, prim = kr.launch_all(lib.rt_trace_retrace_host, kt.pack_scene(scene), cfg, Color(*g),
+                                True, (None,))
     return grads, _img(prim)
 
 
@@ -155,6 +177,56 @@ def test_host_build_matches_backward_host_build(libs, case):
     assert assert_leaf_grads_close(scene, got, want, BUDGET) < 1e-3
 
 
+def test_host_build_seeds_winners_past_bit_31(libs):
+    """64 objects, each a winner somewhere (index 63 too): the 64-bit winner
+    mask and the popcount slots of the compact seeding, against autograd of
+    the plain version on the pixels where the images agree."""
+    scene = _sphere_grid()
+    cfg = rtt.RenderConfig(xres=48, yres=36)
+    assert scene.objects.count == kr.OBJECT_MAX
+    assert kr.unsupported_reason(scene, cfg) is None
+    planes = _planes(cfg, 5)
+    (g_f32t, _, _), prim = _retrace_host(libs, scene, cfg, planes)
+    winners = set(torch.nonzero(g_f32t.abs().sum(1)).flatten().tolist())
+    assert 63 in winners and len(winners & set(range(32, 64))) >= 24
+    ref = _img(kt.render_color_plain(scene, cfg))
+    agree = np.abs(prim - ref).max(-1) < 1e-4
+    assert agree.mean() > 0.9
+    assert_boundary_only(ref, agree)
+    g = _masked(planes, agree)
+    got, _ = _retrace_host(libs, scene, cfg, g)
+    assert_leaf_grads_close(scene, got, kr.render_grads_plain(scene, cfg, g), BUDGET)
+
+
+def test_counting_build_counts_passes(tmp_path):
+    """The counting host build at 160x120: its histogram of distinct winners
+    covers every pixel, its passes are ceil((10 + 19 w) / L) for a pixel of
+    w winners, and they stay below the ceil(n_out / L) passes of seeding
+    every entry."""
+    lib = _build.build_host_library(tmp_path, "trace_retrace", count_ops=True)
+    lanes = lib.rt_trace_retrace_lanes()
+    scene = rtt.default_scene(device="cpu")[0]
+    cfg = rtt.RenderConfig(xres=160, yres=120)
+    ops = torch.zeros(kr.OPS_SLOTS, dtype=torch.int64)
+    kr.launch_all(lib.rt_trace_retrace_host, kt.pack_scene(scene), cfg,
+                  Color(*_planes(cfg, 6)), False, (ops.data_ptr(),))
+    ops = ops.tolist()
+    hist = ops[kr.HIST_SLOT:]
+    pixels = cfg.xres * cfg.yres
+    assert sum(hist) == pixels
+    assert all(c == 0 for c in hist[scene.objects.count + 1:])
+    assert hist[0] > 0 and hist[1] > 0 and hist[2] > 0  # sky, one winner, reflections
+    per_w = [-(-(kr.SCENE_ENTRIES + 19 * w) // lanes) for w in range(len(hist))]
+    assert ops[2] == sum(c * n for c, n in zip(hist, per_w))
+    assert ops[3] == max(n for c, n in zip(hist, per_w) if c)
+    full = -(-kr.n_out(scene.objects.count) // lanes)
+    assert ops[2] / pixels < full
+    # a warp's longest lane: at least the mean, at most the longest pixel
+    warps = cfg.yres * -(-cfg.xres // 32)
+    assert ops[2] / pixels <= ops[4] / warps <= ops[3]
+    assert ops[0] > 0 and ops[1] == 0
+
+
 _PRIMAL_CASES = {
     "default_config": (lambda: rtt.default_scene(device="cpu")[0],
                        rtt.RenderConfig(xres=40, yres=24)),
@@ -165,6 +237,7 @@ _PRIMAL_CASES = {
     "patterns_black_bg": (lambda: _patterns_scene(rtt),
                           rtt.RenderConfig(xres=48, yres=32, bg="black")),
     "sixty_four_objects": (lambda: _many_spheres(rtt, 63), rtt.RenderConfig(xres=24, yres=16)),
+    "sixty_four_object_grid": (_sphere_grid, rtt.RenderConfig(xres=48, yres=36)),
 }
 
 
@@ -184,6 +257,8 @@ def test_unsupported_reason_and_cpu_routing():
     assert kr.unsupported_reason(scene, cfg) is None
     assert kr.n_out(scene.objects.count) == 5 * 19 + 10
     assert "64 objects" in kr.unsupported_reason(_many_spheres(rtt, 64), cfg)
+    with pytest.raises(ValueError, match="at most 64 objects"):  # before any launch
+        kr.launch_all(None, kt.pack_scene(_many_spheres(rtt, 64)), cfg, None, False, ())
     assert kr.unsupported_reason(_many_spheres(rtt, 63), cfg) is None
     textured = textured_scene(rtt, 1)
     assert "textures" in kr.unsupported_reason(textured, cfg)
@@ -250,8 +325,7 @@ def test_cuda_retrace_kernel_matches_backward_kernel():
     got, prim = kr.render_grads_retrace(scene, cfg, g, return_primal=True)
     want, prim_bwd = kb.render_grads_kernel(scene, cfg, g, return_primal=True)
     torch.cuda.synchronize()
-    lanes = _build.load_cuda_library("trace_retrace").rt_trace_retrace_lanes()
-    assert kr.LAUNCHES - before == -(-kr.n_out(scene.objects.count) // lanes)
+    assert kr.LAUNCHES - before == 1  # one launch a cotangent
     np.testing.assert_array_equal(_img(prim), _img(kt.render_color_kernel(scene, cfg)))
     np.testing.assert_array_equal(_img(prim), _img(prim_bwd))
     assert_leaf_grads_close(scene, got, want, BUDGET)

@@ -12,7 +12,7 @@ the trace kernel (K1) per 1920x1080 frame, the trace backward (K2) and the
 re-trace oracle (K5) per 1920x1080 cotangent, and the march kernel (K3)
 and the march backward (K4) at 1280x720 with glow 1.0, through their
 public wrappers; both march kernels also with ``march_floor_skip`` off
-where the checkout's config has it. K1 and K2 are also timed alone on
+where the checkout's config has it. K1, K2 and K5 are also timed alone on
 tables packed once (``render_tables_kernel``, ``render_grads_tables``),
 K2 both ways also on the default scene textured with the goldens' noise as
 ``bar.png`` in Bilinear. Last, the 1920x1080 training step of
@@ -151,8 +151,8 @@ def main() -> int:
         save_png(os.path.join(tex_dir, "bar.png"), np.random.default_rng(101).integers(
             0, 256, (256, 256, 3)).astype(np.uint8))
         textured = rtt.default_scene(texture_dir=tex_dir, texture_filter=1, device="cuda")[0]
-    # checkouts up to 00b398a call the kernel on packed tables ``_launch``
-    k2_alone = getattr(kb, "render_grads_tables", None) or kb._launch
+    # checkouts up to 945f329 call the re-trace kernel on packed tables ``_launch``
+    k5_alone = getattr(kr, "render_grads_tables", None) or kr._launch
     cfg = rtt.RenderConfig(xres=1920, yres=1080)
     mcfg = rtt.RenderConfig(xres=1280, yres=720, use_raymarching=True, glow_effect=1.0)
     rng = np.random.default_rng(0)
@@ -180,8 +180,10 @@ def main() -> int:
         times[f"K2 1920x1080{tag}"] = ms(lambda s=s: kb.render_grads_kernel(s, cfg, g,
                                                                             return_primal=True))
         times[f"K2 alone 1920x1080{tag}"] = ms(
-            lambda tables=tables, tex=tex: k2_alone(tables, tex, cfg, g, True))
+            lambda tables=tables, tex=tex: kb.render_grads_tables(tables, tex, cfg, g, True))
     times["K5 1920x1080"] = ms(lambda: kr.render_grads_retrace(scene, cfg, g, return_primal=True))
+    tables = tuple(t.detach() for t in kt.pack_scene(scene))
+    times["K5 alone 1920x1080"] = ms(lambda: k5_alone(tables, cfg, g, True))
     for tag, c in march:
         times[f"K4 1280x720{tag}"] = ms(lambda c=c: kmb.render_grads_kernel(scene, c, gm,
                                                                             return_primal=True))
