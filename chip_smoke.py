@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
    the trace kernel (K1), the march kernel (K3), the trace backward (K2),
-   the march backward (K4) and the re-trace gradient oracle (K5); ptxas
+   the march backward (K4), the re-trace gradient oracle (K5) and the scene
+   pack with its pull-back (one library, two kernels); ptxas
    registers, stack and spills (the trace backward is built for three record
    caps, one kernel each), and the trace backward and the march backward
    must keep theirs (PINNED_PTXAS); each kernel must be one function (ptxas
@@ -21,7 +22,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (K1a: the default scene with the goldens' 256x256 noise texture as
    ``bar.png``) against its plain version at 1920x1080 in Nearest and in
    Bilinear, and against the two textured goldens (mean at most 0.015,
-   tests/test_parity.py:192-214); the trace backward against torch
+   tests/test_parity.py:192-214); the pack kernel against
+   ``kernel_trace.pack_scene`` (and the meta rows of ``pack_textures``) bit
+   for bit, and the pull-back kernel against autograd of ``pack_scene`` on
+   a seeded block, bit for bit but within relative L2 1e-6 on the materials
+   two objects share (summation order), on the default scene, the Bilinear
+   textured one and 101 objects; the trace backward against torch
    autograd of the plain trace, per scene leaf within relative L2 0.01 (the
    JAX package's budget, tests/test_pallas_bwd.py:84-96), at six small
    cases (among them a 70-sphere field, where the lanes of a warp hit
@@ -46,15 +52,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    gradient oracle's main path's shape and cotangent planes;
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: trace mode, the CLI at 1920x1080 then ``render_u8`` at
-   three camera poses (three viewer requests), one trace kernel launch per
-   render; march mode with glow, the CLI at 1280x720 ``-m -g 1.0`` then
-   three ``render_u8`` requests, one march kernel launch per render;
+   three camera poses (three viewer requests), one trace kernel launch and
+   one pack launch per render; march mode with glow, the CLI at 1280x720
+   ``-m -g 1.0`` then three ``render_u8`` requests, one march kernel launch
+   and one pack launch per render;
    textured trace, the CLI at 1920x1080 in a directory holding ``bar.png``
    (its floor must differ from the untextured one) then a Bilinear
    ``render_u8``, one trace kernel launch each; training, five
    ``sgd_train_step``s at 1920x1080 on the default scene against a target
-   whose red material is 0.1 redder, one trace and one backward kernel
-   launch per step, the loss falling; the same on the Bilinear textured
+   whose red material is 0.1 redder, one trace, one backward, one pack and
+   one pull-back kernel launch per step, the loss falling; the same on the Bilinear textured
    scene, the loss falling at every step; march training with glow, five
    ``sgd_train_step``s at 1280x720 ``-m -g 1.0`` against the same
    kind of target, one march and one march backward launch per step, the
@@ -65,9 +72,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    budget, tests/test_pallas_bwd.py:250-260) and its image bit-equal to the
    trace kernel's on every pixel;
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
-   version in turns (3 warm-ups, 10 timed renders each); the forward and
-   backward step at 1920x1080 through the kernels and through plain autograd
-   in turns, the backward kernel through its wrapper and alone (on tables
+   version in turns (3 warm-ups, 10 timed renders each), then the kernel
+   through its wrapper and alone on words packed once in turns, beside the
+   share of 67 TFLOP/s it reaches with its object tests and with the
+   shading and sky operations its counting build counts (a diagnostic);
+   the packing by events and by the host's clock (100 calls enqueued): the
+   pack kernel untextured and textured, the pull-back kernel and their
+   plain versions; the forward and backward step at 1920x1080 through the
+   kernels twice and once through plain autograd between them, by events,
+   then by the host's clock (20 steps enqueued) and the card's busy time
+   and idle share from a ``torch.profiler`` trace; the backward kernel
+   through its wrapper and alone (on words
    packed once) in turns, beside the host counts of its accumulator's adds,
    their distinct (warp, entry) pairs and the sites, and its plain version
    (3 warm-ups, 10 timed calls each; the plain versions one call each with
@@ -82,7 +97,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    backward kernel through its wrapper and alone on the Bilinear scene (3
    warm-ups, 10 timed calls;
    their plain versions once, in phase 3); the re-trace oracle through its
-   wrapper and alone on tables packed once, and the trace backward, at
+   wrapper and alone on words packed once, and the trace backward, at
    1920x1080 in turns (3 warm-ups, 10 timed calls each; their plain version
    is the trace backward's, timed above), beside the oracle's host counts:
    its Dual passes (their mean, their most, and the mean over rows of 32
@@ -104,7 +119,10 @@ The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
 its public wrapper (for K1, K2 and K5 packing included); the trace
 backward's two entries and the re-trace oracle's also give ``alone_ms``,
-the kernel alone on tables packed once.
+the kernel alone on the pack kernel's words packed once (``launch_words``).
+The pack kernel's and the
+pull-back's entries are timed on the default scene, their launches counted
+in the five trace training steps.
 """
 
 from __future__ import annotations
@@ -356,8 +374,9 @@ def count_retrace_ops(cfg):
     scene = _host_scene(".", 0)
     g = [torch.zeros((cfg.yres, cfg.xres), dtype=torch.float32) for _ in range(3)]
     ops = torch.zeros(kr.OPS_SLOTS, dtype=torch.int64)
-    kr.launch_all(lib.rt_trace_retrace_host, kt.pack_scene(scene), cfg, g, False,
-                  (ops.data_ptr(),))
+    tables = kt.pack_scene(scene)  # held until the call returns
+    kr.launch_all(lib.rt_trace_retrace_host, [t.data_ptr() for t in tables], scene.objects.count,
+                  torch.device("cpu"), cfg, g, False, (ops.data_ptr(),))
     return tuple(int(v) for v in ops)
 
 
@@ -372,6 +391,79 @@ def cuda_ms(torch, fn, warm=3, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_busy(torch, fn, reps=10):
+    """The card's busy time and span per call of ``fn`` over ``reps`` calls
+    after 3 warm-ups, in ms, from a ``torch.profiler`` trace of the card
+    alone, and its kernels, copies and sets per call by name: busy is the
+    union of them, the span runs from the first one's start to the last
+    one's end. (0, 0, {}) where the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    if not spans:
+        return 0.0, 0.0, {}
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:  # microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    names = {}
+    for e in device:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    return (busy / 1e3 / reps, (end - spans[0][0]) / 1e3 / reps,
+            {k: n / reps for k, n in names.items()})
+
+
+def host_ms(torch, fn, reps=100):
+    """The host's clock per call of ``fn`` over ``reps`` calls after 3
+    warm-ups, without waiting for the card inside the loop: the enqueue."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def pack_bytes(scene):
+    """Bytes the pack must move: each leaf it reads once (the objects' 10
+    columns, the materials' 15, the camera's 7 and the light's 3, the
+    textures' widths and heights), its words written once."""
+    from ray_rust_tpu_torch.ops import kernel_pack as kp
+
+    n, m, n_tex, _ = kp.sizes(scene)
+    return 4 * (10 * n + 15 * m + 10 + 2 * n_tex) + 4 * kp.pack_words(n, n_tex)
+
+
+def pull_back_bytes_ops(scene):
+    """Bytes the pull-back must move (the block and the material indices
+    read once, a cotangent for each element of the scene's float leaves
+    written once) and its f32 operations: each object adds its 12 material
+    columns the tables read once."""
+    from ray_rust_tpu_torch.ops import kernel_pack as kp
+
+    n = scene.objects.count
+    written = sum(t.numel() for t in kp.float_leaves(scene))
+    return 4 * ((n + 1) * kp.GRAD_COLS + n) + 4 * written, 12 * n
 
 
 def training_step(torch, render, cfg, base):
@@ -436,6 +528,7 @@ def run(torch, tex_dir) -> int:
     from ray_rust_tpu_torch.ops import _build
     from ray_rust_tpu_torch.ops import kernel_march as km
     from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_pack as kp
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
     from ray_rust_tpu_torch.ops import kernel_trace_retrace as kr
@@ -466,7 +559,7 @@ def run(torch, tex_dir) -> int:
 
     # 2. the builds, one nvcc each, all started together
     t0 = time.time()
-    stems = ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd", "trace_retrace")
+    stems = ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd", "trace_retrace", "pack_scene")
     _build.prebuild(stems)
     print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
           f"{time.time() - t0:.1f} s")
@@ -536,6 +629,50 @@ def run(torch, tex_dir) -> int:
         got = img(kt.render_color_kernel(tex_scenes[f], rtt.RenderConfig(
             xres=gw, yres=gh, refraction_unroll=None)))
         compare(f"textured kernel vs golden {gname}", golden, got, mean_budget=0.015)
+
+    print("pack kernel vs pack_scene (bit for bit), pull-back kernel vs autograd of pack_scene:")
+    pack_cases = [("default", default), ("textured Bilinear", tex_scenes[1]),
+                  ("101 objects", spheres_scene(rtt, 11, 100))]
+    pack_err, vjp_err = 0.0, 0.0
+    for k, (name, scene) in enumerate(pack_cases):
+        scene = scene.to(dev)
+        tables, meta = kp.pack_tables(scene)
+        plain_tex = kt.pack_textures(scene)
+        pairs = list(zip(tables, kt.pack_scene(scene)))
+        same = all(torch.equal(a.view(torch.int32), b.detach().view(torch.int32))
+                   for a, b in pairs)
+        same &= (meta is None) == (plain_tex is None) and (
+            meta is None or torch.equal(meta, plain_tex[1]))
+        if meta is not None and plain_tex is not None:
+            pairs.append((meta, plain_tex[1]))
+        tab_err = max(float((a.double() - b.detach().double()).abs().max()) for a, b in pairs)
+        pack_err = max(pack_err, tab_err)
+        n = scene.objects.count
+        block = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n + 1, kb.GRAD_COLS)).astype(np.float32)).to(dev)
+        counts = np.bincount(scene.objects.mat.cpu().numpy(),
+                             minlength=scene.materials.pn.shape[0])
+        worst, err = 0.0, 0.0
+        for path, got, want in zip(
+                [p for p, x in zip(rtt.scene_to_numpy(scene), scene.tensors())
+                 if x.is_floating_point()],
+                kp.pack_scene_vjp(scene, block),
+                kp.pack_scene_vjp_plain(scene, kp.split_block(block, n))):
+            a, b = got.cpu().numpy().astype(np.float64), want.cpu().numpy().astype(np.float64)
+            err = max(err, float(np.abs(a - b).max()))
+            shared = (counts > 1) if path.startswith("materials.") else np.zeros(a.shape, bool)
+            if not np.array_equal(a[~shared], b[~shared]):
+                raise SystemExit(f"chip_smoke: pull-back, {name}: {path} not bit-equal")
+            if shared.any():
+                worst = max(worst, float(np.linalg.norm(a[shared] - b[shared])
+                                         / max(np.linalg.norm(b[shared]), 1e-30)))
+        vjp_err = max(vjp_err, err)
+        ok = same and worst <= 1e-6
+        print(f"  {name}: tables and meta bit-equal {same} (max abs {tab_err:.3g}); pull-back "
+              f"bit-equal on unshared entries, shared materials relative L2 {worst:.3g} "
+              f"(budget 1e-6), max abs {err:.3g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the pack kernels, {name}: outside their budget")
 
     print("march kernel vs plain version:")
     cases = [
@@ -745,20 +882,21 @@ def run(torch, tex_dir) -> int:
         once per render and ``other``'s not at all. Returns the launches."""
         with tempfile.TemporaryDirectory() as td:
             png_path = os.path.join(td, "out.png")
-            kt.LAUNCHES = km.LAUNCHES = 0
+            kt.LAUNCHES = km.LAUNCHES = kp.LAUNCHES = 0
             t0 = time.time()
             if cli.main(argv + ["-o", png_path]) != 0:
                 raise SystemExit("chip_smoke: the CLI failed")
             frames = [rtt.render_u8(v, cfg) for v in views]
             torch.cuda.synchronize()
             main_s = time.time() - t0
-            launches, stray = mod.LAUNCHES, other.LAUNCHES
+            launches, stray, packs = mod.LAUNCHES, other.LAUNCHES, kp.LAUNCHES
             png = load_png(png_path)
         print(f"main path, {name}: CLI {cfg.xres}x{cfg.yres} + 3 render_u8 in {main_s:.2f} s, "
-              f"{launches} kernel launches")
-        if launches != 4 or stray != 0:
-            raise SystemExit(f"chip_smoke: want 4 launches of the {name} kernel and 0 of the "
-                             f"other on its main path, got {launches} and {stray}")
+              f"{launches} kernel launches, {packs} pack launches")
+        if launches != 4 or stray != 0 or packs != 4:
+            raise SystemExit(f"chip_smoke: want 4 launches of the {name} kernel, 0 of the "
+                             f"other and 4 of the pack on its main path, got {launches}, "
+                             f"{stray} and {packs}")
         if png.shape != (cfg.yres, cfg.xres, 3):
             raise SystemExit(f"chip_smoke: PNG decodes to {png.shape}")
         if not np.array_equal(png, frames[0]):
@@ -817,12 +955,13 @@ def run(torch, tex_dir) -> int:
 
     def train(name, cfg, target, lr, want, base=scene_dev):
         """Five sgd_train_step on the material colours of ``base`` against
-        ``target``; the launches (K1, K2, K3, K4) must be ``want``. Returns
-        the losses and the launches."""
+        ``target``; the launches (K1, K2, K3, K4, the pack, the pull-back)
+        must be ``want``. Returns the losses and the launches."""
         bm = base.materials
         s = base._replace(materials=bm._replace(diffuse=colours(bm.diffuse),
                                                 specular=colours(bm.specular)))
         kt.LAUNCHES = kb.LAUNCHES = km.LAUNCHES = kmb.LAUNCHES = 0
+        kp.LAUNCHES = kp.VJP_LAUNCHES = 0
         t0 = time.time()
         losses = []
         for _ in range(5):
@@ -830,9 +969,11 @@ def run(torch, tex_dir) -> int:
             losses.append(float(loss))
         torch.cuda.synchronize()
         train_s = time.time() - t0
-        launches = (kt.LAUNCHES, kb.LAUNCHES, km.LAUNCHES, kmb.LAUNCHES)
+        launches = (kt.LAUNCHES, kb.LAUNCHES, km.LAUNCHES, kmb.LAUNCHES, kp.LAUNCHES,
+                    kp.VJP_LAUNCHES)
         print(f"main path, {name}: 5 sgd_train_step at {cfg.xres}x{cfg.yres} in {train_s:.2f} s, "
-              f"launches (K1 trace, K2 trace backward, K3 march, K4 march backward) {launches}, "
+              f"launches (K1 trace, K2 trace backward, K3 march, K4 march backward, pack, "
+              f"pull-back) {launches}, "
               f"losses " + ", ".join(f"{v:.6g}" for v in losses)
               + f"; red {float(s.materials.diffuse.r[2].detach()):.4f} (target 0.9, start 0.8)")
         if launches != want:
@@ -841,13 +982,13 @@ def run(torch, tex_dir) -> int:
             raise SystemExit(f"chip_smoke: the {name} loss did not fall: {losses}")
         return losses, launches
 
-    _, train_launches = train("training", cfg_main, target, TRAIN_LR, (5, 5, 0, 0))
+    _, train_launches = train("training", cfg_main, target, TRAIN_LR, (5, 5, 0, 0, 5, 5))
     tex_bi = tex_scenes[1]
     with torch.no_grad():
         tex_target = rtt.render_color(tex_bi._replace(materials=tex_bi.materials._replace(
             diffuse=tex_bi.materials.diffuse._replace(r=red))), cfg_main).to_array()
     tex_losses, tex_train_launches = train("textured training (Bilinear)", cfg_main, tex_target,
-                                           TRAIN_LR, (5, 5, 0, 0), base=tex_bi)
+                                           TRAIN_LR, (5, 5, 0, 0, 5, 5), base=tex_bi)
     if not all(b < a for a, b in zip(tex_losses, tex_losses[1:])):
         raise SystemExit(f"chip_smoke: the textured training loss did not fall at every step: "
                          f"{tex_losses}")
@@ -855,7 +996,7 @@ def run(torch, tex_dir) -> int:
         march_target = rtt.render_color(scene_dev._replace(
             materials=m._replace(diffuse=m.diffuse._replace(r=red))), cfg_march).to_array()
     march_losses, march_train_launches = train("march training", cfg_march, march_target,
-                                               MARCH_TRAIN_LR, (0, 0, 5, 5))
+                                               MARCH_TRAIN_LR, (0, 0, 5, 5, 5, 5))
     if not all(b < a for a, b in zip(march_losses, march_losses[1:])):
         raise SystemExit(f"chip_smoke: the march training loss did not fall at every step: "
                          f"{march_losses}")
@@ -906,6 +1047,42 @@ def run(torch, tex_dir) -> int:
         print(f"  {name}: {ms:.3f} ms/frame, {W * H / ms / 1e3:.1f} Mrays/s primary")
     k_ms = float(np.mean([ms for n, ms in runs if n == "kernel"]))
     p_ms = float(np.mean([ms for n, ms in runs if n == "plain"]))
+    words_once = kp.launch_pack(scene_dev)
+    alone = lambda: kt.render_words_kernel(scene_dev, words_once, cfg_main)  # noqa: E731
+    with torch.no_grad():
+        alone_runs = [(k, cuda_ms(torch, kernel if k == "wrapper" else alone))
+                      for k in ("wrapper", "alone", "alone", "wrapper")]
+    for name, ms in alone_runs:
+        how = "through render_color_kernel" if name == "wrapper" else "alone on words packed once"
+        print(f"  kernel {how}: {ms:.4f} ms/frame")
+    k_alone_ms = float(np.mean([ms for n, ms in alone_runs if n == "alone"]))
+    n_ops, _, shade_ops = ops["trace_fwd"][:3]
+    print(f"  diagnostic: the body's object tests {n_ops} and shading and sky {shade_ops} f32 "
+          f"operations (host count); with both, the kernel alone reaches "
+          f"{(n_ops + shade_ops) / F32_OPS_PER_S / (k_alone_ms / 1e3):.1%} of "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s (the object tests alone: "
+          f"{n_ops / F32_OPS_PER_S / (k_alone_ms / 1e3):.1%})")
+
+    print(f"packing {W}x{H}, default scene ({card}): by CUDA events and by the host's clock "
+          f"(100 calls enqueued)")
+    g_block = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (scene_dev.objects.count + 1, kb.GRAD_COLS)).astype(np.float32)).to(dev)
+    pack_fns = {"pack kernel (kernel_pack.launch_pack)": lambda: kp.launch_pack(scene_dev),
+                "pack kernel and the cached atlas's arguments, textured Nearest":
+                    lambda: kp.texture_pointers(tex_scenes[0], kp.word_pointers(
+                        kp.launch_pack(tex_scenes[0]), tex_scenes[0].objects.count)[1]),
+                "plain pack_scene": lambda: kt.pack_scene(scene_dev),
+                "pull-back kernel (kernel_pack.pack_scene_vjp)":
+                    lambda: kp.pack_scene_vjp(scene_dev, g_block),
+                "plain pull-back (autograd of pack_scene)":
+                    lambda: kp.pack_scene_vjp_plain(
+                        scene_dev, kp.split_block(g_block, scene_dev.objects.count))}
+    pack_ms = {}
+    for name, fn in pack_fns.items():
+        pack_ms[name] = cuda_ms(torch, fn)
+        print(f"  {name}: {pack_ms[name]:.4f} ms by events, {host_ms(torch, fn):.4f} ms by the "
+              f"host's clock")
+    pack_ms = list(pack_ms.values())
 
     print(f"forward + backward {W}x{H}, default scene, default cfg ({card}):")
     def step(render, cfg, base=scene_dev):
@@ -914,13 +1091,24 @@ def run(torch, tex_dir) -> int:
     kernel_step = step(rtt.render_color, cfg_main)
     plain_step = step(kt.render_color_plain, cfg_plain)
     plain_reps = dict(warm=0, reps=1)
-    step_runs = [("plain", cuda_ms(torch, plain_step, **plain_reps)),
-                 ("kernel", cuda_ms(torch, kernel_step)), ("kernel", cuda_ms(torch, kernel_step)),
-                 ("plain", cuda_ms(torch, plain_step, **plain_reps))]
+    # the plain step once: it is no yardstick of speed (~32 s)
+    step_runs = [("kernel", cuda_ms(torch, kernel_step)),
+                 ("plain", cuda_ms(torch, plain_step, **plain_reps)),
+                 ("kernel", cuda_ms(torch, kernel_step))]
     for name, ms in step_runs:
         c = cfg_main if name == "kernel" else cfg_plain
         print(f"  step ({name} at {c.xres}x{c.yres}: render, MSE, gradient of every float "
-              f"leaf): {ms:.3f} ms")
+              f"leaf): {ms:.3f} ms by events")
+    busy, span, names = device_busy(torch, kernel_step)
+    print(f"  step through the kernels: {host_ms(torch, kernel_step, reps=20):.3f} ms by the "
+          f"host's clock (20 steps enqueued), the card busy {busy:.3f} ms of a span of "
+          f"{span:.3f} ms (idle share {1 - busy / span if span else float('nan'):.3f})")
+    packs = [sum(c for k, c in names.items() if f"{kernel}(" in k)
+             for kernel in ("pack_scene_kernel", "pack_scene_vjp_kernel")]
+    print(f"  profiled step: {sum(names.values()):.1f} kernels, copies and sets a step, of "
+          f"them {packs[0]:.1f} pack and {packs[1]:.1f} pull-back launches")
+    if names and packs != [1, 1]:
+        raise SystemExit("chip_smoke: the profiled step is not one pack and one pull-back")
     rng = np.random.default_rng(0)
 
     def planes(cfg):
@@ -931,17 +1119,16 @@ def run(torch, tex_dir) -> int:
 
     def bwd_times(scene, name):
         """The backward kernel at the main path's shape, with the image, in
-        turns through its wrapper (packing included) and alone on tables
+        turns through its wrapper (packing included) and alone on words
         packed once; returns the means (wrapper, alone)."""
-        tables = tuple(t.detach() for t in kt.pack_scene(scene))
-        tex = kt.pack_textures(scene)
+        words = kp.launch_pack(scene)
         fns = {"wrapper": lambda: kb.render_grads_kernel(scene, cfg_main, g_main,
                                                          return_primal=True),
-               "alone": lambda: kb.render_grads_tables(tables, tex, cfg_main, g_main, True)}
+               "alone": lambda: kb.launch_words(scene, words, cfg_main, g_main, True)}
         runs = [(k, cuda_ms(torch, fns[k])) for k in ("wrapper", "alone", "alone", "wrapper")]
         for k, ms in runs:
             print(f"  backward kernel, {name} {W}x{H} with the image, "
-                  f"{'through its wrapper' if k == 'wrapper' else 'alone on packed tables'}: "
+                  f"{'through its wrapper' if k == 'wrapper' else 'alone on packed words'}: "
                   f"{ms:.3f} ms")
         return tuple(float(np.mean([ms for kind, ms in runs if kind == k])) for k in fns)
 
@@ -969,12 +1156,12 @@ def run(torch, tex_dir) -> int:
     print(f"  its plain version at {pw}x{ph}: {tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
     print(f"gradient oracle {W}x{H}, default scene, default cfg ({card}):")
-    oracle_tables = tuple(t.detach() for t in kt.pack_scene(scene_dev))
+    oracle_words = kp.launch_pack(scene_dev)
     oracle_fns = {
         "oracle kernel (wrapper, with the image)":
             lambda: kr.render_grads_retrace(scene_dev, cfg_main, g_main, return_primal=True),
-        "oracle kernel alone on packed tables, with the image":
-            lambda: kr.render_grads_tables(oracle_tables, cfg_main, g_main, True),
+        "oracle kernel alone on packed words, with the image":
+            lambda: kr.launch_words(scene_dev, oracle_words, cfg_main, g_main, True),
         "backward kernel (wrapper, with the image)":
             lambda: kb.render_grads_kernel(scene_dev, cfg_main, g_main, return_primal=True)}
     names = list(oracle_fns)
@@ -1056,6 +1243,11 @@ def run(torch, tex_dir) -> int:
             off_ops = ops[f"{name}_off"][0]
             print(f"    with the floor tail off (diagnostic, not the bound): {off_ops} f32 "
                   f"operations -> {roofline(off_ops, nbytes)[0]:.4f} ms")
+    bounds["pack_scene"] = roofline(0, pack_bytes(scene_dev))
+    vjp_bytes, vjp_ops = pull_back_bytes_ops(scene_dev)
+    bounds["pack_scene_vjp"] = roofline(vjp_ops, vjp_bytes)
+    for name in ("pack_scene", "pack_scene_vjp"):
+        print(f"  bound, {name}, default scene: {bounds[name][0]:.3g} ms ({bounds[name][1]})")
     # the re-trace oracle computes the trace backward's function on the same
     # inputs, so the least time for its work is the trace backward's bound;
     # its forward-mode operations are only a diagnostic
@@ -1116,6 +1308,20 @@ def run(torch, tex_dir) -> int:
         "ms": march_bwd_ms, "plain_ms": march_bwd_plain_ms,
         "bound_ms": bounds["march_bwd"][0], "bound_by": bounds["march_bwd"][1],
         "library_ms": None,
+    }, {
+        "name": "pack_scene", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/pack_scene.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_trace.py:127",
+        "launches": train_launches[4], "max_abs_err": pack_err, "ms": pack_ms[0],
+        "plain_ms": pack_ms[2], "bound_ms": bounds["pack_scene"][0],
+        "bound_by": bounds["pack_scene"][1], "library_ms": None,
+    }, {
+        "name": "pack_scene_vjp", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/pack_scene.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_trace.py:1656",
+        "launches": train_launches[5], "max_abs_err": vjp_err, "ms": pack_ms[3],
+        "plain_ms": pack_ms[4], "bound_ms": bounds["pack_scene_vjp"][0],
+        "bound_by": bounds["pack_scene_vjp"][1], "library_ms": None,
     }, {
         "name": "trace_retrace", "route": "cuda",
         "source": "ray_rust_tpu_torch/csrc/trace_retrace.cu",

@@ -30,7 +30,7 @@
 //
 // Image textures (K1a, replacing ray_rust_tpu/ops/pallas_trace.py:
 // fetch_taps, fetch_texture and _tex_blend): a textured hit reads its texel's
-// 2x2 wrap neighbourhood from the atlas that ops/kernel_trace.py:pack_textures
+// 2x2 wrap neighbourhood from the atlas that ops/kernel_pack.py:pack_textures
 // builds, one 16-byte word a texel (four r | g<<8 | b<<16 taps), and blends
 // the taps in f32 as the plain version (ops/texture.py:sample_texture_packed)
 // does. The lookup is arithmetic, not a CUDA texture object: hardware
@@ -61,7 +61,10 @@
 // A build with -DRT_COUNT_OPS counts the f32 arithmetic of the object loops
 // (the fewest operations each object test can take) into SceneView::ops[0],
 // and the texel bytes the traversal's texture fetches read into ops[1], for
-// the kernels' roofline bound; the ordinary build compiles it away.
+// the kernels' roofline bound; the forward's (trace_host.cpp) also counts
+// the rest of the body's f32 operations (shading, sky, camera ray) into
+// ops[2], a diagnostic of how far K1 is from the card's issue rate; the
+// ordinary build compiles it away.
 #pragma once
 
 #include <math.h>
@@ -83,10 +86,18 @@
 #define RT_COUNT(s, k) ((void)0)
 #define RT_COUNT_TEXEL(s) ((void)0)
 #endif
+// The forward's counting build (trace_host.cpp) also counts the shading,
+// sky and camera-ray operations into ops[2]; the backward's and the
+// re-trace's, which keep their own slots there, do not.
+#if defined(RT_COUNT_OPS) && defined(RT_COUNT_SHADING)
+#define RT_COUNT_SHADE(s, k) ((s).ops[2] += static_cast<unsigned long long>(k))
+#else
+#define RT_COUNT_SHADE(s, k) ((void)0)
+#endif
 
 namespace rt {
 
-// Column layout of the packed scene tables (ops/kernel_trace.py:pack_scene,
+// Column layout of the packed scene tables (ops/kernel_pack.py:pack_scene,
 // the same as ray_rust_tpu/ops/pallas_trace.py:_pack_scene).
 constexpr int F32_COLS = 19;  // org xyz, normal xyz, diffuse rgb, specular rgb,
                               // pn, t, n, pattern_scale, pattern_angle_scale,
@@ -116,6 +127,24 @@ constexpr int STACK_CAP = 16;
 // raycast: a sphere whose discriminant is negative, a floor facing away.
 constexpr int OPS_SPHERE_TEST = 19;
 constexpr int OPS_FLOOR_TEST = 8;
+// The f32 operations the rest of the body writes, for the diagnostic count
+// (RT_COUNT_SHADE): each add, sub, mul, div, sqrt, min, max, abs, floor,
+// trunc, fmod and pow once, though the last few take many instructions.
+constexpr int OPS_CAMERA_RAY = 70;   // ey, ez, two quaternion products, normalize
+constexpr int OPS_HIT = 53;          // hit point, Lambert + Phong, shadow origin,
+                                     // face colour, accumulation, exit test
+constexpr int OPS_SPHERE_NORMAL = 12;
+constexpr int OPS_POW = 1;
+constexpr int OPS_UV_PLANAR = 5;
+constexpr int OPS_UV_LATLONG = 45;   // two Cephes atan2 and a sqrt
+constexpr int OPS_GRADATION = 10;
+constexpr int OPS_CHECKER = 2;
+constexpr int OPS_TEX_NEAREST = 7;
+constexpr int OPS_TEX_BILINEAR = 50;
+constexpr int OPS_REFRACT = 40;      // bend, normalize, the sub-trace's start and weight
+constexpr int OPS_BOUNCE = 17;       // mirror direction and the flag test
+constexpr int OPS_MISS = 9;          // the background's share of the pixel
+constexpr int OPS_SKY = 70;          // Cephes atan2 and asin, two fmodf, glare
 
 constexpr float F32_EPS = 1.1920928955078125e-7f;  // f32::EPSILON
 constexpr float PI_F = 3.14159265358979323846f;
@@ -590,6 +619,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
     if (!is_finite(t)) {
       rec.site(vi, eye, fcs, flags, idx, false, false);
       // a miss picks up the background once, unguarded (render.rs:1212-1217)
+      RT_COUNT_SHADE(s, OPS_MISS + (p.bg == BG_BLACK ? 0 : OPS_SKY));
       C3T<T> bg = background(p.bg, s.light, eye);
       out->r += tk.w.r * (bg.r * fcs.r);
       out->g += tk.w.g * (bg.g * fcs.g);
@@ -607,6 +637,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
     }
     V3T<T> org = {o[0], o[1], o[2]};
     V3T<T> n = surface_normal(o, oi[0], pt);
+    RT_COUNT_SHADE(s, OPS_HIT + (oi[0] == KIND_SPHERE ? OPS_SPHERE_NORMAL : 0));
 
     // Lambert + Phong (render.rs:1024-1046)
     T li = dot(s.light, n);
@@ -616,6 +647,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
     T pn = o[12];
     T ri = -dot(rtl, eye);
     T refl = (pn != 0.0f && ri > 0.0f) ? powf(ri, pn) : 0.0f;
+    RT_COUNT_SHADE(s, (pn != 0.0f && ri > 0.0f) ? OPS_POW : 0);
 
     // shadow ray, on the values: lit when it escapes or its blocker is
     // transparent
@@ -629,13 +661,18 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
 
     T u, v;
     get_uv(sub(pt, org), oi[2], o[15], o[16], &u, &v);
+    RT_COUNT_SHADE(s, oi[2] == UVMAP_LL ? OPS_UV_LATLONG : OPS_UV_PLANAR);
     C3T<T> kd;
     if constexpr (is_dual_v<T>) {  // the re-trace takes untextured scenes
       kd = pattern_diffuse(o, oi[1], u, v);
     } else if (textured(s, oi)) {  // the image replaces the pattern (render.rs:249-316)
       RT_COUNT_TEXEL(s);
+      RT_COUNT_SHADE(s, s.tx.meta[TEX_META_COLS * (oi[3] < s.tx.n_tex ? oi[3] : s.tx.n_tex - 1)
+                                  + 3] == FILTER_BILINEAR ? OPS_TEX_BILINEAR : OPS_TEX_NEAREST);
       kd = fetch_texture(s.tx, oi[3], u, v);
     } else {
+      RT_COUNT_SHADE(s, oi[1] == PATTERN_GRADATION ? OPS_GRADATION
+                        : (oi[1] == PATTERN_CHECKERBOARD ? OPS_CHECKER : 0));
       kd = pattern_diffuse(o, oi[1], u, v);
     }
     C3T<T> face = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
@@ -643,6 +680,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
     bool mr = !(flags & RIGNORE), mg = !(flags & GIGNORE), mb = !(flags & BIGNORE);
     T f = o[13];
     if (lev < p.refraction_cap && f > 0.0f) {
+      RT_COUNT_SHADE(s, OPS_REFRACT);
       // pseudo-refraction (render.rs:1093-1132): bend, ignore the source
       T sp_n = dot(eye, n);
       T fracn = fabsf(o[14]) > 1e-6f ? o[14] : 1.0f;
@@ -682,6 +720,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
     bool cont = idx != 0 && val(fcs.r) + val(fcs.g) + val(fcs.b) > 0.1f &&
                 lev < p.max_reflections;
     if (!cont) return;
+    RT_COUNT_SHADE(s, OPS_BOUNCE);
     // mirror bounce + entry/exit flag flip (render.rs:1199-1211)
     T en2 = -2.0f * dot(eye, n);
     V3T<T> new_eye = add(eye, v3(n.x * en2, n.y * en2, n.z * en2));
@@ -706,6 +745,7 @@ RT_FI C3T<T> trace_pixel(const SceneViewT<T>& s, const Params& p, const float* c
     stack[0].vi = V3T<T>{cam[0], cam[1], cam[2]};
     stack[0].eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
   }
+  RT_COUNT_SHADE(s, OPS_CAMERA_RAY);
   stack[0].w = C3T<T>{1.0f, 1.0f, 1.0f};
   stack[0].lev = 0;
   stack[0].ig = -1;

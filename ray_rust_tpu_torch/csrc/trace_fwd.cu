@@ -31,10 +31,16 @@
 
 namespace {
 
-constexpr int BLOCK_X = 32;
-constexpr int BLOCK_Y = 8;
+// The launch shape: blocks of 16x16 pixels, five blocks an SM (48
+// registers, 20 bytes of spill stores). On an H100 at 1920x1080 it beat
+// the first design's 32x8 at four blocks an SM (60 registers, no spills)
+// by 3.5% in turns, and 32x4, six blocks an SM and a task stack of 4 (the
+// default config's need) by less or not at all (PERF.md §6).
+constexpr int BLOCK_X = 16;
+constexpr int BLOCK_Y = 16;
+constexpr int BLOCKS_PER_SM = 5;
 
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, BLOCKS_PER_SM)
 trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
                  const float* __restrict__ cam, const float* __restrict__ light,
                  int n, rt::Params p, rt::TexArgs tx, float* __restrict__ out_r,

@@ -3,9 +3,11 @@
 // against the plain PyTorch version where there is no card. Same arguments
 // as rt_trace_fwd in trace_fwd.cu, minus the device and stream. Build with
 // ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and
-// -DRT_COUNT_OPS to add the operation count to ops_total[0] and the texel
-// bytes read to ops_total[1]).
+// -DRT_COUNT_OPS to add the operation count to ops_total[0], the texel
+// bytes read to ops_total[1] and the shading, sky and camera-ray operations
+// to ops_total[2]).
 
+#define RT_COUNT_SHADING
 #include "trace_body.cuh"
 
 extern "C" void rt_trace_host(const float* f32t, const int* i32t, const float* cam,

@@ -1,8 +1,9 @@
 """Build and load the port's native kernels from ``ray_rust_tpu_torch/csrc``.
 
 The CUDA kernels (``trace_fwd.cu``, ``march_fwd.cu``, ``trace_bwd.cu``,
-``march_bwd.cu``, ``trace_retrace.cu``) are compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a plain
-C interface, which are loaded with ``ctypes``. A library's file name carries
+``march_bwd.cu``, ``trace_retrace.cu``, ``pack_scene.cu``) are compiled at
+first use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a
+plain C interface, which are loaded with ``ctypes``. A library's file name carries
 a hash of the sources and flags, so an edited source is rebuilt and a stale
 library is never loaded. The builds go to ``ray_rust_tpu_torch/_build/``
 (git-ignored), each with its compiler output beside it, so a cached build
@@ -13,7 +14,7 @@ compiler each.
 :func:`build_host_library` compiles a kernel's per-pixel body for the CPU
 with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
 ``csrc/trace_bwd_host.cpp``, ``csrc/march_bwd_host.cpp``,
-``csrc/trace_retrace_host.cpp``), for the
+``csrc/trace_retrace_host.cpp``, ``csrc/pack_scene_host.cpp``), for the
 tests; with ``count_ops=True`` it builds it with ``-DRT_COUNT_OPS``, which
 adds the f32 operations the body takes to a counter, for the kernels'
 roofline bound (the march bodies also count object passes and each pixel's
@@ -65,17 +66,26 @@ _MARCH_BWD_ARGS = _MARCH_ARGS[:-3] + [_F] + [_P] * 7
 # the re-trace gradient: the trace backward's, without the record cap and
 # the atlas
 _RETRACE_ARGS = _TRACE_CFG + [_F] + [_P] * 7
+# the scene pack: the leaves' pointer array, n, m, the texture count, the
+# texels a texture, the output words; its pull-back: the block, the material
+# indices, n, m, the output
+_PACK_ARGS = [_P, _I, _I, _I, _I, _P]
+_PACK_VJP_ARGS = [_P, _P, _I, _I, _P]
 _CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march_fwd", _MARCH_ARGS),
              "trace_bwd": ("rt_trace_bwd", _BWD_ARGS),
              "march_bwd": ("rt_march_bwd", _MARCH_BWD_ARGS),
-             "trace_retrace": ("rt_trace_retrace", _RETRACE_ARGS)}
+             "trace_retrace": ("rt_trace_retrace", _RETRACE_ARGS),
+             "pack_scene": ("rt_pack_scene", _PACK_ARGS)}
 _HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host", _MARCH_ARGS),
              "trace_bwd": ("rt_trace_bwd_host", _BWD_ARGS),
              "march_bwd": ("rt_march_bwd_host", _MARCH_BWD_ARGS),
-             "trace_retrace": ("rt_trace_retrace_host", _RETRACE_ARGS)}
+             "trace_retrace": ("rt_trace_retrace_host", _RETRACE_ARGS),
+             "pack_scene": ("rt_pack_scene_host", _PACK_ARGS)}
 # Other functions a library exports (its CUDA and host builds alike):
-# name -> (argtypes, restype).
-_EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I)}}
+# name -> (argtypes, restype). The pull-back's host build keeps the kernel's
+# interface (csrc/pack_scene_host.cpp).
+_EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I)},
+              "pack_scene": {"rt_pack_scene_vjp": (_PACK_VJP_ARGS + [_I, _P], _I)}}
 
 # Each build's compiler output (for nvcc, ptxas's registers, stack and
 # spills), by library stem.
@@ -137,8 +147,8 @@ def _compile_cuda(name: str) -> Path:
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"``,
-    ``"march_fwd"``, ``"trace_bwd"``, ``"march_bwd"`` or
-    ``"trace_retrace"``)."""
+    ``"march_fwd"``, ``"trace_bwd"``, ``"march_bwd"``, ``"trace_retrace"``
+    or ``"pack_scene"``)."""
     if name not in _cuda_libs:
         fn_name, argtypes = _CUDA_FNS[name]
         lib = _bind(_compile_cuda(name), fn_name, argtypes + [_I, _P], _I,
@@ -171,7 +181,8 @@ def called_functions(ptxas_log: str) -> list:
 def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
     """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
     a CPU loop (``rt_trace_host``, ``rt_march_host``, ``rt_trace_bwd_host``,
-    ``rt_march_bwd_host`` or ``rt_trace_retrace_host``)."""
+    ``rt_march_bwd_host``, ``rt_trace_retrace_host`` or
+    ``rt_pack_scene_host``, with ``rt_pack_scene_vjp``)."""
     stem = f"{name}_host" + ("_ops" if count_ops else "")
     path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
                        CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)

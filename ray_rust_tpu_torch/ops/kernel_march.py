@@ -13,8 +13,8 @@ back. :func:`render_color_plain` (the trace kernel's: camera rays and
 ``trace_image``, which takes ``ops/trace.py:raymarch`` in march mode)
 computes the same function with PyTorch operations; the renderer takes it
 for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernel
-against it. The scene tables are the trace kernel's
-(``kernel_trace.pack_scene``; column 18 holds ``glow_dist``).
+against it. The scene tables are the trace kernel's, packed by the pack
+kernel (``kernel_pack.launch_pack``; column 18 holds ``glow_dist``).
 
 ``RenderConfig.march_floor_skip`` (on by default, as in the JAX package)
 lets the kernel resolve a march's floor tail in closed form; the plain
@@ -31,14 +31,15 @@ import numpy as np
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
-from .kernel_trace import check_launchable, launch, pack_scene, render_color_plain
+from .kernel_pack import launch_pack, word_pointers
+from .kernel_trace import check_launchable, launch, render_color_plain
 from .sky import BG_IDS
 
 __all__ = [
     "kernel_supported",
     "unsupported_reason",
     "render_color_kernel",
-    "render_tables_kernel",
+    "render_words_kernel",
     "render_color_plain",
     "kernel_args",
 ]
@@ -96,21 +97,24 @@ def kernel_args(cfg: RenderConfig) -> list:
 
 
 def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
-    """Render through the CUDA march kernel. The scene's tensors must lie on
-    a CUDA device; the image is returned there as a Color of ``(H, W)``
-    planes. Raises on anything the kernel does not take."""
+    """Render through the CUDA march kernel, the scene packed by the pack
+    kernel. The scene's tensors must lie on a CUDA device; the image is
+    returned there as a Color of ``(H, W)`` planes. Raises on anything the
+    kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "march")
-    return render_tables_kernel(pack_scene(scene), cfg)
+    return render_words_kernel(scene, launch_pack(scene), cfg)
 
 
-def render_tables_kernel(tables, cfg: RenderConfig) -> Color:
-    """Launch the march kernel on packed tables (``pack_scene``'s four, on a
-    CUDA device) that the caller has checked with :func:`unsupported_reason`."""
+def render_words_kernel(scene: Scene, words, cfg: RenderConfig) -> Color:
+    """Launch the march kernel on the pack kernel's ``words`` of ``scene``
+    (``kernel_pack.launch_pack``), straight from their addresses, for a
+    render the caller has checked with :func:`unsupported_reason`."""
     global LAUNCHES
     from ._build import load_cuda_library
 
+    n = scene.objects.count
     lib = load_cuda_library("march_fwd")
-    img = launch(lib, lib.rt_march_fwd, tables, cfg, kernel_args(cfg))
+    img = launch(lib, lib.rt_march_fwd, word_pointers(words, n)[0], n, words.device, cfg,
+                 kernel_args(cfg))
     LAUNCHES += 1
     return img
-

@@ -14,10 +14,11 @@ and the glow through its recorded argmin, as ``ops/march.py``'s implicit VJP
 does.
 
 :class:`MarchRender` pairs the march kernel with it, as ``_fast_march_fn``
-(``pallas_trace.py:1705-1740``) pairs the JAX kernels: its forward launches
-the march kernel on the packed tables, its backward launches this kernel.
-:func:`render_color_grad` wraps the scene's differentiable ``pack_scene``
-around it, so autograd carries the table cotangents to the scene's leaves.
+(``pallas_trace.py:1705-1740``) pairs the JAX kernels, from the scene's
+float leaves to the image: its forward packs the scene (``kernel_pack``)
+and launches the march kernel on the tables, its backward launches this
+kernel and pulls its block back to the leaves
+(``kernel_pack.pack_scene_vjp``).
 
 :func:`render_grads_kernel` launches the kernel or raises; it never falls
 back. :func:`render_grads_plain` computes the same three cotangents with
@@ -35,9 +36,9 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
-from . import kernel_march
+from . import kernel_march, kernel_pack
 from . import kernel_trace_bwd as ktb
-from .kernel_trace import check_launchable, pack_scene
+from .kernel_trace import check_launchable
 
 __all__ = [
     "SITE_CAP",
@@ -116,14 +117,18 @@ def kernel_args(cfg: RenderConfig) -> list:
     return kernel_march.kernel_args(cfg) + [float("inf") if cutoff is None else float(cutoff)]
 
 
-def _launch(tables, cfg: RenderConfig, g: Color, return_primal: bool):
-    """Launch the march backward kernel (``kernel_trace_bwd.launch_grads``)."""
+def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal: bool):
+    """Launch the march backward kernel on the pack kernel's ``words`` of
+    ``scene`` (``kernel_pack.launch_pack``), straight from their addresses
+    (``kernel_trace_bwd.launch_block``), counting it: its block
+    and, with ``return_primal``, the image."""
     global LAUNCHES
     from ._build import load_cuda_library
 
+    n = scene.objects.count
     lib = load_cuda_library("march_bwd")
-    out = ktb.launch_grads(lib, lib.rt_march_bwd, tables, cfg, kernel_args(cfg), g,
-                           return_primal)
+    out = ktb.launch_block(lib, lib.rt_march_bwd, kernel_pack.word_pointers(words, n)[0], n,
+                           words.device, cfg, kernel_args(cfg), g, return_primal)
     LAUNCHES += 1
     return out
 
@@ -132,38 +137,40 @@ def render_grads_kernel(scene: Scene, cfg: RenderConfig, g: Color,
                         return_primal: bool = False):
     """The cotangents of the packed tables through the CUDA march backward
     kernel, for image cotangent ``g`` (three ``(H, W)`` f32 planes on the
-    scene's CUDA device). ``return_primal=True`` also returns the image the
-    kernel marched (the march kernel's). Raises on anything the kernel does
-    not take."""
+    scene's CUDA device), the scene packed by the pack kernel.
+    ``return_primal=True`` also returns the image the kernel marched (the
+    march kernel's). Raises on anything the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "march backward")
-    tables = tuple(t.detach() for t in pack_scene(scene))
-    return _launch(tables, cfg, Color(*(c.contiguous() for c in g)), return_primal)
+    block, prim = launch_words(scene, kernel_pack.launch_pack(scene), cfg,
+                               Color(*(c.contiguous() for c in g)), return_primal)
+    grads = ktb.split_block(block, scene.objects.count)
+    return (grads, prim) if return_primal else grads
 
 
 class MarchRender(torch.autograd.Function):
-    """The march image as a function of the packed tables: the march kernel
-    in the forward pass, the march backward kernel in the backward pass. The
-    i32 table and the config get no gradient."""
+    """The march image as a function of the scene's float leaves
+    (``kernel_pack.float_leaves``): the pack kernel, then the march kernel,
+    in the forward pass; the march backward kernel, then the pull-back
+    kernel, in the backward pass. The integer leaves and the config get no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, f32t, cam, light, i32t, cfg):
-        ctx.save_for_backward(f32t, cam, light, i32t)
-        ctx.cfg = cfg
-        img = kernel_march.render_tables_kernel((f32t, i32t, cam, light), cfg)
+    def forward(ctx, scene, cfg, *leaves):
+        words = kernel_pack.launch_pack(scene)
+        ctx.scene, ctx.cfg, ctx.words = scene, cfg, words
+        img = kernel_march.render_words_kernel(scene, words, cfg)
         return img.r, img.g, img.b
 
     @staticmethod
     def backward(ctx, g_r, g_g, g_b):
-        f32t, cam, light, i32t = ctx.saved_tensors
         g = Color(*(c.contiguous() for c in (g_r, g_g, g_b)))
-        g_f32t, g_cam, g_light = _launch((f32t, i32t, cam, light), ctx.cfg, g, False)
-        return g_f32t, g_cam, g_light, None, None
+        block, _ = launch_words(ctx.scene, ctx.words, ctx.cfg, g, False)
+        return (None, None, *kernel_pack.pack_scene_vjp(ctx.scene, block))
 
 
 def render_color_grad(scene: Scene, cfg: RenderConfig) -> Color:
     """Render a CUDA march scene through :class:`MarchRender`, so that
     autograd takes its gradient with the march backward kernel. Raises on
-    anything the two kernels do not take."""
+    anything the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "march backward")
-    f32t, i32t, cam, light = pack_scene(scene)
-    return Color(*MarchRender.apply(f32t, cam, light, i32t, cfg))
+    return Color(*MarchRender.apply(scene, cfg, *kernel_pack.float_leaves(scene)))

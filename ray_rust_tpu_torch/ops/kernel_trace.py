@@ -8,7 +8,11 @@ nearest-hit scans, shading with shadow rays, patterns and image textures
 trace-mode scenes of up to 512 objects. Every object is scanned for every
 ray; the JAX kernel's per-tile cull for large scenes is exact, so it changes
 no pixel, and it is later work. The texture atlas goes to the kernel as
-:func:`pack_textures` lays it out.
+:func:`pack_textures` lays it out. On the card the scene's tables come from
+the pack kernel (``kernel_pack``: one launch from the scene's leaves, the
+atlas built once per bank), and the kernel is launched on their addresses;
+``kernel_pack.pack_scene`` and ``pack_textures`` (imported here) are the
+pack's plain versions.
 
 :func:`render_color_kernel` launches the kernel or raises; it never falls
 back. :func:`render_color_plain` computes the same function with PyTorch
@@ -25,6 +29,14 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
+from .kernel_pack import (
+    TEX_META_COLS,
+    launch_pack,
+    pack_scene,
+    pack_textures,
+    texture_pointers,
+    word_pointers,
+)
 from .rays import camera_rays, fov_scales
 from .sky import BG_IDS
 from .trace import trace_image
@@ -36,7 +48,7 @@ __all__ = [
     "kernel_supported",
     "unsupported_reason",
     "render_color_kernel",
-    "render_tables_kernel",
+    "render_words_kernel",
     "render_color_plain",
     "kernel_args",
 ]
@@ -46,71 +58,7 @@ LAUNCHES = 0
 
 KERNEL_OBJECT_MAX = 512  # the tables must fit one block's shared memory
 STACK_CAP = 16  # csrc/trace_body.cuh: rt::STACK_CAP
-F32_COLS, I32_COLS = 19, 4
-TEX_META_COLS = 4  # csrc/trace_body.cuh: rt::TEX_META_COLS
 TEXTURE_MAX = 1024  # the meta rows share the block's shared memory with the tables
-
-
-def pack_scene(scene: Scene):
-    """The kernel's scene tables, in the JAX kernel's column layout
-    (``pallas_trace.py:_pack_scene``): f32 ``(N, 19)`` with the material
-    fields joined through the object->material index, i32 ``(N, 4)``,
-    camera ``(1, 8)`` and light ``(1, 4)``."""
-    objs, mats = scene.objects, scene.materials
-    m = objs.mat.long()
-    f32t = torch.stack(
-        [
-            objs.org.x, objs.org.y, objs.org.z,
-            objs.normal.x, objs.normal.y, objs.normal.z,
-            mats.diffuse.r[m], mats.diffuse.g[m], mats.diffuse.b[m],
-            mats.specular.r[m], mats.specular.g[m], mats.specular.b[m],
-            mats.pn[m], mats.transparency[m], mats.refraction[m],
-            mats.pattern_scale[m], mats.pattern_angle_scale[m],
-            objs.radius,
-            mats.glow_dist[m],
-        ],
-        dim=1,
-    ).to(torch.float32)
-    i32t = torch.stack(
-        [objs.kind, mats.pattern[m], objs.uvmap, mats.texture_id[m]], dim=1
-    ).to(torch.int32)
-    cam = scene.camera
-    zero = torch.zeros_like(scene.light.x)
-    cam_t = torch.stack(
-        [cam.position.x, cam.position.y, cam.position.z,
-         cam.rotation.x, cam.rotation.y, cam.rotation.z, cam.rotation.w, zero]
-    ).to(torch.float32).reshape(1, 8)
-    light_t = torch.stack(
-        [scene.light.x, scene.light.y, scene.light.z, zero]
-    ).to(torch.float32).reshape(1, 4)
-    return f32t, i32t, cam_t, light_t
-
-
-def pack_textures(scene: Scene):
-    """The kernel's texture atlas, or None for an untextured scene:
-    ``(atlas, meta)``. ``atlas`` is ``(T, Hmax, Wmax, 4)`` int32, 16 bytes a
-    texel holding its four taps (``TextureBank.packed``'s p00, p10,
-    p01, p11) as ``r | g<<8 | b<<16`` words, texture-major with row stride
-    ``Wmax``: the layout of the JAX package's ``_pack_textures``
-    (``pallas_trace.py:200-265``) without its 128-lane chunks. ``meta`` is
-    ``(T, 4)`` int32 rows ``[width, height, base texel, filter]``, the
-    filter of the texture's owner material (by scatter-max, so a texture
-    shared by a Nearest and a Bilinear material is Bilinear, as there)."""
-    bank = scene.textures
-    if bank is None:
-        return None
-    t, hmax, wmax = bank.packed.shape[:3]
-    q = bank.packed.to(torch.int32).reshape(t * hmax * wmax, 4, 3)
-    atlas = (q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)).reshape(t, hmax, wmax, 4)
-    mats = scene.materials
-    tid = mats.texture_id.long()
-    owner_filt = torch.where(tid >= 0, mats.texture_filter, 0).to(torch.int32)
-    filt = torch.zeros(t, dtype=torch.int32, device=atlas.device).scatter_reduce(
-        0, tid.clamp(0, t - 1), owner_filt, reduce="amax")
-    base = torch.arange(t, dtype=torch.int32, device=atlas.device) * (hmax * wmax)
-    meta = torch.stack([bank.widths.to(torch.int32), bank.heights.to(torch.int32), base, filt],
-                       dim=1).contiguous()
-    return atlas, meta
 
 
 def texture_args(tex, device) -> list:
@@ -170,35 +118,23 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(lib, fn, tables, cfg: RenderConfig, args: list) -> Color:
+def launch(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list) -> Color:
     """Call launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres, sx, sy,
-    *args, out_r, out_g, out_b, device, stream)`` on the current stream
-    with the packed scene ``tables`` (:func:`pack_scene`'s four) and return
-    the image (``args``: the kernel's ``kernel_args``, and for the trace
-    kernel :func:`texture_args`); raises if the tables or the launch are not
-    as the kernel takes them."""
-    check_tables(tables)
-    f32t, i32t, cam, light = tables
-    dev = f32t.device
+    *args, out_r, out_g, out_b, device, stream)`` on the current stream of
+    CUDA device ``dev``, the tables given by their addresses ``ptrs`` (f32
+    table, i32 table, camera, light: the pack kernel's words,
+    ``kernel_pack.word_pointers``), and return the image (``args``: the
+    kernel's ``kernel_args``, and for the trace kernel its texture
+    arguments); raises if the launch fails."""
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
     sx, sy = fov_scales(cfg)
-    rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
-            f32t.shape[0], cfg.xres, cfg.yres, sx, sy, *args,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    plane = 4 * cfg.yres * cfg.xres
+    base = out.data_ptr()
+    rc = fn(*ptrs, n, cfg.xres, cfg.yres, sx, sy, *args, base, base + plane, base + 2 * plane,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
-    return Color(out[0], out[1], out[2])
-
-
-def check_tables(tables):
-    """Raise ValueError unless ``tables`` are :func:`pack_scene`'s four
-    tensors, contiguous, on one device."""
-    f32t, i32t, cam, light = tables
-    n, dev = f32t.shape[0], f32t.device
-    check_tensor(f32t, "f32 table", torch.float32, (n, F32_COLS), dev)
-    check_tensor(i32t, "i32 table", torch.int32, (n, I32_COLS), dev)
-    check_tensor(cam, "camera", torch.float32, (1, 8), dev)
-    check_tensor(light, "light", torch.float32, (1, 4), dev)
+    return Color(*out.unbind(0))
 
 
 def kernel_args(cfg: RenderConfig) -> list:
@@ -217,24 +153,26 @@ def check_launchable(scene: Scene, reason: Optional[str], what: str):
 
 
 def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
-    """Render through the CUDA trace kernel. The scene's tensors must lie on
-    a CUDA device; the image is returned there as a Color of ``(H, W)``
-    planes. Raises on anything the kernel does not take."""
+    """Render through the CUDA trace kernel, the scene packed by the pack
+    kernel (``kernel_pack.launch_pack``). The scene's tensors must lie on a CUDA
+    device; the image is returned there as a Color of ``(H, W)`` planes.
+    Raises on anything the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace")
-    return render_tables_kernel(pack_scene(scene), cfg, pack_textures(scene))
+    return render_words_kernel(scene, launch_pack(scene), cfg)
 
 
-def render_tables_kernel(tables, cfg: RenderConfig, tex=None) -> Color:
-    """Launch the trace kernel on packed tables (:func:`pack_scene`'s four,
-    on a CUDA device) and texture atlas ``tex`` (:func:`pack_textures`'s
-    pair, or None) that the caller has checked with
-    :func:`unsupported_reason`."""
+def render_words_kernel(scene: Scene, words: torch.Tensor, cfg: RenderConfig) -> Color:
+    """Launch the trace kernel on the pack kernel's ``words`` of ``scene``
+    (``kernel_pack.launch_pack``) and the scene's cached texture atlas,
+    straight from their addresses: the kernel after the pack, which the
+    caller has checked with :func:`unsupported_reason`."""
     global LAUNCHES
     from ._build import load_cuda_library
 
+    n = scene.objects.count
+    ptrs, meta = word_pointers(words, n)
     lib = load_cuda_library("trace_fwd")
-    args = kernel_args(cfg) + texture_args(tex, tables[0].device)
-    img = launch(lib, lib.rt_trace_fwd, tables, cfg, args)
+    img = launch(lib, lib.rt_trace_fwd, ptrs, n, words.device, cfg,
+                 kernel_args(cfg) + texture_pointers(scene, meta))
     LAUNCHES += 1
     return img
-

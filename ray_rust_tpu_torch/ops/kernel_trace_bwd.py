@@ -16,13 +16,12 @@ config's sites. The JAX kernel's pruned replay variants are not carried
 over.
 
 :class:`TraceRender` pairs the forward kernel with it, as ``_fast_fn``
-(``pallas_trace.py:1670-1701``) pairs the JAX kernels: its forward launches
-the trace kernel on the packed tables and saves nothing else, its backward
-launches this kernel; the atlas rides along as a constant.
-:func:`render_color_grad` wraps the scene's
-differentiable :func:`pack_scene` around it, so autograd carries the table
-cotangents to the scene's leaves, through the object->material gather (the
-counterpart of ``jax.vjp(pack_f32, scene)``).
+(``pallas_trace.py:1670-1701``) pairs the JAX kernels, from the scene's
+float leaves to the image: its forward packs the scene in one launch
+(``kernel_pack``) and launches the trace kernel on the tables, which it
+keeps; its backward launches this kernel and pulls the block back to the
+leaves in one launch (``kernel_pack.pack_scene_vjp``, the counterpart of
+``jax.vjp(pack_f32, scene)``); the atlas rides along as a constant.
 
 :func:`render_grads_kernel` launches the kernel or raises; it never falls
 back. :func:`render_grads_plain` computes the same three cotangents with
@@ -32,6 +31,7 @@ tests and ``chip_smoke.py`` hold the kernel against it.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -41,16 +41,9 @@ from ..models.material import MaterialTable
 from ..models.quat import Quat
 from ..models.scene import Camera, ObjectTable, Scene, scene_to_numpy
 from ..models.vec import Color, Vec3
-from . import kernel_trace
-from .kernel_trace import (
-    F32_COLS,
-    check_launchable,
-    check_tables,
-    check_tensor,
-    pack_scene,
-    pack_textures,
-    texture_args,
-)
+from . import kernel_pack, kernel_trace
+from .kernel_pack import GRAD_COLS, split_block
+from .kernel_trace import check_launchable, check_tensor, pack_scene, texture_args
 from .rays import fov_scales
 
 __all__ = [
@@ -61,10 +54,10 @@ __all__ = [
     "kernel_supported",
     "kernel_args",
     "launch_args",
-    "launch_grads",
+    "launch_block",
+    "launch_words",
     "split_block",
     "render_grads_kernel",
-    "render_grads_tables",
     "render_grads_plain",
     "leaf_grads",
     "TraceRender",
@@ -79,7 +72,6 @@ LAUNCHES = 0
 # up to 4 reflections (63), and up to 191, the most of any config the
 # forward kernel takes (6 reflections, refraction_unroll=None).
 SITE_CAPS = (16, 64, 192)
-GRAD_COLS = 20  # the kernel's block: object rows of 19, then camera 7 + light 3
 
 
 class _Node(NamedTuple):
@@ -113,6 +105,14 @@ def _count(nodes) -> int:
 def count_sites(cfg: RenderConfig) -> int:
     """The most raycast sites one pixel can reach under ``cfg`` (11 at the
     default config, 35 at ``refraction_unroll=None``)."""
+    return _count_sites(cfg.max_reflections, cfg.refraction_cap())
+
+
+@functools.lru_cache(maxsize=None)
+def _count_sites(max_reflections: int, refraction_cap: int) -> int:
+    """:func:`count_sites` of the two fields the site tree reads."""
+    cfg = RenderConfig(max_reflections=max_reflections, max_refractions=refraction_cap,
+                       refraction_unroll=None)
     return _count(_site_nodes(cfg))
 
 
@@ -199,115 +199,105 @@ def launch_args(cfg: RenderConfig, tex, device) -> list:
     return kernel_args(cfg) + [site_cap(cfg)] + texture_args(tex, device)
 
 
-def launch_grads(lib, fn, tables, cfg: RenderConfig, args: list, g: Color,
+def launch_block(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list, g: Color,
                  return_primal: bool):
-    """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres,
-    sx, sy, *args, g_r, g_g, g_b, block, prim_r, prim_g, prim_b, device,
-    stream)`` (``args``: :func:`launch_args` for this kernel, the march
-    backward's ``kernel_args`` for it) on packed tables and image cotangent
-    planes ``g`` on their
-    CUDA device; returns :func:`split_block`'s three cotangents, and the
-    image the kernel traced with ``return_primal``. Raises if the inputs or
-    the launch are not as the kernel takes them."""
-    check_tables(tables)
-    f32t, i32t, cam, light = tables
-    n, dev = f32t.shape[0], f32t.device
+    """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres,
+    yres, sx, sy, *args, g_r, g_g, g_b, block, prim_r, prim_g, prim_b,
+    device, stream)`` (``args``: :func:`launch_args` for this kernel, the
+    march backward's ``kernel_args`` for it) on the tables' addresses
+    ``ptrs`` (f32 table, i32 table, camera, light: the pack kernel's words,
+    ``kernel_pack.word_pointers``) of ``n`` objects and image cotangent
+    planes ``g`` on CUDA device ``dev``; returns the kernel's ``(n+1,
+    GRAD_COLS)`` block and, with ``return_primal``, the image the kernel
+    traced (else None). Raises if the cotangent or the launch is not as the
+    kernel takes it."""
     for name, plane in zip("rgb", g):
         check_tensor(plane, f"cotangent {name}", torch.float32, (cfg.yres, cfg.xres), dev)
     block = torch.zeros((n + 1, GRAD_COLS), dtype=torch.float32, device=dev)
     prim = (torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
             if return_primal else None)
-    prim_ptrs = [p.data_ptr() for p in prim] if return_primal else [None] * 3
+    plane = 4 * cfg.yres * cfg.xres
+    prim_ptrs = ([prim.data_ptr() + k * plane for k in range(3)] if return_primal
+                 else [None] * 3)
     sx, sy = fov_scales(cfg)
-    rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(), n, cfg.xres,
-            cfg.yres, sx, sy, *args, *(plane.data_ptr() for plane in g), block.data_ptr(),
-            *prim_ptrs, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*ptrs, n, cfg.xres, cfg.yres, sx, sy, *args, *(c.data_ptr() for c in g),
+            block.data_ptr(), *prim_ptrs, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
-    grads = split_block(block, n)
-    return (grads, Color(prim[0], prim[1], prim[2])) if return_primal else grads
+    return block, (Color(*prim.unbind(0)) if return_primal else None)
 
 
-def render_grads_tables(tables, tex, cfg: RenderConfig, g: Color, return_primal: bool = False):
-    """Launch the backward kernel (:func:`launch_grads`) on packed tables
-    (:func:`pack_scene`'s four, on a CUDA device) and texture atlas ``tex``
-    (:func:`kernel_trace.pack_textures`'s pair, or None) that the caller
-    has checked with :func:`unsupported_reason`: the kernel without the
-    packing."""
+def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
+                 return_primal: bool):
+    """Launch the backward kernel on the pack kernel's ``words`` of
+    ``scene`` (``kernel_pack.launch_pack``) and its cached atlas, straight
+    from their addresses, counting it; returns as
+    :func:`launch_block`."""
     global LAUNCHES
     from ._build import load_cuda_library
 
+    n = scene.objects.count
+    ptrs, meta = kernel_pack.word_pointers(words, n)
     lib = load_cuda_library("trace_bwd")
-    args = launch_args(cfg, tex, tables[0].device)
-    out = launch_grads(lib, lib.rt_trace_bwd, tables, cfg, args, g, return_primal)
+    args = kernel_args(cfg) + [site_cap(cfg)] + kernel_pack.texture_pointers(scene, meta)
+    out = launch_block(lib, lib.rt_trace_bwd, ptrs, n, words.device, cfg, args, g, return_primal)
     LAUNCHES += 1
     return out
-
-
-def split_block(block: torch.Tensor, n: int):
-    """The kernel's ``(n+1, 20)`` block as ``(g_f32t (n, 19), g_cam (1, 8),
-    g_light (1, 4))``, the tables' shapes, zero in their pad columns."""
-    zero = block.new_zeros(1)
-    g_cam = torch.cat([block[n, 0:7], zero]).reshape(1, 8)
-    g_light = torch.cat([block[n, 7:10], zero]).reshape(1, 4)
-    return block[:n, :F32_COLS], g_cam, g_light
 
 
 def render_grads_kernel(scene: Scene, cfg: RenderConfig, g: Color,
                         return_primal: bool = False):
     """The cotangents of the packed tables through the CUDA backward kernel,
     for image cotangent ``g`` (three ``(H, W)`` f32 planes on the scene's
-    CUDA device). ``return_primal=True`` also returns the image the kernel
-    traced (the forward kernel's). Raises on anything the kernel does not
-    take."""
+    CUDA device), the scene packed by the pack kernel. ``return_primal=True``
+    also returns the image the kernel traced (the forward kernel's). Raises
+    on anything the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace backward")
-    tables = tuple(t.detach() for t in pack_scene(scene))
-    return render_grads_tables(tables, pack_textures(scene), cfg,
+    block, prim = launch_words(scene, kernel_pack.launch_pack(scene), cfg,
                                Color(*(c.contiguous() for c in g)), return_primal)
+    grads = split_block(block, scene.objects.count)
+    return (grads, prim) if return_primal else grads
 
 
 def leaf_grads(scene: Scene, table_grads) -> dict:
     """The cotangents of ``scene``'s float leaves, keyed by
     :func:`scene_to_numpy`'s dotted paths, given those of its packed f32
-    table, camera and light (autograd of :func:`pack_scene`)."""
-    paths = list(scene_to_numpy(scene))
-    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
-              for t in scene.tensors()]
-    f32t, _, cam, light = pack_scene(scene.with_tensors(leaves))
-    wrt = [(p, t) for p, t in zip(paths, leaves) if t.requires_grad]
-    grads = torch.autograd.grad((f32t, cam, light), [t for _, t in wrt], tuple(table_grads),
-                                allow_unused=True)
-    return {p: torch.zeros_like(t) if gr is None else gr for (p, t), gr in zip(wrt, grads)}
+    table, camera and light: autograd of :func:`pack_scene`
+    (``kernel_pack.pack_scene_vjp_plain``) on either device, zeros for the
+    leaves the tables do not read. The tests and ``chip_smoke.py`` hold the
+    kernels' cotangents against the plain ones through it, so it stays
+    plain: the pull-back kernel is held against it on its own."""
+    paths = [p for p, t in zip(scene_to_numpy(scene), scene.tensors()) if t.is_floating_point()]
+    return dict(zip(paths, kernel_pack.pack_scene_vjp_plain(scene, table_grads)))
 
 
 class TraceRender(torch.autograd.Function):
-    """The image as a function of the packed tables: the forward kernel in
-    the forward pass, the backward kernel in the backward pass. The i32
-    table, the texture atlas and its meta (None for an untextured scene)
-    and the config get no gradient."""
+    """The image as a function of the scene's float leaves
+    (``kernel_pack.float_leaves``), as ``_fast_fn`` pairs the JAX kernels
+    from the scene to the image: the forward packs the scene with the pack
+    kernel and launches the trace kernel on the tables, which it keeps; the
+    backward launches the backward kernel on them and pulls its block back
+    to the leaves with the pull-back kernel (zeros for ``frac`` and
+    ``pyr``, which the tables do not read). The integer leaves, the texture
+    atlas and the config get no gradient."""
 
     @staticmethod
-    def forward(ctx, f32t, cam, light, i32t, atlas, meta, cfg):
-        ctx.save_for_backward(f32t, cam, light, i32t, atlas, meta)
-        ctx.cfg = cfg
-        tex = None if atlas is None else (atlas, meta)
-        img = kernel_trace.render_tables_kernel((f32t, i32t, cam, light), cfg, tex)
+    def forward(ctx, scene, cfg, *leaves):
+        words = kernel_pack.launch_pack(scene)
+        ctx.scene, ctx.cfg, ctx.words = scene, cfg, words
+        img = kernel_trace.render_words_kernel(scene, words, cfg)
         return img.r, img.g, img.b
 
     @staticmethod
     def backward(ctx, g_r, g_g, g_b):
-        f32t, cam, light, i32t, atlas, meta = ctx.saved_tensors
         g = Color(*(c.contiguous() for c in (g_r, g_g, g_b)))
-        tex = None if atlas is None else (atlas, meta)
-        g_f32t, g_cam, g_light = render_grads_tables((f32t, i32t, cam, light), tex, ctx.cfg, g)
-        return g_f32t, g_cam, g_light, None, None, None, None
+        block, _ = launch_words(ctx.scene, ctx.words, ctx.cfg, g, False)
+        return (None, None, *kernel_pack.pack_scene_vjp(ctx.scene, block))
 
 
 def render_color_grad(scene: Scene, cfg: RenderConfig) -> Color:
     """Render a CUDA scene through :class:`TraceRender`, so that autograd
-    takes its gradient with the backward kernel. Raises on anything the two
+    takes its gradient with the backward kernel. Raises on anything the
     kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace backward")
-    f32t, i32t, cam, light = pack_scene(scene)
-    atlas, meta = pack_textures(scene) or (None, None)
-    return Color(*TraceRender.apply(f32t, cam, light, i32t, atlas, meta, cfg))
+    return Color(*TraceRender.apply(scene, cfg, *kernel_pack.float_leaves(scene)))

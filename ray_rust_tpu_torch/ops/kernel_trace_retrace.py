@@ -33,8 +33,9 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
-from . import kernel_trace
-from .kernel_trace import F32_COLS, check_launchable, check_tables, check_tensor, pack_scene
+from . import kernel_pack, kernel_trace
+from .kernel_pack import F32_COLS
+from .kernel_trace import check_launchable, check_tensor
 # K5 computes the function K2 computes, so its plain version is K2's:
 # render_grads_plain, torch autograd of the plain trace.
 from .kernel_trace_bwd import GRAD_COLS, kernel_args, render_grads_plain, split_block
@@ -45,7 +46,7 @@ __all__ = [
     "n_out",
     "unsupported_reason",
     "launch_all",
-    "render_grads_tables",
+    "launch_words",
     "render_grads_retrace",
     "render_grads_plain",
 ]
@@ -82,18 +83,19 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     return kernel_trace.unsupported_reason(scene, cfg)
 
 
-def launch_all(fn, tables, cfg: RenderConfig, g: Color, return_primal: bool, tail: tuple):
+def launch_all(fn, ptrs: list, n: int, dev, cfg: RenderConfig, g: Color, return_primal: bool,
+               tail: tuple):
     """Run launcher ``fn`` (the kernel's ``rt_trace_retrace`` or its host
     build's ``rt_trace_retrace_host``) once, as ``fn(tables, n, xres, yres,
     sx, sy, *kernel_args(cfg), g_r, g_g, g_b, block, prim_r, prim_g,
-    prim_b, *tail)``. ``tail`` is the device and stream, or the host build's
-    operation counter. Returns the three table cotangents and, with
-    ``return_primal``, the image. Raises on more than OBJECT_MAX objects
-    (a pixel's winners are one 64-bit mask) and if the launch returns
-    non-zero."""
-    check_tables(tables)
-    f32t, i32t, cam, light = tables
-    n, dev = f32t.shape[0], f32t.device
+    prim_b, *tail)``, the tables of ``n`` objects on device ``dev`` given
+    by their addresses ``ptrs`` (f32 table, i32 table, camera, light: the
+    pack kernel's words, ``kernel_pack.word_pointers``, or the host build's
+    ``pack_scene`` tables, which the caller holds). ``tail`` is the device
+    and stream, or the host build's operation counter. Returns the three
+    table cotangents and, with ``return_primal``, the image. Raises on more
+    than OBJECT_MAX objects (a pixel's winners are one 64-bit mask) and if
+    the launch returns non-zero."""
     if n > OBJECT_MAX:
         raise ValueError(f"the re-trace kernel takes at most {OBJECT_MAX} objects, got {n}")
     for name, plane in zip("rgb", g):
@@ -103,23 +105,24 @@ def launch_all(fn, tables, cfg: RenderConfig, g: Color, return_primal: bool, tai
             if return_primal else None)
     sx, sy = fov_scales(cfg)
     prims = [p.data_ptr() for p in prim] if return_primal else [None] * 3
-    rc = fn(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(), n,
-            cfg.xres, cfg.yres, sx, sy, *kernel_args(cfg), *(plane.data_ptr() for plane in g),
-            block.data_ptr(), *prims, *tail)
+    rc = fn(*ptrs, n, cfg.xres, cfg.yres, sx, sy, *kernel_args(cfg),
+            *(plane.data_ptr() for plane in g), block.data_ptr(), *prims, *tail)
     if rc:
         raise RuntimeError(f"{fn.__name__} launch failed: error {rc}")
     grads = split_block(block, n)
     return (grads, Color(prim[0], prim[1], prim[2])) if return_primal else grads
 
 
-def render_grads_tables(tables, cfg: RenderConfig, g: Color, return_primal: bool = False):
-    """The re-trace kernel on packed tables on their CUDA device (the
-    kernel alone, without :func:`render_grads_retrace`'s checks and
-    packing), counting its launch; returns as :func:`launch_all`."""
+def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
+                 return_primal: bool = False):
+    """The re-trace kernel on the pack kernel's ``words`` of ``scene``
+    (``kernel_pack.launch_pack``), straight from their addresses, counting
+    its launch: the kernel without :func:`render_grads_retrace`'s checks and
+    packing; returns as :func:`launch_all`."""
     from ._build import load_cuda_library
 
     lib = load_cuda_library("trace_retrace")
-    dev = tables[0].device
+    dev = words.device
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def fn(*a):
@@ -131,7 +134,9 @@ def render_grads_tables(tables, cfg: RenderConfig, g: Color, return_primal: bool
         LAUNCHES += 1
         return 0
 
-    return launch_all(fn, tables, cfg, g, return_primal, (dev.index, stream))
+    n = scene.objects.count
+    return launch_all(fn, kernel_pack.word_pointers(words, n)[0], n, dev, cfg, g, return_primal,
+                      (dev.index, stream))
 
 
 def render_grads_retrace(scene: Scene, cfg: RenderConfig, g: Color,
@@ -151,5 +156,4 @@ def render_grads_retrace(scene: Scene, cfg: RenderConfig, g: Color,
         grads = render_grads_plain(scene, cfg, g)
         return (grads, kernel_trace.render_color_plain(scene, cfg)) if return_primal else grads
     check_launchable(scene, reason, "re-trace gradient")
-    tables = tuple(t.detach() for t in pack_scene(scene))
-    return render_grads_tables(tables, cfg, g, return_primal)
+    return launch_words(scene, kernel_pack.launch_pack(scene), cfg, g, return_primal)

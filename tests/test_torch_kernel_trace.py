@@ -255,7 +255,7 @@ def host_lib(tmp_path_factory):
     return _build.build_host_library(tmp_path_factory.mktemp("trace_host"))
 
 
-def _host_render(lib, scene, cfg):
+def _host_render(lib, scene, cfg, ops=None):
     f32t, i32t, cam, light = kt.pack_scene(scene)
     tex = kt.pack_textures(scene)  # held until the call returns
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
@@ -264,7 +264,8 @@ def _host_render(lib, scene, cfg):
                       scene.objects.count, cfg.xres, cfg.yres, sx, sy, cfg.max_reflections,
                       cfg.refraction_cap(), BG_IDS[cfg.bg],
                       *kt.texture_args(tex, torch.device("cpu")), out[0].data_ptr(),
-                      out[1].data_ptr(), out[2].data_ptr(), None)
+                      out[1].data_ptr(), out[2].data_ptr(),
+                      None if ops is None else ops.data_ptr())
     return out.permute(1, 2, 0).numpy()
 
 
@@ -297,6 +298,27 @@ def test_host_build_of_kernel_body_matches_plain(host_lib, case):
     got = _host_render(host_lib, scene, cfg)
     assert np.isfinite(got).all()
     _compare(want, got)
+
+
+def test_counting_build_counts_shading_and_sky(host_lib, tmp_path):
+    """The forward's -DRT_COUNT_OPS build renders the ordinary build's image
+    and counts the body's shading, sky and camera-ray operations in slot 2
+    beside the object tests (slot 0): on a frame that sees only sky, the
+    camera ray's 70, the miss's 9 and the sky's 70 a pixel."""
+    lib = _build.build_host_library(tmp_path, "trace", count_ops=True)
+    scene = rtt.default_scene(device="cpu")[0]
+    cfg = rtt.RenderConfig(xres=32, yres=24)
+    ops = torch.zeros(6, dtype=torch.int64)
+    np.testing.assert_array_equal(_host_render(lib, scene, cfg, ops),
+                                  _host_render(host_lib, scene, cfg))
+    assert ops[0] > 0 and ops[2] > 0 and ops[1] == 0 and not ops[3:].any()
+    behind, _ = rtt.build_scene([rtt.MaterialSpec(name="m")],
+                                [rtt.SphereSpec("m", 10.0, (0.0, 0.0, -1000.0))],
+                                (0.0, 0.0, 0.0), (0.0, -np.pi / 2, -np.pi / 2),
+                                (50.0, 60.0, -50.0), device="cpu")
+    ops.zero_()
+    _host_render(lib, behind, cfg, ops)
+    assert int(ops[2]) == cfg.xres * cfg.yres * (70 + 9 + 70)
 
 
 @pytest.mark.cuda

@@ -111,11 +111,17 @@ def _img(col):
                      for c in col], -1)
 
 
+def _launch_host(lib, scene, cfg, g, return_primal, tail):
+    """``kr.launch_all`` on K5's host build ``lib`` and the plain tables of
+    ``scene``, held until it returns."""
+    tables = kt.pack_scene(scene)
+    return kr.launch_all(lib.rt_trace_retrace_host, [t.data_ptr() for t in tables],
+                         tables[0].shape[0], torch.device("cpu"), cfg, g, return_primal, tail)
+
+
 def _retrace_host(libs, scene, cfg, g):
     """K5's host build: the table cotangents and the image."""
-    lib = libs["trace_retrace"]
-    grads, prim = kr.launch_all(lib.rt_trace_retrace_host, kt.pack_scene(scene), cfg, Color(*g),
-                                True, (None,))
+    grads, prim = _launch_host(libs["trace_retrace"], scene, cfg, Color(*g), True, (None,))
     return grads, _img(prim)
 
 
@@ -208,8 +214,7 @@ def test_counting_build_counts_passes(tmp_path):
     scene = rtt.default_scene(device="cpu")[0]
     cfg = rtt.RenderConfig(xres=160, yres=120)
     ops = torch.zeros(kr.OPS_SLOTS, dtype=torch.int64)
-    kr.launch_all(lib.rt_trace_retrace_host, kt.pack_scene(scene), cfg,
-                  Color(*_planes(cfg, 6)), False, (ops.data_ptr(),))
+    _launch_host(lib, scene, cfg, Color(*_planes(cfg, 6)), False, (ops.data_ptr(),))
     ops = ops.tolist()
     hist = ops[kr.HIST_SLOT:]
     pixels = cfg.xres * cfg.yres
@@ -258,7 +263,8 @@ def test_unsupported_reason_and_cpu_routing():
     assert kr.n_out(scene.objects.count) == 5 * 19 + 10
     assert "64 objects" in kr.unsupported_reason(_many_spheres(rtt, 64), cfg)
     with pytest.raises(ValueError, match="at most 64 objects"):  # before any launch
-        kr.launch_all(None, kt.pack_scene(_many_spheres(rtt, 64)), cfg, None, False, ())
+        kr.launch_all(None, [None] * 4, _many_spheres(rtt, 64).objects.count, torch.device("cpu"),
+                      cfg, None, False, ())
     assert kr.unsupported_reason(_many_spheres(rtt, 63), cfg) is None
     textured = textured_scene(rtt, 1)
     assert "textures" in kr.unsupported_reason(textured, cfg)

@@ -13,15 +13,23 @@ re-trace oracle (K5) per 1920x1080 cotangent, and the march kernel (K3)
 and the march backward (K4) at 1280x720 with glow 1.0, through their
 public wrappers; both march kernels also with ``march_floor_skip`` off
 where the checkout's config has it. K1, K2 and K5 are also timed alone on
-tables packed once (``render_tables_kernel``, ``render_grads_tables``),
-K2 both ways also on the default scene textured with the goldens' noise as
-``bar.png`` in Bilinear. Last, the 1920x1080 training step of
+what their wrappers pack, packed once: the pack kernel's words
+(``render_words_kernel``, ``launch_words``), or on a checkout without the
+pack kernel the tables of ``pack_scene`` (``render_tables_kernel``,
+``render_grads_tables``); K2 both ways also on the default scene textured
+with the goldens' noise as ``bar.png`` in Bilinear. Last, the 1920x1080 training step of
 ``chip_smoke.training_step`` (render, MSE, the gradient of every float
 leaf): by CUDA events; by the host's clock around enqueueing the same 10
 steps (``host``); and from a ``torch.profiler`` trace of the card alone
 over 10 steps, ``busy`` (the union of its kernels, copies and sets) and
 ``span`` (the first one's start to the last one's end), each per step, and
-the card's ``idle share`` 1 - busy / span.
+the card's ``idle share`` 1 - busy / span; under ``counts`` the same
+trace's kernels, copies and sets a step, and of them the pack kernel's and
+the pull-back's launches. Also the textured frame (K1
+through its wrapper on the default scene with ``bar.png`` in Nearest) and
+the packing (``pack_times``: what K1's wrapper packs, the plain packs and
+the pull-back of a backward block to the leaves), by CUDA events and by
+the host's clock around 100 enqueued calls.
 
 ``--caps`` first times K2 alone at 1920x1080 at each record cap it is built
 for (``SITE_CAPS``, in turns up and down), before any other launch, with
@@ -55,26 +63,29 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 
-def cap_times(torch, kb, build, scene, cfg, g) -> dict:
+def cap_times(torch, kb, kp, build, scene, cfg, g) -> dict:
     """K2 alone at each of ``kb.SITE_CAPS`` on ``scene`` under ``cfg``
     (whatever the config's own cap): the device memory each cap's first
     launch takes outside the caching allocator (MiB), the largest difference
     of its cotangent from the smallest cap's relative to the latter's
-    largest entry (per table), and its time in turns up and down."""
+    largest entry (per table), and its time in turns up and down. Needs a
+    checkout with the pack kernel."""
     lib = build.load_cuda_library("trace_bwd")
-    tables = tuple(t.detach() for t in kb.pack_scene(scene))
-    args = kb.launch_args(cfg, None, tables[0].device)
-    at = len(kb.kernel_args(cfg))  # the record cap's place in the arguments
+    n = scene.objects.count
+    words = kp.launch_pack(scene)
+    ptrs, meta = kp.word_pointers(words, n)
+    tex = kp.texture_pointers(scene, meta)
 
     def launch(cap):
-        return kb.launch_grads(lib, lib.rt_trace_bwd, tables, cfg,
-                               args[:at] + [cap] + args[at + 1:], g, True)
+        block, _ = kb.launch_block(lib, lib.rt_trace_bwd, ptrs, n, words.device, cfg,
+                                   kb.kernel_args(cfg) + [cap] + tex, g, True)
+        return kb.split_block(block, n)
 
     out, first = {}, None
     for cap in kb.SITE_CAPS:
         torch.cuda.synchronize()
         free, held = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
-        grads = launch(cap)[0]
+        grads = launch(cap)
         torch.cuda.synchronize()
         taken = free - torch.cuda.mem_get_info()[0] - (torch.cuda.memory_reserved() - held)
         out[f"K2 cap {cap} first launch MiB"] = taken / 2**20
@@ -87,36 +98,48 @@ def cap_times(torch, kb, build, scene, cfg, g) -> dict:
     return out
 
 
-def device_busy(torch, fn, reps=10):
-    """The card's busy time and span per call of ``fn`` over ``reps`` calls
-    after 3 warm-ups, in ms, from a ``torch.profiler`` trace of the card
-    alone: busy is the union of its kernels, copies and sets, the span runs
-    from the first one's start to the last one's end. (0, 0) where the
-    trace holds no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+def pack_times(torch, kt, kb, kp, scene, textured, ms) -> dict:
+    """The packing around K1's launch, untextured and textured (Nearest),
+    by CUDA events and by the host's clock: what the checkout's K1 wrapper
+    packs (``kernel_pack.launch_pack`` and the cached atlas's arguments
+    where the checkout has the pack kernel, else ``pack_scene`` and
+    ``pack_textures``), ``pack_scene`` and
+    ``pack_textures`` alone (the plain packs), and the pull-back of a
+    backward kernel's block to the scene's float leaves
+    (``kernel_pack.pack_scene_vjp``, else autograd of ``pack_scene``);
+    ``kp`` is the checkout's ``kernel_pack``, or None."""
+    n = scene.objects.count
+    block = torch.randn((n + 1, kb.GRAD_COLS), device=scene.device)
+    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
+              for t in scene.tensors()]
+    wrt = [t for t in leaves if t.requires_grad]
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    if not spans:
-        return 0.0, 0.0
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:  # microseconds
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3 / reps, (end - spans[0][0]) / 1e3 / reps
+    if kp is not None:
+        def wrapper_pack(s):
+            words = kp.launch_pack(s)
+            return kp.texture_pointers(s, kp.word_pointers(words, s.objects.count)[1])
+
+        def pull_back():
+            return kp.pack_scene_vjp(scene, block)
+    else:
+        def wrapper_pack(s):
+            return kt.pack_scene(s), kt.pack_textures(s)
+
+        def pull_back():
+            f32t, _, cam, light = kt.pack_scene(scene.with_tensors(leaves))
+            return torch.autograd.grad((f32t, cam, light), wrt, kb.split_block(block, n),
+                                       allow_unused=True)
+
+    out = {}
+    fns = {"packing": lambda: wrapper_pack(scene),
+           "packing textured": lambda: wrapper_pack(textured),
+           "pack_scene": lambda: kt.pack_scene(scene),
+           "pack_textures": lambda: kt.pack_textures(textured),
+           "pull-back": pull_back}
+    for name, fn in fns.items():
+        out[name] = ms(fn)
+        out[f"{name} host"] = chip_smoke.host_ms(torch, fn)
+    return out
 
 
 def main() -> int:
@@ -142,17 +165,23 @@ def main() -> int:
     from ray_rust_tpu_torch.ops import kernel_trace_retrace as kr
     from ray_rust_tpu_torch.utils.image import save_png
 
+    try:
+        from ray_rust_tpu_torch.ops import kernel_pack as kp
+    except ImportError:  # checkouts up to 45346a9 have no pack kernel
+        kp = None
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    _build.prebuild(["trace_fwd", "march_fwd", "trace_bwd", "march_bwd", "trace_retrace"])
+    # checkouts up to 45346a9 have no pack kernel
+    _build.prebuild([s for s in ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd",
+                                 "trace_retrace", "pack_scene") if s in _build._CUDA_FNS])
     scene = rtt.default_scene(device="cuda")[0]
     with tempfile.TemporaryDirectory() as tex_dir:
         save_png(os.path.join(tex_dir, "bar.png"), np.random.default_rng(101).integers(
             0, 256, (256, 256, 3)).astype(np.uint8))
         textured = rtt.default_scene(texture_dir=tex_dir, texture_filter=1, device="cuda")[0]
-    # checkouts up to 945f329 call the re-trace kernel on packed tables ``_launch``
-    k5_alone = getattr(kr, "render_grads_tables", None) or kr._launch
+        textured_n = rtt.default_scene(texture_dir=tex_dir, device="cuda")[0]
     cfg = rtt.RenderConfig(xres=1920, yres=1080)
     mcfg = rtt.RenderConfig(xres=1280, yres=720, use_raymarching=True, glow_effect=1.0)
     rng = np.random.default_rng(0)
@@ -165,28 +194,46 @@ def main() -> int:
         return chip_smoke.cuda_ms(torch, fn)
 
     g, gm = planes(cfg), planes(mcfg)
-    times = cap_times(torch, kb, _build, scene, cfg, g) if args.caps else {}
+
+    if kp is not None:
+        def alone(s):
+            """K1, K2 and K5 on the pack kernel's words of ``s``, packed once."""
+            words = kp.launch_pack(s)
+            return (lambda: kt.render_words_kernel(s, words, cfg),
+                    lambda: kb.launch_words(s, words, cfg, g, True),
+                    lambda: kr.launch_words(s, words, cfg, g, True))
+    else:
+        # checkouts up to 945f329 call the re-trace kernel on packed tables ``_launch``
+        k5_tables = getattr(kr, "render_grads_tables", None) or kr._launch
+
+        def alone(s):
+            """K1, K2 and K5 on the tables of ``pack_scene``, packed once."""
+            tables, tex = tuple(t.detach() for t in kt.pack_scene(s)), kt.pack_textures(s)
+            return (lambda: kt.render_tables_kernel(tables, cfg, tex),
+                    lambda: kb.render_grads_tables(tables, tex, cfg, g, True),
+                    lambda: k5_tables(tables, cfg, g, True))
+
+    times = cap_times(torch, kb, kp, _build, scene, cfg, g) if args.caps else {}
     march = [("", mcfg)]
     if hasattr(mcfg, "march_floor_skip"):
         march.append((" floor tail off", mcfg.with_(march_floor_skip=False)))
     with torch.no_grad():
         times["K1 1920x1080"] = ms(lambda: kt.render_color_kernel(scene, cfg))
-        tables = tuple(t.detach() for t in kt.pack_scene(scene))
-        times["K1 alone 1920x1080"] = ms(lambda: kt.render_tables_kernel(tables, cfg))
+        times["K1 alone 1920x1080"] = ms(alone(scene)[0])
         for tag, c in march:
             times[f"K3 1280x720{tag}"] = ms(lambda c=c: km.render_color_kernel(scene, c))
     for tag, s in (("", scene), (" Bilinear", textured)):
-        tables, tex = tuple(t.detach() for t in kt.pack_scene(s)), kt.pack_textures(s)
         times[f"K2 1920x1080{tag}"] = ms(lambda s=s: kb.render_grads_kernel(s, cfg, g,
                                                                             return_primal=True))
-        times[f"K2 alone 1920x1080{tag}"] = ms(
-            lambda tables=tables, tex=tex: kb.render_grads_tables(tables, tex, cfg, g, True))
+        times[f"K2 alone 1920x1080{tag}"] = ms(alone(s)[1])
     times["K5 1920x1080"] = ms(lambda: kr.render_grads_retrace(scene, cfg, g, return_primal=True))
-    tables = tuple(t.detach() for t in kt.pack_scene(scene))
-    times["K5 alone 1920x1080"] = ms(lambda: k5_alone(tables, cfg, g, True))
+    times["K5 alone 1920x1080"] = ms(alone(scene)[2])
     for tag, c in march:
         times[f"K4 1280x720{tag}"] = ms(lambda c=c: kmb.render_grads_kernel(scene, c, gm,
                                                                             return_primal=True))
+    times.update(pack_times(torch, kt, kb, kp, scene, textured_n, ms))
+    with torch.no_grad():
+        times["K1 1920x1080 Nearest"] = ms(lambda: kt.render_color_kernel(textured_n, cfg))
     step = chip_smoke.training_step(torch, rtt.render_color, cfg, scene)
     times["step 1920x1080"] = ms(step)
     torch.cuda.synchronize()
@@ -195,11 +242,17 @@ def main() -> int:
         step()
     times["step 1920x1080 host"] = (time.perf_counter() - t0) * 100.0  # ms per step
     torch.cuda.synchronize()
-    busy, span = device_busy(torch, step)
+    busy, span, names = chip_smoke.device_busy(torch, step)
     if span:
         times["step 1920x1080 busy"], times["step 1920x1080 span"] = busy, span
         times["step 1920x1080 idle share"] = 1.0 - busy / span
-    line = json.dumps({"label": args.label, "card": card, "ms": times})
+    # the step's kernels, copies and sets from the same trace, a step
+    counts = {"step 1920x1080 launches": sum(names.values()),
+              "step 1920x1080 pack launches": sum(
+                  c for k, c in names.items() if "pack_scene_kernel(" in k),
+              "step 1920x1080 pull-back launches": sum(
+                  c for k, c in names.items() if "pack_scene_vjp_kernel(" in k)}
+    line = json.dumps({"label": args.label, "card": card, "ms": times, "counts": counts})
     print(line)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
