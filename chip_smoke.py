@@ -11,8 +11,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the march backward (K4), the re-trace gradient oracle (K5) and the scene
    pack with its pull-back (one library, two kernels); ptxas
    registers, stack and spills (the trace backward is built for three record
-   caps, one kernel each), and the trace backward and the march backward
-   must keep theirs (PINNED_PTXAS); each kernel must be one function (ptxas
+   caps, one kernel each; the march backward in two instances, untextured
+   and textured), and the trace backward and the march backward's
+   untextured instance must keep theirs (PINNED_PTXAS); each kernel must be
+   one function (ptxas
    reports no device function beside the kernel: everything is inlined, the
    texture fetch too);
 3. each kernel against its plain PyTorch version on the card, and against
@@ -45,11 +47,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and with it on against it off at 1280x720 and on the JAX package's two
    floor-tail scenes (tests/test_pallas.py:264-322), knife-edge pixels only
    (at most 0.5% of pixels off by more than 1e-3, each on a decision
-   boundary: tests/test_pallas.py:238-261); the re-trace gradient
-   oracle against torch autograd of the plain trace, per scene leaf within
-   relative L2 0.01, at 320x240 (its image bit-equal to the trace kernel's)
-   and, beside the trace backward against the same plain call, at the
-   gradient oracle's main path's shape and cotangent planes;
+   boundary: tests/test_pallas.py:238-261); the textured march kernel (K3
+   reading the atlas) on the default scene with ``bar.png`` at 1280x720 in
+   Nearest and in Bilinear: with the floor tail off bit-equal to the plain
+   textured march, with it on within the golden budget of it (a shaded
+   march takes no tail toward a textured floor), and on against off
+   knife-edge-only at 320x240; the textured march backward (K4's textured
+   instance) against torch autograd of the plain textured march under the
+   march contract above at 160x120 (a 2000-step budget) and at the march
+   training path's shape, in Nearest and in Bilinear, its image the march
+   kernel's; the re-trace gradient oracle against torch autograd of the
+   plain trace, per scene leaf within relative L2 0.01, at 320x240 (its
+   image bit-equal to the trace kernel's) and, beside the trace backward
+   against the same plain call, at the gradient oracle's main path's shape
+   and cotangent planes;
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: trace mode, the CLI at 1920x1080 then ``render_u8`` at
    three camera poses (three viewer requests), one trace kernel launch and
@@ -58,19 +69,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and one pack launch per render;
    textured trace, the CLI at 1920x1080 in a directory holding ``bar.png``
    (its floor must differ from the untextured one) then a Bilinear
-   ``render_u8``, one trace kernel launch each; training, five
+   ``render_u8``, one trace kernel launch each; textured march
+   (configuration 3 of BASELINE.md), the CLI at 1280x720 ``-m -g 1.0`` where
+   ``bar.png`` lies (its PNG ``render_u8`` of the textured scene, its floor
+   not the untextured one's) then a Bilinear ``render_u8``, one march
+   kernel and one pack launch each; training, five
    ``sgd_train_step``s at 1920x1080 on the default scene against a target
    whose red material is 0.1 redder, one trace, one backward, one pack and
    one pull-back kernel launch per step, the loss falling; the same on the Bilinear textured
    scene, the loss falling at every step; march training with glow, five
    ``sgd_train_step``s at 1280x720 ``-m -g 1.0`` against the same
    kind of target, one march and one march backward launch per step, the
-   loss falling at every step; the gradient oracle, ``render_grads_retrace``
+   loss falling at every step; the same on the Bilinear textured scene (K4's
+   textured instance), the loss falling at every step, and K4's image at
+   1280x720 the march kernel's bit for bit; the gradient oracle,
+   ``render_grads_retrace``
    at 1920x1080 on the default scene with cotangent planes from numpy seed
    0, one re-trace launch, its cotangent against the trace
    backward's per scene leaf within relative L2 0.01 (the JAX oracle test's
    budget, tests/test_pallas_bwd.py:250-260) and its image bit-equal to the
-   trace kernel's on every pixel;
+   trace kernel's on every pixel; scene files (configuration 4 of
+   BASELINE.md): ``serialize_scene`` writes the 101-object scene, which
+   loads back to the same leaves, then the CLI's ``-d`` on it in trace mode
+   at 1920x1080 and in march + glow at 1280x720 (one kernel and one pack
+   launch each, the PNG ``render_u8`` of the file's scene under its caps),
+   ``-s`` on the loaded scene (its file loads back to the same leaves bit for
+   bit), and the file with two camera keyframes at 320x240 (the JAX
+   package's frame count, one frame file and one trace launch a frame);
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
    version in turns (3 warm-ups, 10 timed renders each), then the kernel
    through its wrapper and alone on words packed once in turns, beside the
@@ -79,24 +104,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the packing by events and by the host's clock (100 calls enqueued): the
    pack kernel untextured and textured, the pull-back kernel and their
    plain versions; the forward and backward step at 1920x1080 through the
-   kernels twice and once through plain autograd between them, by events,
-   then by the host's clock (20 steps enqueued) and the card's busy time
-   and idle share from a ``torch.profiler`` trace; the backward kernel
-   through its wrapper and alone (on words
-   packed once) in turns, beside the host counts of its accumulator's adds,
-   their distinct (warp, entry) pairs and the sites, and its plain version
-   (3 warm-ups, 10 timed calls each; the plain versions one call each with
-   no warm-up, ~32 s a call at 1080p); the march forward and backward step at 1280x720
-   through the march kernels (3 warm-ups, 10 timed calls) and once through
-   plain autograd, the march backward alone (3 warm-ups, 10 timed calls),
-   its plain version once (phase 3's call at 1280x720); the march kernel at
+   kernels twice by events, then by the host's clock (20 steps enqueued)
+   and the card's busy time and idle share from a ``torch.profiler``
+   trace, its plain twin phase 3's plain autograd of the same render (one
+   call, ~32 s at 1080p); the backward kernel through its wrapper and alone
+   (on words packed once) in turns, beside the host counts of its
+   accumulator's adds, their distinct (warp, entry) pairs and the sites
+   (3 warm-ups, 10 timed calls each), its plain version phase 3's call;
+   the march forward and backward step at 1280x720 through the march
+   kernels (3 warm-ups, 10 timed calls), its plain twin phase 3's plain
+   autograd at 1280x720, the march backward alone (3 warm-ups, 10 timed
+   calls), its plain version that same call; the march kernel at
    1280x720, 1920x1080 and 320x240 (3 warm-ups, 10 timed renders each), the
    plain march once at 1280x720 (the comparison of phase 3: a plain frame
    takes tens of seconds at any size); the textured trace
    kernel at 1920x1080 in both filters, the textured training step and the
    backward kernel through its wrapper and alone on the Bilinear scene (3
    warm-ups, 10 timed calls;
-   their plain versions once, in phase 3); the re-trace oracle through its
+   their plain versions once, in phase 3); the textured march kernel and
+   the textured march backward at 1280x720 in Nearest and in Bilinear
+   beside the untextured ones in turns, and the textured march step
+   (Bilinear) (3 warm-ups, 10 timed calls; their plain versions once, in
+   phase 3), and the scene-file requests' wall times; the re-trace oracle
+   through its
    wrapper and alone on words packed once, and the trace backward, at
    1920x1080 in turns (3 warm-ups, 10 timed calls each; their plain version
    is the trace backward's, timed above), beside the oracle's host counts:
@@ -164,6 +194,12 @@ KNIFE_EDGE = dict(frac=0.005, tol=1e-3, contrast=0.05)
 # frame, spill stores and spill loads in bytes, by kernel (PERF.md §6)
 PINNED_PTXAS = {"trace_bwd": [(119, 2512, 0, 0), (119, 7504, 0, 0), (119, 20816, 0, 0)],
                 "march_bwd": [(128, 8168, 4188, 5512)]}
+# The kernels of a library whose figures are pinned, by a part of their
+# mangled names: the march backward's untextured instance (MarchBody<false>);
+# its textured one (MarchBody<true>) is reported beside it
+PINNED_KERNELS = {"trace_bwd": "", "march_bwd": "MarchBodyILb0E"}
+# frames per keyframe = duration / FRAME_STEP (ray_rust_tpu/animation.py:22)
+FRAME_STEP = 0.5
 
 
 def compare(name, ref, got, mean_budget=BUDGET["mean"]):
@@ -235,6 +271,11 @@ def spheres_scene(rtt, seed, n_spheres, glow_dist=0.0):
     """tests/test_parity.py:75-102's seeded sphere field (seed 7, 39
     spheres + floor), or another seed and count; ``glow_dist`` makes the
     first material glow in march mode."""
+    return spheres_build(rtt, seed, n_spheres, glow_dist)[0]
+
+
+def spheres_build(rtt, seed, n_spheres, glow_dist=0.0):
+    """:func:`spheres_scene` with its ``SceneMeta``."""
     rng = np.random.default_rng(seed)
     mats = [
         rtt.MaterialSpec(name="m0", diffuse=(0.9, 0.4, 0.2), specular=(0.3, 0.3, 0.3), pn=8,
@@ -248,18 +289,23 @@ def spheres_scene(rtt, seed, n_spheres, glow_dist=0.0):
         r = rng.uniform(10, 50)
         m = int(rng.integers(0, 2))
         objs.append(rtt.SphereSpec(f"m{m}", float(r), tuple(float(v) for v in c)))
-    scene, _ = rtt.build_scene(mats, objs, (0.0, 0.0, -400.0),
-                               (0.0, -np.pi / 2, -np.pi / 2), (50.0, 60.0, -50.0))
-    return scene
+    return rtt.build_scene(mats, objs, (0.0, 0.0, -400.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0))
 
 
-def ptxas_figures(log):
+def ptxas_figures(log, kernel=""):
     """Each kernel's (registers, stack frame, spill stores, spill loads)
-    in a ``ptxas -v`` log, in the log's order."""
-    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                        r"(\d+) bytes spill loads", log)
-    regs = re.findall(r"Used (\d+) registers", log)
-    return [(int(r), *map(int, f)) for r, f in zip(regs, frames)]
+    in a ``ptxas -v`` log, in the log's order, of the kernels whose mangled
+    names hold ``kernel``."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        if kernel not in chunk.split("'", 1)[0]:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        out.append((int(regs.group(1)), *map(int, frame.groups())))
+    return out
 
 
 def roofline(ops, nbytes):
@@ -311,14 +357,13 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
     scene = _host_scene(texture_dir, texture_filter)
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)  # held until the call returns
-    tex_args = kt.texture_args(tex, torch.device("cpu")) if name == "trace" else []
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
     ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
-        sx, sy, *mod.kernel_args(cfg), *tex_args, *(plane.data_ptr() for plane in out),
-        ops.data_ptr())
+        sx, sy, *mod.kernel_args(cfg), *kt.texture_args(tex, torch.device("cpu")),
+        *(plane.data_ptr() for plane in out), ops.data_ptr())
     return tuple(int(v) for v in ops)
 
 
@@ -343,7 +388,7 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     scene = _host_scene(texture_dir, texture_filter)
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)
     trace = name == "trace_bwd"
-    args = kb.launch_args(cfg, tex, torch.device("cpu")) if trace else mod.kernel_args(cfg)
+    args = mod.launch_args(cfg, tex, torch.device("cpu"))
     g = (torch.ones if trace else torch.zeros)((3, cfg.yres, cfg.xres), dtype=torch.float32)
     block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
     ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
@@ -502,6 +547,112 @@ def textured_bwd_scene(rtt):
     return scene
 
 
+# Two keyframes spliced into a scene file: one slerped to its pose, one
+# looking at the mirror sphere (tests/test_serialize.py:74-81's form)
+MOTION = """camera_motion:
+- camera:
+    position: {x: 40.0, y: 0.0, z: -400.0}
+    pyr: {x: 0.1, y: -1.5707964, z: -1.5707964}
+  velocity: {x: 10.0, y: 0.0, z: 0.0}
+  duration: 1.0
+- camera:
+    position: {x: 80.0, y: 20.0, z: -380.0}
+    pyr: {x: 0.0, y: -1.5707964, z: -1.5707964}
+  velocity: {x: 0.0, y: 0.0, z: 0.0}
+  camera_target: {x: 0.0, y: 0.0, z: 300.0}
+  duration: 1.5
+"""
+
+
+def scene_files(torch, rtt, cli, kt, km, kp, built):
+    """Configuration 4: the scene ``built`` (a scene and its meta) written
+    by ``serialize_scene``, then the CLI's ``-d`` on it in trace mode at
+    1920x1080 and in march + glow at 1280x720 (one kernel and one pack
+    launch each, the PNG ``render_u8`` of the loaded scene under the file's
+    caps), ``-s`` on the loaded scene (its file loads back to the same
+    leaves, bit for bit, as the scene written), and a file with two camera
+    keyframes at 320x240, whose frames must be the JAX package's count for
+    the file (the sum of duration / FRAME_STEP, as ray_rust_tpu/animation.py
+    renders them), one trace launch each. Returns each request's wall time
+    in seconds."""
+    from ray_rust_tpu_torch.models.serialize import deserialize_scene, serialize_scene
+    from ray_rust_tpu_torch.utils.image import load_png
+
+    def leaves(scene):
+        return rtt.scene_to_numpy(scene)
+
+    def same_leaves(a, b):
+        return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+    scene, meta = built
+    wall = {}
+    with tempfile.TemporaryDirectory() as sd:
+        path = os.path.join(sd, "spheres.yaml")
+        with open(path, "w") as f:
+            f.write(serialize_scene(scene, meta))
+        with open(path) as f:
+            loaded, _, caps = deserialize_scene(f.read())
+        if not same_leaves(leaves(loaded), leaves(scene)):
+            raise SystemExit("chip_smoke: the scene file does not load back to its scene")
+        for name, (w, h), march, mod, other in (("trace", (W, H), False, kt, km),
+                                                ("march + glow", (MW, MH), True, km, kt)):
+            png_path = os.path.join(sd, "out.png")
+            kt.LAUNCHES = km.LAUNCHES = kp.LAUNCHES = 0
+            t0 = time.time()
+            argv = [str(w), str(h), "-d", path, "-o", png_path] + (["-m", "-g", "1.0"] if march
+                                                                   else [])
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall[name] = time.time() - t0
+            launches = (mod.LAUNCHES, other.LAUNCHES, kp.LAUNCHES)
+            cfg = rtt.RenderConfig(xres=w, yres=h, use_raymarching=march,
+                                   glow_effect=1.0 if march else None, **caps)
+            png = load_png(png_path)
+            print(f"main path, -d {name} (configuration 4, {scene.objects.count} objects): CLI "
+                  f"{w}x{h} in {wall[name]:.2f} s, launches (kernel, other kernel, pack) "
+                  f"{launches}")
+            if rc != 0 or launches != (1, 0, 1):
+                raise SystemExit(f"chip_smoke: -d {name}: CLI exit {rc}, launches {launches}")
+            if not np.array_equal(png, rtt.render_u8(loaded, cfg)) or png.std() < 10:
+                raise SystemExit(f"chip_smoke: -d {name}: the PNG is not render_u8 of the file's "
+                                 f"scene")
+        copy = os.path.join(sd, "copy.yaml")
+        t0 = time.time()
+        rc = cli.main(["320", "240", "-d", path, "-s", copy, "-o", os.path.join(sd, "s.png")])
+        torch.cuda.synchronize()
+        wall["-s"] = time.time() - t0
+        with open(copy) as f:
+            again = deserialize_scene(f.read())[0]
+        ok = rc == 0 and same_leaves(leaves(again), leaves(loaded))
+        print(f"main path, -s on the loaded scene: CLI 320x240 in {wall['-s']:.2f} s, its file "
+              f"loads back to the same leaves bit for bit: {ok}")
+        if not ok:
+            raise SystemExit("chip_smoke: -s did not round-trip the loaded scene")
+        with open(path) as f:
+            text = f.read().replace("camera_motion: []\n", MOTION)
+        motion = os.path.join(sd, "motion.yaml")
+        with open(motion, "w") as f:
+            f.write(text)
+        want = sum(int(d / FRAME_STEP) for d in (1.0, 1.5))  # MOTION's durations
+        kt.LAUNCHES = km.LAUNCHES = 0
+        t0 = time.time()
+        rc = cli.main(["320", "240", "-d", motion, "-o", os.path.join(sd, "frame")])
+        torch.cuda.synchronize()
+        wall["camera_motion"] = time.time() - t0
+        files = sorted(n for n in os.listdir(sd) if n.startswith("frame"))
+        frames = [load_png(os.path.join(sd, f"frame{i}.png")) for i in range(want)
+                  if f"frame{i}.png" in files]
+        print(f"main path, camera_motion at 320x240: {len(files)} frames (the JAX package's "
+              f"count: {want}) in {wall['camera_motion']:.2f} s, {kt.LAUNCHES} trace launches")
+        if (rc != 0 or sorted(files) != sorted(f"frame{i}.png" for i in range(want))
+                or kt.LAUNCHES != want or km.LAUNCHES != 0):
+            raise SystemExit(f"chip_smoke: camera_motion: CLI exit {rc}, frames {files}, "
+                             f"{kt.LAUNCHES} trace launches, want {want}")
+        if any(f.shape != (240, 320, 3) for f in frames) or np.array_equal(frames[0], frames[-1]):
+            raise SystemExit("chip_smoke: camera_motion: the frames are not a moving camera's")
+    return wall
+
+
 def main() -> int:
     import torch
 
@@ -555,7 +706,13 @@ def run(torch, tex_dir) -> int:
                                                          tex_dir, 0),
                    "trace_bwd_textured": counting.submit(count_bwd_ops, "trace_bwd", kb,
                                                          cfg_main, tex_dir, 1),
-                   "trace_retrace": counting.submit(count_retrace_ops, cfg_main)}
+                   "trace_retrace": counting.submit(count_retrace_ops, cfg_main),
+                   "march_fwd_textured": counting.submit(count_ops, "march", km, cfg_march,
+                                                         tex_dir, 0),
+                   "march_fwd_textured_bilinear": counting.submit(count_ops, "march", km,
+                                                                  cfg_march, tex_dir, 1),
+                   "march_bwd_textured": counting.submit(count_bwd_ops, "march_bwd", kmb,
+                                                         cfg_march, tex_dir, 1)}
 
     # 2. the builds, one nvcc each, all started together
     t0 = time.time()
@@ -573,10 +730,16 @@ def run(torch, tex_dir) -> int:
         if calls:
             raise SystemExit(f"chip_smoke: {stem}.cu left device functions as calls: {calls}")
     for stem, want in PINNED_PTXAS.items():
-        got = ptxas_figures(_build.build_logs[stem])
+        got = ptxas_figures(_build.build_logs[stem], PINNED_KERNELS[stem])
         print(f"  {stem}: (registers, stack, spill stores, spill loads) {got}, pinned {want}")
         if sorted(got) != sorted(want):
             raise SystemExit(f"chip_smoke: {stem}.cu left its ptxas figures {want}: {got}")
+    # the march backward's textured instance (MarchBody<true>), one kernel
+    march_bwd_tex_ptxas = ptxas_figures(_build.build_logs["march_bwd"], "MarchBodyILb1E")
+    print(f"  march_bwd, textured instance: (registers, stack, spill stores, spill loads) "
+          f"{march_bwd_tex_ptxas}")
+    if len(march_bwd_tex_ptxas) != 1 or len(ptxas_figures(_build.build_logs["march_bwd"])) != 2:
+        raise SystemExit("chip_smoke: march_bwd.cu does not hold its two instances")
 
     dev = torch.device("cuda", 0)
 
@@ -706,6 +869,26 @@ def run(torch, tex_dir) -> int:
         knife_edge_only(f"tail on vs off, {name}", img(km.render_color_kernel(scene, cfg)),
                         img(km.render_color_kernel(scene, cfg.with_(march_floor_skip=False))))
 
+    print("textured march kernel (K3 reading the atlas) vs plain version: tail off bit for bit, "
+          "tail on within the budget, on vs off knife-edge-only:")
+    march_tex_err, march_tex_plain_ms = {}, {}
+    for f, fname in ((0, "Nearest"), (1, "Bilinear")):
+        got, ref, march_tex_plain_ms[f] = both(tex_scenes[f], cfg_march, km)
+        march_tex_err[f] = compare(f"march textured {fname} {MW}x{MH}, tail on", ref, got)
+        off = img(km.render_color_kernel(tex_scenes[f], cfg_march_off))
+        same = float((off == ref).all(-1).mean())
+        print(f"  march textured {fname} {MW}x{MH}, tail off: bit-equal to the plain version on "
+              f"{same:.4%} of pixels (plain {march_tex_plain_ms[f]:.1f} ms) -> "
+              f"{'ok' if same == 1.0 else 'FAIL'}")
+        if same < 1.0:
+            raise SystemExit(f"chip_smoke: textured K3 ({fname}), tail off, is not its plain "
+                             f"version")
+        small = cfg_march.with_(xres=320, yres=240)
+        knife_edge_only(f"textured {fname} tail on vs off 320x240",
+                        img(km.render_color_kernel(tex_scenes[f], small)),
+                        img(km.render_color_kernel(tex_scenes[f],
+                                                   small.with_(march_floor_skip=False))))
+
     print("backward kernel vs torch autograd of the plain version:")
 
     def leaf_err(name, scene, got, want):
@@ -802,7 +985,7 @@ def run(torch, tex_dir) -> int:
     # path: the same cotangent planes) against one plain call
     for pw, ph in ((W, H), (1280, 720), (960, 540)):
         try:
-            (bwd_max_err, retrace_max_err), _ = grad_case(
+            (bwd_max_err, retrace_max_err), bwd_plain_ms = grad_case(
                 f"default {pw}x{ph}", default, cfg_main.with_(xres=pw, yres=ph),
                 kernels=[kb.render_grads_kernel, kr.render_grads_retrace])
             break
@@ -842,26 +1025,45 @@ def run(torch, tex_dir) -> int:
          rtt.RenderConfig(xres=160, yres=120, max_refractions=1, **glow)),
     ]:
         grad_case(name, scene, cfg, **mgrad)
-    # the march training path's shape, or the largest whose plain graph fits
-    for pw_m, ph_m in ((MW, MH), (960, 540), (640, 360)):
-        try:
-            # at the main path's frame the plain image is the march kernel's
-            # with the tail off (bit for bit on this frame, phase 3), a
-            # thousandth of the plain march's time
-            main_frame = (pw_m, ph_m) == (MW, MH)
-            (march_bwd_max_err,), march_bwd_plain_ms = grad_case(
-                f"march default {pw_m}x{ph_m}", default, cfg_march.with_(xres=pw_m, yres=ph_m),
-                **{**mgrad, "agree_with": (
-                    (lambda s, c: km.render_color_kernel(s, c.with_(march_floor_skip=False)))
-                    if main_frame else km.render_color_plain)})
-            break
-        except torch.cuda.OutOfMemoryError as e:
-            print(f"  march default {pw_m}x{ph_m}: the plain autograd graph does not fit the "
-                  f"card: {e}")
-            torch.cuda.empty_cache()
-    else:
-        raise SystemExit("chip_smoke: the plain march autograd graph fits at no shape tried")
-    cfg_march_plain = cfg_march.with_(xres=pw_m, yres=ph_m)
+
+    def march_grad_main(name, scene):
+        """``grad_case`` at the march training path's frame, or the largest
+        whose plain autograd graph fits; at that frame the plain image is the
+        march kernel's with the tail off (bit for bit on this frame, phase
+        3), a thousandth of the plain march's time. Returns the largest
+        relative L2, the plain version's ms and the frame."""
+        for pw_m, ph_m in ((MW, MH), (960, 540), (640, 360)):
+            try:
+                main_frame = (pw_m, ph_m) == (MW, MH)
+                (err,), plain_ms = grad_case(
+                    f"{name} {pw_m}x{ph_m}", scene, cfg_march.with_(xres=pw_m, yres=ph_m),
+                    **{**mgrad, "agree_with": (
+                        (lambda s, c: km.render_color_kernel(s, c.with_(march_floor_skip=False)))
+                        if main_frame else km.render_color_plain)})
+                return err, plain_ms, (pw_m, ph_m)
+            except torch.cuda.OutOfMemoryError as e:
+                print(f"  {name} {pw_m}x{ph_m}: the plain autograd graph does not fit the card: "
+                      f"{e}")
+                torch.cuda.empty_cache()
+        raise SystemExit(f"chip_smoke: {name}: the plain march autograd graph fits at no shape "
+                         f"tried")
+
+    march_bwd_max_err, march_bwd_plain_ms, (pw_m, ph_m) = march_grad_main("march default",
+                                                                          default)
+
+    print("textured march backward (K4's textured instance) vs torch autograd of the plain "
+          "textured march, its image vs the march kernel's:")
+    # two small cases with a 2000-step budget (the plain march's time is its
+    # longest lane's steps), then the march training path's frame
+    cfg_tex_grad = rtt.RenderConfig(xres=160, yres=120, march_max_iter=2000, **glow)
+    march_tex_bwd_err, march_tex_bwd_plain_ms = {}, {}
+    for f, fname in ((0, "Nearest"), (1, "Bilinear")):
+        _, march_tex_bwd_plain_ms[f"{fname} 160x120"] = grad_case(
+            f"march textured {fname} 160x120 march_max_iter=2000", tex_scenes[f], cfg_tex_grad,
+            **mgrad)
+    for f, fname in ((0, "Nearest"), (1, "Bilinear")):
+        march_tex_bwd_err[fname], march_tex_bwd_plain_ms[fname], march_tex_bwd_frame = (
+            march_grad_main(f"march textured {fname}", tex_scenes[f]))
 
     print("re-trace gradient oracle (K5) vs torch autograd of the plain trace, its image vs "
           "the trace kernel's:")
@@ -940,6 +1142,35 @@ def run(torch, tex_dir) -> int:
     if np.array_equal(png, frame_bi):
         raise SystemExit("chip_smoke: Nearest and Bilinear gave the same image")
 
+    # configuration 3: the CLI's march + glow where bar.png lies (Nearest),
+    # then one Bilinear request
+    kt.LAUNCHES = km.LAUNCHES = kp.LAUNCHES = 0
+    t0 = time.time()
+    os.chdir(tex_dir)
+    try:
+        rc = cli.main([str(MW), str(MH), "-m", "-g", "1.0", "-o", png_path])
+    finally:
+        os.chdir(cwd)
+    frame_bi = rtt.render_u8(tex_scenes[1], cfg_march)
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    march_tex_launches, stray, packs = km.LAUNCHES, kt.LAUNCHES, kp.LAUNCHES
+    png = load_png(png_path)
+    print(f"main path, textured march (configuration 3): CLI {MW}x{MH} -m -g 1.0 with bar.png + "
+          f"1 Bilinear render_u8 in {main_s:.2f} s, {march_tex_launches} march kernel launches, "
+          f"{packs} pack launches")
+    if rc != 0 or march_tex_launches != 2 or stray != 0 or packs != 2:
+        raise SystemExit(f"chip_smoke: the textured march path: CLI exit {rc}, want 2 march, 0 "
+                         f"trace and 2 pack launches, got {march_tex_launches}, {stray} and "
+                         f"{packs}")
+    if not np.array_equal(png, rtt.render_u8(tex_scenes[0], cfg_march)):
+        raise SystemExit("chip_smoke: the march CLI's PNG with bar.png is not the textured render")
+    mfloor = slice(3 * MH // 4, MH)
+    if np.array_equal(png[mfloor], rtt.render_u8(scene_dev, cfg_march)[mfloor]):
+        raise SystemExit("chip_smoke: the march CLI did not texture the floor with bar.png")
+    if np.array_equal(png, frame_bi):
+        raise SystemExit("chip_smoke: textured march in Nearest and Bilinear gave the same image")
+
     # training: the red material 0.1 redder in the target; the material
     # colours train (the camera and the geometry sit on knife edges of this
     # scene, the x = 0 plane and the horizon, where any step flips pixels)
@@ -1000,6 +1231,25 @@ def run(torch, tex_dir) -> int:
     if not all(b < a for a, b in zip(march_losses, march_losses[1:])):
         raise SystemExit(f"chip_smoke: the march training loss did not fall at every step: "
                          f"{march_losses}")
+    # the textured march step (Bilinear: its uv carries a gradient), and
+    # K4's image at its shape K3's bit for bit
+    with torch.no_grad():
+        march_tex_target = rtt.render_color(tex_bi._replace(materials=tex_bi.materials._replace(
+            diffuse=tex_bi.materials.diffuse._replace(r=red))), cfg_march).to_array()
+    march_tex_losses, march_tex_train_launches = train(
+        "textured march training (Bilinear)", cfg_march, march_tex_target, MARCH_TRAIN_LR,
+        (0, 0, 5, 5, 5, 5), base=tex_bi)
+    if not all(b < a for a, b in zip(march_tex_losses, march_tex_losses[1:])):
+        raise SystemExit(f"chip_smoke: the textured march training loss did not fall at every "
+                         f"step: {march_tex_losses}")
+    g_tex = rtt.Color(*(torch.from_numpy(np.random.default_rng(3).standard_normal((MH, MW))
+                                         .astype(np.float32)).to(dev) for _ in range(3)))
+    _, tex_prim = kmb.render_grads_kernel(tex_bi, cfg_march, g_tex, return_primal=True)
+    same = float((img(tex_prim) == img(km.render_color_kernel(tex_bi, cfg_march))).all(-1).mean())
+    print(f"  textured march backward {MW}x{MH}: image bit-equal to the march kernel's on "
+          f"{same:.4%} of pixels")
+    if same < 1.0:
+        raise SystemExit("chip_smoke: textured K4's image is not K3's")
 
     # the gradient oracle at the trace main path's shape, held against K2
     rng = np.random.default_rng(0)
@@ -1033,6 +1283,8 @@ def run(torch, tex_dir) -> int:
                          f"{retrace_leaf} by relative L2 {retrace_err:.3g}")
     if oracle_same < 1.0:
         raise SystemExit("chip_smoke: the oracle's image is not the trace kernel's")
+
+    file_s = scene_files(torch, rtt, cli, kt, km, kp, spheres_build(rtt, 11, 100))
 
     # 5. times at the main path's shape, in turns, once the host is free
     ops = {name: f.result() for name, f in ops_futures.items()}
@@ -1089,16 +1341,13 @@ def run(torch, tex_dir) -> int:
         return training_step(torch, render, cfg, base)
 
     kernel_step = step(rtt.render_color, cfg_main)
-    plain_step = step(kt.render_color_plain, cfg_plain)
-    plain_reps = dict(warm=0, reps=1)
-    # the plain step once: it is no yardstick of speed (~32 s)
-    step_runs = [("kernel", cuda_ms(torch, kernel_step)),
-                 ("plain", cuda_ms(torch, plain_step, **plain_reps)),
-                 ("kernel", cuda_ms(torch, kernel_step))]
-    for name, ms in step_runs:
-        c = cfg_main if name == "kernel" else cfg_plain
-        print(f"  step ({name} at {c.xres}x{c.yres}: render, MSE, gradient of every float "
-              f"leaf): {ms:.3f} ms by events")
+    for _ in range(2):
+        print(f"  step (kernels at {W}x{H}: render, MSE, gradient of every float leaf): "
+              f"{cuda_ms(torch, kernel_step):.3f} ms by events")
+    # the plain step is phase 3's plain autograd (the same render and
+    # gradient, without the MSE): no yardstick of speed, not run twice
+    print(f"  its plain twin (phase 3's plain autograd at {pw}x{ph}, one call): "
+          f"{bwd_plain_ms:.3f} ms")
     busy, span, names = device_busy(torch, kernel_step)
     print(f"  step through the kernels: {host_ms(torch, kernel_step, reps=20):.3f} ms by the "
           f"host's clock (20 steps enqueued), the card busy {busy:.3f} ms of a span of "
@@ -1115,7 +1364,7 @@ def run(torch, tex_dir) -> int:
         return rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
                                             .astype(np.float32)).to(dev) for _ in range(3)))
 
-    g_main, g_plain = planes(cfg_main), planes(cfg_plain)
+    g_main = planes(cfg_main)
 
     def bwd_times(scene, name):
         """The backward kernel at the main path's shape, with the image, in
@@ -1137,9 +1386,8 @@ def run(torch, tex_dir) -> int:
     print(f"  host counts, {W}x{H}, cotangent 1 on every pixel: {adds} accumulator adds lane "
           f"by lane, {pairs} distinct (warp of 32 pixels, entry) pairs, {sites} sites "
           f"({sites / (W * H):.3f} a pixel, at most {most})")
-    bwd_plain_ms = cuda_ms(torch, lambda: kb.render_grads_plain(scene_dev, cfg_plain, g_plain),
-                           **plain_reps)
-    print(f"  its plain version (autograd of the plain trace) at {pw}x{ph}: {bwd_plain_ms:.3f} ms")
+    print(f"  its plain version (autograd of the plain trace) at {pw}x{ph}: {bwd_plain_ms:.3f} ms "
+          f"(one call, phase 3)")
 
     print(f"textured forward and training step {W}x{H}, default scene with bar.png ({card}):")
     with torch.no_grad():
@@ -1191,18 +1439,43 @@ def run(torch, tex_dir) -> int:
 
     print(f"march + glow forward + backward {MW}x{MH}, default scene, default cfg ({card}):")
     march_step_ms = cuda_ms(torch, step(rtt.render_color, cfg_march))
-    march_plain_step_ms = cuda_ms(torch, step(km.render_color_plain, cfg_march_plain),
-                                  **plain_reps)
     print(f"  step (march kernel + march backward kernel at {MW}x{MH}: render, MSE, gradient "
           f"of every float leaf): {march_step_ms:.3f} ms")
-    print(f"  step (plain autograd with the implicit VJP at {pw_m}x{ph_m}, one call): "
-          f"{march_plain_step_ms:.3f} ms")
+    print(f"  its plain twin (phase 3's plain autograd with the implicit VJP at "
+          f"{pw_m}x{ph_m}, one call): {march_bwd_plain_ms:.3f} ms")
     g_march = planes(cfg_march)
     march_bwd_ms = cuda_ms(torch, lambda: kmb.render_grads_kernel(scene_dev, cfg_march, g_march,
                                                                   return_primal=True))
     print(f"  march backward kernel alone at {MW}x{MH} (wrapper, with the image): "
           f"{march_bwd_ms:.3f} ms; its plain version at {pw_m}x{ph_m}: "
           f"{march_bwd_plain_ms:.3f} ms (one call, phase 3)")
+
+    print(f"textured march {MW}x{MH}, default scene with bar.png, -m -g 1.0, beside the "
+          f"untextured in turns ({card}):")
+    march_scenes = {"untextured": scene_dev, "Nearest": tex_scenes[0], "Bilinear": tex_scenes[1]}
+    order = list(march_scenes) + list(march_scenes)[::-1]
+    with torch.no_grad():
+        k3_runs = [(k, cuda_ms(torch, lambda k=k: km.render_color_kernel(march_scenes[k],
+                                                                        cfg_march)))
+                   for k in order]
+    k4_runs = [(k, cuda_ms(torch, lambda k=k: kmb.render_grads_kernel(
+        march_scenes[k], cfg_march, g_march, return_primal=True))) for k in order]
+    for (k, k3), (_, k4) in zip(k3_runs, k4_runs):
+        print(f"  {k}: march kernel {k3:.3f} ms/frame, march backward {k4:.3f} ms (with the "
+              f"image)")
+    k3_tex_ms = {k: float(np.mean([ms for n, ms in k3_runs if n == k])) for k in march_scenes}
+    k4_tex_ms = {k: float(np.mean([ms for n, ms in k4_runs if n == k])) for k in march_scenes}
+    march_tex_step_ms = cuda_ms(torch, step(rtt.render_color, cfg_march, base=tex_bi))
+    print(f"  textured march step, Bilinear (render, MSE, gradient of every float leaf): "
+          f"{march_tex_step_ms:.3f} ms")
+    print(f"  plain textured march {MW}x{MH}: Nearest {march_tex_plain_ms[0]:.1f} ms, Bilinear "
+          f"{march_tex_plain_ms[1]:.1f} ms (one frame each, phase 3); plain autograd (160x120 "
+          f"with march_max_iter=2000, and the textured frame "
+          f"{march_tex_bwd_frame[0]}x{march_tex_bwd_frame[1]}): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in march_tex_bwd_plain_ms.items())
+          + " (phase 3)")
+    print(f"  scene files (configuration 4), wall time a CLI request: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in file_s.items()))
 
     print(f"floor tail on and off in turns, {MW}x{MH}, default scene, -m -g 1.0 ({card}):")
     tail_runs = []
@@ -1230,7 +1503,10 @@ def run(torch, tex_dir) -> int:
                              ("trace_bwd", cfg_main, scene_dev),
                              ("march_bwd", cfg_march, scene_dev),
                              ("trace_fwd_textured", cfg_main, tex_scenes[0]),
-                             ("trace_bwd_textured", cfg_main, tex_bi)):
+                             ("trace_bwd_textured", cfg_main, tex_bi),
+                             ("march_fwd_textured", cfg_march, tex_scenes[0]),
+                             ("march_fwd_textured_bilinear", cfg_march, tex_bi),
+                             ("march_bwd_textured", cfg_march, tex_bi)):
         n_ops, fetched = ops[name][:2]
         nbytes = io_bytes(scene, cfg) + texel_bytes(scene, fetched)
         if "_bwd" in name:
@@ -1239,7 +1515,7 @@ def run(torch, tex_dir) -> int:
         bounds[name] = roofline(n_ops, nbytes)
         print(f"  bound, {name} {cfg.xres}x{cfg.yres}: {n_ops} f32 operations, {nbytes} bytes "
               f"({fetched} B of texel fetches) -> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
-        if name.startswith("march"):  # the step-by-step march's work, a diagnostic
+        if name in ("march_fwd", "march_bwd"):  # the step-by-step march's work, a diagnostic
             off_ops = ops[f"{name}_off"][0]
             print(f"    with the floor tail off (diagnostic, not the bound): {off_ops} f32 "
                   f"operations -> {roofline(off_ops, nbytes)[0]:.4f} ms")
@@ -1307,6 +1583,23 @@ def run(torch, tex_dir) -> int:
         "launches": march_train_launches[3], "max_abs_err": march_bwd_max_err,
         "ms": march_bwd_ms, "plain_ms": march_bwd_plain_ms,
         "bound_ms": bounds["march_bwd"][0], "bound_by": bounds["march_bwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "march_fwd_textured", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/march_fwd.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_march.py:814",
+        "launches": march_tex_launches, "max_abs_err": max(march_tex_err.values()),
+        "ms": k3_tex_ms["Nearest"], "plain_ms": march_tex_plain_ms[0],
+        "bound_ms": bounds["march_fwd_textured"][0], "bound_by": bounds["march_fwd_textured"][1],
+        "library_ms": None,
+    }, {
+        "name": "march_bwd_textured", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/march_bwd.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_bwd.py:1060",
+        "launches": march_tex_train_launches[3],
+        "max_abs_err": max(march_tex_bwd_err.values()),
+        "ms": k4_tex_ms["Bilinear"], "plain_ms": march_tex_bwd_plain_ms["Bilinear"],
+        "bound_ms": bounds["march_bwd_textured"][0], "bound_by": bounds["march_bwd_textured"][1],
         "library_ms": None,
     }, {
         "name": "pack_scene", "route": "cuda",

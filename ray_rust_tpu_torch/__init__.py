@@ -26,6 +26,7 @@ from .models.material import (
 from .models.quat import Quat
 from .models.scene import (
     Camera,
+    CameraKeyframe,
     FloorSpec,
     KIND_FLOOR,
     KIND_SPHERE,
@@ -50,6 +51,7 @@ __all__ = [
     "TextureBank",
     "Quat",
     "Camera",
+    "CameraKeyframe",
     "FloorSpec",
     "SphereSpec",
     "ObjectTable",

@@ -1,17 +1,22 @@
 """Command-line interface: the reference's flag surface (src/main.rs:32-93).
 
-PyTorch counterpart of ``ray_rust_tpu/cli.py``. Renders the default scene to
-a PNG on ``--device`` (default ``cuda``), in trace mode or, with ``-m``, in
-march mode with an optional glow strength ``-g``::
+PyTorch counterpart of ``ray_rust_tpu/cli.py``. Renders the default scene,
+or a scene file's (``-d``), to a PNG on ``--device`` (default ``cuda``), in
+trace mode or, with ``-m``, in march mode with an optional glow strength
+``-g``; ``-s`` writes the scene to a file::
 
     python -m ray_rust_tpu_torch.cli 1920 1080 -o out.png
     python -m ray_rust_tpu_torch.cli 1280 720 -m -g 1.0 -o out.png
+    python -m ray_rust_tpu_torch.cli 1920 1080 -d scene.yaml -s copy.yaml -o out.png
 
-The floor takes ``bar.png`` from the working directory as its texture when
-that file is an RGB PNG, as the reference does (src/main.rs:169).
-``-t/--threads`` and ``-p/--port_no`` are accepted for compatibility and
-change nothing. Scene files and the web viewer (``-s``, ``-d``, ``-w``) are
-not ported yet and raise ``NotImplementedError``.
+The default scene's floor takes ``bar.png`` from the working directory as its
+texture when that file is an RGB PNG, as the reference does
+(src/main.rs:169); a scene file's textures open from the working directory.
+A file's depth caps apply, with the CLI's overrides on top. A file with a
+``camera_motion`` renders its frames to ``{output}{i}.png``
+(``animation.render_frames``), written one after another. ``-t/--threads``
+and ``-p/--port_no`` are accepted for compatibility and change nothing. The
+web viewer (``-w``) is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,13 +27,12 @@ import time
 
 from .config import RenderConfig
 from .models.scene import default_scene
+from .models.serialize import deserialize_scene, serialize_scene
 from .renderer import render_u8
 from .utils.image import gradient_prefill, save_png
 
 _NOT_PORTED = {
-    "serialize_file": "-s/--serialize_file (host apps, ROADMAP queue 1)",
-    "deserialize_file": "-d/--deserialize_file (host apps, ROADMAP queue 1)",
-    "webserver": "-w/--webserver (host apps, ROADMAP queue 1)",
+    "webserver": "-w/--webserver (the viewer, ROADMAP queue 1 item 8)",
 }
 
 
@@ -72,19 +76,33 @@ def main(argv=None) -> int:
     for name in ("width", "height", "threads", "output"):
         print(f"Value for {name}: {getattr(args, name)}")
 
-    caps = {k: getattr(args, k)
-            for k in ("max_refractions", "max_reflections", "refraction_unroll")
-            if getattr(args, k) is not None}
+    if args.deserialize_file:
+        with open(args.deserialize_file) as f:
+            scene, meta, caps = deserialize_scene(f.read(), device=args.device)
+    else:
+        scene, meta = default_scene(device=args.device)
+        caps = {}
+    caps.update({k: getattr(args, k)
+                 for k in ("max_refractions", "max_reflections", "refraction_unroll")
+                 if getattr(args, k) is not None})
     cfg = RenderConfig(xres=args.width, yres=args.height, xfov=1.0,
                        yfov=args.height / args.width,  # main.rs:135-136
                        use_raymarching=args.raymarch, glow_effect=args.gloweffect,
                        **caps)
-    scene, _ = default_scene(device=args.device)
+    if args.serialize_file:
+        with open(args.serialize_file, "w") as f:
+            f.write(serialize_scene(scene, meta))
 
     start = time.time()
-    buf = gradient_prefill(args.width, args.height)
-    buf[:, :] = render_u8(scene, cfg)
-    save_png(args.output, buf)
+    if meta.camera_motion:
+        from .animation import render_frames
+
+        render_frames(scene, meta, cfg,
+                      lambda i, data: save_png(f"{args.output}{i}.png", data))
+    else:
+        buf = gradient_prefill(args.width, args.height)
+        buf[:, :] = render_u8(scene, cfg)
+        save_png(args.output, buf)
     elapsed = time.time() - start
     print("Rendering time: %d.%06d" % (int(elapsed), int((elapsed % 1) * 1e6)))
     return 0

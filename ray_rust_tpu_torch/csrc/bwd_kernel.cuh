@@ -21,10 +21,11 @@
 // thread). Every body takes BwdFrame's shape; the trace backward and the
 // re-trace bring their own accumulators.
 // ``Body::TEXTURED`` says whether it reads the texture atlas (the trace
-// backward); then the atlas's meta rows are staged in shared memory beside
-// the tables. The march backward's and the re-trace's are false, and the
-// march backward's kernel is the one it was before textures. ``P`` is the
-// body's parameter struct.
+// backward, the march backward's textured instance); then the atlas's meta
+// rows are staged in shared memory beside the tables. The march backward's
+// untextured instance and the re-trace's are false, and the untextured
+// march backward is the kernel it was before textures. ``P`` is the body's
+// parameter struct.
 #pragma once
 
 #include <cuda_runtime.h>

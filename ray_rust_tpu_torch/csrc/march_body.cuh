@@ -9,8 +9,11 @@
 // the lap loop with its cached march and the miss-re-adds-sky quirk, march
 // shading whose shadow march checks the *shaded* object's transparency, the
 // refraction sub-march, and the factor 1 + g*0.99^min_min_dist that ends
-// every raymarch (render.rs:1299-1411). Every operation is in the plain
-// version's order, in f32, for a build without contracted multiply-adds.
+// every raymarch (render.rs:1299-1411). A textured hit reads its texel as
+// the trace body does (K1a); the JAX kernel declines textures, and the JAX
+// package renders them through its jnp march, the plain version's
+// function. Every operation is in the plain version's order, in f32, for a
+// build without contracted multiply-adds.
 //
 // The refraction recursion. A sub-march's colour reaches its parent only
 // after the sub-march, all its laps and its own glow factor are done, and
@@ -67,6 +70,23 @@
 //   which give the same lit and miss decisions; it ends before its first
 //   step. With it, a closed-form tail of such a march may also ignore an
 //   object that clears its whole escape corridor by 2*eps.
+//
+// A march whose hit is shaded through a texture (K1a) takes no floor tail
+// toward that floor (textured_floor), as the JAX package's textured march,
+// its jnp loop, takes none. In Bilinear the blend follows the hit point
+// continuously, and the closed form's end point, which rounds apart from
+// the stepped march's accumulated position by ~1e-2 in world units at the
+// horizon, moved the colour of 1.5-1.9% of the default scene's pixels by
+// more than 1e-3 (its host build at 320x240 and 1280x720), past a knife
+// edge. In Nearest the image moved on 0.013% of pixels, knife edges, but
+// the gradient did not hold: the tail's glow argmin on a flat run of
+// samples differs from the stepped one's, which moves the camera's
+// cotangent by the same amount as over an untextured floor (|dg| 3.8 and
+// 6.0 in camera.rotation.z, host build at 160x120 with glow, none without
+// glow: tools/tail_grad_probe.py), while the Nearest floor's own cotangent is ~240 times smaller
+// (its texels are constants), so the leaf came to relative L2 0.018 of the
+// march gradient budget's 0.02. The shadow marches, which read no texture,
+// keep the tail.
 //
 // The closed forms round apart from the step-by-step loop, and logf, expf
 // and ceilf come from libdevice on the card and glibc on the host, so a
@@ -186,9 +206,13 @@ struct March {
   int glow_obj;  // the object whose glow metric it was
 };
 
-// The forward kernel's recorder: records nothing.
+// The forward kernel's recorder: records nothing. A recorder's TEXTURED says
+// whether a hit may read the scene's texture atlas (march_shading): the
+// forward kernel reads it wherever the scene has one; the untextured march
+// backward compiles the fetch out, so it stays the kernel it was.
 struct NoMarchRecord {
   static constexpr bool TRACK_GLOW = false;
+  static constexpr bool TEXTURED = true;
   RT_INLINE int frame(int) { return -1; }
   RT_INLINE int site(int, V3, int, int, C3, const March&, bool) { return -1; }
   RT_INLINE void lit(int, bool) {}
@@ -286,6 +310,12 @@ RT_INLINE float sphere_tie(float s_star, float perp2, float r, float h, float a)
   return D < 0.0f ? INFINITY : r_lo > 0.0f ? r_lo : r_hi > 0.0f ? 0.0f : INFINITY;
 }
 
+// Whether a hit on floor ``i`` reads a texture, where the floor tail does
+// not end a shaded march toward it.
+RT_INLINE bool textured_floor(const SceneView& s, int i) {
+  return textured(s, s.i32 + i * I32_COLS);
+}
+
 // Half the float spacing at x: the largest step that leaves x as it is.
 RT_INLINE float half_spacing(float x) {
   int e2;
@@ -359,8 +389,10 @@ RT_INLINE float first_tied_sample(float d, float g, float gd, float d0, float sl
 // m.pos, m.iter steps taken, glow already updated with this sample, whose
 // SDF is h, won by floor ``win``. Where the march stops (a hit, an escape,
 // the cap or a stall) before s_break, finishes ``m`` there and returns
-// true; else returns false and the caller steps on.
-template <bool GLOW, bool TRACK>
+// true; else returns false and the caller steps on. TEX: the march's hit
+// is shaded and may read a texture, so a march toward a textured floor
+// steps on.
+template <bool GLOW, bool TRACK, bool TEX>
 RT_INLINE bool floor_tail(const SceneView& s, const MarchParams& p, V3 eye, int ig, float h,
                           int win, March& m) {
   const float* ow = s.f32 + win * F32_COLS;
@@ -368,6 +400,7 @@ RT_INLINE bool floor_tail(const SceneView& s, const MarchParams& p, V3 eye, int 
   RT_COUNT_PASS(s);
   RT_COUNT(s, OPS_TAIL_SETUP);
   if (!(h > p.eps && h < p.far_away && 1.0f + a > 1e-6f)) return false;
+  if (TEX && a < 0.0f && textured_floor(s, win)) return false;
   const float log_rho = log1pf(a);
   // the undisturbed stop: the first k with h*rho^k < eps (rho < 1) or
   // > far_away (rho > 1), or the iteration cap
@@ -608,8 +641,9 @@ RT_INLINE bool floor_tail(const SceneView& s, const MarchParams& p, V3 eye, int 
 // check, so the result includes the final step. Without GLOW, min_dist is
 // +inf (a shadow march reads only travel and iter). With TRACK, the glow
 // argmin is kept as well. With p.floor_skip, floor tails resolve in closed
-// form; without GLOW and TRACK, a march that cannot converge ends at once.
-template <bool GLOW, bool TRACK>
+// form (TEX: but not toward a textured floor, floor_tail); without
+// GLOW and TRACK, a march that cannot converge ends at once.
+template <bool GLOW, bool TRACK, bool TEX>
 RT_INLINE March march_single(const SceneView& s, const MarchParams& p, V3 pos, V3 eye,
                                int ig) {
   March m;
@@ -646,7 +680,7 @@ RT_INLINE March march_single(const SceneView& s, const MarchParams& p, V3 pos, V
       }
     }
     if (m.iter >= next_try && s.i32[idx * I32_COLS] != KIND_SPHERE) {
-      if (floor_tail<GLOW, TRACK>(s, p, eye, ig, dist, idx, m)) return m;
+      if (floor_tail<GLOW, TRACK, TEX>(s, p, eye, ig, dist, idx, m)) return m;
       next_try = m.iter + FLOOR_TAIL_PERIOD;
     }
     RT_COUNT(s, OPS_STEP);
@@ -665,7 +699,9 @@ RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, 
 
 // March shading (render.rs:1020-1140) of a hit on object ``idx`` at level
 // ``nest``, by the raymarch frame at depth D; ``site`` is the recorder's id
-// of the lap.
+// of the lap. A textured material's hit reads its texel (K1a's
+// fetch_texture, trace_body.cuh) where the pattern would be; the marches
+// read no texture.
 template <int D, class Rec>
 RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3 n, V3 pt,
                            V3 eye, int nest, Rec& rec, int site) {
@@ -684,7 +720,8 @@ RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3
   // shadow march: lit when it escapes or runs out of steps, or when the
   // shaded object itself is transparent (render.rs:1048-1067)
   float f = o[13];
-  March sh = march_single<false, false>(s, p, add(pt, scale(s.light, F32_EPS)), s.light, idx);
+  March sh =
+      march_single<false, false, false>(s, p, add(pt, scale(s.light, F32_EPS)), s.light, idx);
   bool lit = sh.travel >= p.far_away || sh.iter >= p.max_iter || f > 0.0f;
   rec.lit(site, lit);
   float k1 = lit ? fminf(0.2f + di, 1.0f) : 0.2f;
@@ -692,7 +729,13 @@ RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3
 
   float u, v;
   get_uv(sub(pt, v3(o[0], o[1], o[2])), oi[2], o[15], o[16], &u, &v);
-  C3 kd = pattern_diffuse(o, oi[1], u, v);
+  C3 kd;
+  if (Rec::TEXTURED && textured(s, oi)) {  // the image replaces the pattern (render.rs:249-316)
+    RT_COUNT_TEXEL(s);
+    kd = fetch_texture(s.tx, oi[3], u, v);
+  } else {
+    kd = pattern_diffuse(o, oi[1], u, v);
+  }
   C3 base = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
   if (!(nest < p.refraction_cap && f > 0.0f)) return base;
 
@@ -730,8 +773,8 @@ RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, 
   for (int step = 0; step < laps; ++step) {
     const int lev_i = lev + 1 + step;
     if (need_march) {
-      res = p.glow_on ? march_single<true, Rec::TRACK_GLOW>(s, p, pos, eye, ig)
-                      : march_single<false, Rec::TRACK_GLOW>(s, p, pos, eye, ig);
+      res = p.glow_on ? march_single<true, Rec::TRACK_GLOW, Rec::TEXTURED>(s, p, pos, eye, ig)
+                      : march_single<false, Rec::TRACK_GLOW, Rec::TEXTURED>(s, p, pos, eye, ig);
     }
     const bool hit = res.final_dist < p.eps;
     const int site = rec.site(frame, eye, ig, flags, fcs, res, hit);

@@ -2,11 +2,16 @@
 //
 // Replaces ray_rust_tpu/ops/pallas_bwd.py:render_color_pallas_march_grads
 // (the body _make_march_bwd_kernel, its record _p1_march and replay
-// _p2_march_replay) for untextured march-mode scenes: from the packed scene
+// _p2_march_replay) for march-mode scenes: from the packed scene
 // tables and the cotangent planes of the image it computes the cotangent of
 // every object's 19 table columns and of the camera and the light, and
 // optionally the image itself (the march kernel's, bit for bit). The
-// per-pixel program lives in march_bwd_body.cuh.
+// per-pixel program lives in march_bwd_body.cuh. A textured scene (the JAX
+// package's jnp path and its implicit VJP: its kernel declines textures)
+// launches a second instance of the kernel, whose hits read the texture atlas
+// and whose adjoint takes the texture's (u, v) cotangents through
+// fetch_texture_adj, as K2's textured sites do; an untextured scene launches
+// the kernel as it was before textures (its ptxas figures are pinned).
 //
 // What bounds it: its slowest thread, not bytes. It reads the tables and
 // three f32 planes and writes an (n+1, 20) block and at most three planes,
@@ -31,13 +36,16 @@
 
 namespace {
 
+// TEX: the textured instance, which stages the atlas's meta rows
+// (bwd_kernel.cuh) and reads the atlas.
+template <bool TEX>
 struct MarchBody : rt::BwdFrame {
-  static constexpr bool TEXTURED = false;
+  static constexpr bool TEXTURED = TEX;
   template <class Acc>
   __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s, const rt::MarchParams& p,
                                                float cutoff, const float* cam, int ix, int iy,
                                                rt::C3 g, Acc& acc) {
-    return rt::march_pixel_grad(s, p, cutoff, cam, ix, iy, g, acc);
+    return rt::march_pixel_grad<TEX>(s, p, cutoff, cam, ix, iy, g, acc);
   }
 };
 
@@ -45,16 +53,19 @@ struct MarchBody : rt::BwdFrame {
 
 extern "C" {
 
-// Shared memory the launch needs for n objects, in bytes.
-size_t rt_march_bwd_smem(int n) { return rt::bwd_smem(n); }
+// Shared memory the launch needs for n objects and n_tex textures, in bytes.
+size_t rt_march_bwd_smem(int n, int n_tex) { return rt::bwd_smem(n, n_tex); }
 
-// Launch the march backward on ``stream`` of ``device`` (rt::launch_bwd).
+// Launch the march backward on ``stream`` of ``device`` (rt::launch_bwd):
+// the textured instance where ``n_tex`` > 0, else the untextured one. The
+// texture arguments are rt_trace_fwd's (trace_fwd.cu).
 int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, float sx, float sy, int refraction_cap, int bg,
                  int max_laps, int max_iter, float eps, float far_away, int glow_on, float glow,
-                 int floor_skip, float cutoff, const float* g_r, const float* g_g, const float* g_b,
-                 float* out_block, float* prim_r, float* prim_g, float* prim_b, int device,
-                 void* stream) {
+                 int floor_skip, float cutoff, const void* tex, const int* tex_meta, int n_tex,
+                 int tex_stride, int tex_len, const float* g_r, const float* g_g,
+                 const float* g_b, float* out_block, float* prim_r, float* prim_g,
+                 float* prim_b, int device, void* stream) {
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;
@@ -69,8 +80,15 @@ int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.glow_on = glow_on;
   p.glow = glow;
   p.floor_skip = floor_skip;
-  return rt::launch_bwd<MarchBody>(f32t, i32t, cam, light, n, p, rt::TexArgs{}, cutoff, g_r,
-                                   g_g, g_b, out_block, prim_r, prim_g, prim_b, device, stream);
+  const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
+                          tex_len};
+  if (n_tex > 0)
+    return rt::launch_bwd<MarchBody<true>>(f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g,
+                                           g_b, out_block, prim_r, prim_g, prim_b, device,
+                                           stream);
+  return rt::launch_bwd<MarchBody<false>>(f32t, i32t, cam, light, n, p, rt::TexArgs{}, cutoff,
+                                          g_r, g_g, g_b, out_block, prim_r, prim_g, prim_b,
+                                          device, stream);
 }
 
 const char* rt_error_string(int code) {

@@ -5,15 +5,16 @@
 // It computes what ray_rust_tpu/ops/pallas_bwd.py:render_color_pallas_march_grads
 // computes for one pixel: the pixel's cotangent g pulled back to the packed
 // scene tables (the 19 f32 columns of every object, the camera and the
-// light), for untextured march-mode scenes. The gradient contract is the
+// light), for march-mode scenes, textured or not. The gradient contract is the
 // plain version's (ops/trace.py:raymarch under autograd around the implicit
-// VJP of ops/march.py): march, shadow, hit and pattern decisions are
-// constants; a hit point moves with the scene by the implicit function
-// theorem; the glow factor differentiates through the glow metric of the
-// recorded argmin object at the recorded argmin position, which is a
-// constant inside the path and the moving hit where it was the march's last
-// sample; a hit at travel >= grad_distance_cutoff passes no shading
-// gradient through its point.
+// VJP of ops/march.py): march, shadow, hit and pattern decisions and the
+// texels are constants (a Bilinear texture's colour moves with its hit's uv
+// through the blend weights, a Nearest one's not at all); a hit point moves
+// with the scene by the implicit function theorem; the glow factor
+// differentiates through the glow metric of the recorded argmin object at
+// the recorded argmin position, which is a constant inside the path and the
+// moving hit where it was the march's last sample; a hit at travel >=
+// grad_distance_cutoff passes no shading gradient through its point.
 //
 // Two passes per pixel:
 //
@@ -112,9 +113,12 @@ struct MFrame {
 };
 
 // The recorder raymarch calls (march_body.cuh): frames and sites in
-// execution order.
+// execution order. TEX: whether hits read the texture atlas (the textured
+// kernel); the untextured kernel compiles the fetch out.
+template <bool TEX>
 struct MarchRecorder {
   static constexpr bool TRACK_GLOW = true;
+  static constexpr bool TEXTURED = TEX;
   MSite* sites;
   MFrame* frames;
   int n_sites, n_frames;
@@ -253,10 +257,11 @@ RT_AD V3 sdf_grad(const SceneView& s, int i, V3 pos) {
   return v3(o[3], o[4], o[5]);
 }
 
-// The adjoint of a lap that hit: shade_adj at the hit point, then the hit
-// point through the implicit function theorem. Updates its frame's running
-// cotangents (``F``) to those before the lap.
-template <class Acc>
+// The adjoint of a lap that hit: shade_adj at the hit point (TEX: its
+// texture's adjoint where the hit is textured), then the hit point through
+// the implicit function theorem. Updates its frame's running cotangents
+// (``F``) to those before the lap.
+template <bool TEX, class Acc>
 RT_AD void lap_adj(const SceneView& s, float cutoff, int i, const MSite& st, MFrame& F,
                    const MFrame* frames, C3 gret, V3* g_light, Acc& acc) {
   const float* o = s.f32 + st.idx * F32_COLS;
@@ -268,7 +273,7 @@ RT_AD void lap_adj(const SceneView& s, float cutoff, int i, const MSite& st, MFr
   const V3 zv = v3(0.0f, 0.0f, 0.0f);
   C3 col = zc;  // the frame's colour is recorded; shade_adj's sum goes unused
   V3 gpt, ge;
-  shade_adj(s, o, oi, st.eye, st.pt, st.fcs, st.flags, st.lit, ch != nullptr,
+  shade_adj<TEX>(s, o, oi, st.eye, st.pt, st.fcs, st.flags, st.lit, ch != nullptr,
             ch ? ch->out : zc, ch ? ch->g_pos : zv, ch ? ch->g_eye : zv, st.next >= 0, gret,
             F.g_pos, F.g_eye, &F.g_fcs, &col, &gpt, &ge, g_light, g_row);
   for (int k = 0; k < F32_COLS; ++k)
@@ -295,13 +300,13 @@ RT_AD void lap_adj(const SceneView& s, float cutoff, int i, const MSite& st, MFr
 
 // The pixel's cotangent g pulled back to the scene tables through ``acc``
 // (rows 0..n-1: the objects' 19 columns; row n: camera, light). Returns the
-// pixel's colour (march_pixel's).
-template <class Acc>
+// pixel's colour (march_pixel's). TEX: the scene may be textured.
+template <bool TEX, class Acc>
 RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff,
                           const float* cam, int ix, int iy, C3 g, Acc& acc) {
   MSite sites[MARCH_SITE_CAP];
   MFrame frames[MARCH_SITE_CAP];
-  MarchRecorder rec;
+  MarchRecorder<TEX> rec;
   rec.sites = sites;
   rec.frames = frames;
   rec.n_sites = 0;
@@ -350,7 +355,7 @@ RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff
     MFrame& F = frames[st.frame];
     const C3 gret = c3(g.r * F.w.r * F.factor, g.g * F.w.g * F.factor, g.b * F.w.b * F.factor);
     if (st.hit) {
-      lap_adj(s, cutoff, i, st, F, frames, gret, &g_light, acc);
+      lap_adj<TEX>(s, cutoff, i, st, F, frames, gret, &g_light, acc);
     } else {  // ret += bg*fcs, unguarded; the ray state passes unchanged
       C3 bg = background(p.bg, s.light, st.eye);
       F.g_fcs = c3(F.g_fcs.r + gret.r * bg.r, F.g_fcs.g + gret.g * bg.g,

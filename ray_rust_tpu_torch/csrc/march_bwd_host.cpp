@@ -1,10 +1,10 @@
 // Host build of the march backward's per-pixel body (march_bwd_body.cuh): a
 // plain loop over the pixels on the CPU, so the kernel's adjoint can be
 // tested against torch autograd of the plain PyTorch version where there is
-// no card. Same arguments as rt_march_bwd in march_bwd.cu, minus the device
-// and stream. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared
-// -fPIC`` (and -DRT_COUNT_OPS to count into ops_total[0..5] as
-// march_host.cpp does).
+// no card. Same arguments as rt_march_bwd in march_bwd.cu (the texture atlas
+// too: the textured body where ``n_tex`` > 0), minus the device and stream.
+// Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and
+// -DRT_COUNT_OPS to count into ops_total[0..5] as march_host.cpp does).
 
 #include "march_bwd_body.cuh"
 
@@ -21,8 +21,9 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
                                   const float* light, int n, int xres, int yres, float sx,
                                   float sy, int refraction_cap, int bg, int max_laps,
                                   int max_iter, float eps, float far_away, int glow_on,
-                                  float glow, int floor_skip, float cutoff, const float* g_r,
-                                  const float* g_g,
+                                  float glow, int floor_skip, float cutoff, const void* tex,
+                                  const int* tex_meta, int n_tex, int tex_stride, int tex_len,
+                                  const float* g_r, const float* g_g,
                                   const float* g_b, float* out_block, float* prim_r,
                                   float* prim_g, float* prim_b, unsigned long long* ops_total) {
   rt::SceneView s;
@@ -30,6 +31,7 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
   s.i32 = i32t;
   s.n = n;
   s.light = rt::v3(light[0], light[1], light[2]);
+  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
 #ifdef RT_COUNT_OPS
   s.ops = ops_total;
 #else
@@ -54,8 +56,9 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
     for (int ix = 0; ix < xres; ++ix) {
       const long o = static_cast<long>(iy) * xres + ix;
       RT_PIXEL_COUNT_BEGIN(ops_total);
-      rt::C3 c = rt::march_pixel_grad(s, p, cutoff, cam, ix, iy,
-                                      rt::c3(g_r[o], g_g[o], g_b[o]), acc);
+      const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
+      const rt::C3 c = n_tex > 0 ? rt::march_pixel_grad<true>(s, p, cutoff, cam, ix, iy, g, acc)
+                                 : rt::march_pixel_grad<false>(s, p, cutoff, cam, ix, iy, g, acc);
       RT_PIXEL_COUNT_END(ops_total);
       if (prim_r != nullptr) {
         prim_r[o] = c.r;

@@ -22,12 +22,16 @@
 // once per block (every thread of a warp reads the same row at once, a
 // broadcast), each thread runs its own march loops, and the refraction
 // recursion is a chain of template instances, one per depth, inlined into
-// one program. Not carried over: the tile-wide while loop and tile skip, and
-// the ray-parametric step form (pallas_march.py:85-97,127-147), which rounds
-// differently and only saves arithmetic; warps diverge where their pixels'
-// step counts differ. Built with --fmad=false, so each product and sum
-// rounds on its own as in the plain PyTorch version (ops/trace.py:raymarch);
-// with march_floor_skip off the kernel is that version bit for bit.
+// one program. A textured hit (the JAX package's jnp path: its march kernel
+// declines textures, pallas_march.py:60-73) reads the texture atlas as K1
+// does: the meta rows in shared memory beside the tables, one 16-byte
+// read-only load a texel from global memory. Not carried over: the
+// tile-wide while loop and tile skip, and the ray-parametric step form
+// (pallas_march.py:85-97,127-147), which rounds differently and only saves
+// arithmetic; warps diverge where their pixels' step counts differ. Built
+// with --fmad=false, so each product and sum rounds on its own as in the
+// plain PyTorch version (ops/trace.py:raymarch); with march_floor_skip off
+// the kernel is that version bit for bit.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_march.py).
@@ -44,13 +48,14 @@ constexpr int BLOCK_Y = 8;
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
                  const float* __restrict__ cam, const float* __restrict__ light,
-                 int n, rt::MarchParams p, float* __restrict__ out_r,
+                 int n, rt::MarchParams p, rt::TexArgs tx, float* __restrict__ out_r,
                  float* __restrict__ out_g, float* __restrict__ out_b) {
   extern __shared__ float smem[];
   float* s_f32 = smem;
   int* s_i32 = reinterpret_cast<int*>(s_f32 + n * rt::F32_COLS);
   float* s_cam = reinterpret_cast<float*>(s_i32 + n * rt::I32_COLS);
   float* s_light = s_cam + rt::CAM_COLS;
+  int* s_meta = reinterpret_cast<int*>(s_light + rt::LIGHT_COLS);
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
@@ -58,6 +63,7 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   for (int k = tid; k < n * rt::I32_COLS; k += nthreads) s_i32[k] = i32t[k];
   if (tid < rt::CAM_COLS) s_cam[tid] = cam[tid];
   if (tid < rt::LIGHT_COLS) s_light[tid] = light[tid];
+  for (int k = tid; k < tx.n_tex * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
   __syncthreads();
 
   const int ix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -69,6 +75,8 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   s.i32 = s_i32;
   s.n = n;
   s.light = rt::v3(s_light[0], s_light[1], s_light[2]);
+  s.tx = tx;
+  s.tx.meta = s_meta;
   rt::C3 c = rt::march_pixel(s, p, s_cam, ix, iy);
   const size_t o = static_cast<size_t>(iy) * p.xres + ix;
   out_r[o] = c.r;
@@ -80,21 +88,31 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
 
 extern "C" {
 
-// Shared memory the launch needs for n objects, in bytes.
-size_t rt_march_fwd_smem(int n) {
+// Shared memory the launch needs for n objects and n_tex textures, in bytes.
+size_t rt_march_fwd_smem(int n, int n_tex) {
   return sizeof(float) * (n * rt::F32_COLS + rt::CAM_COLS + rt::LIGHT_COLS) +
-         sizeof(int) * n * rt::I32_COLS;
+         sizeof(int) * (n * rt::I32_COLS + n_tex * rt::TEX_META_COLS);
 }
 
 // Launch the march forward on ``stream`` of ``device``; returns the
-// cudaError_t of the launch (0 = success).
+// cudaError_t of the launch (0 = success). The texture arguments are
+// rt_trace_fwd's (trace_fwd.cu): null and zeros for an untextured scene.
 int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, float sx, float sy, int refraction_cap, int bg,
                  int max_laps, int max_iter, float eps, float far_away, int glow_on,
-                 float glow, int floor_skip, float* out_r, float* out_g, float* out_b,
+                 float glow, int floor_skip, const void* tex, const int* tex_meta, int n_tex,
+                 int tex_stride, int tex_len, float* out_r, float* out_g, float* out_b,
                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = rt_march_fwd_smem(n, n_tex);
+  if (smem > 48 * 1024) {  // above 48 KB a block may take dynamic shared memory only when asked
+    err = cudaFuncSetAttribute(march_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
+                          tex_len};
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;
@@ -111,8 +129,8 @@ int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.floor_skip = floor_skip;
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((xres + BLOCK_X - 1) / BLOCK_X, (yres + BLOCK_Y - 1) / BLOCK_Y);
-  march_fwd_kernel<<<grid, block, rt_march_fwd_smem(n), static_cast<cudaStream_t>(stream)>>>(
-      f32t, i32t, cam, light, n, p, out_r, out_g, out_b);
+  march_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      f32t, i32t, cam, light, n, p, tx, out_r, out_g, out_b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
 // Host build of the march kernel's per-pixel body (march_body.cuh): a plain
 // loop over the pixels on the CPU, so the kernel's logic can be tested
 // against the plain PyTorch version where there is no card. Same arguments
-// as rt_march_fwd in march_fwd.cu, minus the device and stream. Build with
-// ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and
-// -DRT_COUNT_OPS to count into ops_total[0..5]: f32 operations, texel bytes
-// (none), the largest per pixel, object passes, the largest per pixel, the
-// marches the never-converges test ended).
+// as rt_march_fwd in march_fwd.cu (the texture atlas too), minus the device
+// and stream. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared
+// -fPIC`` (and -DRT_COUNT_OPS to count into ops_total[0..5]: f32 operations,
+// the texel bytes the textured hits read, the largest per pixel, object
+// passes, the largest per pixel, the marches the never-converges test
+// ended).
 
 #include "march_body.cuh"
 
@@ -13,13 +14,15 @@ extern "C" void rt_march_host(const float* f32t, const int* i32t, const float* c
                               const float* light, int n, int xres, int yres, float sx,
                               float sy, int refraction_cap, int bg, int max_laps, int max_iter,
                               float eps, float far_away, int glow_on, float glow,
-                              int floor_skip, float* out_r, float* out_g, float* out_b,
-                              unsigned long long* ops_total) {
+                              int floor_skip, const void* tex, const int* tex_meta, int n_tex,
+                              int tex_stride, int tex_len, float* out_r, float* out_g,
+                              float* out_b, unsigned long long* ops_total) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
   s.n = n;
   s.light = rt::v3(light[0], light[1], light[2]);
+  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
 #ifdef RT_COUNT_OPS
   s.ops = ops_total;
 #else

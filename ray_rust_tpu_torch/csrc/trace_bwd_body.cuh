@@ -481,8 +481,8 @@ struct SiteRecorder {
 // the trace went on (``cont``). Adds the site's colour to ``*col``, its light
 // cotangent to ``*g_light``, its object's field cotangents to ``g_row``, and
 // returns the cotangents of ``pt`` in ``*gpt`` and of ``eye`` in ``*ge``.
-// ``TEX``: whether the hit may read a texture (the trace backward); the march
-// backward shades untextured scenes only and leaves it false.
+// ``TEX``: whether the hit may read a texture (the trace backward and the
+// textured march backward); the untextured march backward leaves it false.
 template <bool TEX = false>
 RT_AD void shade_adj(const SceneView& s, const float* o, const int* oi, V3 eye, V3 pt, C3 fcs,
                      int flags, bool lit, bool has_child, C3 ch_col, V3 ch_g_vi, V3 ch_g_eye,

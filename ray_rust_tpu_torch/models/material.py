@@ -27,6 +27,12 @@ __all__ = [
     "UVMAP_YZ",
     "UVMAP_ZX",
     "UVMAP_LL",
+    "PATTERN_NAMES",
+    "PATTERN_IDS",
+    "FILTER_NAMES",
+    "FILTER_IDS",
+    "UVMAP_NAMES",
+    "UVMAP_IDS",
     "MaterialSpec",
     "MaterialTable",
     "TextureBank",
@@ -48,6 +54,15 @@ UVMAP_XY = 0
 UVMAP_YZ = 1
 UVMAP_ZX = 2
 UVMAP_LL = 3
+
+# The enums' names in scene files (serde's variant names)
+PATTERN_NAMES = {PATTERN_SOLID: "Solid", PATTERN_CHECKERBOARD: "Checkerboard",
+                 PATTERN_GRADATION: "RepeatedGradation"}
+PATTERN_IDS = {v: k for k, v in PATTERN_NAMES.items()}
+FILTER_NAMES = {FILTER_NEAREST: "Nearest", FILTER_BILINEAR: "Bilinear"}
+FILTER_IDS = {v: k for k, v in FILTER_NAMES.items()}
+UVMAP_NAMES = {UVMAP_XY: "XY", UVMAP_YZ: "YZ", UVMAP_ZX: "ZX", UVMAP_LL: "LL"}
+UVMAP_IDS = {v: k for k, v in UVMAP_NAMES.items()}
 
 
 @dataclasses.dataclass

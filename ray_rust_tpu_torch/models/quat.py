@@ -1,8 +1,7 @@
 """Quaternion camera pose (parity with reference src/quat.rs:6-134).
 
-PyTorch counterpart of ``ray_rust_tpu/models/quat.py``, reduced to what the
-trace path needs: the pitch-yaw-roll constructor and vector rotation.
-``slerp`` comes with the animation slice.
+PyTorch counterpart of ``ray_rust_tpu/models/quat.py``: the pitch-yaw-roll
+constructor, vector rotation, and ``slerp`` for the camera animation.
 """
 
 from __future__ import annotations
@@ -21,6 +20,9 @@ class Quat(NamedTuple):
     y: torch.Tensor
     z: torch.Tensor
     w: torch.Tensor
+
+    def dot(self, o: "Quat"):
+        return self.x * o.x + self.y * o.y + self.z * o.z + self.w * o.w
 
     def conjugated(self) -> "Quat":
         return Quat(-self.x, -self.y, -self.z, self.w)
@@ -47,6 +49,23 @@ class Quat(NamedTuple):
         half = _f32(p) / 2.0
         s = torch.sin(half)
         return Quat(s * sx, s * sy, s * sz, torch.cos(half))
+
+    def slerp(self, o: "Quat", t) -> "Quat":
+        """Spherical interpolation with the long-path sign fix (quat.rs:97-127),
+        on the quaternion's device. Branchless as the JAX package's: where
+        ``1 - dot^2`` is at most sqrt(1e-10) (nearly parallel), returns
+        ``self`` unchanged."""
+        t = _f32(t, self.x.device)
+        qr = self.dot(o)
+        ss = 1.0 - qr * qr
+        degenerate = ss <= torch.sqrt(_f32(1e-10))
+        sp = torch.sqrt(torch.where(degenerate, 1.0, ss))
+        ph = torch.arccos(torch.clamp(qr, -1.0, 1.0))
+        pt = ph * t
+        t1 = torch.sin(pt) / sp
+        t0 = torch.sin(ph - pt) / sp
+        t1 = torch.where(qr < 0.0, -t1, t1)  # long path (quat.rs:116-118)
+        return Quat(*(torch.where(degenerate, a, a * t0 + b * t1) for a, b in zip(self, o)))
 
     @staticmethod
     def from_pyr(pyr: Vec3) -> "Quat":

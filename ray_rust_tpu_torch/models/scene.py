@@ -40,6 +40,7 @@ __all__ = [
     "Camera",
     "Scene",
     "SceneMeta",
+    "CameraKeyframe",
     "SphereSpec",
     "FloorSpec",
     "build_scene",
@@ -79,6 +80,18 @@ class Camera(NamedTuple):
     @staticmethod
     def from_pyr(position: Vec3, pyr: Vec3) -> "Camera":
         return Camera(position, pyr, Quat.from_pyr(pyr))
+
+
+@dataclasses.dataclass
+class CameraKeyframe:
+    """Animation keyframe (render.rs:634-640), kept on the host:
+    ``animation.render_frames`` interpolates the camera there and renders
+    each frame."""
+
+    camera: Camera
+    velocity: tuple
+    camera_target: Optional[tuple]
+    duration: float
 
 
 def _map_tensors(fn, tree):
@@ -122,6 +135,7 @@ class SceneMeta:
     material_names: tuple
     texture_names: tuple
     bg: str = "default_sky"
+    camera_motion: tuple = ()  # of CameraKeyframe
 
 
 @dataclasses.dataclass
@@ -141,7 +155,8 @@ class FloorSpec:
 
 
 def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
-                camera_pyr, light, bg: str = "default_sky", device="cuda"):
+                camera_pyr, light, camera_motion: tuple = (), bg: str = "default_sky",
+                device="cuda"):
     """Assemble the scene tensors + static meta from host specs, on
     ``device``. Objects keep their order: the nearest-hit scan tie-breaks to
     the lowest index (render.rs:1003-1015) and index 0 ends the bounce loop
@@ -194,6 +209,7 @@ def build_scene(materials: List[MaterialSpec], objects: list, camera_position,
         material_names=tuple(m.name for m in materials),
         texture_names=tuple(m.texture_name for m in materials),
         bg=bg,
+        camera_motion=tuple(camera_motion),
     )
     return scene, meta
 

@@ -51,18 +51,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 
 # C signatures, up to the output planes: the CUDA launchers add the device
-# and the stream, their host loops the operation counter. The trace kernels
-# take the texture atlas after their render arguments (kernel_trace.texture_args).
+# and the stream, their host loops the operation counter. The trace and
+# march kernels take the texture atlas after their render arguments
+# (kernel_trace.texture_args).
 _TRACE_CFG = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
+_MARCH_CFG = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I]
 _TEX_ARGS = [_P, _P, _I, _I, _I]
 _TRACE_ARGS = _TRACE_CFG + _TEX_ARGS + [_P, _P, _P]
-_MARCH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I,
-               _P, _P, _P]
+_MARCH_ARGS = _MARCH_CFG + _TEX_ARGS + [_P, _P, _P]
 # the backward kernels: the forward's render arguments, the cutoff, (trace:
-# the record cap and the atlas), the three cotangent planes, the block, the
+# the record cap), the atlas, the three cotangent planes, the block, the
 # three primal planes
 _BWD_ARGS = _TRACE_CFG + [_F, _I] + _TEX_ARGS + [_P] * 7
-_MARCH_BWD_ARGS = _MARCH_ARGS[:-3] + [_F] + [_P] * 7
+_MARCH_BWD_ARGS = _MARCH_CFG + [_F] + _TEX_ARGS + [_P] * 7
 # the re-trace gradient: the trace backward's, without the record cap and
 # the atlas
 _RETRACE_ARGS = _TRACE_CFG + [_F] + [_P] * 7

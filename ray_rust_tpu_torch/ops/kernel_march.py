@@ -6,7 +6,11 @@ Counterpart of ``ray_rust_tpu/ops/pallas_march.py``. The kernel
 Pallas kernel ``render_color_pallas_march``: camera rays, sphere tracing over
 the scene SDF, the lap loop, march shading with shadow marches, patterns,
 the refraction sub-marches, the sky and the glow factor, one thread per
-pixel, for untextured march-mode scenes of up to 512 objects.
+pixel, for march-mode scenes of up to 512 objects. A textured hit reads the
+scene's texture atlas as the trace kernel does (K1a); the JAX package's
+march kernel declines textures and renders them through its jnp march
+(``pallas_trace.py:render_color_fast``), whose function the plain version
+here computes.
 
 :func:`render_color_kernel` launches the kernel or raises; it never falls
 back. :func:`render_color_plain` (the trace kernel's: camera rays and
@@ -31,8 +35,8 @@ import numpy as np
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
-from .kernel_pack import launch_pack, word_pointers
-from .kernel_trace import check_launchable, launch, render_color_plain
+from .kernel_pack import launch_pack, texture_pointers, word_pointers
+from .kernel_trace import check_launchable, launch, render_color_plain, texture_args, texture_reason
 from .sky import BG_IDS
 
 __all__ = [
@@ -42,6 +46,7 @@ __all__ = [
     "render_words_kernel",
     "render_color_plain",
     "kernel_args",
+    "launch_args",
 ]
 
 # Launches of the march kernel since import (or since a caller reset it).
@@ -49,7 +54,7 @@ LAUNCHES = 0
 
 KERNEL_OBJECT_MAX = 512  # the tables must fit one block's shared memory
 # The counters a -DRT_COUNT_OPS host build of a march body fills
-# (csrc/march_body.cuh): f32 operations, texel bytes (none), the most
+# (csrc/march_body.cuh): f32 operations, texel bytes, the most
 # operations of one pixel, object passes (SDF sweeps and the shortcuts'
 # passes), the most passes of one pixel, the marches the never-converges
 # test ended.
@@ -67,9 +72,9 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the march kernel cannot render ``scene`` under ``cfg``, or None."""
     if not cfg.use_raymarching:
         return "trace mode runs in the trace kernel (K1, ops/kernel_trace.py)"
-    if scene.textures is not None:
-        return ("textured march: the march kernels do not read image textures yet "
-                "(ROADMAP queue 1 item 3)")
+    reason = texture_reason(scene)
+    if reason is not None:
+        return reason
     if scene.objects.count > KERNEL_OBJECT_MAX:
         return f"more than {KERNEL_OBJECT_MAX} objects"
     if cfg.bg not in BG_IDS:
@@ -82,8 +87,9 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """March mode, untextured, at most 512 objects (the JAX kernel's
-    ``pallas_march_supported``), refraction depth at most ``FRAME_CAP``."""
+    """March mode, at most 512 objects (the JAX kernel's
+    ``pallas_march_supported``, and textured scenes within the trace
+    kernel's atlas limits), refraction depth at most ``FRAME_CAP``."""
     return unsupported_reason(scene, cfg) is None
 
 
@@ -94,6 +100,13 @@ def kernel_args(cfg: RenderConfig) -> list:
     return [cfg.refraction_cap(), BG_IDS[cfg.bg], cfg.raymarch_max_reflections,
             cfg.march_max_iter, cfg.march_eps, cfg.far_away, int(glow_on),
             float(np.float32(cfg.glow_effect)) if glow_on else 0.0, int(cfg.march_floor_skip)]
+
+
+def launch_args(cfg: RenderConfig, tex, device) -> list:
+    """This kernel's arguments after the image size and field of view (also
+    its host build's): :func:`kernel_args`, then
+    ``kernel_trace.texture_args`` of atlas ``tex`` on ``device``."""
+    return kernel_args(cfg) + texture_args(tex, device)
 
 
 def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
@@ -107,14 +120,16 @@ def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
 
 def render_words_kernel(scene: Scene, words, cfg: RenderConfig) -> Color:
     """Launch the march kernel on the pack kernel's ``words`` of ``scene``
-    (``kernel_pack.launch_pack``), straight from their addresses, for a
-    render the caller has checked with :func:`unsupported_reason`."""
+    (``kernel_pack.launch_pack``) and the scene's cached texture atlas,
+    straight from their addresses, for a render the caller has checked with
+    :func:`unsupported_reason`."""
     global LAUNCHES
     from ._build import load_cuda_library
 
     n = scene.objects.count
+    ptrs, meta = word_pointers(words, n)
     lib = load_cuda_library("march_fwd")
-    img = launch(lib, lib.rt_march_fwd, word_pointers(words, n)[0], n, words.device, cfg,
-                 kernel_args(cfg))
+    img = launch(lib, lib.rt_march_fwd, ptrs, n, words.device, cfg,
+                 kernel_args(cfg) + texture_pointers(scene, meta))
     LAUNCHES += 1
     return img

@@ -4,7 +4,9 @@ version, and the autograd pairing of the two march kernels.
 Counterpart of the march half of ``ray_rust_tpu/ops/pallas_bwd.py``. The
 kernel (``csrc/march_bwd.cu``, per-pixel body ``csrc/march_bwd_body.cuh``)
 replaces the Pallas kernel ``render_color_pallas_march_grads`` for
-untextured march-mode scenes of up to 512 objects: from the packed scene
+march-mode scenes of up to 512 objects (textured scenes, which the JAX
+package differentiates through its jnp march's implicit VJP, in a second
+instance of the kernel whose adjoint takes the texture's uv cotangents): from the packed scene
 tables and the cotangent of the image it gives the cotangents of the f32
 table ``(N, 19)`` (column 18 is ``glow_dist``), the camera ``(1, 8)`` and the
 light ``(1, 4)``. It records each pixel's raymarch calls and laps with the
@@ -38,7 +40,7 @@ from ..models.scene import Scene
 from ..models.vec import Color
 from . import kernel_march, kernel_pack
 from . import kernel_trace_bwd as ktb
-from .kernel_trace import check_launchable
+from .kernel_trace import check_launchable, texture_args
 
 __all__ = [
     "SITE_CAP",
@@ -48,6 +50,7 @@ __all__ = [
     "unsupported_reason",
     "kernel_supported",
     "kernel_args",
+    "launch_args",
     "render_grads_kernel",
     "render_grads_plain",
     "MarchRender",
@@ -104,8 +107,9 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """March mode, untextured, at most 512 objects, refraction depth at most
-    ``kernel_march.FRAME_CAP``, at most ``SITE_CAP`` laps per pixel."""
+    """March mode, at most 512 objects (textured within the atlas limits),
+    refraction depth at most ``kernel_march.FRAME_CAP``, at most
+    ``SITE_CAP`` laps per pixel."""
     return unsupported_reason(scene, cfg) is None
 
 
@@ -117,18 +121,27 @@ def kernel_args(cfg: RenderConfig) -> list:
     return kernel_march.kernel_args(cfg) + [float("inf") if cutoff is None else float(cutoff)]
 
 
+def launch_args(cfg: RenderConfig, tex, device) -> list:
+    """This kernel's arguments after the image size and field of view (also
+    its host build's): :func:`kernel_args`, then
+    ``kernel_trace.texture_args`` of atlas ``tex`` on ``device``."""
+    return kernel_args(cfg) + texture_args(tex, device)
+
+
 def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal: bool):
     """Launch the march backward kernel on the pack kernel's ``words`` of
-    ``scene`` (``kernel_pack.launch_pack``), straight from their addresses
-    (``kernel_trace_bwd.launch_block``), counting it: its block
-    and, with ``return_primal``, the image."""
+    ``scene`` (``kernel_pack.launch_pack``) and its cached texture atlas,
+    straight from their addresses (``kernel_trace_bwd.launch_block``),
+    counting it: its block and, with ``return_primal``, the image."""
     global LAUNCHES
     from ._build import load_cuda_library
 
     n = scene.objects.count
+    ptrs, meta = kernel_pack.word_pointers(words, n)
     lib = load_cuda_library("march_bwd")
-    out = ktb.launch_block(lib, lib.rt_march_bwd, kernel_pack.word_pointers(words, n)[0], n,
-                           words.device, cfg, kernel_args(cfg), g, return_primal)
+    out = ktb.launch_block(lib, lib.rt_march_bwd, ptrs, n, words.device, cfg,
+                           kernel_args(cfg) + kernel_pack.texture_pointers(scene, meta), g,
+                           return_primal)
     LAUNCHES += 1
     return out
 

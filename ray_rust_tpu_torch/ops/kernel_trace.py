@@ -45,6 +45,7 @@ __all__ = [
     "pack_scene",
     "pack_textures",
     "texture_args",
+    "texture_reason",
     "kernel_supported",
     "unsupported_reason",
     "render_color_kernel",
@@ -77,16 +78,26 @@ def texture_args(tex, device) -> list:
     return [atlas.data_ptr(), meta.data_ptr(), t, wmax, t * hmax * wmax]
 
 
-def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
-    """Why the kernel cannot render ``scene`` under ``cfg``, or None."""
-    if cfg.use_raymarching:
-        return "march mode runs in the march kernel (K3, ops/kernel_march.py)"
+def texture_reason(scene: Scene) -> Optional[str]:
+    """Why the kernels cannot read the scene's textures, or None: the
+    texture meta rows share a block's shared memory with the tables, and the
+    atlas is indexed in 32 bits."""
     if scene.textures is not None:
         t, hmax, wmax = scene.textures.packed.shape[:3]
         if t > TEXTURE_MAX:
             return f"more than {TEXTURE_MAX} textures"
         if t * hmax * wmax >= 2**31:
             return "a texture atlas of 2^31 texels or more"
+    return None
+
+
+def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
+    """Why the kernel cannot render ``scene`` under ``cfg``, or None."""
+    if cfg.use_raymarching:
+        return "march mode runs in the march kernel (K3, ops/kernel_march.py)"
+    reason = texture_reason(scene)
+    if reason is not None:
+        return reason
     if scene.objects.count > KERNEL_OBJECT_MAX:
         return f"more than {KERNEL_OBJECT_MAX} objects"
     if cfg.bg not in BG_IDS:
@@ -124,8 +135,8 @@ def launch(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list) -> C
     CUDA device ``dev``, the tables given by their addresses ``ptrs`` (f32
     table, i32 table, camera, light: the pack kernel's words,
     ``kernel_pack.word_pointers``), and return the image (``args``: the
-    kernel's ``kernel_args``, and for the trace kernel its texture
-    arguments); raises if the launch fails."""
+    kernel's ``kernel_args``, then its texture arguments); raises if the
+    launch fails."""
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
     sx, sy = fov_scales(cfg)
     plane = 4 * cfg.yres * cfg.xres

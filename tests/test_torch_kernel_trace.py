@@ -337,13 +337,14 @@ def test_cuda_kernel_matches_plain():
                   mean_tol=0.01)
     # a gradient the kernels do not cover is refused, not faked or moved to
     # the CPU (tests/test_torch_kernel_bwd.py runs the ones they cover): a
-    # textured scene in march mode
+    # textured scene in march mode with more laps than the march backward
+    # records
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
                                   [rtt.SphereSpec("t", 10.0, (0.0, 0.0, 50.0))],
                                   (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
     light = textured.light.x.clone().requires_grad_()
     textured = textured._replace(light=textured.light._replace(x=light))
-    march = cfg.with_(use_raymarching=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    march = cfg.with_(use_raymarching=True, raymarch_max_reflections=4)
+    with pytest.raises(NotImplementedError, match="laps per pixel"):
         rtt.render_color(textured, march)

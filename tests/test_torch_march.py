@@ -212,7 +212,7 @@ def _host_render(lib, scene, cfg, ops=None):
     f32t, i32t, cam, light = kt.pack_scene(scene)
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
     sx, sy = fov_scales(cfg)
-    args = km.kernel_args(cfg)
+    args = km.launch_args(cfg, None, torch.device("cpu"))
     lib.rt_march_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
                       scene.objects.count, cfg.xres, cfg.yres, sx, sy, *args,
                       out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
@@ -486,14 +486,21 @@ def test_march_unsupported_reason_names_what_is_missing(change, names):
 
 
 def test_march_unsupported_reason_textures_and_size():
+    """Textured march is taken (the march kernels read the atlas); an atlas
+    past the kernels' limits (more than TEXTURE_MAX textures) and more than
+    512 objects are refused with their reasons."""
     cfg = rtt.RenderConfig(xres=8, yres=8, **_GLOW)
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
                                   [rtt.SphereSpec("t", 10.0, (0.0, 0.0, 50.0))],
                                   (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
                                   device="cpu")
-    reason = km.unsupported_reason(textured, cfg)
-    assert "textures" in reason and "queue 1 item 3" in reason
+    assert km.unsupported_reason(textured, cfg) is None
+    oversized, _ = rtt.build_scene(
+        [rtt.MaterialSpec(name=f"t{i}", texture=tex[:1, :1]) for i in range(kt.TEXTURE_MAX + 1)],
+        [rtt.SphereSpec("t0", 10.0, (0.0, 0.0, 50.0))],
+        (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), device="cpu")
+    assert f"more than {kt.TEXTURE_MAX} textures" in km.unsupported_reason(oversized, cfg)
     big = rtt.build_scene(
         [rtt.MaterialSpec(name="m")],
         [rtt.SphereSpec("m", 1.0, (float(i), 0.0, 100.0)) for i in range(513)],

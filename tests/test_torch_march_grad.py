@@ -236,7 +236,8 @@ def _host_grads(lib, scene, cfg, g):
     prim = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
     lib.rt_march_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
-                          *kmb.kernel_args(cfg), *(c.data_ptr() for c in g), block.data_ptr(),
+                          *kmb.launch_args(cfg, None, torch.device("cpu")),
+                          *(c.data_ptr() for c in g), block.data_ptr(),
                           *(p.data_ptr() for p in prim), None)
     return kb.split_block(block, n), np.stack([p.numpy() for p in prim], -1)
 
@@ -317,7 +318,8 @@ def test_host_build_of_march_backward_with_floor_tail(host_lib, march_host_lib, 
     sx, sy = fov_scales(cfg)
     march_host_lib.rt_march_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(),
                                  light.data_ptr(), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
-                                 *km.kernel_args(cfg), *(c.data_ptr() for c in k3), None)
+                                 *km.launch_args(cfg, None, torch.device("cpu")),
+                                 *(c.data_ptr() for c in k3), None)
     np.testing.assert_array_equal(prim, np.stack([c.numpy() for c in k3], -1))
     ref = _img(km.render_color_plain(scene, cfg))
     agree = np.abs(prim - ref).max(-1) < 1e-4

@@ -126,11 +126,16 @@ def test_cli_cpu_writes_render_u8(tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
+    """The viewer (-w) is not ported and raises; the scene-file flags (-s,
+    -d) are, and run (tests/test_torch_apps.py holds them)."""
     import pytest
 
-    for flag in (["-w"], ["-s", "scene.yaml"], ["-d", "scene.yaml"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            cli.main(["8", "8", "-o", str(tmp_path / "x.png"), "--device", "cpu"] + flag)
+    argv = ["8", "8", "-o", str(tmp_path / "x.png"), "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(argv + ["-w"])
+    scene_file = str(tmp_path / "scene.yaml")
+    assert cli.main(argv + ["-s", scene_file]) == 0
+    assert cli.main(argv + ["-d", scene_file]) == 0
 
 
 def test_port_imports_without_jax():

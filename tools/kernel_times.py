@@ -12,10 +12,13 @@ the trace kernel (K1) per 1920x1080 frame, the trace backward (K2) and the
 re-trace oracle (K5) per 1920x1080 cotangent, and the march kernel (K3)
 and the march backward (K4) at 1280x720 with glow 1.0, through their
 public wrappers; both march kernels also with ``march_floor_skip`` off
-where the checkout's config has it. K1, K2 and K5 are also timed alone on
-what their wrappers pack, packed once: the pack kernel's words
-(``render_words_kernel``, ``launch_words``), or on a checkout without the
-pack kernel the tables of ``pack_scene`` (``render_tables_kernel``,
+where the checkout's config has it, and both on the default scene with
+the goldens' noise as ``bar.png`` in Nearest and in Bilinear, with the
+textured march step (Bilinear): a checkout whose march kernel names
+textures in its refusal records ``"refused: <reason>"`` for them. K1, K2
+and K5 are also timed alone on what their wrappers pack, packed once: the
+pack kernel's words (``render_words_kernel``, ``launch_words``), or on a
+checkout without the pack kernel the tables of ``pack_scene`` (``render_tables_kernel``,
 ``render_grads_tables``); K2 both ways also on the default scene textured
 with the goldens' noise as ``bar.png`` in Bilinear. Last, the 1920x1080 training step of
 ``chip_smoke.training_step`` (render, MSE, the gradient of every float
@@ -231,6 +234,22 @@ def main() -> int:
     for tag, c in march:
         times[f"K4 1280x720{tag}"] = ms(lambda c=c: kmb.render_grads_kernel(scene, c, gm,
                                                                             return_primal=True))
+    def refused_or_ms(s, fn):
+        """``fn``'s time, or the reason of a checkout whose march kernel
+        refuses textures for ``s``; any other failure propagates."""
+        reason = km.unsupported_reason(s, mcfg)
+        if reason is not None and "textur" in reason:
+            return f"refused: {reason}"
+        return ms(fn)
+
+    for tag, s in ((" Nearest", textured_n), (" Bilinear", textured)):
+        with torch.no_grad():
+            times[f"K3 1280x720{tag}"] = refused_or_ms(
+                s, lambda s=s: km.render_color_kernel(s, mcfg))
+        times[f"K4 1280x720{tag}"] = refused_or_ms(
+            s, lambda s=s: kmb.render_grads_kernel(s, mcfg, gm, return_primal=True))
+    times["march step 1280x720 Bilinear"] = refused_or_ms(
+        textured, chip_smoke.training_step(torch, rtt.render_color, mcfg, textured))
     times.update(pack_times(torch, kt, kb, kp, scene, textured_n, ms))
     with torch.no_grad():
         times["K1 1920x1080 Nearest"] = ms(lambda: kt.render_color_kernel(textured_n, cfg))
