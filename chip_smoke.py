@@ -8,15 +8,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
    the trace kernel (K1), the march kernel (K3), the trace backward (K2),
-   the march backward (K4), the re-trace gradient oracle (K5) and the scene
-   pack with its pull-back (one library, two kernels); ptxas
-   registers, stack and spills (the trace backward is built for three record
-   caps, one kernel each; the march backward in two instances, untextured
-   and textured), and the trace backward and the march backward's
-   untextured instance must keep theirs (PINNED_PTXAS); each kernel must be
-   one function (ptxas
-   reports no device function beside the kernel: everything is inlined, the
-   texture fetch too);
+   the march backward (K4), each also in its global-table build (``_global``,
+   for scenes too large for shared memory), the re-trace gradient oracle
+   (K5) and the scene pack with its pull-back (one library, two kernels);
+   ptxas registers, stack and spills (K1 with and without its cull, K1b, at
+   task stacks of 16 and 64; the trace backward built for three record
+   caps, one kernel each, and the 64-task stack at two; the march backward
+   in two instances, untextured and textured; KERNEL_COUNTS), and the trace
+   backward's TraceBody instances and the march backward's untextured
+   instance must keep theirs (PINNED_PTXAS); each kernel must be one
+   function (ptxas reports no device function beside the kernel:
+   everything is inlined, the texture fetch too);
 3. each kernel against its plain PyTorch version on the card, and against
    its full-depth golden image, each within the JAX package's golden budget:
    at most 2% of pixels off by more than 1e-3, mean difference at most 0.01;
@@ -95,7 +97,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launch each, the PNG ``render_u8`` of the file's scene under its caps),
    ``-s`` on the loaded scene (its file loads back to the same leaves bit for
    bit), and the file with two camera keyframes at 320x240 (the JAX
-   package's frame count, one frame file and one trace launch a frame);
+   package's frame count, one frame file and one trace launch a frame), the
+   trace request's one K1 launch taking K1b's cull;
+4b. many objects: K1 with its cull (K1b) against K1 with
+   ``pallas_prefilter`` off, bit for bit, and timed in turns (on, off, off,
+   on; 3 warm-ups, 10 frames), at 1920x1080 on configuration 4's 101 objects
+   and on 1 024 (past 512), with the mean primary and shadow candidate
+   lists from K1's counting build; K1 with the cull against the plain trace
+   at 1920x1080 on the 101 objects (its ``plain_ms``) and at 320x240 on the
+   1 024; on the 1 024 with glow K3 against the plain march at 160x120 (a
+   2000-step budget); K2 and K4 against autograd of the plain versions at
+   160x120 within relative L2 0.01 and 0.02 per scene leaf, each in the
+   build its wrapper launches (global tables) and in its shared-table
+   build; each of K1-K4 in its two table regimes (the shared-table build
+   and the ``_global`` one) on the same packed words, the images bit for
+   bit and the backwards' cotangent blocks within relative L2
+   REGIME_REL_L2, and timed in turns, at its threshold (``SHARED_TABLE_MAX``
+   objects, where both fit its launch shape; K3's 1 200 is past the 1 024)
+   and at 1 024 objects at the main paths' shapes (K1 and K2 1920x1080, K3
+   and K4 1280x720); a 1 024-object scene file through ``-d`` at 1920x1080
+   (one K1 launch with the cull); K1 at ``max_reflections=8`` (its 64-task
+   stack) against the plain trace at 320x240, and timed at 1920x1080;
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
    version in turns (3 warm-ups, 10 timed renders each), then the kernel
    through its wrapper and alone on words packed once in turns, beside the
@@ -143,7 +165,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    training step (3 warm-ups, 10 calls each), beside the longest pixel's
    operations and object passes from the counting builds, on and off (the
    march bounds are the tail's counts; the step-by-step ones are printed as
-   a diagnostic).
+   a diagnostic); K1b's bound from the counting build with the cull on the
+   101 objects (and on 1 024, printed); each phase's wall time.
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
@@ -152,7 +175,10 @@ backward's two entries and the re-trace oracle's also give ``alone_ms``,
 the kernel alone on the pack kernel's words packed once (``launch_words``).
 The pack kernel's and the
 pull-back's entries are timed on the default scene, their launches counted
-in the five trace training steps.
+in the five trace training steps. ``trace_fwd_cull`` (K1b) is K1 with its
+cull on configuration 4's 101 objects at 1920x1080 (``off_ms``: with
+``pallas_prefilter`` off), its launches those of the ``-d`` trace request
+that took the cull, its ``max_abs_err`` against K1 without the cull.
 """
 
 from __future__ import annotations
@@ -190,14 +216,34 @@ HBM_BYTES_PER_S = 3.35e12
 KNIFE_EDGE = dict(frac=0.005, tol=1e-3, contrast=0.05)
 # ptxas figures the trace backward (one kernel a record cap: 16, 64, 192)
 # and the march backward keep while the re-trace oracle, which shares their
-# frame (csrc/bwd_kernel.cuh) and the trace body, changes: registers, stack
-# frame, spill stores and spill loads in bytes, by kernel (PERF.md §6)
+# frame (csrc/bwd_kernel.cuh) and the trace body, changes, and while K1's
+# cull (K1b), the deep task stack and the global-table builds are added
+# beside them: registers, stack frame, spill stores and spill loads in
+# bytes, by kernel (PERF.md §6)
 PINNED_PTXAS = {"trace_bwd": [(119, 2512, 0, 0), (119, 7504, 0, 0), (119, 20816, 0, 0)],
                 "march_bwd": [(128, 8168, 4188, 5512)]}
 # The kernels of a library whose figures are pinned, by a part of their
-# mangled names: the march backward's untextured instance (MarchBody<false>);
-# its textured one (MarchBody<true>) is reported beside it
-PINNED_KERNELS = {"trace_bwd": "", "march_bwd": "MarchBodyILb0E"}
+# mangled names: the trace backward's TraceBody<CAP> (its DeepTraceBody<CAP>
+# instances, with the 64-task stack, are reported beside them), the march
+# backward's untextured instance (MarchBody<false>; its textured one,
+# MarchBody<true>, is reported beside it)
+PINNED_KERNELS = {"trace_bwd": "9TraceBodyI", "march_bwd": "MarchBodyILb0E"}
+# The kernels each library holds, its global-table build the same: K1 with
+# and without K1b's cull at task stacks of 16 and 64, K2 at its three record
+# caps and, for 64 and 192, with the deep stack, K4 untextured and textured
+KERNEL_COUNTS = {"trace_fwd": 4, "trace_fwd_global": 4, "march_fwd": 1, "march_fwd_global": 1,
+                 "trace_bwd": 5, "trace_bwd_global": 5, "march_bwd": 2, "march_bwd_global": 2,
+                 "trace_retrace": 1, "pack_scene": 2}
+# The largest relative L2 between a backward's cotangent blocks from its two
+# table regimes on the same inputs: their atomics add in different orders
+# (2.7e-6 to 4.2e-6 for K2 and K4 on 640 and 1 024 objects, PERF.md §6),
+# twenty times over
+REGIME_REL_L2 = 1e-4
+# The many-object scenes: BASELINE.md configuration 4's 101 objects and
+# 1 024 (past 512); their plain references run at the smallest shapes the
+# checks need (the plain trace loops over the objects in Python)
+MANY_SMALL = (320, 240)  # K1 against the plain trace on 1 024 objects
+MANY_GRAD = (160, 120)  # K3, K2 and K4 against the plain versions on 1 024 objects
 # frames per keyframe = duration / FRAME_STEP (ray_rust_tpu/animation.py:22)
 FRAME_STEP = 0.5
 
@@ -339,14 +385,18 @@ def _host_scene(texture_dir, texture_filter):
                              device="cpu")[0]
 
 
-def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
+def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None):
     """The f32 operations kernel ``name``'s body (``"trace"`` or
-    ``"march"``) takes on the default scene under ``cfg``, textured from
-    ``texture_dir``, and the texel bytes its texture fetches read: its host
-    build with -DRT_COUNT_OPS, run on the CPU. A march body also gives the
-    most operations of one pixel, the object passes and the most passes of
-    one pixel and the marches the never-converges test ended
-    (``kernel_march.OPS_SLOTS`` counts in all)."""
+    ``"march"``) takes on the default scene (or the CPU ``scene``) under
+    ``cfg``, textured from ``texture_dir``, and the texel bytes its texture
+    fetches read: its host build with -DRT_COUNT_OPS, run on the CPU. A
+    march body also gives the most operations of one pixel, the object
+    passes and the most passes of one pixel and the marches the
+    never-converges test ended (``kernel_march.OPS_SLOTS`` counts in all);
+    the trace body, where it takes K1b's cull (above 64 objects), the
+    objects the cull tested, the primary candidates scanned and the scans,
+    and the shadow candidates scanned and the scans (eight counts in
+    all)."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
@@ -355,15 +405,18 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     from ray_rust_tpu_torch.ops.rays import fov_scales
 
     lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
-    scene = _host_scene(texture_dir, texture_filter)
+    if scene is None:
+        scene = _host_scene(texture_dir, texture_filter)
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)  # held until the call returns
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
-    ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
+    ops = torch.zeros(max(km.OPS_SLOTS, 8), dtype=torch.int64)
     sx, sy = fov_scales(cfg)
+    cpu = torch.device("cpu")
+    args = (kt.launch_args(cfg, tex, cpu, scene.objects.count) if mod is kt
+            else mod.launch_args(cfg, tex, cpu))
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
-        sx, sy, *mod.kernel_args(cfg), *kt.texture_args(tex, torch.device("cpu")),
-        *(plane.data_ptr() for plane in out), ops.data_ptr())
+        sx, sy, *args, *(plane.data_ptr() for plane in out), ops.data_ptr())
     return tuple(int(v) for v in ops)
 
 
@@ -574,7 +627,7 @@ def scene_files(torch, rtt, cli, kt, km, kp, built):
     keyframes at 320x240, whose frames must be the JAX package's count for
     the file (the sum of duration / FRAME_STEP, as ray_rust_tpu/animation.py
     renders them), one trace launch each. Returns each request's wall time
-    in seconds."""
+    in seconds and the trace request's K1 launches that took K1b's cull."""
     from ray_rust_tpu_torch.models.serialize import deserialize_scene, serialize_scene
     from ray_rust_tpu_torch.utils.image import load_png
 
@@ -597,7 +650,7 @@ def scene_files(torch, rtt, cli, kt, km, kp, built):
         for name, (w, h), march, mod, other in (("trace", (W, H), False, kt, km),
                                                 ("march + glow", (MW, MH), True, km, kt)):
             png_path = os.path.join(sd, "out.png")
-            kt.LAUNCHES = km.LAUNCHES = kp.LAUNCHES = 0
+            kt.LAUNCHES = km.LAUNCHES = kp.LAUNCHES = kt.CULL_LAUNCHES = 0
             t0 = time.time()
             argv = [str(w), str(h), "-d", path, "-o", png_path] + (["-m", "-g", "1.0"] if march
                                                                    else [])
@@ -605,6 +658,12 @@ def scene_files(torch, rtt, cli, kt, km, kp, built):
             torch.cuda.synchronize()
             wall[name] = time.time() - t0
             launches = (mod.LAUNCHES, other.LAUNCHES, kp.LAUNCHES)
+            if not march:  # above 64 objects K1 takes K1b's cull
+                cull_launches = kt.CULL_LAUNCHES
+                print(f"  of them with K1b's cull: {cull_launches}")
+                if cull_launches != (scene.objects.count > kt.CULL_MIN_OBJECTS):
+                    raise SystemExit(f"chip_smoke: -d trace: {cull_launches} K1 launches took "
+                                     f"the cull")
             cfg = rtt.RenderConfig(xres=w, yres=h, use_raymarching=march,
                                    glow_effect=1.0 if march else None, **caps)
             png = load_png(png_path)
@@ -650,7 +709,42 @@ def scene_files(torch, rtt, cli, kt, km, kp, built):
                              f"{kt.LAUNCHES} trace launches, want {want}")
         if any(f.shape != (240, 320, 3) for f in frames) or np.array_equal(frames[0], frames[-1]):
             raise SystemExit("chip_smoke: camera_motion: the frames are not a moving camera's")
-    return wall
+    return wall, cull_launches
+
+
+def cli_file(torch, rtt, cli, kt, kp, built, w, h):
+    """The CLI's ``-d`` on the scene ``built`` (scene, meta) written by
+    ``serialize_scene``, in trace mode at w x h: one K1 launch, with K1b's
+    cull above 64 objects, and one pack, the PNG ``render_u8`` of the loaded
+    scene. Returns the request's wall time in seconds and its K1 launches
+    that took the cull."""
+    from ray_rust_tpu_torch.models.serialize import deserialize_scene, serialize_scene
+    from ray_rust_tpu_torch.utils.image import load_png
+
+    scene, meta = built
+    with tempfile.TemporaryDirectory() as sd:
+        path, png_path = os.path.join(sd, "many.yaml"), os.path.join(sd, "out.png")
+        with open(path, "w") as f:
+            f.write(serialize_scene(scene, meta))
+        kt.LAUNCHES = kp.LAUNCHES = kt.CULL_LAUNCHES = 0
+        t0 = time.time()
+        rc = cli.main([str(w), str(h), "-d", path, "-o", png_path])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = (kt.LAUNCHES, kt.CULL_LAUNCHES, kp.LAUNCHES)
+        with open(path) as f:
+            loaded, _, caps = deserialize_scene(f.read())
+        png = load_png(png_path)
+        print(f"main path, -d trace ({scene.objects.count} objects): CLI {w}x{h} in {wall:.2f} s, "
+              f"launches (K1, of them with the cull, pack) {launches}")
+        if rc != 0 or launches != (1, 1, 1):
+            raise SystemExit(f"chip_smoke: -d {scene.objects.count} objects: CLI exit {rc}, "
+                             f"launches {launches}")
+        want = rtt.render_u8(loaded, rtt.RenderConfig(xres=w, yres=h, **caps))
+        if not np.array_equal(png, want) or png.std() < 10:
+            raise SystemExit(f"chip_smoke: -d {scene.objects.count} objects: the PNG is not "
+                             f"render_u8 of the file's scene")
+    return wall, launches[1]
 
 
 def main() -> int:
@@ -712,14 +806,23 @@ def run(torch, tex_dir) -> int:
                    "march_fwd_textured_bilinear": counting.submit(count_ops, "march", km,
                                                                   cfg_march, tex_dir, 1),
                    "march_bwd_textured": counting.submit(count_bwd_ops, "march_bwd", kmb,
-                                                         cfg_march, tex_dir, 1)}
+                                                         cfg_march, tex_dir, 1),
+                   # K1 with K1b's cull on configuration 4's 101 objects and on 1 024
+                   "trace_fwd_cull": counting.submit(
+                       count_ops, "trace", kt, cfg_main,
+                       scene=spheres_scene(rtt, 11, 100).to(torch.device("cpu"))),
+                   "trace_fwd_cull_1024": counting.submit(
+                       count_ops, "trace", kt, cfg_main,
+                       scene=spheres_scene(rtt, 11, 1023).to(torch.device("cpu")))}
 
     # 2. the builds, one nvcc each, all started together
     t0 = time.time()
-    stems = ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd", "trace_retrace", "pack_scene")
+    stems = tuple(KERNEL_COUNTS)
     _build.prebuild(stems)
     print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
-          f"{time.time() - t0:.1f} s")
+          f"{time.time() - t0:.1f} s, each: " + ", ".join(
+              f"{stem} {_build.build_seconds[stem]:.0f} s" for stem in stems
+              if stem in _build.build_seconds))
     for stem in stems:
         print(f"  ptxas, {stem}:")
         for line in _build.build_logs[stem].splitlines():
@@ -738,8 +841,24 @@ def run(torch, tex_dir) -> int:
     march_bwd_tex_ptxas = ptxas_figures(_build.build_logs["march_bwd"], "MarchBodyILb1E")
     print(f"  march_bwd, textured instance: (registers, stack, spill stores, spill loads) "
           f"{march_bwd_tex_ptxas}")
-    if len(march_bwd_tex_ptxas) != 1 or len(ptxas_figures(_build.build_logs["march_bwd"])) != 2:
-        raise SystemExit("chip_smoke: march_bwd.cu does not hold its two instances")
+    if len(march_bwd_tex_ptxas) != 1:
+        raise SystemExit("chip_smoke: march_bwd.cu does not hold its textured instance")
+    # the instances beside the pinned ones: K1's (cull, stack), K2's deep
+    # stack, the global-table builds
+    for stem, frag, what in (
+            ("trace_fwd", "", "K1: <no cull, 16>, <cull, 16>, <no cull, 64>, <cull, 64>"),
+            ("trace_bwd", "13DeepTraceBodyI", "K2 with the 64-task stack: caps 192, 64"),
+            ("trace_fwd_global", "", "K1 global tables: <no cull, 16>, <cull, 16>, "
+                                     "<no cull, 64>, <cull, 64>"),
+            ("march_fwd_global", "", "K3 global tables"),
+            ("trace_bwd_global", "9TraceBodyI", "K2 global tables: caps 192, 64, 16"),
+            ("trace_bwd_global", "13DeepTraceBodyI", "K2 global tables, 64-task stack: caps "
+                                                     "192, 64"),
+            ("march_bwd_global", "", "K4 global tables: untextured, textured")):
+        print(f"  {stem}, {what}: {ptxas_figures(_build.build_logs[stem], frag)}")
+    for stem, want in KERNEL_COUNTS.items():
+        if len(ptxas_figures(_build.build_logs[stem])) != want:
+            raise SystemExit(f"chip_smoke: {stem} does not hold its {want} kernels")
 
     dev = torch.device("cuda", 0)
 
@@ -756,6 +875,8 @@ def run(torch, tex_dir) -> int:
         return got, img(ref), start.elapsed_time(end)
 
     # 3. kernel vs plain on the card, and vs the golden
+    phase_s = {"2": time.time() - t0}  # the phases' wall times, printed at the end
+    t_phase = time.time()
     print("kernel vs plain version:")
     default, _ = rtt.default_scene()
     cases = [
@@ -1284,7 +1405,178 @@ def run(torch, tex_dir) -> int:
     if oracle_same < 1.0:
         raise SystemExit("chip_smoke: the oracle's image is not the trace kernel's")
 
-    file_s = scene_files(torch, rtt, cli, kt, km, kp, spheres_build(rtt, 11, 100))
+    file_s, cull_launches = scene_files(torch, rtt, cli, kt, km, kp, spheres_build(rtt, 11, 100))
+    phase_s["3-4"] = time.time() - t_phase
+
+    # 4b. many objects: K1b (the cull inside K1) against the full scan, the
+    # scenes past 512 objects in K1-K4, max_reflections 8
+    t_phase = time.time()
+    print("many objects (K1b, the per-tile cull inside K1; more than 512 objects; "
+          "max_reflections 8):")
+
+    def k1_turns(name, scene, cfg):
+        """K1 through its wrapper with the cull and with pallas_prefilter
+        off, bit for bit, then timed in turns (on, off, off, on: 3 warm-ups,
+        10 frames each); returns the largest difference and the two means."""
+        off_cfg = cfg.with_(pallas_prefilter=False)
+        with torch.no_grad():
+            on_img = img(kt.render_color_kernel(scene, cfg))
+            err = float(np.abs(on_img - img(kt.render_color_kernel(scene, off_cfg))).max())
+            runs = [(k, cuda_ms(torch, lambda c=c: kt.render_color_kernel(scene, c)))
+                    for k, c in (("on", cfg), ("off", off_cfg), ("off", off_cfg), ("on", cfg))]
+        means = [float(np.mean([ms for k, ms in runs if k == tag])) for tag in ("on", "off")]
+        print(f"  K1 {name} {cfg.xres}x{cfg.yres}, cull on vs off: max abs {err} "
+              f"({'bit-equal' if err == 0.0 else 'FAIL'}); " + ", ".join(
+                  f"{k} {ms:.4f}" for k, ms in runs) + f" ms/frame ({card})")
+        if err != 0.0 or not np.isfinite(on_img).all():
+            raise SystemExit(f"chip_smoke: K1b, {name}: the cull changes the image")
+        return err, means[0], means[1]
+
+    conf4 = spheres_scene(rtt, 11, 100).to(dev)
+    cull_err, cull_ms, nocull_ms = k1_turns("configuration 4, 101 objects", conf4, cfg_main)
+    got, ref, cull_plain_ms = both(conf4, cfg_main)
+    compare(f"K1 with the cull vs plain, 101 objects {W}x{H} (plain one frame "
+            f"{cull_plain_ms:.0f} ms)", ref, got)
+    counts = {k: ops_futures[k].result() for k in ("trace_fwd_cull", "trace_fwd_cull_1024")}
+    for k, c in counts.items():
+        print(f"  host counts, {k} {W}x{H}: {c[0]} f32 operations, objects tested by the cull "
+              f"{c[3]}, primary lists {c[4] / c[5]:.2f} candidates a scan ({c[5]} scans), "
+              f"shadow lists {c[6] / c[7]:.2f} ({c[7]} scans)")
+    big_built = spheres_build(rtt, 11, 1023)
+    big = big_built[0].to(dev)
+    k1_turns("1024 objects", big, cfg_main)
+    sw, sh = MANY_SMALL
+    got, ref, big_plain_ms = both(big, rtt.RenderConfig(xres=sw, yres=sh))  # noqa: F841
+    compare(f"K1 vs plain, 1024 objects {sw}x{sh} (plain one frame {big_plain_ms:.0f} ms)",
+            ref, got)
+    gw, gh = MANY_GRAD
+    # the plain march's time is its longest lane's steps: a 2000-step budget
+    cfg_big_march = rtt.RenderConfig(xres=gw, yres=gh, march_max_iter=2000, **glow)
+    big_glow = spheres_scene(rtt, 11, 1023, glow_dist=3.0).to(dev)
+    got, ref, big_march_plain_ms = both(big_glow, cfg_big_march, km)
+    compare(f"K3 vs plain, 1024 objects {gw}x{gh} march_max_iter=2000 (plain one frame "
+            f"{big_march_plain_ms:.0f} ms)", ref, got)
+
+    def regime_args(stem, scene, cfg, tail, cull=None):
+        """Launcher ``stem``'s arguments after the field of view for
+        ``scene`` under ``cfg``, ``tail`` its texture pointers; K1's cull as
+        its wrapper takes it, unless ``cull`` forces it."""
+        if cull is None:
+            cull = kt.cull_on(cfg, scene.objects.count)
+        return {"trace_fwd": kt.kernel_args(cfg) + tail + [int(cull)],
+                "march_fwd": km.kernel_args(cfg) + tail,
+                "trace_bwd": kb.kernel_args(cfg) + [kb.site_cap(cfg)] + tail,
+                "march_bwd": kmb.kernel_args(cfg) + tail}[stem]
+
+    def regime_launch(stem, scene, cfg, g=None, table_regime="", cull=None):
+        """Launcher ``stem`` of the build ``stem + table_regime`` ("" stages
+        the tables in shared memory, ``_build.GLOBAL_SUFFIX`` reads them from
+        global memory) on ``scene`` packed once by the pack kernel (the
+        closure holds the words): a function giving the image (a forward)
+        or (block, image) for cotangent planes ``g`` (a backward)."""
+        n = scene.objects.count
+        words = kp.launch_pack(scene)
+        ptrs, meta = kp.word_pointers(words, n)
+        lib = _build.load_cuda_library(stem + table_regime)
+        fn = getattr(lib, f"rt_{stem}")
+        args = regime_args(stem, scene, cfg, kp.texture_pointers(scene, meta), cull)
+        if g is None:
+            return lambda words=words: kt.launch(lib, fn, ptrs, n, dev, cfg, args)
+        return lambda words=words: kb.launch_block(lib, fn, ptrs, n, dev, cfg, args, g, True)
+
+    def regimes(label, stem, scene, cfg, g=None, warm=3, reps=10):
+        """``stem``'s two table regimes on the same words: the images bit
+        for bit, a backward's blocks within relative L2 REGIME_REL_L2 (their
+        atomics add in another order), then timed in turns (shared, global,
+        global, shared). Returns the two means (ms) and the relative L2 (0
+        for a forward)."""
+        fns = {tag: regime_launch(stem, scene, cfg, g, suffix)
+               for tag, suffix in (("shared", ""), ("global", _build.GLOBAL_SUFFIX))}
+        with torch.no_grad():
+            a, b = (f() for f in fns.values())
+            rel = 0.0
+            if g is not None:
+                rel = float((a[0] - b[0]).norm() / b[0].norm())
+                a, b = a[1], b[1]
+            same = float((img(a) == img(b)).all(-1).mean())
+            runs = [(tag, cuda_ms(torch, fns[tag], warm, reps))
+                    for tag in ("shared", "global", "global", "shared")]
+        means = [float(np.mean([ms for k, ms in runs if k == tag])) for tag in ("shared", "global")]
+        print(f"  {stem} {label} {cfg.xres}x{cfg.yres}, tables staged vs read from global memory: "
+              f"image bit-equal on {same:.4%} of pixels"
+              + (f", blocks relative L2 {rel:.3g}" if g is not None else "") + "; "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in runs) + f" ms ({card})")
+        if same < 1.0 or not rel <= REGIME_REL_L2 or not np.isfinite(img(a)).all():
+            raise SystemExit(f"chip_smoke: {stem} {label}: the two table regimes disagree")
+        return means[0], means[1], rel
+
+    def staged(stem):
+        """Backward ``stem`` on its shared-table build at any n, returning
+        as the wrappers' ``render_grads_kernel(..., return_primal=True)``."""
+        def fn(scene, cfg, g, return_primal=True):
+            block, prim = regime_launch(stem, scene, cfg, g)()
+            return kb.split_block(block, scene.objects.count), prim
+        fn.__name__ = f"{stem} with its tables staged"
+        return fn
+
+    # K1b's rule: the cull only above kt.CULL_MIN_OBJECTS; below, on the
+    # default scene's 5 objects, forced on against off
+    fns = {c: regime_launch("trace_fwd", scene_dev, cfg_main, cull=c) for c in (True, False)}
+    with torch.no_grad():
+        forced_err = float(np.abs(img(fns[True]()) - img(fns[False]())).max())
+        runs = [(c, cuda_ms(torch, fns[c])) for c in (True, False, False, True)]
+    print(f"  K1 default scene (5 objects) {W}x{H} alone, the cull forced on vs off: max abs "
+          f"{forced_err}; " + ", ".join(f"{'on' if c else 'off'} {ms:.4f}" for c, ms in runs)
+          + f" ms ({card})")
+    if forced_err != 0.0:
+        raise SystemExit("chip_smoke: K1b forced on the default scene changes the image")
+
+    # K2 and K4 (past kb.SHARED_TABLE_MAX: their global-table builds) and
+    # their shared-table builds, which 1 024 objects still fit, against one
+    # autograd call each
+    _, big_bwd_plain_ms = grad_case(f"1024 objects {gw}x{gh}", big,
+                                    rtt.RenderConfig(xres=gw, yres=gh),
+                                    kernels=[kb.render_grads_kernel, staged("trace_bwd")])
+    _, big_march_bwd_plain_ms = grad_case(
+        f"march 1024 objects {gw}x{gh} march_max_iter=2000", big_glow, cfg_big_march,
+        kernels=[kmb.render_grads_kernel, staged("march_bwd")], **mgrad)
+    # each kernel's two table regimes (the build a wrapper launches is chosen
+    # by n against its SHARED_TABLE_MAX) at its threshold, where both fit its
+    # launch shape, and at 1 024 objects, the shapes of the times below
+    g_big = rtt.Color(*(torch.from_numpy(np.random.default_rng(5).standard_normal((H, W))
+                                         .astype(np.float32)).to(dev) for _ in range(3)))
+    g_bigm = rtt.Color(*(c[:MH, :MW].contiguous() for c in g_big))
+    regime_ms = {}
+    for stem, cfg, g, march, sizes in (
+            ("trace_fwd", cfg_main, None, False, (kt.SHARED_TABLE_MAX, 1024)),
+            ("march_fwd", cfg_march, None, True, (1024,)),
+            ("trace_bwd", cfg_main, g_big, False, (kb.SHARED_TABLE_MAX, 1024)),
+            ("march_bwd", cfg_march, g_bigm, True, (kb.SHARED_TABLE_MAX, 1024))):
+        for n in sizes:
+            scene = (big_glow if march else big) if n == 1024 else spheres_scene(
+                rtt, 11, n - 1, glow_dist=3.0 if march else 0.0).to(dev)
+            regime_ms[stem, n] = regimes(f"{n} objects", stem, scene, cfg, g,
+                                         *((1, 3) if march else (3, 10)))
+    cli_file(torch, rtt, cli, kt, kp, big_built, W, H)
+    print(f"  1024 objects ({card}), alone on words packed once, the build the wrappers launch: "
+          f"K1 {W}x{H} with the cull {regime_ms['trace_fwd', 1024][1]:.3f} ms, K2 {W}x{H} with "
+          f"the image {regime_ms['trace_bwd', 1024][1]:.3f} ms, K3 {MW}x{MH} -m -g 1.0 "
+          f"{regime_ms['march_fwd', 1024][0]:.3f} ms, K4 {MW}x{MH} with the image "
+          f"{regime_ms['march_bwd', 1024][1]:.3f} ms (plain versions at {gw}x{gh}: K2's "
+          f"autograd {big_bwd_plain_ms:.0f} ms, K3's {big_march_plain_ms:.0f} ms, K4's autograd "
+          f"{big_march_bwd_plain_ms:.0f} ms)")
+    deep = cfg_main.with_(max_reflections=8)
+    got, ref, deep_plain_ms = both(default, deep.with_(xres=sw, yres=sh))
+    deep_err = compare(f"K1 max_reflections=8 vs plain, default {sw}x{sh} (plain one frame "
+                       f"{deep_plain_ms:.0f} ms)", ref, got)
+    with torch.no_grad():
+        deep_img = img(kt.render_color_kernel(scene_dev, deep))
+        deep_ms = cuda_ms(torch, lambda: kt.render_color_kernel(scene_dev, deep))
+    if not np.isfinite(deep_img).all():
+        raise SystemExit("chip_smoke: K1 at max_reflections=8 is not finite")
+    print(f"  K1 max_reflections=8, default {W}x{H} (64-task stack): {deep_ms:.4f} ms/frame")
+    phase_s["4b"] = time.time() - t_phase
+    t_phase = time.time()
 
     # 5. times at the main path's shape, in turns, once the host is free
     ops = {name: f.result() for name, f in ops_futures.items()}
@@ -1491,7 +1783,7 @@ def run(torch, tex_dir) -> int:
               f"(with the image), march training step {step_ms:.3f} ms")
     for name in ("march_fwd", "march_bwd"):
         for tag, key in (("on", name), ("off", f"{name}_off")):
-            n_ops, _, px_ops, passes, px_passes, never = ops[key]
+            n_ops, _, px_ops, passes, px_passes, never = ops[key][:6]
             print(f"  counts, {name} {MW}x{MH}, tail {tag}: {n_ops} f32 operations, "
                   f"{passes} object passes, {never} marches ended by the never-converges "
                   f"test; the longest pixel {px_ops} operations, {px_passes} object passes")
@@ -1533,6 +1825,15 @@ def run(torch, tex_dir) -> int:
           f"ms ({bounds['trace_retrace'][1]}); its value pass and forward-mode operations "
           f"(diagnostic, not the bound): {dual_ops} -> {roofline(dual_ops, 0)[0]:.4f} ms")
 
+    cull_ops = ops["trace_fwd_cull"][0]
+    bounds["trace_fwd_cull"] = roofline(cull_ops, io_bytes(conf4, cfg_main))
+    big_ops = ops["trace_fwd_cull_1024"][0]
+    print(f"  bound, trace_fwd_cull {W}x{H}, 101 objects: {cull_ops} f32 operations -> "
+          f"{bounds['trace_fwd_cull'][0]:.4f} ms ({bounds['trace_fwd_cull'][1]}); 1024 objects: "
+          f"{big_ops} -> {roofline(big_ops, io_bytes(big, cfg_main))[0]:.4f} ms")
+    phase_s["5"] = time.time() - t_phase
+    print("phase wall times: " + ", ".join(f"{k} {v:.0f} s" for k, v in phase_s.items()))
+
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
         raise SystemExit("chip_smoke: the port imported jax or the JAX package")
     print(json.dumps({"kernels": [{
@@ -1541,6 +1842,14 @@ def run(torch, tex_dir) -> int:
         "replaces": "ray_rust_tpu/ops/pallas_trace.py:1275",
         "launches": launches, "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bounds["trace_fwd"][0], "bound_by": bounds["trace_fwd"][1],
+        "library_ms": None,
+    }, {
+        "name": "trace_fwd_cull", "route": "cuda",
+        "source": "ray_rust_tpu_torch/csrc/trace_fwd.cu",
+        "replaces": "ray_rust_tpu/ops/pallas_trace.py:1109",
+        "launches": cull_launches, "max_abs_err": cull_err, "ms": cull_ms,
+        "off_ms": nocull_ms, "plain_ms": cull_plain_ms,
+        "bound_ms": bounds["trace_fwd_cull"][0], "bound_by": bounds["trace_fwd_cull"][1],
         "library_ms": None,
     }, {
         "name": "trace_fwd_textured", "route": "cuda",

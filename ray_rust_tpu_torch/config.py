@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``ray_rust_tpu/config.py``. It keeps the semantic
 fields, and of the JAX package's kernel switches only ``march_floor_skip``,
-which the march kernels take; the TPU tiling knobs have no meaning here. A
+which the march kernels take, and ``pallas_prefilter``, which the trace
+kernel takes; the TPU tiling knobs have no meaning here. A
 render runs on the device of the scene's tensors.
 """
 
@@ -57,6 +58,15 @@ class RenderConfig:
     # flips only knife-edge pixels. Kernels only: the plain march ignores it
     # and stays the exact step-by-step oracle.
     march_floor_skip: bool = True
+
+    # The trace kernel's per-tile object cull (K1b, csrc/trace_body.cuh:
+    # cull_tile, the JAX package's field of the same name): above 64 objects
+    # each 16x16 block lists the spheres its camera rays' pyramid can reach,
+    # and those its primary shadow rays can, and the root trace's first
+    # raycast and its shadow scan those lists alone. Conservative, so the
+    # image is the full scan's bit for bit. Kernels only: the plain trace
+    # ignores it.
+    pallas_prefilter: bool = True
 
     # Backward hygiene: hits farther than this are constants for autograd
     # (knife-edge horizon rays). The forward is unchanged. None disables.

@@ -5,7 +5,12 @@
 // the global one with one atomicAdd per nonzero entry, so a frame takes one
 // global atomic per entry per block rather than one per pixel, site and
 // field, and the summation order changes from run to run. Dynamic shared
-// memory above 48 KB is asked for, so 512 objects fit (88 KB).
+// memory above 48 KB is asked for. In the -DRT_GLOBAL_TABLES build
+// (trace_body.cuh: GLOBAL_TABLES), for scenes whose tables and block do not
+// fit two blocks an SM, the body reads the tables from global memory and the
+// accumulator adds straight to the global block (K2's WarpAcc after its warp
+// sums, K4's SharedAcc lane by lane): more global atomics, and again a
+// summation order that changes from run to run.
 //
 // ``Body::run(s, p, cutoff, cam, ix, iy, g, acc)`` is the per-pixel program:
 // it adds the pixel's cotangents through ``acc`` and returns its colour. It
@@ -47,10 +52,13 @@ struct SharedAcc {
 };
 
 // Shared memory a launch needs for n objects and n_tex textures, in bytes:
-// the tables, the block's accumulator and the texture meta rows.
+// the tables and the block's accumulator (in the shared-table build), the
+// camera, the light and the texture meta rows.
 inline size_t bwd_smem(int n, int n_tex = 0) {
-  return sizeof(float) * (n * F32_COLS + CAM_COLS + LIGHT_COLS + (n + 1) * GRAD_COLS) +
-         sizeof(int) * (n * I32_COLS + n_tex * TEX_META_COLS);
+  const int n_tab = GLOBAL_TABLES ? 0 : n;
+  return sizeof(float) * (n_tab * F32_COLS + CAM_COLS + LIGHT_COLS +
+                          (GLOBAL_TABLES ? 0 : (n + 1) * GRAD_COLS)) +
+         sizeof(int) * (n_tab * I32_COLS + n_tex * TEX_META_COLS);
 }
 
 // The launch shape of every body and the accumulator of the march backward:
@@ -73,18 +81,22 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
            const float* __restrict__ g_g, const float* __restrict__ g_b,
            float* __restrict__ out_block,
            float* __restrict__ prim_r, float* __restrict__ prim_g, float* __restrict__ prim_b) {
+  constexpr bool GLOBAL = GLOBAL_TABLES;
   extern __shared__ float smem[];
+  const int n_tab = GLOBAL ? 0 : n;  // objects staged in shared memory
   float* s_f32 = smem;
-  int* s_i32 = reinterpret_cast<int*>(s_f32 + n * F32_COLS);
-  float* s_cam = reinterpret_cast<float*>(s_i32 + n * I32_COLS);
+  int* s_i32 = reinterpret_cast<int*>(s_f32 + n_tab * F32_COLS);
+  float* s_cam = reinterpret_cast<float*>(s_i32 + n_tab * I32_COLS);
   float* s_light = s_cam + CAM_COLS;
   float* s_acc = s_light + LIGHT_COLS;
-  const int acc_len = (n + 1) * GRAD_COLS;
+  const int acc_len = GLOBAL ? 0 : (n + 1) * GRAD_COLS;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
-  for (int k = tid; k < n * F32_COLS; k += nthreads) s_f32[k] = f32t[k];
-  for (int k = tid; k < n * I32_COLS; k += nthreads) s_i32[k] = i32t[k];
+  if constexpr (!GLOBAL) {
+    for (int k = tid; k < n * F32_COLS; k += nthreads) s_f32[k] = f32t[k];
+    for (int k = tid; k < n * I32_COLS; k += nthreads) s_i32[k] = i32t[k];
+  }
   if (tid < CAM_COLS) s_cam[tid] = cam[tid];
   if (tid < LIGHT_COLS) s_light[tid] = light[tid];
   for (int k = tid; k < acc_len; k += nthreads) s_acc[k] = 0.0f;
@@ -96,11 +108,11 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
 
   const int ix = blockIdx.x * blockDim.x + threadIdx.x;
   const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  typename Body::Acc acc = {s_acc};
+  typename Body::Acc acc = {GLOBAL ? out_block : s_acc};
   if (ix < p.xres && iy < p.yres) {  // every thread reaches the flush and the barrier
     SceneView s;
-    s.f32 = s_f32;
-    s.i32 = s_i32;
+    s.f32 = GLOBAL ? f32t : s_f32;
+    s.i32 = GLOBAL ? i32t : s_i32;
     s.n = n;
     s.light = v3(s_light[0], s_light[1], s_light[2]);
     if constexpr (Body::TEXTURED) {
@@ -116,10 +128,12 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
     }
   }
   acc.flush(n);
-  __syncthreads();
-  for (int k = tid; k < acc_len; k += nthreads) {
-    const float v = s_acc[k];
-    if (v != 0.0f) atomicAdd(&out_block[k], v);
+  if constexpr (!GLOBAL) {
+    __syncthreads();
+    for (int k = tid; k < acc_len; k += nthreads) {
+      const float v = s_acc[k];
+      if (v != 0.0f) atomicAdd(&out_block[k], v);
+    }
   }
 }
 

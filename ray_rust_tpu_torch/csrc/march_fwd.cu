@@ -7,24 +7,26 @@
 // kernel's body (trace_body.cuh).
 //
 // What bounds it: its slowest thread's serial SDF steps, not bytes or total
-// work. A 720p image is 11 MB of output and the scene at most 512 objects *
-// 92 B = 47 KB, while a pixel runs its marches one O(objects) sweep after
-// another, and a block holds its SM slot until its last warp ends. With
-// every march stepped, a horizon-grazing ray crawls to the 10 000-step cap
-// (10 209 object passes for the longest 720p pixel), so the kernel's time barely
-// grows with the pixel count. Two shortcuts of the JAX kernel cut that chain
-// (march_body.cuh): the closed-form floor tail, which resolves a floor-won
-// march's remaining steps at once, stall of the reference's f32 update
-// included, and the never-converges shortcut, which ends a shadow march that
-// no object can stop before its first step; the longest 720p pixel then
-// takes 2 311 passes, a ray that crawls along a mirror sphere's rim. The
-// design is otherwise simple: the object tables are staged in shared memory
-// once per block (every thread of a warp reads the same row at once, a
-// broadcast), each thread runs its own march loops, and the refraction
-// recursion is a chain of template instances, one per depth, inlined into
-// one program. A textured hit (the JAX package's jnp path: its march kernel
-// declines textures, pallas_march.py:60-73) reads the texture atlas as K1
-// does: the meta rows in shared memory beside the tables, one 16-byte
+// work. A 720p image is 11 MB of output and the scene 92 B an object, while a
+// pixel runs its marches one O(objects) sweep after another, and a block
+// holds its SM slot until its last warp ends. With every march stepped, a
+// horizon-grazing ray crawls to the 10 000-step cap (10 209 object passes for
+// the longest 720p pixel), so the kernel's time barely grows with the pixel
+// count. Two shortcuts of the JAX kernel cut that chain (march_body.cuh): the
+// closed-form floor tail, which resolves a floor-won march's remaining steps
+// at once, stall of the reference's f32 update included, and the
+// never-converges shortcut, which ends a shadow march that no object can stop
+// before its first step; the longest 720p pixel then takes 2 311 passes, a
+// ray that crawls along a mirror sphere's rim. The design is otherwise
+// simple: the object tables are staged in shared memory once per block (every
+// thread of a warp reads the same row at once, a broadcast; tables too large
+// for the launch shape's share of an SM are read from the pack kernel's words
+// through the read-only path instead, in the -DRT_GLOBAL_TABLES build,
+// ops/kernel_march.py: SHARED_TABLE_MAX), each thread runs its own march
+// loops, and the refraction recursion is a chain of template instances, one
+// per depth, inlined into one program. A textured hit (the JAX package's jnp
+// path: its march kernel declines textures, pallas_march.py:60-73) reads the
+// texture atlas as K1 does: the meta rows in shared memory beside the tables, one 16-byte
 // read-only load a texel from global memory. Not carried over: the
 // tile-wide while loop and tile skip, and the ray-parametric step form
 // (pallas_march.py:85-97,127-147), which rounds differently and only saves
@@ -50,17 +52,21 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
                  const float* __restrict__ cam, const float* __restrict__ light,
                  int n, rt::MarchParams p, rt::TexArgs tx, float* __restrict__ out_r,
                  float* __restrict__ out_g, float* __restrict__ out_b) {
+  constexpr bool GLOBAL = rt::GLOBAL_TABLES;
   extern __shared__ float smem[];
+  const int n_tab = GLOBAL ? 0 : n;  // objects staged in shared memory
   float* s_f32 = smem;
-  int* s_i32 = reinterpret_cast<int*>(s_f32 + n * rt::F32_COLS);
-  float* s_cam = reinterpret_cast<float*>(s_i32 + n * rt::I32_COLS);
+  int* s_i32 = reinterpret_cast<int*>(s_f32 + n_tab * rt::F32_COLS);
+  float* s_cam = reinterpret_cast<float*>(s_i32 + n_tab * rt::I32_COLS);
   float* s_light = s_cam + rt::CAM_COLS;
   int* s_meta = reinterpret_cast<int*>(s_light + rt::LIGHT_COLS);
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
-  for (int k = tid; k < n * rt::F32_COLS; k += nthreads) s_f32[k] = f32t[k];
-  for (int k = tid; k < n * rt::I32_COLS; k += nthreads) s_i32[k] = i32t[k];
+  if constexpr (!GLOBAL) {
+    for (int k = tid; k < n * rt::F32_COLS; k += nthreads) s_f32[k] = f32t[k];
+    for (int k = tid; k < n * rt::I32_COLS; k += nthreads) s_i32[k] = i32t[k];
+  }
   if (tid < rt::CAM_COLS) s_cam[tid] = cam[tid];
   if (tid < rt::LIGHT_COLS) s_light[tid] = light[tid];
   for (int k = tid; k < tx.n_tex * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
@@ -71,8 +77,8 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   if (ix >= p.xres || iy >= p.yres) return;
 
   rt::SceneView s;
-  s.f32 = s_f32;
-  s.i32 = s_i32;
+  s.f32 = GLOBAL ? f32t : s_f32;
+  s.i32 = GLOBAL ? i32t : s_i32;
   s.n = n;
   s.light = rt::v3(s_light[0], s_light[1], s_light[2]);
   s.tx = tx;
@@ -88,10 +94,12 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
 
 extern "C" {
 
-// Shared memory the launch needs for n objects and n_tex textures, in bytes.
+// Shared memory the launch needs for n objects and n_tex textures, in bytes
+// (the tables in the shared-table build only).
 size_t rt_march_fwd_smem(int n, int n_tex) {
-  return sizeof(float) * (n * rt::F32_COLS + rt::CAM_COLS + rt::LIGHT_COLS) +
-         sizeof(int) * (n * rt::I32_COLS + n_tex * rt::TEX_META_COLS);
+  const int n_tab = rt::GLOBAL_TABLES ? 0 : n;
+  return sizeof(float) * (n_tab * rt::F32_COLS + rt::CAM_COLS + rt::LIGHT_COLS) +
+         sizeof(int) * (n_tab * rt::I32_COLS + n_tex * rt::TEX_META_COLS);
 }
 
 // Launch the march forward on ``stream`` of ``device``; returns the

@@ -19,8 +19,9 @@
 // with that weight and the parent runs on. A task at level L pushes at most
 // max(1, max_reflections - L) children, all at deeper levels, so the stack
 // never holds more than 1 + R(R-1)/2 tasks for R = max_reflections
-// (ops/kernel_trace.py checks that against STACK_CAP; a push past it would
-// turn the pixel to NaN rather than lose the sub-trace).
+// (STACK_CAP, or STACK_CAP_DEEP in the instances a recorder with STACK
+// selects; ops/kernel_trace.py checks the bound; a push past it would turn
+// the pixel to NaN rather than lose the sub-trace).
 //
 // Vectors, the sky, uv maps, patterns and the normal are shared with the
 // march-mode body (march_body.cuh). The traversal takes a recorder: the
@@ -58,13 +59,33 @@
 // Every function is forced inline (RT_FI): the kernels are one function
 // each, and chip_smoke.py fails when ptxas reports another.
 //
+// The per-tile object cull (K1b, replacing ray_rust_tpu/ops/pallas_trace.py:
+// _build_candidates and _corner_dir): a 16x16 tile's camera rays all lie in
+// the pyramid over its four corner pixels' rays, so a sphere that lies more
+// than its radius outside one of the pyramid's side planes is hit by none of
+// them, and by none of the shadow rays from their first hits along the
+// light, when that plane also faces the light. cull_tile builds the planes,
+// cull_object tests one object, and two bitmasks over the objects (one word
+// a 32 objects, bit i%32 of word i/32) carry the tile's primary and shadow
+// candidates; floors are always candidates. Only a recorder that says CULL
+// (K1's, trace_fwd.cu and trace_host.cpp) takes them, and only for the root
+// trace's first raycast and its shadow ray, as the JAX kernel does
+// (pallas_trace.py:1026-1030); every later bounce and refraction sub-trace
+// scans all objects. nearest_in scans a mask's set bits in increasing index
+// order, so under the strictly-closer, first-index rule it returns the full
+// scan's winner bit for bit whenever the mask holds every object the ray can
+// hit. The test is made conservative in f32 (cull_object says why).
+//
 // A build with -DRT_COUNT_OPS counts the f32 arithmetic of the object loops
 // (the fewest operations each object test can take) into SceneView::ops[0],
 // and the texel bytes the traversal's texture fetches read into ops[1], for
 // the kernels' roofline bound; the forward's (trace_host.cpp) also counts
 // the rest of the body's f32 operations (shading, sky, camera ray) into
-// ops[2], a diagnostic of how far K1 is from the card's issue rate; the
-// ordinary build compiles it away.
+// ops[2], a diagnostic of how far K1 is from the card's issue rate; with the
+// cull it counts the objects cull_object tested into ops[3], the primary
+// candidates scanned and the scans into ops[4] and ops[5], and the shadow
+// candidates scanned and the scans into ops[6] and ops[7] (the cull's own
+// f32 operations go to ops[0]); the ordinary build compiles it away.
 #pragma once
 
 #include <math.h>
@@ -94,6 +115,13 @@
 #else
 #define RT_COUNT_SHADE(s, k) ((void)0)
 #endif
+// The cull's slots (only a CULL recorder's traversal and the host build's
+// list building reach them).
+#ifdef RT_COUNT_OPS
+#define RT_COUNT_SLOT(s, slot, k) ((s).ops[slot] += static_cast<unsigned long long>(k))
+#else
+#define RT_COUNT_SLOT(s, slot, k) ((void)0)
+#endif
 
 namespace rt {
 
@@ -122,6 +150,35 @@ constexpr int BIGNORE = 1 << 4;
 constexpr int BG_DEFAULT_SKY = 0;
 constexpr int BG_BLACK = 1;
 constexpr int STACK_CAP = 16;
+// The deeper task stack (1 + R(R-1)/2 tasks for R = max_reflections: up to
+// R = 11), a second instance of each trace kernel that takes it.
+constexpr int STACK_CAP_DEEP = 64;
+// K1b's tile: the forward kernel's block (trace_fwd.cu).
+constexpr int CULL_TILE = 16;
+// The table regime a kernel library is built for: each of K1-K4 builds a
+// second library with -DRT_GLOBAL_TABLES (ops/_build.py: the "_global"
+// names), whose kernels read the object tables where the pack kernel wrote
+// them instead of staging them in shared memory (the backwards also add
+// their cotangents straight to the output block, bwd_kernel.cuh). The
+// wrappers launch it for scenes whose tables do not fit the launch shape's
+// share of an SM's shared memory. It holds the same instances as the first
+// (cull, task stack, record cap), so the two differ only where the tables
+// are read. A second library rather than a template argument: each compiles
+// in an nvcc of its own, beside the other; the march backward's two
+// instances already set the build's time (176 s of 185 on the H100's host
+// for the shared build, 185 for the global one, PERF.md §6), and its four
+// in one nvcc would take about twice that.
+#ifdef RT_GLOBAL_TABLES
+constexpr bool GLOBAL_TABLES = true;
+#else
+constexpr bool GLOBAL_TABLES = false;
+#endif
+// K1b's f32 margins (cull_object): relative to the sphere's distance from
+// the camera, to the camera's distance from the origin, and the least n.L
+// of a plane that culls shadow rays.
+constexpr float CULL_REL = 2e-3f;
+constexpr float CULL_ABS = 1e-5f;
+constexpr float CULL_SHADOW_MIN = 2e-3f;
 
 // Fewest f32 operations (add, sub, mul, div, sqrt) of one object test in a
 // raycast: a sphere whose discriminant is negative, a floor facing away.
@@ -145,6 +202,10 @@ constexpr int OPS_REFRACT = 40;      // bend, normalize, the sub-trace's start a
 constexpr int OPS_BOUNCE = 17;       // mirror direction and the flag test
 constexpr int OPS_MISS = 9;          // the background's share of the pixel
 constexpr int OPS_SKY = 70;          // Cephes atan2 and asin, two fmodf, glare
+constexpr int OPS_CULL_TILE = 304;   // four corner coordinates, four plane normals
+                                     // rotated (two quaternion products each),
+                                     // normalized and dotted with the light
+constexpr int OPS_CULL_SPHERE = 36;  // offset, margin, four plane tests
 
 constexpr float F32_EPS = 1.1920928955078125e-7f;  // f32::EPSILON
 constexpr float PI_F = 3.14159265358979323846f;
@@ -406,6 +467,43 @@ RT_FI float nearest_t(const SceneViewT<T>& s, V3 vi, V3 eye, int ig, int flags, 
   return t;
 }
 
+RT_FI int lowest_bit(unsigned w) {
+#ifdef __CUDA_ARCH__
+  return __ffs(w) - 1;
+#else
+  return __builtin_ctz(w);
+#endif
+}
+
+// nearest_t over the objects of candidate mask ``cand`` (bit i%32 of word
+// i/32 for object i), in increasing index order: the full scan's winner
+// whenever ``cand`` holds every object the ray can hit. Counts the
+// candidates it tests into ops[slot] and the scan into ops[slot + 1].
+RT_FI float nearest_in(const SceneView& s, const unsigned* cand, int slot, V3 vi, V3 eye, int ig,
+                       int flags, int* idx) {
+  float t = INFINITY;
+  *idx = 0;
+  RT_COUNT_SLOT(s, slot + 1, 1);
+  const int words = (s.n + 31) >> 5;
+  for (int w = 0; w < words; ++w) {
+    unsigned bits = cand[w];
+    while (bits) {
+      const int i = (w << 5) + lowest_bit(bits);
+      bits &= bits - 1u;
+      if (i == ig) continue;
+      const int kind = s.i32[i * I32_COLS];
+      RT_COUNT(s, kind == KIND_SPHERE ? OPS_SPHERE_TEST : OPS_FLOOR_TEST);
+      RT_COUNT_SLOT(s, slot, 1);
+      float c = candidate_t(s.f32 + i * F32_COLS, kind, vi, eye, t, flags);
+      if (c < t) {
+        t = c;
+        *idx = i;
+      }
+    }
+  }
+  return t;
+}
+
 // The nearest hit's t in T: the scan on the values, then for a Dual<L>
 // trace the winner's t again from its seeded row. Without the running
 // bound the winner takes the same root, so the value is the scan's.
@@ -599,6 +697,119 @@ struct NoRecord {
   }
 };
 
+// A recorder's traits: the capacity of the task stack it runs with
+// (STACK_CAP unless it says STACK) and whether it carries K1b's candidate
+// masks (CULL). Only K1's recorder says either.
+template <class Rec, class = void>
+struct RecStack : std::integral_constant<int, STACK_CAP> {};
+template <class Rec>
+struct RecStack<Rec, std::void_t<decltype(Rec::STACK)>>
+    : std::integral_constant<int, Rec::STACK> {};
+template <class Rec, class = void>
+struct RecCull : std::false_type {};
+template <class Rec>
+struct RecCull<Rec, std::void_t<decltype(Rec::CULL)>> : std::bool_constant<Rec::CULL> {};
+
+// K1's recorder: records nothing, runs a stack of STACK_ tasks and, with
+// CULL_, scans the root trace's first raycast over ``prim`` and its shadow
+// ray over ``shadow`` (the tile's K1b masks).
+template <bool CULL_, int STACK_>
+struct FwdRecord : NoRecord {
+  static constexpr bool CULL = CULL_;
+  static constexpr int STACK = STACK_;
+  const unsigned* prim = nullptr;
+  const unsigned* shadow = nullptr;
+};
+
+// The side planes of the pyramid over a tile's camera rays (K1b): unit
+// normals facing inward, whether each also bounds the tile's primary
+// shadow rays, and the camera.
+struct CullTile {
+  V3 n[4];
+  bool shadow[4];
+  V3 cam;
+  float cam_abs;  // |cam.x| + |cam.y| + |cam.z|
+};
+
+// The camera-space ray coordinates of pixel column ix and row iy, as
+// camera_ray computes them: monotone in the pixel, so every pixel of a tile
+// lies between its corners'.
+RT_FI float pixel_ey(int ix, int xres, float sx) {
+  return (float)(ix - xres / 2) * sx / (float)xres;
+}
+RT_FI float pixel_ez(int iy, int yres, float sy) {
+  return -(float)(iy - yres / 2) * sy / (float)yres;
+}
+
+// v rotated by quaternion q as camera_ray rotates: q * (v, 0) * conj(q).
+RT_FI V3 rotate(Q4 q, V3 v) {
+  const Q4 qc = {-q.x, -q.y, -q.z, q.w};
+  const Q4 e = {v.x, v.y, v.z, 0.0f};
+  const Q4 r = qmul(qmul(q, e), qc);
+  return v3(r.x, r.y, r.z);
+}
+
+// The pyramid of the tile whose corner pixels are (col0, row0) and (col0 +
+// cols - 1, row0 + rows - 1) (ragged tiles keep the whole tile's corners,
+// which only widens it). In camera space a pixel's ray is (1, ey, ez) with
+// ey in [ylo, yhi] and ez in [zlo, zhi], so the planes are y = ylo x, y =
+// yhi x, z = zlo x and z = zhi x with the exact normals (-ylo, 1, 0), (yhi,
+// -1, 0), (-zlo, 0, 1), (zhi, 0, -1); rotated into the world as the rays
+// are, and normalized. (The JAX kernel crosses the rotated corner rays,
+// whose f32 rounding tilts a normal by ~1e-4 across a 16-pixel tile.)
+RT_FI CullTile cull_tile(const Params& p, const float* cam, V3 light, int col0, int row0, int cols,
+                         int rows) {
+  const float ya = pixel_ey(col0, p.xres, p.sx), yb = pixel_ey(col0 + cols - 1, p.xres, p.sx);
+  const float za = pixel_ez(row0, p.yres, p.sy), zb = pixel_ez(row0 + rows - 1, p.yres, p.sy);
+  const float ylo = fminf(ya, yb), yhi = fmaxf(ya, yb);
+  const float zlo = fminf(za, zb), zhi = fmaxf(za, zb);
+  const Q4 q = {cam[3], cam[4], cam[5], cam[6]};
+  const V3 nc[4] = {v3(-ylo, 1.0f, 0.0f), v3(yhi, -1.0f, 0.0f), v3(-zlo, 0.0f, 1.0f),
+                    v3(zhi, 0.0f, -1.0f)};
+  CullTile ct;
+  for (int k = 0; k < 4; ++k) {
+    ct.n[k] = normalized(rotate(q, nc[k]));
+    ct.shadow[k] = dot(ct.n[k], light) >= CULL_SHADOW_MIN;
+  }
+  ct.cam = v3(cam[0], cam[1], cam[2]);
+  ct.cam_abs = fabsf(cam[0]) + fabsf(cam[1]) + fabsf(cam[2]);
+  return ct;
+}
+
+// Whether object row ``o`` of kind ``kind`` is a primary (*prim) and a
+// shadow (*shadow) candidate of tile ``ct``. A sphere at d = org - cam of
+// radius r is culled by plane k when n_k.d < -(r + m).
+//
+// Why the margin m = CULL_REL (|d|_1 + r) + CULL_ABS |cam|_1 keeps the cull
+// exact in f32: candidate_t finds a hit where the rounded discriminant
+// b*b - 4c is >= F32_EPS, and its rounding (~56 ulp of |w|^2, w = ray start
+// - org, for a unit ray) lets a line pass up to sqrt(8.4e-7)|w| = 9.2e-4|w|
+// outside the sphere and still hit it. A pixel's rounded ray leaves the
+// exact pyramid by ~2e-6 of its length, a normal is off by ~1e-6. For a
+// camera ray w = -d, so 2e-3 |d|_1 covers all of it with a factor of two.
+// A shadow ray starts at a first hit pt, rounded to ~1e-7 |pt| (the
+// CULL_ABS term covers the camera's share), and runs along L; only planes
+// with n.L >= CULL_SHADOW_MIN cull it, so n.(pt + sL - cam) grows by at
+// least 2e-3 s, which outruns the 9.2e-4 s that a blocker s along the ray
+// gains in reach and the ~2e-6 s of pt's own distance from the pyramid.
+RT_FI void cull_object(const CullTile& ct, const float* o, int kind, bool* prim, bool* shadow) {
+  if (kind != KIND_SPHERE) {
+    *prim = *shadow = true;
+    return;
+  }
+  const float dx = o[0] - ct.cam.x, dy = o[1] - ct.cam.y, dz = o[2] - ct.cam.z;
+  const float r = fabsf(o[17]);
+  const float m = r + CULL_REL * (fabsf(dx) + fabsf(dy) + fabsf(dz) + r) + CULL_ABS * ct.cam_abs;
+  bool out_p = false, out_s = false;
+  for (int k = 0; k < 4; ++k) {
+    const bool out = ct.n[k].x * dx + ct.n[k].y * dy + ct.n[k].z * dz < -m;
+    out_p = out_p || out;
+    out_s = out_s || (out && ct.shadow[k]);
+  }
+  *prim = !out_p;
+  *shadow = !out_s;
+}
+
 // Run one trace (render.rs:1142-1224) and add its weighted colour to *out;
 // refraction sub-traces go onto the stack. ``rec.task`` sees the trace
 // start and ``rec.site`` each raycast site: its ray, throughput, flags,
@@ -615,7 +826,13 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
   for (int step = 0; step < n_iters; ++step) {
     int lev = tk.lev + 1 + step;
     int idx;
-    T t = raycast(s, vi, eye, ig, flags, &idx);
+    T t;
+    if constexpr (RecCull<Rec>::value) {  // K1b: the root trace's first raycast
+      t = tk.lev == 0 && step == 0 ? nearest_in(s, rec.prim, 4, vi, eye, ig, flags, &idx)
+                                   : raycast(s, vi, eye, ig, flags, &idx);
+    } else {
+      t = raycast(s, vi, eye, ig, flags, &idx);
+    }
     if (!is_finite(t)) {
       rec.site(vi, eye, fcs, flags, idx, false, false);
       // a miss picks up the background once, unguarded (render.rs:1212-1217)
@@ -652,8 +869,15 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
     // shadow ray, on the values: lit when it escapes or its blocker is
     // transparent
     int i_s;
-    float t_s = nearest_t(s, add(val3(pt), scale(val3(s.light), F32_EPS)), val3(s.light), idx,
-                          0, &i_s);
+    float t_s;
+    if constexpr (RecCull<Rec>::value) {  // K1b: the root's first shadow ray
+      const V3 so = add(pt, scale(s.light, F32_EPS));
+      t_s = tk.lev == 0 && step == 0 ? nearest_in(s, rec.shadow, 6, so, s.light, idx, 0, &i_s)
+                                     : nearest_t(s, so, s.light, idx, 0, &i_s);
+    } else {
+      t_s = nearest_t(s, add(val3(pt), scale(val3(s.light), F32_EPS)), val3(s.light), idx, 0,
+                      &i_s);
+    }
     bool lit = !is_finite(t_s) || s.f32[i_s * F32_COLS + 13] > 0.0f;
     const int site = rec.site(vi, eye, fcs, flags, idx, true, lit);
     T k1 = lit ? fminf(0.2f + di, 1.0f) : 0.2f;
@@ -695,7 +919,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
       c.parent = site;
       c.w = C3T<T>{mr ? tk.w.r * (fcs.r * f) : 0.0f, mg ? tk.w.g * (fcs.g * f) : 0.0f,
                    mb ? tk.w.b * (fcs.b * f) : 0.0f};
-      if (*sp < STACK_CAP) {
+      if (*sp < RecStack<Rec>::value) {
         stack[(*sp)++] = c;
       } else {  // unreachable under the bound: poison the pixel, never drop work
         out->r = out->g = out->b = nanf("");
@@ -736,7 +960,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
 template <class T, class Rec>
 RT_FI C3T<T> trace_pixel(const SceneViewT<T>& s, const Params& p, const float* cam, int ix,
                          int iy, Rec& rec) {
-  TaskT<T> stack[STACK_CAP];
+  TaskT<T> stack[RecStack<Rec>::value];
   if constexpr (is_dual_v<T>) {  // the camera's entries are local 0-6
     const auto c = T::row(cam, -s.seed);
     stack[0].vi = V3T<T>{c[0], c[1], c[2]};

@@ -32,7 +32,12 @@
 //
 // The records are sized from the config: the kernel is built for each cap
 // of rt::with_site_cap, and the wrapper launches the smallest cap at or
-// above the config's site count.
+// above the config's site count. Its record pass runs the forward's task
+// stack: 16 tasks, or 64 (DeepTraceBody) where max_reflections needs more
+// (1 + R(R-1)/2 > 16, with more than 16 sites). The -DRT_GLOBAL_TABLES build
+// (bwd_kernel.cuh) holds the same five instances. K1b's cull
+// is not compiled in: the record pass scans every object, as the JAX
+// kernel's does.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_trace_bwd.py).
@@ -129,6 +134,16 @@ struct TraceBody : rt::BwdFrame {
   }
 };
 
+// TraceBody with the deep task stack (max_reflections 7 to 11).
+template <int CAP>
+struct DeepTraceBody : TraceBody<CAP> {
+  __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s, const rt::Params& p,
+                                               float cutoff, const float* cam, int ix, int iy,
+                                               rt::C3 g, WarpAcc& acc) {
+    return rt::trace_pixel_grad<CAP, rt::STACK_CAP_DEEP>(s, p, cutoff, cam, ix, iy, g, acc);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -156,10 +171,20 @@ int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.bg = bg;
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
                           tex_len};
+  const int r = max_reflections > 1 ? max_reflections : 1;
+  const int tasks = 1 + r * (r - 1) / 2;  // and at most the sites: a task holds one
+  if (tasks > rt::STACK_CAP_DEEP) return static_cast<int>(cudaErrorInvalidValue);
+  const bool deep = tasks > rt::STACK_CAP && site_cap > rt::STACK_CAP;
   const int rc = rt::with_site_cap(site_cap, [&](auto cap) {
-    return rt::launch_bwd<TraceBody<decltype(cap)::value>>(
-        f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g,
-        prim_b, device, stream);
+    constexpr int C = decltype(cap)::value;
+    if constexpr (C > rt::STACK_CAP) {
+      if (deep)
+        return rt::launch_bwd<DeepTraceBody<C>>(f32t, i32t, cam, light, n, p, tx, cutoff, g_r,
+                                                g_g, g_b, out_block, prim_r, prim_g, prim_b,
+                                                device, stream);
+    }
+    return rt::launch_bwd<TraceBody<C>>(f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b,
+                                        out_block, prim_r, prim_g, prim_b, device, stream);
   });
   return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;
 }

@@ -433,9 +433,10 @@ struct TaskRec {
 };
 
 // The recorder trace_task calls (trace_body.cuh): up to CAP sites and CAP
-// tasks in execution order.
-template <int CAP>
+// tasks in execution order, the traversal's task stack holding STACK_.
+template <int CAP, int STACK_ = STACK_CAP>
 struct SiteRecorder {
+  static constexpr int STACK = STACK_;
   Site* sites;
   TaskRec* tasks;
   int n_sites, n_tasks;
@@ -640,13 +641,14 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
 
 // The pixel's cotangent g pulled back to the scene tables through ``acc``
 // (rows 0..n-1: the objects' 19 columns; row n: camera, light), recording
-// at most CAP sites. Returns the pixel's colour (trace_pixel's).
-template <int CAP, class Acc>
+// at most CAP sites, its traversal's task stack holding STACK tasks. Returns
+// the pixel's colour (trace_pixel's).
+template <int CAP, int STACK = STACK_CAP, class Acc>
 RT_AD C3 trace_pixel_grad(const SceneView& s, const Params& p, float cutoff, const float* cam,
                           int ix, int iy, C3 g, Acc& acc) {
   Site sites[CAP];
   TaskRec tasks[CAP];
-  SiteRecorder<CAP> rec;
+  SiteRecorder<CAP, STACK> rec;
   rec.sites = sites;
   rec.tasks = tasks;
   rec.n_sites = 0;

@@ -3,11 +3,13 @@
 // tested against torch autograd of the plain PyTorch version where there is
 // no card. Same arguments as rt_trace_bwd in trace_bwd.cu, minus the device
 // and stream; a record cap the kernel is not built for leaves NaN in the
-// block. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC``
-// (and -DRT_COUNT_OPS to add to ops_total: [0] the operation count, [1] the
-// texel bytes of the record pass's texture fetches, [2] the accumulator's
-// adds, [3] the distinct (warp, block entry) pairs among them, a warp being
-// 32 pixels of a row, [4] the sites, [5] the most sites of one pixel).
+// block. It reads the tables where they lie and adds each cotangent straight
+// to the block, as the -DRT_GLOBAL_TABLES build does. Build with ``g++
+// -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and -DRT_COUNT_OPS to add
+// to ops_total: [0] the operation count, [1] the texel bytes of the record
+// pass's texture fetches, [2] the accumulator's adds, [3] the distinct (warp,
+// block entry) pairs among them, a warp being 32 pixels of a row, [4] the
+// sites, [5] the most sites of one pixel).
 //
 // The host accumulator adds each nonzero entry as it comes, lane by lane,
 // as the kernel's accumulator did before it summed over a warp; the pairs
@@ -93,6 +95,9 @@ void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
   acc.ops = ops_total;
   acc.seen.assign(static_cast<size_t>(n + 1) * rt::GRAD_COLS, 0);
 #endif
+  const int r = max_reflections > 1 ? max_reflections : 1;
+  // the kernel's choice of the deep task stack (trace_bwd.cu)
+  const bool deep = 1 + r * (r - 1) / 2 > rt::STACK_CAP && site_cap > rt::STACK_CAP;
   const int rc = rt::with_site_cap(site_cap, [&](auto cap) {
     for (int iy = 0; iy < yres; ++iy) {
       for (int ix = 0; ix < xres; ++ix) {
@@ -100,8 +105,11 @@ void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
         if (ix % 32 == 0) acc.new_warp();
 #endif
         const long o = static_cast<long>(iy) * xres + ix;
-        rt::C3 c = rt::trace_pixel_grad<decltype(cap)::value>(
-            s, p, cutoff, cam, ix, iy, rt::c3(g_r[o], g_g[o], g_b[o]), acc);
+        constexpr int C = decltype(cap)::value;
+        const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
+        rt::C3 c = deep ? rt::trace_pixel_grad<C, rt::STACK_CAP_DEEP>(s, p, cutoff, cam, ix, iy, g,
+                                                                       acc)
+                        : rt::trace_pixel_grad<C>(s, p, cutoff, cam, ix, iy, g, acc);
         if (prim_r != nullptr) {
           prim_r[o] = c.r;
           prim_g[o] = c.g;

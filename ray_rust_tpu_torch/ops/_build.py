@@ -9,7 +9,11 @@ library is never loaded. The builds go to ``ray_rust_tpu_torch/_build/``
 (git-ignored), each with its compiler output beside it, so a cached build
 reports the same ptxas lines as a fresh one. A failed build raises with the
 compiler's output. :func:`prebuild` runs several builds at once, one
-compiler each.
+compiler each. Each of ``trace_fwd``, ``march_fwd``, ``trace_bwd`` and
+``march_bwd`` also builds as ``<name>_global`` with ``-DRT_GLOBAL_TABLES``:
+the same launcher, its kernels reading the object tables from global memory
+(``csrc/trace_body.cuh: GLOBAL_TABLES``) for scenes too large for shared
+memory.
 
 :func:`build_host_library` compiles a kernel's per-pixel body for the CPU
 with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
@@ -30,11 +34,12 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["load_cuda_library", "prebuild", "build_host_library", "called_functions",
-           "build_logs", "BUILD_DIR", "CSRC_DIR"]
+           "build_logs", "build_seconds", "BUILD_DIR", "CSRC_DIR", "GLOBAL_SUFFIX"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -57,7 +62,8 @@ _F = ctypes.c_float
 _TRACE_CFG = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
 _MARCH_CFG = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I]
 _TEX_ARGS = [_P, _P, _I, _I, _I]
-_TRACE_ARGS = _TRACE_CFG + _TEX_ARGS + [_P, _P, _P]
+# the trace forward takes K1b's switch after the atlas
+_TRACE_ARGS = _TRACE_CFG + _TEX_ARGS + [_I] + [_P, _P, _P]
 _MARCH_ARGS = _MARCH_CFG + _TEX_ARGS + [_P, _P, _P]
 # the backward kernels: the forward's render arguments, the cutoff, (trace:
 # the record cap), the atlas, the three cotangent planes, the block, the
@@ -86,11 +92,15 @@ _HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host",
 # name -> (argtypes, restype). The pull-back's host build keeps the kernel's
 # interface (csrc/pack_scene_host.cpp).
 _EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I)},
+              "trace": {"rt_cull_masks_host": ([_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2
+                                               + [_P] * 2, None)},
               "pack_scene": {"rt_pack_scene_vjp": (_PACK_VJP_ARGS + [_I, _P], _I)}}
 
 # Each build's compiler output (for nvcc, ptxas's registers, stack and
-# spills), by library stem.
+# spills), by library stem, and the seconds its compiler took (this process's
+# builds only; a cached library takes none).
 build_logs: dict = {}
+build_seconds: dict = {}
 _cuda_libs: dict = {}
 
 
@@ -122,8 +132,10 @@ def _compile(compiler: list, main_src: Path, out_dir: Path, stem: str) -> tuple:
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
+    t0 = time.time()
     proc = subprocess.run(compiler + ["-o", tmp, str(main_src)],
                           capture_output=True, text=True)
+    build_seconds[stem] = time.time() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"building {main_src.name} failed:\n{proc.stderr}")
@@ -142,18 +154,31 @@ def _bind(path: Path, fn_name: str, argtypes: list, restype, extra=None) -> ctyp
     return lib
 
 
+GLOBAL_SUFFIX = "_global"
+
+
+def _source(name: str) -> tuple:
+    """The ``.cu`` stem of CUDA library ``name`` and its extra flags."""
+    if name.endswith(GLOBAL_SUFFIX):
+        return name[:-len(GLOBAL_SUFFIX)], ["-DRT_GLOBAL_TABLES"]
+    return name, []
+
+
 def _compile_cuda(name: str) -> Path:
-    return _compile([_find_nvcc()] + NVCC_FLAGS, CSRC_DIR / f"{name}.cu", BUILD_DIR, name)[0]
+    src, flags = _source(name)
+    return _compile([_find_nvcc()] + NVCC_FLAGS + flags, CSRC_DIR / f"{src}.cu", BUILD_DIR,
+                    name)[0]
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"``,
     ``"march_fwd"``, ``"trace_bwd"``, ``"march_bwd"``, ``"trace_retrace"``
-    or ``"pack_scene"``)."""
+    or ``"pack_scene"``; the first four also with ``_global``)."""
     if name not in _cuda_libs:
-        fn_name, argtypes = _CUDA_FNS[name]
+        src = _source(name)[0]
+        fn_name, argtypes = _CUDA_FNS[src]
         lib = _bind(_compile_cuda(name), fn_name, argtypes + [_I, _P], _I,
-                    _EXTRA_FNS.get(name, {}))
+                    _EXTRA_FNS.get(src, {}))
         lib.rt_error_string.argtypes = [_I]
         lib.rt_error_string.restype = ctypes.c_char_p
         _cuda_libs[name] = lib
@@ -181,9 +206,10 @@ def called_functions(ptxas_log: str) -> list:
 
 def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
     """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
-    a CPU loop (``rt_trace_host``, ``rt_march_host``, ``rt_trace_bwd_host``,
-    ``rt_march_bwd_host``, ``rt_trace_retrace_host`` or
-    ``rt_pack_scene_host``, with ``rt_pack_scene_vjp``)."""
+    a CPU loop (``rt_trace_host``, with K1b's ``rt_cull_masks_host``,
+    ``rt_march_host``, ``rt_trace_bwd_host``, ``rt_march_bwd_host``,
+    ``rt_trace_retrace_host`` or ``rt_pack_scene_host``, with
+    ``rt_pack_scene_vjp``)."""
     stem = f"{name}_host" + ("_ops" if count_ops else "")
     path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
                        CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)

@@ -6,7 +6,10 @@ Counterpart of ``ray_rust_tpu/ops/pallas_march.py``. The kernel
 Pallas kernel ``render_color_pallas_march``: camera rays, sphere tracing over
 the scene SDF, the lap loop, march shading with shadow marches, patterns,
 the refraction sub-marches, the sky and the glow factor, one thread per
-pixel, for march-mode scenes of up to 512 objects. A textured hit reads the
+pixel, for march-mode scenes of any size the pack's 32-bit words hold;
+above :data:`SHARED_TABLE_MAX` objects its global-table build
+(``march_fwd_global``) reads the tables where the pack wrote them instead of
+staging them in shared memory. A textured hit reads the
 scene's texture atlas as the trace kernel does (K1a); the JAX package's
 march kernel declines textures and renders them through its jnp march
 (``pallas_trace.py:render_color_fast``), whose function the plain version
@@ -36,7 +39,15 @@ from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
 from .kernel_pack import launch_pack, texture_pointers, word_pointers
-from .kernel_trace import check_launchable, launch, render_color_plain, texture_args, texture_reason
+from .kernel_trace import (
+    check_launchable,
+    launch,
+    library,
+    render_color_plain,
+    size_reason,
+    texture_args,
+    texture_reason,
+)
 from .sky import BG_IDS
 
 __all__ = [
@@ -52,7 +63,11 @@ __all__ = [
 # Launches of the march kernel since import (or since a caller reset it).
 LAUNCHES = 0
 
-KERNEL_OBJECT_MAX = 512  # the tables must fit one block's shared memory
+# The most objects whose tables K3 stages in shared memory: its 32x8
+# blocks at 128 registers run two an SM, which leaves each block 233472 / 2
+# - 1024 = 115712 bytes, and 1 024 objects' 92-byte rows take 94 KB. Above
+# it the global-table build runs (PERF.md §6 has the times of both sides).
+SHARED_TABLE_MAX = 1200
 # The counters a -DRT_COUNT_OPS host build of a march body fills
 # (csrc/march_body.cuh): f32 operations, texel bytes, the most
 # operations of one pixel, object passes (SDF sweeps and the shortcuts'
@@ -75,8 +90,9 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     reason = texture_reason(scene)
     if reason is not None:
         return reason
-    if scene.objects.count > KERNEL_OBJECT_MAX:
-        return f"more than {KERNEL_OBJECT_MAX} objects"
+    reason = size_reason(scene)
+    if reason is not None:
+        return reason
     if cfg.bg not in BG_IDS:
         return f"unknown background {cfg.bg!r}"
     cap = cfg.refraction_cap()
@@ -87,9 +103,10 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """March mode, at most 512 objects (the JAX kernel's
-    ``pallas_march_supported``, and textured scenes within the trace
-    kernel's atlas limits), refraction depth at most ``FRAME_CAP``."""
+    """March mode (the JAX kernel's ``pallas_march_supported``, the
+    scenes past 512 objects it renders through jnp, and textured scenes
+    within the trace kernel's atlas limits), refraction depth at most
+    ``FRAME_CAP``."""
     return unsupported_reason(scene, cfg) is None
 
 
@@ -128,7 +145,7 @@ def render_words_kernel(scene: Scene, words, cfg: RenderConfig) -> Color:
 
     n = scene.objects.count
     ptrs, meta = word_pointers(words, n)
-    lib = load_cuda_library("march_fwd")
+    lib = load_cuda_library(library("march_fwd", n, SHARED_TABLE_MAX))
     img = launch(lib, lib.rt_march_fwd, ptrs, n, words.device, cfg,
                  kernel_args(cfg) + texture_pointers(scene, meta))
     LAUNCHES += 1

@@ -4,7 +4,9 @@ version, and the autograd pairing of the two march kernels.
 Counterpart of the march half of ``ray_rust_tpu/ops/pallas_bwd.py``. The
 kernel (``csrc/march_bwd.cu``, per-pixel body ``csrc/march_bwd_body.cuh``)
 replaces the Pallas kernel ``render_color_pallas_march_grads`` for
-march-mode scenes of up to 512 objects (textured scenes, which the JAX
+march-mode scenes of any size the forward takes (above
+``kernel_trace_bwd.SHARED_TABLE_MAX`` objects in its global-table build,
+``march_bwd_global``, as the trace backward's; textured scenes, which the JAX
 package differentiates through its jnp march's implicit VJP, in a second
 instance of the kernel whose adjoint takes the texture's uv cotangents): from the packed scene
 tables and the cotangent of the image it gives the cotangents of the f32
@@ -38,7 +40,7 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..models.vec import Color
-from . import kernel_march, kernel_pack
+from . import kernel_march, kernel_pack, kernel_trace
 from . import kernel_trace_bwd as ktb
 from .kernel_trace import check_launchable, texture_args
 
@@ -138,7 +140,7 @@ def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal
 
     n = scene.objects.count
     ptrs, meta = kernel_pack.word_pointers(words, n)
-    lib = load_cuda_library("march_bwd")
+    lib = load_cuda_library(kernel_trace.library("march_bwd", n, ktb.SHARED_TABLE_MAX))
     out = ktb.launch_block(lib, lib.rt_march_bwd, ptrs, n, words.device, cfg,
                            kernel_args(cfg) + kernel_pack.texture_pointers(scene, meta), g,
                            return_primal)

@@ -4,7 +4,9 @@ version, and the autograd pairing of the two trace kernels.
 Counterpart of ``ray_rust_tpu/ops/pallas_bwd.py``. The kernel
 (``csrc/trace_bwd.cu``, per-pixel body ``csrc/trace_bwd_body.cuh``) replaces
 the Pallas kernel ``render_color_pallas_grads_site`` for trace-mode scenes of
-up to 512 objects, textured or not: from the packed scene tables, the
+any size the forward takes, textured or not (above :data:`SHARED_TABLE_MAX`
+objects in its global-table build, ``trace_bwd_global``, which reads the
+tables from global memory and adds straight to the output block): from the packed scene tables, the
 texture atlas and the cotangent of the image it gives the cotangents of the
 f32 table ``(N, 19)``, the camera ``(1, 8)`` and the light ``(1, 4)``. It
 records each pixel's raycast sites with the forward kernel's own traversal,
@@ -12,7 +14,8 @@ then runs a hand-written adjoint over them backwards; at a textured hit only
 the bilinear weights depend on the uv (the u8 texels get no gradient). Its
 records are sized from the config: it is built for each record cap of
 :data:`SITE_CAPS`, and :func:`site_cap` picks the smallest that holds the
-config's sites. The JAX kernel's pruned replay variants are not carried
+config's sites; ``max_reflections`` 7 to 11 record with the forward's
+64-task stack. The JAX kernel's pruned replay variants are not carried
 over.
 
 :class:`TraceRender` pairs the forward kernel with it, as ``_fast_fn``
@@ -43,11 +46,12 @@ from ..models.scene import Camera, ObjectTable, Scene, scene_to_numpy
 from ..models.vec import Color, Vec3
 from . import kernel_pack, kernel_trace
 from .kernel_pack import GRAD_COLS, split_block
-from .kernel_trace import check_launchable, check_tensor, pack_scene, texture_args
+from .kernel_trace import check_launchable, check_tensor, library, pack_scene, texture_args
 from .rays import fov_scales
 
 __all__ = [
     "SITE_CAPS",
+    "SHARED_TABLE_MAX",
     "count_sites",
     "site_cap",
     "unsupported_reason",
@@ -72,6 +76,13 @@ LAUNCHES = 0
 # up to 4 reflections (63), and up to 191, the most of any config the
 # forward kernel takes (6 reflections, refraction_unroll=None).
 SITE_CAPS = (16, 64, 192)
+
+# The most objects whose tables and (n+1, 20) cotangent block the backward
+# frame (csrc/bwd_kernel.cuh, K2's and K4's) keeps in shared memory: its
+# 32x8 blocks run two an SM, which leaves each block 233472 / 2 - 1024 =
+# 115712 bytes, and an object takes 92 bytes of tables and 80 of the block.
+# Above it the global-table builds run (PERF.md §6).
+SHARED_TABLE_MAX = 640
 
 
 class _Node(NamedTuple):
@@ -129,9 +140,17 @@ def site_cap(cfg: RenderConfig) -> int:
 
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the two trace kernels cannot take a gradient of ``scene`` under
-    ``cfg``, or None: the forward kernel's reasons (every config it takes
-    has a record cap)."""
-    return kernel_trace.unsupported_reason(scene, cfg)
+    ``cfg``, or None: the forward kernel's reasons, then the record caps
+    (``refraction_unroll=None`` past 6 reflections needs more than 192
+    sites)."""
+    reason = kernel_trace.unsupported_reason(scene, cfg)
+    if reason is not None:
+        return reason
+    sites = count_sites(cfg)
+    if sites > SITE_CAPS[-1]:
+        return (f"{sites} raycast sites per pixel; the backward kernel records at most "
+                f"{SITE_CAPS[-1]}")
+    return None
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
@@ -238,7 +257,7 @@ def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
 
     n = scene.objects.count
     ptrs, meta = kernel_pack.word_pointers(words, n)
-    lib = load_cuda_library("trace_bwd")
+    lib = load_cuda_library(library("trace_bwd", n, SHARED_TABLE_MAX))
     args = kernel_args(cfg) + [site_cap(cfg)] + kernel_pack.texture_pointers(scene, meta)
     out = launch_block(lib, lib.rt_trace_bwd, ptrs, n, words.device, cfg, args, g, return_primal)
     LAUNCHES += 1

@@ -77,9 +77,13 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     kernel's reasons, whose trace body it runs."""
     if scene.objects.count > OBJECT_MAX:
         return (f"more than {OBJECT_MAX} objects: the re-trace oracle's cap, as the JAX "
-                f"kernel's (K2 takes up to {kernel_trace.KERNEL_OBJECT_MAX})")
+                f"kernel's (K2 takes larger scenes)")
     if scene.textures is not None:
         return "image textures: the re-trace oracle takes untextured scenes, as the JAX kernel"
+    r = max(cfg.max_reflections, 1)
+    if 1 + r * (r - 1) // 2 > kernel_trace.STACK_CAP:
+        return (f"max_reflections={cfg.max_reflections} overflows the re-trace oracle's task "
+                f"stack ({kernel_trace.STACK_CAP} tasks: max_reflections up to 6)")
     return kernel_trace.unsupported_reason(scene, cfg)
 
 

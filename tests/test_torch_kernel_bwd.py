@@ -113,20 +113,25 @@ def test_site_cap_is_the_smallest_that_holds_the_jax_site_tree(reflections):
 
 
 def test_unsupported_reason_adds_the_site_cap():
-    """The backward kernel takes every config the forward kernel takes
-    (4 reflections at refraction_unroll=None: 63 sites) and refuses the
-    others with the forward kernel's reason."""
+    """The backward kernel takes the configs the forward kernel takes
+    whose sites fit its largest record cap (4 reflections at
+    refraction_unroll=None: 63 sites; 11 reflections at the default unroll:
+    71), refuses the others with the forward kernel's reason, and names the
+    site cap past it (7 reflections at refraction_unroll=None: 319)."""
     scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=8)
     assert kb.unsupported_reason(scene, cfg) is None
     assert kb.unsupported_reason(scene, cfg.with_(refraction_unroll=None)) is None
     assert kb.unsupported_reason(scene, cfg.with_(max_reflections=4,
                                                   refraction_unroll=None)) is None
-    deep = cfg.with_(max_reflections=7)
+    assert kb.unsupported_reason(scene, cfg.with_(max_reflections=11)) is None
+    deep = cfg.with_(max_reflections=12)
     assert kb.unsupported_reason(scene, deep) == kt.unsupported_reason(scene, deep)
     assert "task stack" in kb.unsupported_reason(scene, deep)
+    assert "sites" in kb.unsupported_reason(scene, cfg.with_(max_reflections=7,
+                                                           refraction_unroll=None))
     with pytest.raises(ValueError, match="sites"):
-        kb.site_cap(deep.with_(refraction_unroll=None))
+        kb.site_cap(cfg.with_(max_reflections=7, refraction_unroll=None))
     assert "K3" in kb.unsupported_reason(scene, cfg.with_(use_raymarching=True))
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],

@@ -204,7 +204,9 @@ def test_plain_matches_pallas_interpret():
 def test_kernel_supported_agrees_with_pallas_supported():
     """The CUDA kernel covers what the Pallas kernel covers with its
     in-kernel textures on (the default), for atlases within the Pallas
-    kernel's cap."""
+    kernel's cap, and also the scenes past 512 objects, which the JAX
+    package renders through its jnp path (the Pallas kernel declines them,
+    the port's kernel reads their tables from global memory)."""
     rt, pallas_trace = _jax()
     pallas_supported = pallas_trace.pallas_supported
     cfg = rtt.RenderConfig(xres=32, yres=24)
@@ -218,9 +220,14 @@ def test_kernel_supported_agrees_with_pallas_supported():
     cases = [(default, cfg), (default, cfg.with_(use_raymarching=True)), (big, cfg),
              (jax_tex, cfg), (jax_tex, cfg.with_(use_raymarching=True))]
     for jax_scene, c in cases:
+        if jax_scene is big:  # the JAX package renders it through jnp
+            assert not pallas_supported(jax_scene, _jax_cfg(c))
+            assert kt.kernel_supported(_port(jax_scene), c)
+            continue
         assert kt.kernel_supported(_port(jax_scene), c) == pallas_supported(jax_scene, _jax_cfg(c))
     assert kt.kernel_supported(_port(default), cfg)
-    assert not kt.kernel_supported(_port(big), cfg)
+    assert kt.kernel_supported(_port(big), cfg)
+    assert kt.library("trace_fwd", big.objects.count, kt.SHARED_TABLE_MAX) == "trace_fwd_global"
     assert kt.kernel_supported(_port(jax_tex), cfg)
     assert _port(jax_tex).textures.data.dtype == torch.uint8
 
@@ -240,13 +247,13 @@ def test_cpu_render_takes_plain_version():
 @pytest.mark.parametrize("change,names", [
     (dict(use_raymarching=True), "K3"),
     (dict(bg="sunset"), "background"),
-    (dict(max_reflections=7), "task stack"),
+    (dict(max_reflections=12), "task stack"),
 ])
 def test_unsupported_reason_names_what_is_missing(change, names):
     scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=8)
     assert kt.unsupported_reason(scene, cfg) is None
-    assert kt.unsupported_reason(scene, cfg.with_(max_reflections=6)) is None
+    assert kt.unsupported_reason(scene, cfg.with_(max_reflections=11)) is None
     assert names in kt.unsupported_reason(scene, cfg.with_(**change))
 
 
@@ -261,10 +268,9 @@ def _host_render(lib, scene, cfg, ops=None):
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
     sx, sy = fov_scales(cfg)
     lib.rt_trace_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
-                      scene.objects.count, cfg.xres, cfg.yres, sx, sy, cfg.max_reflections,
-                      cfg.refraction_cap(), BG_IDS[cfg.bg],
-                      *kt.texture_args(tex, torch.device("cpu")), out[0].data_ptr(),
-                      out[1].data_ptr(), out[2].data_ptr(),
+                      scene.objects.count, cfg.xres, cfg.yres, sx, sy,
+                      *kt.launch_args(cfg, tex, torch.device("cpu"), scene.objects.count),
+                      out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                       None if ops is None else ops.data_ptr())
     return out.permute(1, 2, 0).numpy()
 

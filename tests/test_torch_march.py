@@ -15,6 +15,7 @@ The kernel itself runs only on a card:
 
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -487,8 +488,10 @@ def test_march_unsupported_reason_names_what_is_missing(change, names):
 
 def test_march_unsupported_reason_textures_and_size():
     """Textured march is taken (the march kernels read the atlas); an atlas
-    past the kernels' limits (more than TEXTURE_MAX textures) and more than
-    512 objects are refused with their reasons."""
+    past the kernels' limits (more than TEXTURE_MAX textures) is refused with
+    its reason. More than 512 objects are taken (above SHARED_TABLE_MAX the
+    global-table build), and a scene past the pack's int32 words is refused
+    with its reason."""
     cfg = rtt.RenderConfig(xres=8, yres=8, **_GLOW)
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
@@ -505,7 +508,9 @@ def test_march_unsupported_reason_textures_and_size():
         [rtt.MaterialSpec(name="m")],
         [rtt.SphereSpec("m", 1.0, (float(i), 0.0, 100.0)) for i in range(513)],
         (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), device="cpu")[0]
-    assert "512 objects" in km.unsupported_reason(big, cfg)
+    assert km.unsupported_reason(big, cfg) is None
+    huge = types.SimpleNamespace(objects=types.SimpleNamespace(count=2**27), textures=None)
+    assert "pack words" in km.unsupported_reason(huge, cfg)
 
 
 def test_march_render_with_grad_raises():

@@ -145,7 +145,7 @@ def _fwd_host(libs, scene, cfg):
     sx, sy = fov_scales(cfg)
     libs["trace"].rt_trace_host(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
-        *kt.kernel_args(cfg), *kt.texture_args(None, torch.device("cpu")),
+        *kt.launch_args(cfg, None, torch.device("cpu"), scene.objects.count),
         *(p.data_ptr() for p in out), None)
     return _img(out)
 
