@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once:
+2. the builds of the CUDA kernels from ray_rust_tpu_torch/csrc, all at once
+   (meanwhile the card renders the plain images of phase 3's four small
+   march cases, which need no kernel):
    the trace kernel (K1), the march kernel (K3), the trace backward (K2),
    the march backward (K4), each also in its global-table build (``_global``,
    for scenes too large for shared memory), the re-trace gradient oracle
@@ -128,7 +130,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain versions; the forward and backward step at 1920x1080 through the
    kernels twice by events, then by the host's clock (20 steps enqueued)
    and the card's busy time and idle share from a ``torch.profiler``
-   trace, its plain twin phase 3's plain autograd of the same render (one
+   trace, just after ``utils/profiling.device_trace`` around one 1920x1080
+   frame, the process's first profiler session, with K1 and the pack
+   kernel in its trace; its plain twin phase 3's plain autograd of the same render (one
    call, ~32 s at 1080p); the backward kernel through its wrapper and alone
    (on words packed once) in turns, beside the host counts of its
    accumulator's adds, their distinct (warp, entry) pairs and the sites
@@ -166,7 +170,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    operations and object passes from the counting builds, on and off (the
    march bounds are the tail's counts; the step-by-step ones are printed as
    a diagnostic); K1b's bound from the counting build with the cull on the
-   101 objects (and on 1 024, printed); each phase's wall time.
+   101 objects (and on 1 024, printed); each phase's wall time;
+6. the host apps, each path with the launch counts set to 0 just before
+   it and read just after: the web viewer (``webserver.make_server`` on
+   port 0 on a thread) in trace mode at 1920x1080 (the page, a 404
+   ``empty``, three ``/render`` requests at three poses, each PNG decoded
+   bit-equal to ``render_u8`` of its pose rebuilt directly, one K1 launch
+   a request; each request's wall time split into render + copy and
+   encode) and in march + glow at 1280x720 (one request, one K3 launch);
+   the inverse-rendering example (``examples/inverse_rendering.main``) at
+   320x240 for 200 steps: finite losses, ``|dx_red|`` falling, one K1 and
+   one K2 launch a step, its exit code its criterion on the last loss; the
+   example's Adam step at 1920x1080 by events and by the host's clock; its
+   first 3 steps at 160x120 through K1 and K2 against the same steps of
+   the plain version on the CPU, each from the plain run's state (moved
+   to the card by ``checkpoint``), the trained leaves within
+   ``STEP_ATOL`` (``tests/test_torch_inverse.py``'s rule); checkpoint and
+   resume (10 steps, a save, 10 more against a state restored from the
+   save): on the CPU at 160x120, in a process started with the phase, the
+   10 resumed losses within ``RESUME_RTOL`` of the uninterrupted run's; on
+   the card at 320x240 the restored state bit-equal to the saved one
+   (Adam's moments and step included), the resumed run's first step the
+   uninterrupted run's (its loss bit for bit), and the next losses beside
+   those of two twins (copies of the saved state in memory); the scan-mode
+   march (``differentiable=True``, 256 steps) against K4's implicit VJP at
+   160x120 (sphere 3's ``org.y``, rtol 5e-3), K3 and K4 launching for the
+   implicit gradient only; ``RenderTimer``'s Mrays/s and
+   ``count_traced_rays``;
+   a 1920x1080 frame encoded by the native and the stdlib PNG encoders,
+   each decoding to the frame bit for bit, both timed (or why the native
+   library does not build).
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
@@ -747,6 +780,441 @@ def cli_file(torch, rtt, cli, kt, kp, built, w, h):
     return wall, launches[1]
 
 
+# Phase 6, the host apps: the example's documented size and step count
+# (examples/inverse_rendering.py:13, 200 steps), the 3-step comparison's size,
+# the scan oracle's (tests/test_grad.py:235-255 at a larger frame)
+EXAMPLE_SIZE, EXAMPLE_STEPS = 320, 200
+COMPARE_SIZE = 160
+SCAN_CFG = dict(xres=160, yres=120, use_raymarching=True, max_refractions=1,
+                march_max_iter=512)
+SCAN_BUDGET, SCAN_RTOL = 256, 5e-3
+# Two Adam runs' steps from one state (tests/test_torch_inverse.py:
+# NOISE_MOMENT, STEP_ATOL): entries whose bias-corrected first moment is
+# under NOISE_MOMENT may be apart by lr, the others by STEP_ATOL
+NOISE_MOMENT, STEP_ATOL = 1e-6, 1e-3
+# a resumed run's 10 losses against the uninterrupted run's, on the CPU
+RESUME_RTOL = 1e-3
+
+
+def trace_frame(torch, rtt, scene, cfg) -> None:
+    """``utils/profiling.device_trace`` around one frame of ``scene`` under
+    ``cfg``: the trace must hold K1 and the pack kernel. Run as the
+    process's first profiler session: on torch 2.11 a later one may lose the
+    card's records (PERF.md §7), and ``device_trace`` then raises."""
+    from ray_rust_tpu_torch.utils.profiling import device_trace
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        with device_trace(log_dir) as prof:
+            rtt.render_color(scene, cfg)
+        traced_s = time.perf_counter() - t0
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    print(f"  device_trace, one {cfg.xres}x{cfg.yres} frame: {len(events)} events, "
+          f"{len(prof.key_averages())} operators, kernels {kernels}; {traced_s:.2f} s with "
+          "its settling wait")
+    if not any("trace_fwd_kernel" in k for k in kernels) or \
+            not any("pack_scene_kernel" in k for k in kernels):
+        raise SystemExit(f"chip_smoke: K1 or the pack is not in the device trace: {kernels}")
+
+
+def resume_run(torch, device, size, n_twins):
+    """Checkpoint and resume of the example's training at ``size`` on
+    ``device``: a run takes 10 steps and is saved; it goes on for 10 more
+    (uninterrupted), a fresh state restored from the save takes the same 10
+    (resumed), and so do ``n_twins`` copies of the saved state in memory.
+    Raises SystemExit unless the restored state is the saved one bit for
+    bit and every loss is finite. Returns the runs' losses over the 10
+    steps (uninterrupted, resumed, twins), the saved tensors' count, the
+    trained leaves after the first step of the uninterrupted and the
+    resumed run, and the uninterrupted run's bias-corrected first moment
+    there."""
+    import copy
+
+    import ray_rust_tpu_torch as rtt
+    from ray_rust_tpu_torch import checkpoint
+    from ray_rust_tpu_torch.examples import inverse_rendering as example
+    from ray_rust_tpu_torch.models.scene import leaf_paths
+    from ray_rust_tpu_torch.parallel import SceneAdam, TrainState, make_train_step
+
+    cfg = example.example_config(size)
+    _, target, s0 = example.problem(cfg, device)
+    opt = SceneAdam(0.5)
+    step = make_train_step(cfg, opt)
+    state = TrainState(s0, opt.init(s0))
+    for _ in range(10):
+        state, _ = step(state, target)
+    with tempfile.TemporaryDirectory() as ck_dir:
+        ck = checkpoint.Checkpointer(ck_dir, keep=1)
+        ck.save(9, state)
+        saved = [(n, t.detach().cpu().clone()) for n, t in checkpoint.leaves(state)]
+        s1 = example.perturbed(rtt.default_scene(device=device)[0])
+        resumed, start = ck.restore_or(TrainState(s1, opt.init(s1)))
+    back = [(n, t.detach().cpu()) for n, t in checkpoint.leaves(resumed)]
+    if start != 10 or [n for n, _ in saved] != [n for n, _ in back] or not all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(saved, back)):
+        raise SystemExit(f"chip_smoke: the restored state is not the saved one ({device})")
+    twins = [copy.deepcopy(state) for _ in range(n_twins)]
+    losses, first, mu = [], [], {}
+    for run in (state, resumed, *twins):
+        losses.append([])
+        for i in range(10):
+            run, loss = step(run, target)
+            losses[-1].append(float(loss))
+            if i == 0 and len(first) < 2:
+                leaves = dict(zip(leaf_paths(run.scene), run.scene.tensors()))
+                first.append({p: leaves[p].detach().cpu().numpy().copy() for p in opt.trained})
+                if len(first) == 1:
+                    mu = {p: run.opt_state.state[leaves[p]]["exp_avg"].cpu().numpy()
+                          / (1 - 0.9 ** 11) for p in opt.trained}
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"chip_smoke: the losses after the save are not finite ({device}): "
+                         f"{losses}")
+    return losses, len(saved), first, mu
+
+
+# resume_run on the CPU in a process of its own (argv: the size), started at
+# the host apps' phase start so that its plain steps overlap the card's work;
+# prints the losses and the saved tensors' count as JSON
+RESUME_CHILD = """
+import json, sys, torch
+torch.set_num_threads(2)
+import chip_smoke
+losses, n_saved, _, _ = chip_smoke.resume_run(torch, torch.device("cpu"), int(sys.argv[1]), 0)
+print(json.dumps({"losses": losses, "saved": n_saved}))
+"""
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes to an (H, W, 3) uint8 array with the port's reader."""
+    from ray_rust_tpu_torch.utils.image import load_png
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "x.png")
+        with open(path, "wb") as f:
+            f.write(data)
+        return load_png(path)
+
+
+def host_apps(torch, card) -> None:
+    """Phase 6: the viewer (trace 1920x1080, march + glow 1280x720), the
+    inverse-rendering example and its 1080p step, its first steps through
+    the kernels against the plain version, checkpoint and resume (on the
+    CPU in a process started first), the scan-mode march oracle against K4,
+    profiling and ray accounting, and the two PNG encoders. Raises
+    SystemExit on any failure."""
+    resume_cpu = subprocess.Popen([sys.executable, "-c", RESUME_CHILD, str(COMPARE_SIZE)],
+                                  cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+    try:
+        host_apps_checks(torch, card, resume_cpu)
+    finally:
+        if resume_cpu.poll() is None:
+            resume_cpu.kill()
+            resume_cpu.wait()
+
+
+def host_apps_checks(torch, card, resume_cpu) -> None:
+    """The checks of :func:`host_apps`; ``resume_cpu`` is the running
+    process of ``RESUME_CHILD``."""
+    import contextlib
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import ray_rust_tpu_torch as rtt
+    from ray_rust_tpu_torch import checkpoint, webserver
+    from ray_rust_tpu_torch.examples import inverse_rendering as example
+    from ray_rust_tpu_torch.models.quat import Quat
+    from ray_rust_tpu_torch.models.scene import leaf_paths
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.ops.accounting import count_traced_rays
+    from ray_rust_tpu_torch.parallel import SceneAdam, TrainState, make_train_step
+    from ray_rust_tpu_torch.utils import native
+    from ray_rust_tpu_torch.utils.image import encode_png as encode_png_stdlib
+    from ray_rust_tpu_torch.utils.profiling import RenderTimer
+
+    dev = torch.device("cuda", 0)
+    print(f"host apps, on {card}; PNG encoder of save_png and the viewer: stdlib zlib; of the "
+          f"CLI's camera-motion frames: " + ("native" if native.native_available() else
+                                            f"stdlib zlib ({native.build_error()})"))
+
+    # -- the viewer: each request's render + copy (render_u8) and encode
+    split = []
+    render_u8, encode_png = webserver.render_u8, webserver.encode_png
+
+    def timed_render(scene, cfg):
+        t0 = time.perf_counter()
+        img = render_u8(scene, cfg)
+        split.append(["render+copy", time.perf_counter() - t0])
+        return img
+
+    def timed_encode(img):
+        t0 = time.perf_counter()
+        data = encode_png(img)
+        split[-1] += ["encode", time.perf_counter() - t0]
+        return data
+
+    webserver.render_u8, webserver.encode_png = timed_render, timed_encode
+    scene, meta = rtt.default_scene(device=dev)
+    poses = [(0.0, -150.0, -300.0, -90.0, 0.0), (120.0, -120.0, -320.0, -78.5, 0.0),
+             (-80.0, -60.0, -280.0, -95.7, -8.6)]
+    try:
+        for name, cfg, mod, want_poses in (
+                ("trace", rtt.RenderConfig(xres=W, yres=H), kt, poses),
+                ("march + glow", rtt.RenderConfig(xres=MW, yres=MH, use_raymarching=True,
+                                                  glow_effect=1.0), km, poses[:1])):
+            server = webserver.make_server(scene, meta, cfg, 0)
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            th = threading.Thread(target=server.serve_forever, daemon=True)
+            th.start()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):  # the request log
+                    page = urllib.request.urlopen(f"{url}/").read()
+                    try:
+                        urllib.request.urlopen(f"{url}/nope")
+                        raise SystemExit("chip_smoke: the viewer served /nope")
+                    except urllib.error.HTTPError as e:
+                        if e.code != 404 or e.read() != b"empty":
+                            raise SystemExit(f"chip_smoke: /nope gave {e.code}") from None
+                if b"ray-rust-tpu web interface" not in page or b"buttonStates" not in page:
+                    raise SystemExit("chip_smoke: the viewer's page lacks its client")
+                walls, frames = [], []
+                for x, y, z, yaw, pitch in want_poses:
+                    mod.LAUNCHES = 0
+                    split.clear()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        resp = urllib.request.urlopen(
+                            f"{url}/render?x={x}&y={y}&z={z}&yaw={yaw}&pitch={pitch}")
+                        data = resp.read()
+                    walls.append((time.perf_counter() - t0, split[0][1], split[0][3]))
+                    if mod.LAUNCHES != 1:
+                        raise SystemExit(f"chip_smoke: a {name} request launched its kernel "
+                                         f"{mod.LAUNCHES} times")
+                    if resp.headers["Content-Type"] != "image/png" or \
+                            resp.headers["Cache-Control"] != "no-cache":
+                        raise SystemExit("chip_smoke: the viewer's headers")
+                    frames.append(decode_png(data))
+                    pyr = rtt.v3(pitch * np.pi / 180, yaw * np.pi / 180,
+                                 float(scene.camera.pyr.z), device=dev)
+                    cam = scene.camera._replace(position=rtt.v3(x, y, z, device=dev), pyr=pyr,
+                                                rotation=Quat.from_pyr(pyr))
+                    want = render_u8(scene._replace(camera=cam), cfg)
+                    if not np.array_equal(frames[-1], want):
+                        raise SystemExit(f"chip_smoke: /render ({name}) differs from render_u8 "
+                                         "of the same pose")
+                    if want.std() < 10:
+                        raise SystemExit(f"chip_smoke: the {name} view looks empty")
+            finally:
+                server.shutdown()
+                server.server_close()
+                th.join(timeout=10)
+            print(f"viewer, {name} {cfg.xres}x{cfg.yres}: " + "; ".join(
+                f"request {w * 1e3:.1f} ms (render + copy {r * 1e3:.1f}, encode {e * 1e3:.1f})"
+                for w, r, e in walls) + f"; each /render bit-equal to render_u8 of its pose, "
+                f"one {mod.__name__.rsplit('.', 1)[1]} launch each")
+            if len(frames) > 1 and np.array_equal(frames[0], frames[1]):
+                raise SystemExit("chip_smoke: two viewer poses gave the same image")
+    finally:
+        webserver.render_u8, webserver.encode_png = render_u8, encode_png
+
+    # -- the inverse-rendering example at its documented size
+    kt.LAUNCHES = kb.LAUNCHES = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = example.main(["--size", str(EXAMPLE_SIZE), "--steps", str(EXAMPLE_STEPS)])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    rows = [line.split() for line in text.splitlines() if line.startswith("step ")]
+    losses = {int(r[1]): float(r[3]) for r in rows}
+    print(f"example {EXAMPLE_SIZE}x{EXAMPLE_SIZE * 3 // 4}, {EXAMPLE_STEPS} steps in {wall:.2f} s:"
+          f" exit code {rc}; " + "; ".join(" ".join(r) for r in rows[::4] + rows[-1:])
+          + "; " + text.strip().splitlines()[-1] + f"; launches K1 {kt.LAUNCHES}, K2 {kb.LAUNCHES}")
+    if (kt.LAUNCHES, kb.LAUNCHES) != (EXAMPLE_STEPS + 1, EXAMPLE_STEPS):
+        raise SystemExit("chip_smoke: want one K1 and one K2 launch a step (and K1 for the "
+                         f"target), got {kt.LAUNCHES} and {kb.LAUNCHES}")
+    if not rows or "|dx_red|" not in text or not np.isfinite(list(losses.values())).all():
+        raise SystemExit("chip_smoke: the example printed no finite losses and |dx_red|")
+    if rc != (0 if losses[EXAMPLE_STEPS - 1] < 1e-2 else 1):
+        raise SystemExit(f"chip_smoke: the example's exit code {rc} is not its criterion")
+    # the loss need not fall: Adam's first steps move every trained leaf by
+    # about lr, so it rises from the perturbed start in the JAX example too
+    # (PERF.md §6); the red sphere's distance from the target falls in both
+    dx_red = {int(r[1]): float(r[5]) for r in rows}
+    if not dx_red[EXAMPLE_STEPS - 1] < dx_red[0]:
+        raise SystemExit(f"chip_smoke: the example moved the red sphere no nearer its target: "
+                         f"|dx_red| {dx_red[0]} -> {dx_red[EXAMPLE_STEPS - 1]}")
+
+    # -- the 1080p Adam step, by events and by the host's clock
+    cfg = example.example_config(W).with_(yres=H)
+    _, target, scene0 = example.problem(cfg, dev)
+    opt = SceneAdam(0.5)
+    step = make_train_step(cfg, opt)
+    state = TrainState(scene0, opt.init(scene0))
+    step_ms = cuda_ms(torch, lambda: step(state, target), warm=3, reps=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        state, loss = step(state, target)
+    torch.cuda.synchronize()
+    step_host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    print(f"Adam step {W}x{H} (the example's optimizer; K1, K2, the pack, the pull-back): "
+          f"{step_ms:.3f} ms by events, {step_host_ms:.3f} ms by the host's clock (20 steps)")
+
+    # -- the first 3 steps through the kernels against the plain version on
+    # the CPU, each from the plain run's state before it, held as tests/
+    # test_torch_inverse.py:step_apart holds the port to the JAX package:
+    # 1e-3 on entries with a gradient, lr on noise entries (a bias-corrected
+    # first moment under 1e-6, where Adam's step still depends on |g|
+    # against its eps)
+    cpu = torch.device("cpu")
+    cfg = example.example_config(COMPARE_SIZE)
+    _, target_cpu, s_cpu = example.problem(cfg, cpu)
+    st_cpu = TrainState(s_cpu, opt.init(s_cpu))
+    step_c = make_train_step(cfg, opt)
+    worst = [0.0, 0.0]
+    with tempfile.TemporaryDirectory() as ck_dir:
+        for k in range(3):
+            checkpoint.save(ck_dir, k, st_cpu)
+            st_cpu, loss_cpu = step_c(st_cpu, target_cpu)
+            fresh = example.perturbed(rtt.default_scene(device=dev)[0])
+            st_dev, _ = checkpoint.restore(ck_dir, TrainState(fresh, opt.init(fresh)), k)
+            st_dev, loss_dev = step_c(st_dev, target_cpu.to(dev))
+            worst[1] = max(worst[1], abs(float(loss_dev) / float(loss_cpu) - 1))
+            adam = st_cpu.opt_state
+            moments = {id(p): adam.state[p]["exp_avg"] for p in adam.param_groups[0]["params"]}
+            want = dict(zip(leaf_paths(st_cpu.scene), st_cpu.scene.tensors()))
+            got = dict(zip(leaf_paths(st_dev.scene), st_dev.scene.tensors()))
+            for path, t in want.items():
+                d = np.abs(got[path].detach().cpu().numpy() - t.detach().numpy())
+                if path not in opt.trained:
+                    if d.max() != 0:
+                        raise SystemExit(f"chip_smoke: step {k} moved the frozen {path}")
+                    continue
+                noise = np.abs(moments[id(t)].numpy() / (1 - 0.9 ** (k + 1))) < NOISE_MOMENT
+                worst[0] = max(worst[0], float(d[~noise].max(initial=0.0)))
+                if d[~noise].max(initial=0.0) > STEP_ATOL or d[noise].max(initial=0.0) > opt.lr:
+                    raise SystemExit(f"chip_smoke: step {k} through the kernels moved {path} "
+                                     f"apart from the plain step: {d.max()}")
+    print(f"first 3 Adam steps at {COMPARE_SIZE}x{COMPARE_SIZE * 3 // 4} through K1 and K2 "
+          f"against the plain version on the CPU (each from its state): trained leaves with a "
+          f"gradient within {worst[0]:.3g} ({STEP_ATOL}), losses within {worst[1]:.3g} relative")
+
+    # -- checkpoint and resume: a run takes 10 steps and is saved; it goes on
+    # for 10 more (uninterrupted), a fresh state restored from the save
+    # takes the same 10 (resumed), and so do copies of the state in memory
+    # (twins). The restored state must be the saved one bit for bit. On the
+    # CPU, whose plain steps are deterministic, the 10 resumed losses must be
+    # within RESUME_RTOL of the uninterrupted run's. On the card K2's atomics
+    # sum in no fixed order, and Adam turns that rounding into lr-sized steps
+    # that flip knife-edge pixels, so two uninterrupted runs part within a
+    # few steps (PERF.md §6): there the first resumed step must be the
+    # uninterrupted run's (its loss bit for bit, K1 being deterministic; its
+    # leaves as STEP_ATOL holds two Adam steps from one state), and the later
+    # gaps are printed beside the twins'.
+    def gaps(a, b):
+        return [abs(x / y - 1) for x, y in zip(a, b)]
+
+    out, err = resume_cpu.communicate(timeout=600)
+    if resume_cpu.returncode != 0:
+        raise SystemExit(f"chip_smoke: the CPU resume process failed:\n{err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    (ref, res), n_saved = got["losses"], got["saved"]
+    gap_cpu = gaps(res, ref)
+    if max(gap_cpu) > RESUME_RTOL:
+        raise SystemExit(f"chip_smoke: on the CPU the resumed losses part from the "
+                         f"uninterrupted run's by {max(gap_cpu)} (> {RESUME_RTOL})")
+    print(f"checkpoint/resume on the CPU at {COMPARE_SIZE}x{COMPARE_SIZE * 3 // 4}: restored "
+          f"state bit-equal to the saved one ({n_saved} tensors, Adam's moments and step "
+          f"included); the 10 resumed losses within {max(gap_cpu):.3g} relative of the "
+          f"uninterrupted run's ({RESUME_RTOL})")
+    (ref, res, *twins), n_saved, (ref_first, res_first), mu = resume_run(
+        torch, dev, EXAMPLE_SIZE, 2)
+    if res[0] != ref[0]:
+        raise SystemExit(f"chip_smoke: the resumed run's first loss {res[0]} is not the "
+                         f"uninterrupted run's {ref[0]}")
+    for path in opt.trained:
+        noise = np.abs(mu[path]) < NOISE_MOMENT
+        d = np.abs(res_first[path] - ref_first[path])
+        if d[~noise].max(initial=0.0) > STEP_ATOL or d[noise].max(initial=0.0) > opt.lr:
+            raise SystemExit(f"chip_smoke: the resumed run's first step moved {path} apart")
+    print(f"checkpoint/resume on the card at {EXAMPLE_SIZE}x{EXAMPLE_SIZE * 3 // 4}: restored "
+          f"state bit-equal to the saved one ({n_saved} tensors); the first resumed step's "
+          f"loss bit-equal to the uninterrupted run's, its leaves within {STEP_ATOL}; over "
+          f"steps 10-19 the resumed losses part from the uninterrupted run's by "
+          + ", ".join(f"{g:.2g}" for g in gaps(res, ref)) + "; two twins' by "
+          + "; ".join(", ".join(f"{g:.2g}" for g in gaps(t, ref)) for t in twins)
+          + " (relative)")
+
+    # -- the scan-mode march oracle against K4's implicit VJP
+    cfg = rtt.RenderConfig(**SCAN_CFG)
+
+    def grad_y3(cfg):
+        s = rtt.default_scene(device=dev)[0]
+        y = s.objects.org.y.clone().requires_grad_()
+        img = rtt.render_color(s._replace(objects=s.objects._replace(
+            org=s.objects.org._replace(y=y))), cfg)
+        return float(torch.autograd.grad((img.r + img.g + img.b).mean(), y)[0][3])
+
+    km.LAUNCHES = kmb.LAUNCHES = 0
+    t0 = time.perf_counter()
+    implicit = grad_y3(cfg)
+    t1 = time.perf_counter()
+    k4 = (km.LAUNCHES, kmb.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    scan = grad_y3(cfg.with_(differentiable=True, march_budget=SCAN_BUDGET))
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after_scan = (km.LAUNCHES, kmb.LAUNCHES)
+    implicit_off = grad_y3(cfg.with_(march_floor_skip=False))
+    print(f"scan oracle {cfg.xres}x{cfg.yres} (budget {SCAN_BUDGET}): d mean(rgb) / d org.y[3] "
+          f"K4 {implicit:.6g} ({(t1 - t0) * 1e3:.0f} ms; K3, K4 launches {k4}), with the floor "
+          f"tail off {implicit_off:.6g}, scan {scan:.6g} ({t2 - t1:.1f} s, peak {peak:.2f} GiB, "
+          f"launches after it {after_scan}); relative "
+          f"{abs(implicit / scan - 1):.3g} (rtol {SCAN_RTOL})")
+    if k4 != (1, 1) or after_scan != (1, 1):
+        raise SystemExit("chip_smoke: want K3 and K4 once for the implicit gradient and never "
+                         "in scan mode")
+    if not abs(implicit - scan) <= SCAN_RTOL * abs(scan):
+        raise SystemExit("chip_smoke: K4's gradient is off the scan oracle's")
+
+    # -- RenderTimer and ray accounting at 1080p (device_trace: phase 5)
+    cfg = rtt.RenderConfig(xres=W, yres=H)
+    for _ in range(3):
+        rtt.render_color(scene, cfg)
+    with RenderTimer(W, H, emit=False) as timer:
+        rtt.render_color(scene, cfg)
+    rays = int(count_traced_rays(scene, cfg))
+    print(f"RenderTimer, one {W}x{H} frame: {timer.seconds * 1e3:.3f} ms, "
+          f"{timer.mrays_per_s:.1f} primary Mrays/s; count_traced_rays {rays} "
+          f"({rays / (W * H):.3f} a pixel), {rays / timer.seconds / 1e6:.1f} traced Mrays/s")
+
+    # -- the two PNG encoders on a 1080p frame
+    frame = rtt.render_u8(scene, cfg)
+    if native.native_available():
+        times = {}
+        for name, fn in (("native", native.encode_png_native), ("stdlib", encode_png_stdlib)):
+            fn(frame)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                data = fn(frame)
+            times[name] = ((time.perf_counter() - t0) * 1e3 / 5, len(data))
+            if not np.array_equal(decode_png(data), frame):
+                raise SystemExit(f"chip_smoke: the {name} PNG does not decode to the frame")
+        print(f"PNG encode {W}x{H}: native {times['native'][0]:.1f} ms ({times['native'][1]} "
+              f"bytes), stdlib zlib {times['stdlib'][0]:.1f} ms ({times['stdlib'][1]} bytes); "
+              "both decode to the frame bit for bit")
+    else:
+        print(f"PNG encode: the native library does not build here: {native.build_error()}")
+
+
 def main() -> int:
     import torch
 
@@ -815,14 +1283,38 @@ def run(torch, tex_dir) -> int:
                        count_ops, "trace", kt, cfg_main,
                        scene=spheres_scene(rtt, 11, 1023).to(torch.device("cpu")))}
 
-    # 2. the builds, one nvcc each, all started together
+    # 2. the builds, one nvcc each, all started together; meanwhile the card
+    # renders the plain versions of phase 3's small march cases, which need
+    # no kernel (each takes tens of seconds: its longest lane's steps)
+    dev = torch.device("cuda", 0)
+    default, _ = rtt.default_scene()
+    march_cases = [
+        ("march default 320x240", default, rtt.RenderConfig(xres=320, yres=240, **glow)),
+        ("march default 320x240 refraction_unroll=None", default,
+         rtt.RenderConfig(xres=320, yres=240, refraction_unroll=None, **glow)),
+        ("march 40 objects 320x240", spheres_scene(rtt, 7, 39, glow_dist=3.0),
+         rtt.RenderConfig(xres=320, yres=240, max_refractions=1, **glow)),
+        ("march 101 objects 160x120", spheres_scene(rtt, 11, 100, glow_dist=3.0),
+         rtt.RenderConfig(xres=160, yres=120, **glow)),
+    ]
     t0 = time.time()
     stems = tuple(KERNEL_COUNTS)
-    _build.prebuild(stems)
+
+    def build():
+        _build.prebuild(stems)
+        return time.time()
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        building = pool.submit(build)
+        march_plain = {name: img(km.render_color_plain(scene.to(dev), cfg))
+                       for name, scene, cfg in march_cases}
+        plain_s = time.time() - t0
+        built_at = building.result()
     print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
-          f"{time.time() - t0:.1f} s, each: " + ", ".join(
+          f"{built_at - t0:.1f} s, each: " + ", ".join(
               f"{stem} {_build.build_seconds[stem]:.0f} s" for stem in stems
-              if stem in _build.build_seconds))
+              if stem in _build.build_seconds)
+          + f"; the small march cases' plain images meanwhile, in {plain_s:.1f} s")
     for stem in stems:
         print(f"  ptxas, {stem}:")
         for line in _build.build_logs[stem].splitlines():
@@ -860,8 +1352,6 @@ def run(torch, tex_dir) -> int:
         if len(ptxas_figures(_build.build_logs[stem])) != want:
             raise SystemExit(f"chip_smoke: {stem} does not hold its {want} kernels")
 
-    dev = torch.device("cuda", 0)
-
     def both(scene, cfg, mod=kt):
         """Kernel and plain images of one render, and the plain one's ms."""
         scene = scene.to(dev)
@@ -878,7 +1368,6 @@ def run(torch, tex_dir) -> int:
     phase_s = {"2": time.time() - t0}  # the phases' wall times, printed at the end
     t_phase = time.time()
     print("kernel vs plain version:")
-    default, _ = rtt.default_scene()
     cases = [
         ("default 320x240", default, rtt.RenderConfig(xres=320, yres=240)),
         ("default 320x240 refraction_unroll=None", default,
@@ -959,18 +1448,8 @@ def run(torch, tex_dir) -> int:
             raise SystemExit(f"chip_smoke: the pack kernels, {name}: outside their budget")
 
     print("march kernel vs plain version:")
-    cases = [
-        ("march default 320x240", default, rtt.RenderConfig(xres=320, yres=240, **glow)),
-        ("march default 320x240 refraction_unroll=None", default,
-         rtt.RenderConfig(xres=320, yres=240, refraction_unroll=None, **glow)),
-        ("march 40 objects 320x240", spheres_scene(rtt, 7, 39, glow_dist=3.0),
-         rtt.RenderConfig(xres=320, yres=240, max_refractions=1, **glow)),
-        ("march 101 objects 160x120", spheres_scene(rtt, 11, 100, glow_dist=3.0),
-         rtt.RenderConfig(xres=160, yres=120, **glow)),
-    ]
-    for name, scene, cfg in cases:
-        got, ref, _ = both(scene, cfg, km)
-        compare(name, ref, got)
+    for name, scene, cfg in march_cases:  # the plain images rendered in phase 2
+        compare(name, march_plain[name], img(km.render_color_kernel(scene.to(dev), cfg)))
     golden = np.load(os.path.join(HERE, "tests", "goldens", "default_march_glow_160x120.npz"))["img"]
     got = img(km.render_color_kernel(default.to(dev), rtt.RenderConfig(
         xres=160, yres=120, refraction_unroll=None, **glow)))
@@ -1640,6 +2119,8 @@ def run(torch, tex_dir) -> int:
     # gradient, without the MSE): no yardstick of speed, not run twice
     print(f"  its plain twin (phase 3's plain autograd at {pw}x{ph}, one call): "
           f"{bwd_plain_ms:.3f} ms")
+    # the port's device_trace first, then the smoke's own profile of the step
+    trace_frame(torch, rtt, scene_dev, cfg_main)
     busy, span, names = device_busy(torch, kernel_step)
     print(f"  step through the kernels: {host_ms(torch, kernel_step, reps=20):.3f} ms by the "
           f"host's clock (20 steps enqueued), the card busy {busy:.3f} ms of a span of "
@@ -1832,6 +2313,11 @@ def run(torch, tex_dir) -> int:
           f"{bounds['trace_fwd_cull'][0]:.4f} ms ({bounds['trace_fwd_cull'][1]}); 1024 objects: "
           f"{big_ops} -> {roofline(big_ops, io_bytes(big, cfg_main))[0]:.4f} ms")
     phase_s["5"] = time.time() - t_phase
+
+    # 6. the host apps
+    t_phase = time.time()
+    host_apps(torch, card)
+    phase_s["6"] = time.time() - t_phase
     print("phase wall times: " + ", ".join(f"{k} {v:.0f} s" for k, v in phase_s.items()))
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:

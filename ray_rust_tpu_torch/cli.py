@@ -14,9 +14,13 @@ texture when that file is an RGB PNG, as the reference does
 (src/main.rs:169); a scene file's textures open from the working directory.
 A file's depth caps apply, with the CLI's overrides on top. A file with a
 ``camera_motion`` renders its frames to ``{output}{i}.png``
-(``animation.render_frames``), written one after another. ``-t/--threads``
-and ``-p/--port_no`` are accepted for compatibility and change nothing. The
-web viewer (``-w``) is not ported yet and raises ``NotImplementedError``.
+(``animation.render_frames``), each written by the native frame-writer pool
+of ``max(1, threads // 2)`` threads (``-t``; ``utils/native.FrameWriter``)
+while the card renders the next; when the pool has finished, a frame not on
+disk whole makes the CLI say how many and exit 1. ``-w`` serves the web viewer on port ``-p``
+(``webserver.py``) instead of writing a file::
+
+    python -m ray_rust_tpu_torch.cli 1920 1080 -w -p 3000
 """
 
 from __future__ import annotations
@@ -31,10 +35,6 @@ from .models.serialize import deserialize_scene, serialize_scene
 from .renderer import render_u8
 from .utils.image import gradient_prefill, save_png
 
-_NOT_PORTED = {
-    "webserver": "-w/--webserver (the viewer, ROADMAP queue 1 item 8)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("width", type=int, help="Width of the image [px]")
     p.add_argument("height", type=int, help="Height of the image [px]")
     p.add_argument("-t", "--threads", type=int, default=8,
-                   help="thread count (accepted for compatibility)")
+                   help="thread count: half of it write camera-motion frames")
     p.add_argument("-o", "--output", default="foo.png", help="Output file name")
     p.add_argument("-m", "--raymarch", action="store_true", help="Use ray marching")
     p.add_argument("-g", "--gloweffect", type=float, default=None,
@@ -70,9 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"{what} is not yet ported")
     for name in ("width", "height", "threads", "output"):
         print(f"Value for {name}: {getattr(args, name)}")
 
@@ -89,6 +86,11 @@ def main(argv=None) -> int:
                        yfov=args.height / args.width,  # main.rs:135-136
                        use_raymarching=args.raymarch, glow_effect=args.gloweffect,
                        **caps)
+    if args.webserver:
+        from .webserver import run_webserver
+
+        run_webserver(scene, meta, cfg, args.port_no)
+        return 0
     if args.serialize_file:
         with open(args.serialize_file, "w") as f:
             f.write(serialize_scene(scene, meta))
@@ -96,9 +98,15 @@ def main(argv=None) -> int:
     start = time.time()
     if meta.camera_motion:
         from .animation import render_frames
+        from .utils.native import FrameWriter
 
-        render_frames(scene, meta, cfg,
-                      lambda i, data: save_png(f"{args.output}{i}.png", data))
+        with FrameWriter(n_threads=max(1, args.threads // 2)) as writer:
+            render_frames(scene, meta, cfg,
+                          lambda i, data: writer.submit(f"{args.output}{i}.png", data))
+        errors = writer.close()  # counted once every thread has finished
+        if errors:
+            print(f"frame writer: {errors} failed writes", file=sys.stderr)
+            return 1
     else:
         buf = gradient_prefill(args.width, args.height)
         buf[:, :] = render_u8(scene, cfg)

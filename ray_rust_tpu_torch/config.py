@@ -1,10 +1,11 @@
 """Static render configuration.
 
 PyTorch counterpart of ``ray_rust_tpu/config.py``. It keeps the semantic
-fields, and of the JAX package's kernel switches only ``march_floor_skip``,
-which the march kernels take, and ``pallas_prefilter``, which the trace
-kernel takes; the TPU tiling knobs have no meaning here. A
-render runs on the device of the scene's tensors.
+fields, the scan-mode march's ``differentiable`` and ``march_budget``, and
+of the JAX package's kernel switches only ``march_floor_skip``, which the
+march kernels take, and ``pallas_prefilter``, which the trace kernel takes;
+the TPU tiling knobs have no meaning here. A render runs on the device of
+the scene's tensors.
 """
 
 from __future__ import annotations
@@ -46,6 +47,14 @@ class RenderConfig:
     far_away: float = FAR_AWAY
     march_max_iter: int = MARCH_MAX_ITER
     raymarch_max_reflections: int = REF_MAX_REFLECTIONS
+
+    # The scan-mode march (ops/march.py), the brute-force gradient oracle of
+    # the implicit VJP: True marches every ray for exactly march_budget
+    # masked steps and autograd differentiates through them; rays not
+    # settled within the budget count as escaped. A mode the caller selects,
+    # on either device: the march kernels never run it.
+    differentiable: bool = False
+    march_budget: int = 512  # scan length in differentiable mode
 
     bg: str = "default_sky"  # background shader registry key
 

@@ -45,6 +45,7 @@ __all__ = [
     "FloorSpec",
     "build_scene",
     "default_scene",
+    "leaf_paths",
     "scene_from_numpy",
     "scene_to_numpy",
 ]
@@ -269,6 +270,12 @@ def _leaf_paths(tree, prefix=""):
                 yield f"{path}.{field}", getattr(leaf, field)
         else:
             yield path, leaf
+
+
+def leaf_paths(scene) -> list:
+    """The dotted paths of a scene's leaves, in the order of
+    :meth:`Scene.tensors` (the keys of :func:`scene_to_numpy`)."""
+    return [path for path, _ in _leaf_paths(scene)]
 
 
 def scene_to_numpy(scene) -> dict:

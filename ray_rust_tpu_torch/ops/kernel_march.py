@@ -87,6 +87,8 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the march kernel cannot render ``scene`` under ``cfg``, or None."""
     if not cfg.use_raymarching:
         return "trace mode runs in the trace kernel (K1, ops/kernel_trace.py)"
+    if cfg.differentiable:
+        return "cfg.differentiable selects the scan-mode march (ops/march.py), no kernel's"
     reason = texture_reason(scene)
     if reason is not None:
         return reason

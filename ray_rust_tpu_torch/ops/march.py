@@ -1,18 +1,31 @@
 """SDF evaluation and the sphere-tracing march, with the implicit VJP.
 
-PyTorch counterpart of ``ray_rust_tpu/ops/march.py`` in its while mode:
+PyTorch counterpart of ``ray_rust_tpu/ops/march.py``:
 ``distance_estimate`` (render.rs:1226-1251) and ``march_single``
-(render.rs:1266-1297). The scene SDF is evaluated for every object at once
-along a leading object axis and reduced in order (strictly closer wins, the
-first index wins ties, the ignored object is masked by index), which gives
-the same values as the JAX package's object-by-object loop.
+(render.rs:1266-1297), in its while mode and in its scan mode. The scene
+SDF is evaluated for every object at once along a leading object axis and
+reduced in order (strictly closer wins, the first index wins ties, the
+ignored object is masked by index), which gives the same values as the JAX
+package's object-by-object loop.
 
 ``march_single`` is a batched masked loop over the whole ray batch. The host
 reads ``any(~done)`` only every ``CHECK_EVERY`` steps, so it does not
 synchronise with the device each step; the extra steps are masked no-ops on
 settled lanes, as the JAX package's chunked ``while_loop`` runs them.
 
-Gradient: where a scene leaf, the start point or the direction requires
+Scan mode (``cfg.differentiable``, the JAX package's ``lax.scan`` path,
+``ray_rust_tpu/ops/march.py:344-364``): every ray runs exactly
+``cfg.march_budget`` masked steps of the same body, with no host reads, and
+autograd differentiates through every step; rays not settled within the
+budget count as escaped (``iter = march_max_iter + 1``, ``final_dist =
+2 * far_away``). It is the brute-force gradient oracle of the implicit VJP
+below, a mode the caller selects: nothing falls back to it, and the march
+kernels never run it (``renderer.render_color`` sends such a config to the
+plain march on either device). Autograd keeps every step's SDF, so its
+memory grows as steps x rays x objects: a march whose recorded residuals
+would pass ``SCAN_MAX_BYTES`` raises (:func:`scan_residual_bytes`).
+
+While mode: where a scene leaf, the start point or the direction requires
 grad, the march runs inside :class:`_ImplicitMarch`, the counterpart of the
 JAX package's closed-form implicit VJP ``_march_while_vjp``. The loop itself
 is never differentiated: the hit point is a root of the scene SDF along the
@@ -37,10 +50,14 @@ from ..config import RenderConfig
 from ..models.scene import KIND_SPHERE, Scene
 from ..models.vec import Vec3
 
-__all__ = ["MarchResult", "distance_estimate", "march_single"]
+__all__ = ["MarchResult", "distance_estimate", "march_single", "scan_residual_bytes",
+           "SCAN_MAX_BYTES"]
 
 # Masked march steps between two host reads of "is any lane still live".
 CHECK_EVERY = 16
+
+# The most residual bytes one scan-mode march may record for autograd.
+SCAN_MAX_BYTES = 8 << 30
 
 _INF = float("inf")
 
@@ -130,10 +147,21 @@ def distance_estimate(scene: Scene, pos: Vec3, ig):
     return _SceneSDF(kind, cols, torch.as_tensor(ig, device=kind.device), ndim)(pos)
 
 
+def scan_residual_bytes(n_objects: int, rays: int, budget: int) -> int:
+    """The bytes autograd records for a scan-mode march of ``budget`` steps
+    over ``rays`` rays and ``n_objects`` objects, rounded up: per step and
+    ray, 36 bytes an object for the SDF and 24 of march state (with glow,
+    34 and 18 bytes measured by ``torch.autograd.graph.saved_tensors_hooks``
+    on 5, 20 and 40 objects: tests/test_torch_march_grad.py)."""
+    return budget * rays * (36 * n_objects + 24)
+
+
 def _march_loop(sdf: _SceneSDF, cfg: RenderConfig, pos: Vec3, eye: Vec3, done,
-                need_glow: bool) -> MarchResult:
+                need_glow: bool, budget=None) -> MarchResult:
     """The masked step loop from start points ``pos`` (lanes already done
-    stay as they are); no gradient."""
+    stay as they are): until every lane is done, or, given a ``budget``,
+    exactly that many steps (the scan mode, which autograd differentiates;
+    lanes still live at its end count as escaped)."""
     shape, dev = done.shape, done.device
     zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
     travel, final_dist = zeros, zeros
@@ -143,7 +171,8 @@ def _march_loop(sdf: _SceneSDF, cfg: RenderConfig, pos: Vec3, eye: Vec3, done,
     glow_pos, glow_iter = pos, torch.full(shape, -1, dtype=torch.int32, device=dev)
 
     step = 0
-    while step % CHECK_EVERY != 0 or bool((~done).any()):
+    while (step < budget if budget is not None
+           else step % CHECK_EVERY != 0 or bool((~done).any())):
         dist, d_idx, glow = sdf(pos, need_glow)
         live = ~done
         new_iter = it + 1
@@ -162,6 +191,9 @@ def _march_loop(sdf: _SceneSDF, cfg: RenderConfig, pos: Vec3, eye: Vec3, done,
         idx = torch.where(live, d_idx, idx)
         done = done | (live & stop)
         step += 1
+    if budget is not None:  # the reference treats an exhausted march as escaped
+        it = torch.where(done, it, cfg.march_max_iter + 1)
+        final_dist = torch.where(done, final_dist, cfg.far_away * 2)
     return MarchResult(final_dist, idx, pos, it, travel, min_dist, glow_pos, glow_iter)
 
 
@@ -246,7 +278,12 @@ def march_single(scene: Scene, cfg: RenderConfig, init_pos: Vec3, eye: Vec3, ig,
     skips the glow metric (a shadow march reads only travel and iter):
     ``min_dist`` stays +inf. Differentiable through the implicit VJP
     (:class:`_ImplicitMarch`) wherever an input requires grad; a caller that
-    reads only decisions (the shadow march) runs it under ``no_grad``."""
+    reads only decisions (the shadow march) runs it under ``no_grad``.
+
+    With ``cfg.differentiable`` every call runs the scan mode (module
+    docstring), the shadow march too, and autograd differentiates it step
+    by step; it raises ``ValueError`` where the steps' residuals would pass
+    ``SCAN_MAX_BYTES``."""
     shape = torch.broadcast_shapes(init_pos.shape, eye.shape)
     eye = eye.broadcast_to(shape)
     pos = init_pos.broadcast_to(shape)
@@ -255,7 +292,18 @@ def march_single(scene: Scene, cfg: RenderConfig, init_pos: Vec3, eye: Vec3, ig,
             else ~active.expand(shape))
     ig = torch.as_tensor(ig, device=dev)
     kind, cols = _object_columns(scene)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (*cols, *pos, *eye)):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (*cols, *pos, *eye))
+    if cfg.differentiable:
+        need = scan_residual_bytes(kind.shape[0], done.numel(), cfg.march_budget)
+        if grad and need > SCAN_MAX_BYTES:
+            raise ValueError(
+                f"the scan-mode march would record ~{need / 2**30:.1f} GiB for autograd "
+                f"({cfg.march_budget} steps x {done.numel()} rays x {kind.shape[0]} objects), "
+                f"more than SCAN_MAX_BYTES ({SCAN_MAX_BYTES / 2**30:.0f} GiB): it is an "
+                "oracle for small frames; take the implicit VJP (differentiable=False)")
+        return _march_loop(_SceneSDF(kind, cols, ig, len(shape)), cfg, pos, eye, done,
+                           need_glow, budget=cfg.march_budget)
+    if grad:
         out = _ImplicitMarch.apply(cfg, need_glow, kind, ig, done, *pos, *eye, *cols)
         return MarchResult(out[0], out[1], Vec3(*out[2:5]), *out[5:8], Vec3(*out[8:11]),
                            out[11])

@@ -11,6 +11,10 @@ device of the scene's tensors:
   forward, the march backward kernel K4) under autograd;
 - CPU: the plain PyTorch version, differentiable by autograd, through the
   march's implicit VJP in march mode.
+
+A march with ``cfg.differentiable`` takes the plain version on either
+device: the scan-mode march (``ops/march.py``), the gradient oracle that
+autograd differentiates step by step, which the march kernels never run.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def render_color(scene: Scene, cfg: RenderConfig) -> Color:
     dev = scene.device
     march = cfg.use_raymarching
     kernels = kernel_march if march else kernel_trace
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (march and cfg.differentiable):
         return kernels.render_color_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render path for device {dev}")

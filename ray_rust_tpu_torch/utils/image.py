@@ -1,11 +1,15 @@
 """Host-side image IO: PNG write/read and the debug gradient prefill.
 
-PyTorch-port counterpart of ``ray_rust_tpu/utils/image.py``. The PNG codec is
-written over the standard library's ``zlib`` and numpy, so it needs neither
-PIL nor a native toolchain. :func:`encode_png` writes 8-bit RGB rows without
-a filter; :func:`load_png` reads any non-interlaced RGB PNG of bit depth 8
-or 16 with the five row filters, the files a texture comes in
-(:func:`ray_rust_tpu_torch.models.material.load_texture`).
+PyTorch-port counterpart of ``ray_rust_tpu/utils/image.py``.
+:func:`encode_png` and :func:`save_png` are written over the standard
+library's ``zlib`` and numpy (8-bit RGB rows without a filter), so they need
+neither PIL nor a native toolchain. Unlike the JAX package they do not take
+the native encoder (``utils/native.py``) where it builds: on a 1920x1080
+frame it filters every row and takes 2.5x as long (PERF.md §5); the native
+library writes only the camera-motion frames, through
+``utils/native.FrameWriter``'s pool. :func:`load_png` reads any
+non-interlaced RGB PNG of bit depth 8 or 16 with the five row filters, the
+files a texture comes in (:func:`ray_rust_tpu_torch.models.material.load_texture`).
 """
 
 from __future__ import annotations

@@ -66,8 +66,8 @@ def _jax_fwd(cfg, **extra):
     from ray_rust_tpu.ops.rays import camera_rays
     from ray_rust_tpu.ops.trace import trace_image
 
-    jcfg = rt.RenderConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)},
-                           march_tiles=1, march_chunk=1, **extra)
+    jcfg = rt.RenderConfig(**{**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)},
+                              "march_tiles": 1, "march_chunk": 1, **extra})
 
     def fwd(s):
         vi, eye = camera_rays(s.camera.position, s.camera.rotation, jcfg)
@@ -188,6 +188,117 @@ def test_march_implicit_vjp_glow_contract():
     got = _port_grad(cfg, _set_radius3, 80.0)
     assert np.isfinite(got)
     np.testing.assert_allclose(got, _jax_scan_grad(cfg, _set_radius3, 80.0), rtol=0.1)
+
+
+# -- the port's scan-mode march (cfg.differentiable) -------------------------
+
+def _org_x_grad_port(cfg):
+    """d mean(r + g + b) / d objects.org.x of the port's default scene."""
+    scene = rtt.default_scene(device="cpu")[0]
+    ox = scene.objects.org.x.clone().requires_grad_()
+    img = rtt.render_color(scene._replace(objects=scene.objects._replace(
+        org=scene.objects.org._replace(x=ox))), cfg)
+    return torch.autograd.grad((img.r + img.g + img.b).mean(), ox)[0].numpy()
+
+
+def test_scan_march_matches_jax_scan():
+    """Twin of tests/test_grad.py:218 (``differentiable=True``,
+    ``march_budget=64``, glow): the port's scan gradient of every sphere's
+    and the floor's ``org.x`` is finite and not all zero, and within 1e-4
+    relative L2 of the JAX package's scan gradient. The JAX gradient is
+    compiled with XLA's backend optimisations off: a default build
+    contracts to FMAs and moves this vector by 1.8e-4 (its eager run, 200 s
+    here, agrees with the port to 1.7e-7)."""
+    import jax
+    import jax.numpy as jnp
+
+    import ray_rust_tpu as rt
+
+    cfg = rtt.RenderConfig(xres=W, yres=H, use_raymarching=True, glow_effect=1.0,
+                           max_refractions=1, differentiable=True, march_budget=64)
+    got = _org_x_grad_port(cfg)
+    assert np.all(np.isfinite(got)) and np.any(got != 0.0)
+    fwd = _jax_fwd(cfg)
+    scene, _ = rt.default_scene()
+
+    def loss(ox):
+        img = fwd(scene._replace(objects=scene.objects._replace(
+            org=scene.objects.org._replace(x=ox))))
+        return jnp.mean(img.r + img.g + img.b)
+
+    x0 = scene.objects.org.x
+    want = np.asarray(jax.jit(jax.grad(loss)).lower(x0).compile(
+        {"xla_backend_optimization_level": 0})(x0))
+    assert _rel(got, want) <= 1e-4, (got, want)
+
+
+def test_march_implicit_vjp_matches_port_scan():
+    """The implicit VJP against the port's own scan (budget 256), as
+    tests/test_grad.py:235-255 holds the JAX package's: sphere 3's ``org.y``,
+    rtol 5e-3."""
+    cfg = rtt.RenderConfig(**_TWIN_KW)
+    y0 = float(rtt.default_scene(device="cpu")[0].objects.org.y[3])
+    scan = _port_grad(cfg.with_(differentiable=True, march_budget=256), _set_org_y3, y0)
+    np.testing.assert_allclose(_port_grad(cfg, _set_org_y3, y0), scan, rtol=5e-3)
+
+
+def test_scan_march_is_a_mode_no_kernel_runs():
+    """``differentiable`` routes a march to the plain version on either
+    device; the march kernels refuse it; exhausted lanes count as escaped
+    (``iter = march_max_iter + 1``, ``final_dist = 2 far_away``)."""
+    from ray_rust_tpu_torch.models.vec import v3
+    from ray_rust_tpu_torch.ops.march import march_single
+
+    scene = rtt.default_scene(device="cpu")[0]
+    cfg = rtt.RenderConfig(xres=8, yres=6, use_raymarching=True, differentiable=True,
+                           march_budget=3)
+    assert "scan-mode" in km.unsupported_reason(scene, cfg)
+    assert "scan-mode" in kmb.unsupported_reason(scene, cfg)
+    # a ray along the floor from far away: three steps do not settle it
+    res = march_single(scene, cfg, v3(0.0, -49.0, -3000.0), v3(0.0, 0.0, 1.0), -1)
+    assert int(res.iter) == cfg.march_max_iter + 1
+    assert float(res.final_dist) == 2 * cfg.far_away
+    ref = march_single(scene, cfg.with_(differentiable=False), v3(0.0, -49.0, -3000.0),
+                       v3(0.0, 0.0, 1.0), -1)
+    assert int(ref.iter) > 3
+
+
+def test_scan_residual_bytes_bound_and_refusal(monkeypatch):
+    """``scan_residual_bytes`` bounds what autograd saves for a scan march
+    (its docstring's measurement), and a march past ``SCAN_MAX_BYTES`` raises
+    before it runs."""
+    from ray_rust_tpu_torch.ops import march as march_mod
+    from ray_rust_tpu_torch.ops.rays import camera_rays
+
+    scene = _glowing_sphere_field()
+    leaves = [t.detach().clone().requires_grad_() if t.is_floating_point() else t
+              for t in scene.tensors()]
+    scene = scene.with_tensors(leaves)
+
+    def saved_bytes(budget):
+        cfg = rtt.RenderConfig(xres=W, yres=H, use_raymarching=True, glow_effect=1.0,
+                               differentiable=True, march_budget=budget)
+        vi, eye = camera_rays(scene.camera.position, scene.camera.rotation, cfg)
+        seen, total = set(), [0]
+
+        def pack(t):
+            if t.untyped_storage().data_ptr() not in seen:
+                seen.add(t.untyped_storage().data_ptr())
+                total[0] += t.untyped_storage().nbytes()
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            march_mod.march_single(scene, cfg, vi, eye, -1)
+        return total[0]
+
+    n = scene.objects.count
+    per_step = (saved_bytes(8) - saved_bytes(4)) / 4
+    assert 0.5 * march_mod.scan_residual_bytes(n, W * H, 1) <= per_step
+    assert per_step <= march_mod.scan_residual_bytes(n, W * H, 1)
+    monkeypatch.setattr(march_mod, "SCAN_MAX_BYTES", march_mod.scan_residual_bytes(n, W * H, 7))
+    cfg = rtt.RenderConfig(xres=W, yres=H, use_raymarching=True, differentiable=True,
+                           march_budget=8)
+    with pytest.raises(ValueError, match="SCAN_MAX_BYTES"):
+        rtt.render_color(scene, cfg)
 
 
 # -- the site tree and the support check -------------------------------------
@@ -328,6 +439,24 @@ def test_host_build_of_march_backward_with_floor_tail(host_lib, march_host_lib, 
     g = Color(*(p * torch.from_numpy(agree) for p in planes))
     got, _ = _host_grads(host_lib, scene, cfg, g)
     assert_leaf_grads_close(scene, got, kmb.render_grads_plain(scene, cfg, g), 0.02)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_march_launches_no_kernel():
+    """On the card the scan-mode march is the plain version too: neither
+    march kernel launches, and its gradient is the CPU's within rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = rtt.RenderConfig(xres=W, yres=H, use_raymarching=True, glow_effect=1.0,
+                           max_refractions=1, differentiable=True, march_budget=64)
+    scene = rtt.default_scene(device="cuda")[0]
+    ox = scene.objects.org.x.clone().requires_grad_()
+    before = (km.LAUNCHES, kmb.LAUNCHES)
+    img = rtt.render_color(scene._replace(objects=scene.objects._replace(
+        org=scene.objects.org._replace(x=ox))), cfg)
+    got = torch.autograd.grad((img.r + img.g + img.b).mean(), ox)[0].cpu().numpy()
+    assert (km.LAUNCHES, kmb.LAUNCHES) == before
+    assert _rel(got, _org_x_grad_port(cfg)) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -125,21 +125,30 @@ def test_cli_cpu_writes_render_u8(tmp_path):
     np.testing.assert_array_equal(png, want)
 
 
-def test_cli_refuses_unported_flags(tmp_path):
-    """The viewer (-w) is not ported and raises; the scene-file flags (-s,
-    -d) are, and run (tests/test_torch_apps.py holds them)."""
-    import pytest
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch):
+    """Every flag of the reference's CLI is ported now, so none raises: -w
+    hands the scene and config to the viewer on port -p (served in
+    tests/test_torch_viewer.py), -s and -d run (tests/test_torch_apps.py
+    holds them)."""
+    from ray_rust_tpu_torch import webserver
 
+    served = []
+    monkeypatch.setattr(webserver, "run_webserver",
+                        lambda scene, meta, cfg, port: served.append((scene, cfg, port)))
     argv = ["8", "8", "-o", str(tmp_path / "x.png"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(argv + ["-w"])
+    assert cli.main(argv + ["-w", "-p", "0"]) == 0
+    assert [(c.xres, c.yres, p) for _, c, p in served] == [(8, 8, 0)]
+    assert not (tmp_path / "x.png").exists()
     scene_file = str(tmp_path / "scene.yaml")
     assert cli.main(argv + ["-s", scene_file]) == 0
     assert cli.main(argv + ["-d", scene_file]) == 0
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, ray_rust_tpu_torch, ray_rust_tpu_torch.cli, ray_rust_tpu_torch.parallel; "
+    code = ("import sys, ray_rust_tpu_torch, ray_rust_tpu_torch.cli, ray_rust_tpu_torch.parallel, "
+            "ray_rust_tpu_torch.webserver, ray_rust_tpu_torch.checkpoint, "
+            "ray_rust_tpu_torch.utils.native, ray_rust_tpu_torch.utils.profiling, "
+            "ray_rust_tpu_torch.ops.accounting, ray_rust_tpu_torch.examples.inverse_rendering; "
             "print('jax' in sys.modules or 'ray_rust_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
                          text=True, check=True)
