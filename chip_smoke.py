@@ -201,6 +201,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    each decoding to the frame bit for bit, both timed (or why the native
    library does not build).
 
+7. the multi-device layer (``parallel/shard.py``, ``parallel/multihost.py``),
+   with the launch counts set to 0 just before its main path and read just
+   after: ``render_sharded`` on a 2x2 mesh of cuda:0 (each cell a window of
+   the frame at its global origin, K1 or K3 launched on it) for trace at
+   1920x1080 (untextured, ``bar.png`` in Nearest, configuration 4's 101
+   objects with K1b's cull) and march + glow at 1280x720, on a 3x1 mesh
+   (1080 / 3 = 360 rows: a window's edge cuts 16x16 blocks) for trace and
+   march, and ``render_tiled_u8`` at 3840x2160 in 8 bands of 270 rows:
+   each stitched frame bit-equal to the whole-frame launch, the 4K frame to
+   ``to_u8`` of one whole-frame launch; the windows against their windowed
+   plain versions within the golden budget (trace at 320x240 and at the
+   2x2 mesh's 1080p cell, the march at a ragged 320x240 window and at the
+   720p cell, whose plain images phase 2 renders under the build), the
+   windowed plain march the whole plain frame's crop bit for bit; times by
+   events of the whole frame, both meshes and the cell alone, and of 4K
+   whole and banded (the banded also by the host's clock); two processes
+   on the card joining a gloo group (``init_distributed(backend="gloo")``)
+   and gathering a 1920x1080 frame with ``render_multihost`` (one K1
+   launch each), both bit-equal to the single-process frame, importing no
+   JAX, their wall time.
+
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
 its public wrapper (for K1, K2 and K5 packing included); the trace
@@ -212,6 +233,10 @@ in the five trace training steps. ``trace_fwd_cull`` (K1b) is K1 with its
 cull on configuration 4's 101 objects at 1920x1080 (``off_ms``: with
 ``pallas_prefilter`` off), its launches those of the ``-d`` trace request
 that took the cull, its ``max_abs_err`` against K1 without the cull.
+``trace_fwd_window`` and ``march_fwd_window`` are K1 and K3 on phase 7's
+main path: its launches, the windows' largest error against the windowed
+plain versions, the 2x2 mesh's last cell alone by events (``ms``), the
+windowed plain version of that cell (``plain_ms``) and its bound.
 """
 
 from __future__ import annotations
@@ -394,12 +419,14 @@ def roofline(ops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def io_bytes(scene, cfg):
+def io_bytes(scene, cfg, pixels=None):
     """Bytes a render must move: the packed tables read once (f32 and i32
-    rows of 19 and 4 words, camera and light), the three f32 planes
-    written once; with textures, the atlas's meta rows."""
+    rows of 19 and 4 words, camera and light), the three f32 planes of its
+    ``pixels`` (the frame's by default) written once; with textures, the
+    atlas's meta rows."""
     meta = 0 if scene.textures is None else 4 * 4 * scene.textures.data.shape[0]
-    return 4 * (scene.objects.count * (19 + 4) + 8 + 4) + 3 * 4 * cfg.xres * cfg.yres + meta
+    pixels = cfg.xres * cfg.yres if pixels is None else pixels
+    return 4 * (scene.objects.count * (19 + 4) + 8 + 4) + 3 * 4 * pixels + meta
 
 
 def texel_bytes(scene, fetched):
@@ -418,7 +445,7 @@ def _host_scene(texture_dir, texture_filter):
                              device="cpu")[0]
 
 
-def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None):
+def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None, window=None):
     """The f32 operations kernel ``name``'s body (``"trace"`` or
     ``"march"``) takes on the default scene (or the CPU ``scene``) under
     ``cfg``, textured from ``texture_dir``, and the texel bytes its texture
@@ -429,7 +456,8 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None):
     the trace body, where it takes K1b's cull (above 64 objects), the
     objects the cull tested, the primary candidates scanned and the scans,
     and the shadow candidates scanned and the scans (eight counts in
-    all)."""
+    all). ``window`` (row0, col0, h, w) counts that window of the frame
+    alone (the multi-device layer's cells)."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
@@ -441,7 +469,8 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None):
     if scene is None:
         scene = _host_scene(texture_dir, texture_filter)
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)  # held until the call returns
-    out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
+    window = kt.window(cfg) if window is None else window
+    out = torch.empty((3, window[2], window[3]), dtype=torch.float32)
     ops = torch.zeros(max(km.OPS_SLOTS, 8), dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     cpu = torch.device("cpu")
@@ -449,7 +478,7 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None):
             else mod.launch_args(cfg, tex, cpu))
     getattr(lib, f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
-        sx, sy, *args, *(plane.data_ptr() for plane in out), ops.data_ptr())
+        *window, sx, sy, *args, *(plane.data_ptr() for plane in out), ops.data_ptr())
     return tuple(int(v) for v in ops)
 
 
@@ -506,9 +535,20 @@ def count_retrace_ops(cfg):
     g = [torch.zeros((cfg.yres, cfg.xres), dtype=torch.float32) for _ in range(3)]
     ops = torch.zeros(kr.OPS_SLOTS, dtype=torch.int64)
     tables = kt.pack_scene(scene)  # held until the call returns
-    kr.launch_all(lib.rt_trace_retrace_host, [t.data_ptr() for t in tables], scene.objects.count,
-                  torch.device("cpu"), cfg, g, False, (ops.data_ptr(),))
+    kr.launch_all(lib, "rt_trace_retrace_host", [t.data_ptr() for t in tables],
+                  scene.objects.count, torch.device("cpu"), cfg, g, False, (ops.data_ptr(),))
     return tuple(int(v) for v in ops)
+
+
+def event_ms(torch, fn):
+    """``fn()`` once, and its ms by events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(torch, fn, warm=3, reps=10):
@@ -1215,6 +1255,215 @@ def host_apps_checks(torch, card, resume_cpu) -> None:
         print(f"PNG encode: the native library does not build here: {native.build_error()}")
 
 
+# Phase 7, the multi-device layer: the 2x2 meshes' last cell at the trace and
+# march main paths' shapes (the windows' timed, bounded and plain-checked
+# shape), a ragged window of a 320x240 frame, and 4K in bands of 270 rows
+# (2160 = 8 x 270; 256, the default, does not divide it)
+CELL = (H // 2, W // 2, H // 2, W // 2)  # (row0, col0, h, w)
+MCELL = (MH // 2, MW // 2, MH // 2, MW // 2)
+SMALL_WINDOW = (37, 51, 150, 203)
+UHD_W, UHD_H, UHD_BAND = 3840, 2160, 270
+
+# Two ranks of the multi-process render on the one card: each joins a gloo
+# group from torchrun's variables, renders its half of a 2x1 global mesh at
+# 1920x1080 through K1, and gathers the frame; it saves the frame to
+# argv[1] and prints its launches (the first call, counted alone) and the
+# host's clock of three more calls as its last line.
+RANK_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+import ray_rust_tpu_torch as rtt
+from ray_rust_tpu_torch.ops import kernel_trace as kt
+from ray_rust_tpu_torch.parallel import multihost
+
+assert multihost.init_distributed(backend="gloo") is True
+scene, _ = rtt.default_scene()
+cfg = rtt.RenderConfig(xres=1920, yres=1080)
+mesh = multihost.global_mesh()
+kt.LAUNCHES = 0
+img = multihost.render_multihost(scene, cfg, mesh)
+launches = kt.LAUNCHES
+times = []
+for _ in range(3):
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    multihost.render_multihost(scene, cfg, mesh)
+    times.append((time.perf_counter() - t0) * 1e3)
+np.save(sys.argv[1], img)
+bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ray_rust_tpu."))]
+print(json.dumps({"rank": torch.distributed.get_rank(), "launches": launches,
+                  "cells": len(mesh.local_cells()), "ms": times, "jax": bad}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def two_ranks(ref):
+    """Two processes of ``RANK_CHILD`` on the card over gloo; each rank's
+    gathered frame must be ``ref`` bit for bit. Returns the wall time from
+    the start of both to the end of both (s) and each rank's report."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_CHILD, os.path.join(d, f"{rank}.npy")], cwd=HERE,
+            env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                     RANK=str(rank)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for rank in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        reports = []
+        for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise SystemExit(f"chip_smoke: rank {rank} failed (rc {p.returncode}):\n{err}")
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+            got = np.load(os.path.join(d, f"{rank}.npy"))
+            if not np.array_equal(got, ref):
+                raise SystemExit(f"chip_smoke: rank {rank}'s frame is not the single-process "
+                                 f"one: {int((got != ref).any(-1).sum())} pixels differ")
+    for r in reports:
+        if r["launches"] != 1 or r["cells"] != 1 or r["jax"]:
+            raise SystemExit(f"chip_smoke: a rank did not render its cell with one K1 launch "
+                             f"or imported JAX: {r}")
+    return wall, reports
+
+
+def multi_device(torch, rtt, kt, km, card, scenes, window_plain, march_small_plain, ops):
+    """Phase 7: the multi-device layer on the one card (``parallel/``).
+    ``scenes``: the default scene, the Nearest textured one and
+    configuration 4's 101 objects, on the card; ``window_plain``: phase 2's
+    plain marches of the 2x2 mesh's cell at 1280x720 and of SMALL_WINDOW at
+    320x240, each with its ms; ``march_small_plain`` phase 2's whole
+    320x240 plain march; ``ops`` the counting builds' futures. Returns the
+    figures of the windows' kernel lines. Raises SystemExit on any
+    failure."""
+    from ray_rust_tpu_torch.parallel import make_mesh, render_sharded, render_tiled_u8
+
+    dev = torch.device("cuda", 0)
+    default, textured, conf4 = scenes
+    cfg_main, cfg_march = rtt.RenderConfig(xres=W, yres=H), rtt.RenderConfig(
+        xres=MW, yres=MH, use_raymarching=True, glow_effect=1.0)
+    cfg_uhd = rtt.RenderConfig(xres=UHD_W, yres=UHD_H)
+    mesh22 = make_mesh([dev] * 4, dp=2, sp=2)
+    mesh31 = make_mesh([dev] * 3, dp=3, sp=1)
+    cases = [("2x2 trace default", mesh22, default, cfg_main),
+             ("2x2 trace bar.png Nearest", mesh22, textured, cfg_main),
+             ("2x2 trace 101 objects (K1b)", mesh22, conf4, cfg_main),
+             ("2x2 march + glow", mesh22, default, cfg_march),
+             ("3x1 trace default", mesh31, default, cfg_main),
+             ("3x1 march + glow", mesh31, default, cfg_march)]
+    # the main path, the counts set to 0 just before it and read just after:
+    # each mesh cell launches K1 (K3) on its window, each 4K band K1 on the
+    # one card's 1x1 mesh (make_mesh's default: every CUDA device)
+    kt.LAUNCHES = kt.CULL_LAUNCHES = km.LAUNCHES = 0
+    with torch.no_grad():
+        got = [render_sharded(scene, cfg, mesh) for _, mesh, scene, cfg in cases]
+        t0 = time.perf_counter()
+        uhd = render_tiled_u8(default, cfg_uhd, make_mesh(), rows_per_tile=UHD_BAND)
+        uhd_first_s = time.perf_counter() - t0
+    launches = {"trace_fwd": kt.LAUNCHES, "trace_fwd_cull": kt.CULL_LAUNCHES,
+                "march_fwd": km.LAUNCHES}
+    want = {"trace_fwd": 4 * 3 + 3 + UHD_H // UHD_BAND, "trace_fwd_cull": 4, "march_fwd": 4 + 3}
+    print(f"  main path (2x2 and 3x1 meshes of cuda:0, 4K in {UHD_H // UHD_BAND} bands): "
+          f"launches {launches}, expected {want}")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: the multi-device path launched {launches}, not {want}")
+
+    # each stitched frame the whole-frame launch's bit for bit
+    with torch.no_grad():
+        for (name, _, scene, cfg), col in zip(cases, got):
+            ref, mine = img(rtt.render_color(scene, cfg)), img(col)
+            off = int((ref != mine).any(-1).sum())
+            print(f"  {name} {cfg.xres}x{cfg.yres}: {off} pixels off the whole-frame launch")
+            if off:
+                raise SystemExit(f"chip_smoke: {name} is not the whole-frame launch")
+        uhd_ref = rtt.to_u8(rtt.render_color(default, cfg_uhd)).cpu().numpy()
+    if not np.array_equal(uhd, uhd_ref):
+        raise SystemExit("chip_smoke: the banded 4K frame is not the whole-frame launch's")
+    print(f"  4K {UHD_W}x{UHD_H} in bands of {UHD_BAND}: bit-equal to one whole-frame launch's "
+          f"to_u8 (first call {uhd_first_s:.2f} s)")
+
+    # the windows against their plain versions: the 320x240 cells of both
+    # meshes and a ragged window, the 1080p cell, within the golden budget
+    errs = {"trace_fwd": [], "march_fwd": []}
+    small = rtt.RenderConfig(xres=320, yres=240)
+    small_march = small.with_(use_raymarching=True, glow_effect=1.0)
+    with torch.no_grad():
+        for win in ((120, 160, 120, 160), (80, 0, 80, 320), SMALL_WINDOW):
+            k = img(rtt.render_color(default, small, win[:2], win[2:]))
+            p = img(kt.render_color_plain(default, small, win[:2], win[2:]))
+            errs["trace_fwd"].append(compare(f"K1 window {win} of 320x240 vs plain", p, k))
+        k = img(rtt.render_color(default, cfg_main, CELL[:2], CELL[2:]))
+        p, trace_plain_ms = event_ms(torch, lambda: kt.render_color_plain(default, cfg_main,
+                                                                          CELL[:2], CELL[2:]))
+        p = img(p)
+        errs["trace_fwd"].append(compare(f"K1 window {CELL} of {W}x{H} vs plain", p, k))
+        for key, cfg, win in (("small", small_march, SMALL_WINDOW), ("cell", cfg_march, MCELL)):
+            k = img(rtt.render_color(default, cfg, win[:2], win[2:]))
+            errs["march_fwd"].append(compare(
+                f"K3 window {win} of {cfg.xres}x{cfg.yres} vs plain", window_plain[key][0], k))
+    r0, c0, h, w = SMALL_WINDOW
+    if not np.array_equal(window_plain["small"][0], march_small_plain[r0:r0 + h, c0:c0 + w]):
+        raise SystemExit("chip_smoke: the windowed plain march is not the whole frame's crop")
+    print("  the windowed plain march at 320x240 is the whole plain frame's crop bit for bit")
+
+    # times by events (3 warm-ups, 10 frames): the whole frame, the meshes,
+    # the 2x2 mesh's cell alone; 4K whole and banded (and by the host's clock)
+    times = {}
+    with torch.no_grad():
+        for tag, cfg, cell in (("trace", cfg_main, CELL), ("march", cfg_march, MCELL)):
+            times[tag] = {
+                "whole": cuda_ms(torch, lambda cfg=cfg: rtt.render_color(default, cfg)),
+                "2x2": cuda_ms(torch, lambda cfg=cfg: render_sharded(default, cfg, mesh22)),
+                "3x1": cuda_ms(torch, lambda cfg=cfg: render_sharded(default, cfg, mesh31)),
+                "cell": cuda_ms(torch, lambda cfg=cfg, cell=cell: rtt.render_color(
+                    default, cfg, cell[:2], cell[2:]))}
+            print(f"  {tag} {cfg.xres}x{cfg.yres} ({card}), ms by events: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in times[tag].items()))
+        uhd_mesh = make_mesh()
+        times["uhd_whole"] = cuda_ms(torch, lambda: rtt.render_color(default, cfg_uhd))
+        times["uhd_whole_u8"] = cuda_ms(torch, lambda: rtt.render_u8(default, cfg_uhd))
+        band = lambda: render_tiled_u8(default, cfg_uhd, uhd_mesh, rows_per_tile=UHD_BAND)
+        times["uhd_banded"] = cuda_ms(torch, band)
+        times["uhd_banded_host"] = host_ms(torch, band, reps=10)
+    print(f"  4K {UHD_W}x{UHD_H} ({card}), ms: K1 whole frame by events "
+          f"{times['uhd_whole']:.4f}, render_u8 whole {times['uhd_whole_u8']:.3f}, "
+          f"render_tiled_u8 in {UHD_H // UHD_BAND} bands by events {times['uhd_banded']:.3f}, "
+          f"by the host's clock {times['uhd_banded_host']:.3f}")
+
+    # two ranks on the one card over gloo, each bit-equal to the one-process frame
+    with torch.no_grad():
+        ref = img(rtt.render_color(default, cfg_main))
+    wall, reports = two_ranks(ref)
+    print(f"  two ranks over gloo at {W}x{H} ({card}): both frames bit-equal to the "
+          f"single-process K1 frame; wall {wall:.2f} s from start to exit; render_multihost by "
+          f"the host's clock " + "; ".join(
+              f"rank {r['rank']} " + ", ".join(f"{t:.1f}" for t in r["ms"]) + " ms"
+              for r in reports))
+
+    bounds = {}
+    for name, scene, cfg, cell in (("trace_fwd", default, cfg_main, CELL),
+                                   ("march_fwd", default, cfg_march, MCELL)):
+        n_ops = ops[f"{name}_window"].result()[0]
+        bounds[name] = roofline(n_ops, io_bytes(scene, cfg, cell[2] * cell[3]))
+        print(f"  bound, {name} window {cell} of {cfg.xres}x{cfg.yres}: {n_ops} f32 operations "
+              f"-> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    return {"launches": launches, "max_abs_err": {k: max(v) for k, v in errs.items()},
+            "ms": {"trace_fwd": times["trace"]["cell"], "march_fwd": times["march"]["cell"]},
+            "plain_ms": {"trace_fwd": trace_plain_ms, "march_fwd": window_plain["cell"][1]},
+            "bounds": bounds, "times": times, "ranks_wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -1281,7 +1530,12 @@ def run(torch, tex_dir) -> int:
                        scene=spheres_scene(rtt, 11, 100).to(torch.device("cpu"))),
                    "trace_fwd_cull_1024": counting.submit(
                        count_ops, "trace", kt, cfg_main,
-                       scene=spheres_scene(rtt, 11, 1023).to(torch.device("cpu")))}
+                       scene=spheres_scene(rtt, 11, 1023).to(torch.device("cpu"))),
+                   # phase 7's windows: the 2x2 meshes' last cells
+                   "trace_fwd_window": counting.submit(count_ops, "trace", kt, cfg_main,
+                                                       window=CELL),
+                   "march_fwd_window": counting.submit(count_ops, "march", km, cfg_march,
+                                                       window=MCELL)}
 
     # 2. the builds, one nvcc each, all started together; meanwhile the card
     # renders the plain versions of phase 3's small march cases, which need
@@ -1308,6 +1562,14 @@ def run(torch, tex_dir) -> int:
         building = pool.submit(build)
         march_plain = {name: img(km.render_color_plain(scene.to(dev), cfg))
                        for name, scene, cfg in march_cases}
+        # phase 7's windowed plain marches: the 2x2 mesh's cell of the march
+        # main path and a ragged window of the first case's frame
+        window_plain = {}
+        for key, cfg, win in (("cell", cfg_march, MCELL),
+                              ("small", march_cases[0][2], SMALL_WINDOW)):
+            out, ms = event_ms(torch, lambda cfg=cfg, win=win: km.render_color_plain(
+                default, cfg, win[:2], win[2:]))
+            window_plain[key] = (img(out), ms)
         plain_s = time.time() - t0
         built_at = building.result()
     print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
@@ -2318,6 +2580,13 @@ def run(torch, tex_dir) -> int:
     t_phase = time.time()
     host_apps(torch, card)
     phase_s["6"] = time.time() - t_phase
+
+    # 7. the multi-device layer
+    t_phase = time.time()
+    print("multi-device layer (parallel/shard.py, parallel/multihost.py):")
+    md = multi_device(torch, rtt, kt, km, card, (default.to(dev), tex_scenes[0], conf4),
+                      window_plain, march_plain["march default 320x240"], ops_futures)
+    phase_s["7"] = time.time() - t_phase
     print("phase wall times: " + ", ".join(f"{k} {v:.0f} s" for k, v in phase_s.items()))
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
@@ -2418,7 +2687,16 @@ def run(torch, tex_dir) -> int:
         "alone_ms": retrace_alone_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["trace_retrace"][0], "bound_by": bounds["trace_retrace"][1],
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": f"{name}_window", "route": "cuda",
+        "source": f"ray_rust_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": md["launches"][name], "max_abs_err": md["max_abs_err"][name],
+        "ms": md["ms"][name], "plain_ms": md["plain_ms"][name],
+        "bound_ms": md["bounds"][name][0], "bound_by": md["bounds"][name][1],
+        "library_ms": None,
+    } for name, replaces in (("trace_fwd", "ray_rust_tpu/ops/pallas_trace.py:1275"),
+                             ("march_fwd", "ray_rust_tpu/ops/pallas_march.py:814"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -39,8 +39,8 @@ from .models.scene import (
     scene_from_numpy,
     scene_to_numpy,
 )
-from .models.vec import Color, Vec3, v3
-from .renderer import render_color, render_u8, to_u8
+from .models.vec import Color, Vec3, color, v3
+from .renderer import render, render_color, render_u8, to_u8
 
 __version__ = "0.1.0"
 
@@ -64,6 +64,8 @@ __all__ = [
     "Color",
     "Vec3",
     "v3",
+    "color",
+    "render",
     "render_color",
     "render_u8",
     "to_u8",

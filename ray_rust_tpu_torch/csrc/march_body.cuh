@@ -178,9 +178,11 @@ constexpr int OPS_CLEAR_FLOOR = 14;
 #define RT_PIXEL_COUNT_END(ops) ((void)0)
 #endif
 
-// March-mode render parameters.
+// March-mode render parameters; the frame and the window as Params's
+// (trace_body.cuh): K3 renders the window, K4 the whole frame.
 struct MarchParams {
   int xres, yres;
+  int row0 = 0, col0 = 0, h = 0, w = 0;
   float sx, sy;
   int refraction_cap;  // min(max_refractions, refraction_unroll)
   int bg;

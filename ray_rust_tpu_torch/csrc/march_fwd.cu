@@ -33,7 +33,8 @@
 // arithmetic; warps diverge where their pixels' step counts differ. Built
 // with --fmad=false, so each product and sum rounds on its own as in the
 // plain PyTorch version (ops/trace.py:raymarch); with march_floor_skip off
-// the kernel is that version bit for bit.
+// the kernel is that version bit for bit. A launch renders a window of the
+// frame at its global origin, as K1 does (trace_fwd.cu).
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_march.py).
@@ -72,9 +73,9 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   for (int k = tid; k < tx.n_tex * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
   __syncthreads();
 
-  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (ix >= p.xres || iy >= p.yres) return;
+  const int lx = blockIdx.x * blockDim.x + threadIdx.x;  // the pixel in the window
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
+  if (lx >= p.w || ly >= p.h) return;
 
   rt::SceneView s;
   s.f32 = GLOBAL ? f32t : s_f32;
@@ -83,8 +84,8 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   s.light = rt::v3(s_light[0], s_light[1], s_light[2]);
   s.tx = tx;
   s.tx.meta = s_meta;
-  rt::C3 c = rt::march_pixel(s, p, s_cam, ix, iy);
-  const size_t o = static_cast<size_t>(iy) * p.xres + ix;
+  rt::C3 c = rt::march_pixel(s, p, s_cam, p.col0 + lx, p.row0 + ly);
+  const size_t o = static_cast<size_t>(ly) * p.w + lx;
   out_r[o] = c.r;
   out_g[o] = c.g;
   out_b[o] = c.b;
@@ -103,10 +104,13 @@ size_t rt_march_fwd_smem(int n, int n_tex) {
 }
 
 // Launch the march forward on ``stream`` of ``device``; returns the
-// cudaError_t of the launch (0 = success). The texture arguments are
+// cudaError_t of the launch (0 = success). The launch renders the window
+// of rt_trace_fwd (trace_fwd.cu): rows row0 .. row0+h-1 and columns col0 ..
+// col0+w-1 of the xres x yres frame. The texture arguments are
 // rt_trace_fwd's (trace_fwd.cu): null and zeros for an untextured scene.
 int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
-                 int n, int xres, int yres, float sx, float sy, int refraction_cap, int bg,
+                 int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
+                 float sy, int refraction_cap, int bg,
                  int max_laps, int max_iter, float eps, float far_away, int glow_on,
                  float glow, int floor_skip, const void* tex, const int* tex_meta, int n_tex,
                  int tex_stride, int tex_len, float* out_r, float* out_g, float* out_b,
@@ -124,6 +128,10 @@ int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const flo
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
   p.sx = sx;
   p.sy = sy;
   p.refraction_cap = refraction_cap;
@@ -136,7 +144,7 @@ int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.glow = glow;
   p.floor_skip = floor_skip;
   dim3 block(BLOCK_X, BLOCK_Y);
-  dim3 grid((xres + BLOCK_X - 1) / BLOCK_X, (yres + BLOCK_Y - 1) / BLOCK_Y);
+  dim3 grid((w + BLOCK_X - 1) / BLOCK_X, (h + BLOCK_Y - 1) / BLOCK_Y);
   march_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       f32t, i32t, cam, light, n, p, tx, out_r, out_g, out_b);
   return static_cast<int>(cudaGetLastError());

@@ -1,18 +1,19 @@
 // Host build of the march kernel's per-pixel body (march_body.cuh): a plain
 // loop over the pixels on the CPU, so the kernel's logic can be tested
 // against the plain PyTorch version where there is no card. Same arguments
-// as rt_march_fwd in march_fwd.cu (the texture atlas too), minus the device
-// and stream. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared
-// -fPIC`` (and -DRT_COUNT_OPS to count into ops_total[0..5]: f32 operations,
-// the texel bytes the textured hits read, the largest per pixel, object
-// passes, the largest per pixel, the marches the never-converges test
-// ended).
+// as rt_march_fwd in march_fwd.cu (the window and the texture atlas too),
+// minus the device and stream. Build with ``g++ -std=c++17 -O2
+// -ffp-contract=off -shared -fPIC`` (and -DRT_COUNT_OPS to count into
+// ops_total[0..5]: f32 operations, the texel bytes the textured hits read,
+// the largest per pixel, object passes, the largest per pixel, the marches
+// the never-converges test ended).
 
 #include "march_body.cuh"
 
 extern "C" void rt_march_host(const float* f32t, const int* i32t, const float* cam,
-                              const float* light, int n, int xres, int yres, float sx,
-                              float sy, int refraction_cap, int bg, int max_laps, int max_iter,
+                              const float* light, int n, int xres, int yres, int row0,
+                              int col0, int h, int w, float sx, float sy,
+                              int refraction_cap, int bg, int max_laps, int max_iter,
                               float eps, float far_away, int glow_on, float glow,
                               int floor_skip, const void* tex, const int* tex_meta, int n_tex,
                               int tex_stride, int tex_len, float* out_r, float* out_g,
@@ -31,6 +32,10 @@ extern "C" void rt_march_host(const float* f32t, const int* i32t, const float* c
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
   p.sx = sx;
   p.sy = sy;
   p.refraction_cap = refraction_cap;
@@ -42,12 +47,12 @@ extern "C" void rt_march_host(const float* f32t, const int* i32t, const float* c
   p.glow_on = glow_on;
   p.glow = glow;
   p.floor_skip = floor_skip;
-  for (int iy = 0; iy < yres; ++iy) {
-    for (int ix = 0; ix < xres; ++ix) {
+  for (int ly = 0; ly < h; ++ly) {
+    for (int lx = 0; lx < w; ++lx) {
       RT_PIXEL_COUNT_BEGIN(ops_total);
-      rt::C3 c = rt::march_pixel(s, p, cam, ix, iy);
+      rt::C3 c = rt::march_pixel(s, p, cam, col0 + lx, row0 + ly);
       RT_PIXEL_COUNT_END(ops_total);
-      const long o = static_cast<long>(iy) * xres + ix;
+      const long o = static_cast<long>(ly) * w + lx;
       out_r[o] = c.r;
       out_g[o] = c.g;
       out_b[o] = c.b;

@@ -414,9 +414,14 @@ RT_FI auto table_row(const SceneViewT<T>& s, int i) {
   }
 }
 
-// Render parameters: image size, 2*fov in f32, depth caps, background id.
+// Render parameters: image size, the window a launch renders, 2*fov in
+// f32, depth caps, background id. The camera rays take the frame's global
+// pixel (ix, iy) and its size xres, yres; K1 renders rows row0 .. row0+h-1
+// and columns col0 .. col0+w-1 of the frame into h x w output planes. The
+// backward kernels render the whole frame and leave the window at zero.
 struct Params {
   int xres, yres;
+  int row0 = 0, col0 = 0, h = 0, w = 0;
   float sx, sy;
   int max_reflections;
   int refraction_cap;  // min(max_refractions, refraction_unroll)
@@ -750,7 +755,8 @@ RT_FI V3 rotate(Q4 q, V3 v) {
 }
 
 // The pyramid of the tile whose corner pixels are (col0, row0) and (col0 +
-// cols - 1, row0 + rows - 1) (ragged tiles keep the whole tile's corners,
+// cols - 1, row0 + rows - 1), global pixels of the frame (ragged tiles, at
+// the edge of the frame or of K1's window, keep the whole tile's corners,
 // which only widens it). In camera space a pixel's ray is (1, ey, ez) with
 // ey in [ylo, yhi] and ez in [zlo, zhi], so the planes are y = ylo x, y =
 // yhi x, z = zlo x and z = zhi x with the exact normals (-ylo, 1, 0), (yhi,

@@ -33,10 +33,14 @@
 // stays in global memory: a textured hit reads its texel's four taps in one
 // 16-byte read-only load, and neighbouring pixels of a floor read
 // neighbouring texels, which the L1 and L2 caches serve.
-// The grid covers (H, W) exactly and masks the ragged edge; there is no
-// padding. Built with --fmad=false, so each product and sum rounds on its
-// own as in the plain PyTorch version (ops/trace.py); a later change may
-// allow contraction for speed.
+// A launch renders a window of the frame at its global origin (Params:
+// row0, col0, h, w; the whole frame is 0, 0, yres, xres), as the JAX
+// kernel's origin= and shape= do: the grid covers the window exactly and
+// masks its ragged edge (there is no padding), the output planes are the
+// window's, and the camera rays and K1b's tiles take global pixels, so the
+// window is the whole frame's launch bit for bit. Built with --fmad=false,
+// so each product and sum rounds on its own as in the plain PyTorch version
+// (ops/trace.py); a later change may allow contraction for speed.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_trace.py).
@@ -95,8 +99,8 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   s.tx.meta = s_meta;
   rt::FwdRecord<CULL, STACK> rec;
   if constexpr (CULL) {  // K1b: the block's candidate masks, a warp a word
-    const rt::CullTile ct = rt::cull_tile(p, s_cam, s.light, blockIdx.x * BLOCK_X,
-                                          blockIdx.y * BLOCK_Y, BLOCK_X, BLOCK_Y);
+    const rt::CullTile ct = rt::cull_tile(p, s_cam, s.light, p.col0 + blockIdx.x * BLOCK_X,
+                                          p.row0 + blockIdx.y * BLOCK_Y, BLOCK_X, BLOCK_Y);
     const int lane = tid & 31;
     for (int w = tid >> 5; w < words; w += nthreads >> 5) {  // whole warps: w is the warp's
       const int i = (w << 5) + lane;
@@ -113,11 +117,11 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
     rec.shadow = s_shadow;
   }
 
-  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (ix >= p.xres || iy >= p.yres) return;
-  rt::C3 c = rt::trace_pixel(s, p, s_cam, ix, iy, rec);
-  const size_t o = static_cast<size_t>(iy) * p.xres + ix;
+  const int lx = blockIdx.x * blockDim.x + threadIdx.x;  // the pixel in the window
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
+  if (lx >= p.w || ly >= p.h) return;
+  rt::C3 c = rt::trace_pixel(s, p, s_cam, p.col0 + lx, p.row0 + ly, rec);
+  const size_t o = static_cast<size_t>(ly) * p.w + lx;
   out_r[o] = c.r;
   out_g[o] = c.g;
   out_b[o] = c.b;
@@ -138,16 +142,18 @@ size_t rt_trace_fwd_smem(int n, int n_tex, int cull) {
 }
 
 // Launch the trace forward on ``stream`` of ``device``; returns the
-// cudaError_t of the launch (0 = success). ``tex`` is the atlas of
+// cudaError_t of the launch (0 = success). The frame is xres x yres; the
+// launch renders its rows row0 .. row0+h-1 and columns col0 .. col0+w-1
+// into h x w output planes. ``tex`` is the atlas of
 // ``tex_len`` 16-byte texels, ``tex_stride`` a row, and ``tex_meta`` its
 // (n_tex, 4) table; null and zeros for an untextured scene. ``cull`` takes
 // K1b's per-tile cull. The task stack holds 64 tasks where 1 + R(R-1)/2 >
 // 16 for R = max_reflections (R <= 11), else 16, in either build.
 int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
-                 int n, int xres, int yres, float sx, float sy, int max_reflections,
-                 int refraction_cap, int bg, const void* tex, const int* tex_meta, int n_tex,
-                 int tex_stride, int tex_len, int cull, float* out_r, float* out_g,
-                 float* out_b, int device, void* stream) {
+                 int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
+                 float sy, int max_reflections, int refraction_cap, int bg, const void* tex,
+                 const int* tex_meta, int n_tex, int tex_stride, int tex_len, int cull,
+                 float* out_r, float* out_g, float* out_b, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int r = max_reflections > 1 ? max_reflections : 1;
@@ -159,6 +165,10 @@ int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const flo
   rt::Params p;
   p.xres = xres;
   p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
   p.sx = sx;
   p.sy = sy;
   p.max_reflections = max_reflections;
@@ -174,7 +184,7 @@ int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const flo
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dim3 block(BLOCK_X, BLOCK_Y);
-  dim3 grid((xres + BLOCK_X - 1) / BLOCK_X, (yres + BLOCK_Y - 1) / BLOCK_Y);
+  dim3 grid((w + BLOCK_X - 1) / BLOCK_X, (h + BLOCK_Y - 1) / BLOCK_Y);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(f32t, i32t, cam, light, n, p,
                                                                     tx, out_r, out_g, out_b);
   return static_cast<int>(cudaGetLastError());

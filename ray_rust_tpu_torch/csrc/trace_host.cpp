@@ -1,7 +1,8 @@
 // Host build of the trace kernel's per-pixel body (trace_body.cuh): a plain
 // loop over the kernel's 16x16 tiles on the CPU, so the kernel's logic can
 // be tested against the plain PyTorch version where there is no card. Same
-// arguments as rt_trace_fwd in trace_fwd.cu, minus the device and stream;
+// arguments as rt_trace_fwd in trace_fwd.cu (the window too: its tiles
+// start at the window's global origin), minus the device and stream;
 // the tables are always read where they lie (as by the kernel's global-table
 // build), and with ``cull`` each tile first builds K1b's two candidate
 // masks with the kernel's own cull_object, object by object in place of the
@@ -43,13 +44,13 @@ void render(const rt::SceneView& s, const rt::Params& p, const float* cam, float
   rt::FwdRecord<CULL, STACK> rec;
   rec.prim = prim.data();
   rec.shadow = shadow.data();
-  for (int row0 = 0; row0 < p.yres; row0 += rt::CULL_TILE) {
-    for (int col0 = 0; col0 < p.xres; col0 += rt::CULL_TILE) {
-      if (CULL) build_masks(s, p, cam, col0, row0, prim.data(), shadow.data());
-      for (int iy = row0; iy < row0 + rt::CULL_TILE && iy < p.yres; ++iy) {
-        for (int ix = col0; ix < col0 + rt::CULL_TILE && ix < p.xres; ++ix) {
-          rt::C3 c = rt::trace_pixel(s, p, cam, ix, iy, rec);
-          const long o = static_cast<long>(iy) * p.xres + ix;
+  for (int ty = 0; ty < p.h; ty += rt::CULL_TILE) {  // the tiles' corners in the window
+    for (int tx = 0; tx < p.w; tx += rt::CULL_TILE) {
+      if (CULL) build_masks(s, p, cam, p.col0 + tx, p.row0 + ty, prim.data(), shadow.data());
+      for (int ly = ty; ly < ty + rt::CULL_TILE && ly < p.h; ++ly) {
+        for (int lx = tx; lx < tx + rt::CULL_TILE && lx < p.w; ++lx) {
+          rt::C3 c = rt::trace_pixel(s, p, cam, p.col0 + lx, p.row0 + ly, rec);
+          const long o = static_cast<long>(ly) * p.w + lx;
           out_r[o] = c.r;
           out_g[o] = c.g;
           out_b[o] = c.b;
@@ -91,14 +92,19 @@ rt::SceneView view(const float* f32t, const int* i32t, const float* light, int n
 
 // The task stack as rt_trace_fwd sizes it: 64 where 1 + R(R-1)/2 > 16.
 extern "C" void rt_trace_host(const float* f32t, const int* i32t, const float* cam,
-                              const float* light, int n, int xres, int yres, float sx,
-                              float sy, int max_reflections, int refraction_cap, int bg,
+                              const float* light, int n, int xres, int yres, int row0,
+                              int col0, int h, int w, float sx, float sy,
+                              int max_reflections, int refraction_cap, int bg,
                               const void* tex, const int* tex_meta, int n_tex, int tex_stride,
                               int tex_len, int cull, float* out_r, float* out_g,
                               float* out_b, unsigned long long* ops_total) {
   rt::SceneView s = view(f32t, i32t, light, n, ops_total);
   s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
-  const rt::Params p = params(xres, yres, sx, sy, max_reflections, refraction_cap, bg);
+  rt::Params p = params(xres, yres, sx, sy, max_reflections, refraction_cap, bg);
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
   const int r = max_reflections > 1 ? max_reflections : 1;
   const bool deep = 1 + r * (r - 1) / 2 > rt::STACK_CAP;
   if (cull) {

@@ -11,7 +11,10 @@
 // texel bytes (none: K5 takes untextured scenes), the Dual passes, the most
 // passes of one pixel, the sum over rows of 32 pixels (a warp of the
 // kernel's 32-wide blocks) of their longest pixel's passes, then the pixels
-// with w distinct winners for w = 0 .. 64.
+// with w distinct winners for w = 0 .. 64. It returns 0, or 1 (the CUDA
+// runtime's cudaErrorInvalidValue, named by rt_error_string below) for
+// arguments no launch takes: a negative count or more than 64 objects (a
+// pixel's winners are one 64-bit mask), an empty image, a null plane.
 
 #include "trace_retrace_body.cuh"
 
@@ -36,12 +39,17 @@ extern "C" {
 
 int rt_trace_retrace_lanes() { return rt::RETRACE_LANES; }
 
-void rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
+const char* rt_error_string(int code) {
+  return code == 0 ? "no error" : code == 1 ? "invalid argument" : "unknown error";
+}
+
+int rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
                            const float* light, int n, int xres, int yres, float sx, float sy,
                            int max_reflections, int refraction_cap, int bg, float cutoff,
                            const float* g_r, const float* g_g, const float* g_b,
                            float* out_block, float* prim_r, float* prim_g, float* prim_b,
                            unsigned long long* ops_total) {
+  if (n < 0 || n > 64 || xres <= 0 || yres <= 0 || !g_r || !g_g || !g_b || !out_block) return 1;
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
@@ -92,6 +100,7 @@ void rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
 #ifdef RT_COUNT_OPS
   ops_total[0] += rt::dual_op_count;
 #endif
+  return 0;
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Vec3", "Color", "v3"]
+__all__ = ["Vec3", "Color", "v3", "color"]
 
 
 class Vec3(NamedTuple):
@@ -106,3 +106,8 @@ def _f32(v, device=None) -> torch.Tensor:
 
 def v3(x, y, z, device=None) -> Vec3:
     return Vec3(_f32(x, device), _f32(y, device), _f32(z, device))
+
+
+def color(r, g, b, device=None) -> Color:
+    """A Color of f32 tensors: counterpart of ``ray_rust_tpu.models.vec.color``."""
+    return Color(_f32(r, device), _f32(g, device), _f32(b, device))

@@ -56,15 +56,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 
 # C signatures, up to the output planes: the CUDA launchers add the device
-# and the stream, their host loops the operation counter. The trace and
-# march kernels take the texture atlas after their render arguments
-# (kernel_trace.texture_args).
-_TRACE_CFG = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
-_MARCH_CFG = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I]
+# and the stream, their host loops the operation counter. Each takes the
+# tables, n and the frame's size; the forward kernels K1 and K3 (and their
+# host builds) then take the window they render (kernel_trace.window:
+# row0, col0, h, w). The trace and march kernels take the texture atlas
+# after their render arguments (kernel_trace.texture_args).
+_FRAME = [_P, _P, _P, _P, _I, _I, _I]
+_WINDOW = [_I, _I, _I, _I]
+_TRACE_RENDER = [_F, _F, _I, _I, _I]
+_MARCH_RENDER = [_F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I]
+_TRACE_CFG = _FRAME + _TRACE_RENDER
+_MARCH_CFG = _FRAME + _MARCH_RENDER
 _TEX_ARGS = [_P, _P, _I, _I, _I]
 # the trace forward takes K1b's switch after the atlas
-_TRACE_ARGS = _TRACE_CFG + _TEX_ARGS + [_I] + [_P, _P, _P]
-_MARCH_ARGS = _MARCH_CFG + _TEX_ARGS + [_P, _P, _P]
+_TRACE_ARGS = _FRAME + _WINDOW + _TRACE_RENDER + _TEX_ARGS + [_I] + [_P, _P, _P]
+_MARCH_ARGS = _FRAME + _WINDOW + _MARCH_RENDER + _TEX_ARGS + [_P, _P, _P]
 # the backward kernels: the forward's render arguments, the cutoff, (trace:
 # the record cap), the atlas, the three cotangent planes, the block, the
 # three primal planes
@@ -89,12 +95,16 @@ _HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host",
              "trace_retrace": ("rt_trace_retrace_host", _RETRACE_ARGS),
              "pack_scene": ("rt_pack_scene_host", _PACK_ARGS)}
 # Other functions a library exports (its CUDA and host builds alike):
-# name -> (argtypes, restype). The pull-back's host build keeps the kernel's
+# name -> (argtypes, restype). The host builds' main functions return
+# nothing, but the re-trace's returns an error code, as its CUDA launcher
+# does (_HOST_RESTYPES). The pull-back's host build keeps the kernel's
 # interface (csrc/pack_scene_host.cpp).
-_EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I)},
+_EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I),
+                                 "rt_error_string": ([_I], ctypes.c_char_p)},
               "trace": {"rt_cull_masks_host": ([_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2
                                                + [_P] * 2, None)},
               "pack_scene": {"rt_pack_scene_vjp": (_PACK_VJP_ARGS + [_I, _P], _I)}}
+_HOST_RESTYPES = {"trace_retrace": _I}
 
 # Each build's compiler output (for nvcc, ptxas's registers, stack and
 # spills), by library stem, and the seconds its compiler took (this process's
@@ -214,4 +224,5 @@ def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) ->
     path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
                        CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)
     fn_name, argtypes = _HOST_FNS[name]
-    return _bind(path, fn_name, argtypes + [_P], None, _EXTRA_FNS.get(name, {}))
+    return _bind(path, fn_name, argtypes + [_P], _HOST_RESTYPES.get(name),
+                 _EXTRA_FNS.get(name, {}))

@@ -26,7 +26,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import KIND_SPHERE, Scene
-from .rays import fov_scales
+from .rays import fov_scales, window
 
 __all__ = ["TILE", "CULL_REL", "CULL_ABS", "CULL_SHADOW_MIN", "tile_planes", "tile_masks",
            "tiles"]
@@ -97,10 +97,11 @@ def tile_planes(cam: torch.Tensor, light: torch.Tensor, cfg: RenderConfig, col0:
 
 
 def tile_masks(scene: Scene, cfg: RenderConfig, col0: int, row0: int, tables=None):
-    """K1b's two candidate masks of the tile at ``(col0, row0)``: boolean
-    ``(N,)`` tensors, primary and shadow. ``tables`` are the packed f32
-    table, i32 table, camera and light (``kernel_pack.pack_scene``'s, for
-    a CPU scene); by default the scene's own."""
+    """K1b's two candidate masks of the tile at global pixel ``(col0,
+    row0)``: boolean ``(N,)`` tensors, primary and shadow. ``tables`` are
+    the packed f32 table, i32 table, camera and light
+    (``kernel_pack.pack_scene``'s, for a CPU scene); by default the scene's
+    own."""
     if tables is None:
         from .kernel_pack import pack_scene
 
@@ -123,6 +124,10 @@ def tile_masks(scene: Scene, cfg: RenderConfig, col0: int, row0: int, tables=Non
     return floor | ~out_p, floor | ~out_s
 
 
-def tiles(cfg: RenderConfig):
-    """The top-left pixels ``(col0, row0)`` of the trace kernel's tiles."""
-    return [(c, r) for r in range(0, cfg.yres, TILE) for c in range(0, cfg.xres, TILE)]
+def tiles(cfg: RenderConfig, origin=(0, 0), shape=None):
+    """The top-left pixels ``(col0, row0)`` of the trace kernel's tiles when
+    it renders the window at ``origin`` of size ``shape`` (``rays.window``;
+    the whole frame by default): its blocks tile the window from its corner,
+    at the frame's global pixels."""
+    row0, col0, h, w = window(cfg, origin, shape)
+    return [(col0 + c, row0 + r) for r in range(0, h, TILE) for c in range(0, w, TILE)]

@@ -16,7 +16,8 @@ march kernel declines textures and renders them through its jnp march
 here computes.
 
 :func:`render_color_kernel` launches the kernel or raises; it never falls
-back. :func:`render_color_plain` (the trace kernel's: camera rays and
+back; it renders a window of the frame at its global origin as the trace
+kernel does. :func:`render_color_plain` (the trace kernel's: camera rays and
 ``trace_image``, which takes ``ops/trace.py:raymarch`` in march mode)
 computes the same function with PyTorch operations; the renderer takes it
 for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernel
@@ -128,19 +129,22 @@ def launch_args(cfg: RenderConfig, tex, device) -> list:
     return kernel_args(cfg) + texture_args(tex, device)
 
 
-def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
+def render_color_kernel(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> Color:
     """Render through the CUDA march kernel, the scene packed by the pack
-    kernel. The scene's tensors must lie on a CUDA device; the image is
-    returned there as a Color of ``(H, W)`` planes. Raises on anything the
-    kernels do not take."""
+    kernel. The scene's tensors must lie on a CUDA device; the image of the
+    window at ``origin`` of size ``shape`` (``kernel_trace.window``; the
+    whole frame by default) is returned there as a Color of ``(h, w)``
+    planes. Raises on anything the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "march")
-    return render_words_kernel(scene, launch_pack(scene), cfg)
+    return render_words_kernel(scene, launch_pack(scene), cfg, origin, shape)
 
 
-def render_words_kernel(scene: Scene, words, cfg: RenderConfig) -> Color:
+def render_words_kernel(scene: Scene, words, cfg: RenderConfig, origin=(0, 0),
+                        shape=None) -> Color:
     """Launch the march kernel on the pack kernel's ``words`` of ``scene``
     (``kernel_pack.launch_pack``) and the scene's cached texture atlas,
-    straight from their addresses, for a render the caller has checked with
+    straight from their addresses, for the window at ``origin`` of size
+    ``shape`` of a render the caller has checked with
     :func:`unsupported_reason`."""
     global LAUNCHES
     from ._build import load_cuda_library
@@ -149,6 +153,6 @@ def render_words_kernel(scene: Scene, words, cfg: RenderConfig) -> Color:
     ptrs, meta = word_pointers(words, n)
     lib = load_cuda_library(library("march_fwd", n, SHARED_TABLE_MAX))
     img = launch(lib, lib.rt_march_fwd, ptrs, n, words.device, cfg,
-                 kernel_args(cfg) + texture_pointers(scene, meta))
+                 kernel_args(cfg) + texture_pointers(scene, meta), origin, shape)
     LAUNCHES += 1
     return img

@@ -109,9 +109,10 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """March mode, at most 512 objects (textured within the atlas limits),
-    refraction depth at most ``kernel_march.FRAME_CAP``, at most
-    ``SITE_CAP`` laps per pixel."""
+    """March mode, scenes within ``kernel_trace.size_reason``'s limit (the
+    pack's int32 words and K1b's masks in a block's shared memory; textured
+    within the atlas limits), refraction depth at most
+    ``kernel_march.FRAME_CAP``, at most ``SITE_CAP`` laps per pixel."""
     return unsupported_reason(scene, cfg) is None
 
 

@@ -24,7 +24,12 @@ pack's plain versions.
 :func:`render_color_kernel` launches the kernel or raises; it never falls
 back. :func:`render_color_plain` computes the same function with PyTorch
 operations (``ops/trace.py``); the renderer takes it for CPU tensors, and the
-tests and ``chip_smoke.py`` hold the kernel against it.
+tests and ``chip_smoke.py`` hold the kernel against it. Both render a window
+of the frame at its global origin (:func:`window`, the JAX kernel's
+``origin=`` and ``shape=``; the whole frame by default): the camera rays and
+K1b's tiles take global pixels, so a window is the whole frame's pixels bit
+for bit, and the multi-device layer (``parallel/shard.py``) renders a frame
+as windows.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from .kernel_pack import (
     texture_pointers,
     word_pointers,
 )
-from .rays import camera_rays, fov_scales
+from .rays import camera_rays, fov_scales, window
 from .sky import BG_IDS
 from .trace import trace_image
 
@@ -66,6 +71,7 @@ __all__ = [
     "launch_args",
     "cull_on",
     "library",
+    "window",
 ]
 
 # Launches of the trace kernel since import (or since a caller reset it),
@@ -178,9 +184,12 @@ def library(name: str, n: int, shared_max: int) -> str:
     return name + GLOBAL_SUFFIX if n > shared_max else name
 
 
-def render_color_plain(scene: Scene, cfg: RenderConfig) -> Color:
-    """The kernel's function in plain PyTorch: camera rays + ``trace_image``."""
-    vi, eye = camera_rays(scene.camera.position, scene.camera.rotation, cfg)
+def render_color_plain(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> Color:
+    """The kernel's function in plain PyTorch: camera rays + ``trace_image``
+    (in march mode too, where ``trace_image`` marches), for the window at
+    ``origin`` of size ``shape`` (``rays.window``; the whole frame by
+    default), each of its pixels the whole frame's."""
+    vi, eye = camera_rays(scene.camera.position, scene.camera.rotation, cfg, origin, shape)
     return trace_image(scene, cfg, vi, eye)
 
 
@@ -192,20 +201,24 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list) -> Color:
-    """Call launcher ``fn`` of ``lib`` as ``fn(tables, n, xres, yres, sx, sy,
-    *args, out_r, out_g, out_b, device, stream)`` on the current stream of
-    CUDA device ``dev``, the tables given by their addresses ``ptrs`` (f32
-    table, i32 table, camera, light: the pack kernel's words,
-    ``kernel_pack.word_pointers``), and return the image (``args``: the
-    kernel's ``kernel_args``, then its texture arguments); raises if the
-    launch fails."""
-    out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
+def launch(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list, origin=(0, 0),
+           shape=None) -> Color:
+    """Call launcher ``fn`` of ``lib`` (K1 or K3) as ``fn(tables, n, xres,
+    yres, row0, col0, h, w, sx, sy, *args, out_r, out_g, out_b, device,
+    stream)`` on the current stream of CUDA device ``dev``, the tables given
+    by their addresses ``ptrs`` (f32 table, i32 table, camera, light: the
+    pack kernel's words, ``kernel_pack.word_pointers``), and return the
+    image of the window at ``origin`` of size ``shape`` (:func:`window`; the
+    whole frame by default) as ``(h, w)`` planes (``args``: the kernel's
+    ``kernel_args``, then its texture arguments); raises if the launch
+    fails."""
+    row0, col0, h, w = window(cfg, origin, shape)
+    out = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     sx, sy = fov_scales(cfg)
-    plane = 4 * cfg.yres * cfg.xres
+    plane = 4 * h * w
     base = out.data_ptr()
-    rc = fn(*ptrs, n, cfg.xres, cfg.yres, sx, sy, *args, base, base + plane, base + 2 * plane,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*ptrs, n, cfg.xres, cfg.yres, row0, col0, h, w, sx, sy, *args, base, base + plane,
+            base + 2 * plane, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
     return Color(*out.unbind(0))
@@ -234,20 +247,23 @@ def check_launchable(scene: Scene, reason: Optional[str], what: str):
         raise ValueError(f"the {what} kernel needs CUDA tensors, got {scene.device}")
 
 
-def render_color_kernel(scene: Scene, cfg: RenderConfig) -> Color:
+def render_color_kernel(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> Color:
     """Render through the CUDA trace kernel, the scene packed by the pack
     kernel (``kernel_pack.launch_pack``). The scene's tensors must lie on a CUDA
-    device; the image is returned there as a Color of ``(H, W)`` planes.
-    Raises on anything the kernels do not take."""
+    device; the image of the window at ``origin`` of size ``shape``
+    (:func:`window`; the whole frame by default) is returned there as a
+    Color of ``(h, w)`` planes. Raises on anything the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace")
-    return render_words_kernel(scene, launch_pack(scene), cfg)
+    return render_words_kernel(scene, launch_pack(scene), cfg, origin, shape)
 
 
-def render_words_kernel(scene: Scene, words: torch.Tensor, cfg: RenderConfig) -> Color:
+def render_words_kernel(scene: Scene, words: torch.Tensor, cfg: RenderConfig, origin=(0, 0),
+                        shape=None) -> Color:
     """Launch the trace kernel on the pack kernel's ``words`` of ``scene``
     (``kernel_pack.launch_pack``) and the scene's cached texture atlas,
-    straight from their addresses: the kernel after the pack, which the
-    caller has checked with :func:`unsupported_reason`."""
+    straight from their addresses, for the window at ``origin`` of size
+    ``shape``: the kernel after the pack, which the caller has checked with
+    :func:`unsupported_reason`."""
     global LAUNCHES, CULL_LAUNCHES
     from ._build import load_cuda_library
 
@@ -256,7 +272,7 @@ def render_words_kernel(scene: Scene, words: torch.Tensor, cfg: RenderConfig) ->
     lib = load_cuda_library(library("trace_fwd", n, SHARED_TABLE_MAX))
     cull = cull_on(cfg, n)
     img = launch(lib, lib.rt_trace_fwd, ptrs, n, words.device, cfg,
-                 kernel_args(cfg) + texture_pointers(scene, meta) + [int(cull)])
+                 kernel_args(cfg) + texture_pointers(scene, meta) + [int(cull)], origin, shape)
     LAUNCHES += 1
     CULL_LAUNCHES += cull
     return img

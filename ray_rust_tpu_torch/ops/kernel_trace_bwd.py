@@ -154,7 +154,9 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """Trace mode, at most 512 objects, textured or not."""
+    """Trace mode, scenes within ``kernel_trace.size_reason``'s limit (the
+    pack's int32 words and K1b's masks in a block's shared memory),
+    textured or not, at most ``SITE_CAPS[-1]`` raycast sites per pixel."""
     return unsupported_reason(scene, cfg) is None
 
 

@@ -87,19 +87,20 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     return kernel_trace.unsupported_reason(scene, cfg)
 
 
-def launch_all(fn, ptrs: list, n: int, dev, cfg: RenderConfig, g: Color, return_primal: bool,
-               tail: tuple):
-    """Run launcher ``fn`` (the kernel's ``rt_trace_retrace`` or its host
-    build's ``rt_trace_retrace_host``) once, as ``fn(tables, n, xres, yres,
-    sx, sy, *kernel_args(cfg), g_r, g_g, g_b, block, prim_r, prim_g,
-    prim_b, *tail)``, the tables of ``n`` objects on device ``dev`` given
+def launch_all(lib, fn_name: str, ptrs: list, n: int, dev, cfg: RenderConfig, g: Color,
+               return_primal: bool, tail: tuple):
+    """Run launcher ``fn_name`` of ``lib`` (the kernel's ``rt_trace_retrace``
+    or its host build's ``rt_trace_retrace_host``) once, as ``fn(tables, n,
+    xres, yres, sx, sy, *kernel_args(cfg), g_r, g_g, g_b, block, prim_r,
+    prim_g, prim_b, *tail)``, the tables of ``n`` objects on device ``dev`` given
     by their addresses ``ptrs`` (f32 table, i32 table, camera, light: the
     pack kernel's words, ``kernel_pack.word_pointers``, or the host build's
     ``pack_scene`` tables, which the caller holds). ``tail`` is the device
     and stream, or the host build's operation counter. Returns the three
     table cotangents and, with ``return_primal``, the image. Raises on more
     than OBJECT_MAX objects (a pixel's winners are one 64-bit mask) and if
-    the launch returns non-zero."""
+    the launch returns non-zero, naming the error
+    (``lib.rt_error_string``)."""
     if n > OBJECT_MAX:
         raise ValueError(f"the re-trace kernel takes at most {OBJECT_MAX} objects, got {n}")
     for name, plane in zip("rgb", g):
@@ -109,10 +110,10 @@ def launch_all(fn, ptrs: list, n: int, dev, cfg: RenderConfig, g: Color, return_
             if return_primal else None)
     sx, sy = fov_scales(cfg)
     prims = [p.data_ptr() for p in prim] if return_primal else [None] * 3
-    rc = fn(*ptrs, n, cfg.xres, cfg.yres, sx, sy, *kernel_args(cfg),
-            *(plane.data_ptr() for plane in g), block.data_ptr(), *prims, *tail)
-    if rc:
-        raise RuntimeError(f"{fn.__name__} launch failed: error {rc}")
+    rc = getattr(lib, fn_name)(*ptrs, n, cfg.xres, cfg.yres, sx, sy, *kernel_args(cfg),
+                            *(plane.data_ptr() for plane in g), block.data_ptr(), *prims, *tail)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: {lib.rt_error_string(rc).decode()}")
     grads = split_block(block, n)
     return (grads, Color(prim[0], prim[1], prim[2])) if return_primal else grads
 
@@ -125,22 +126,15 @@ def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
     packing; returns as :func:`launch_all`."""
     from ._build import load_cuda_library
 
-    lib = load_cuda_library("trace_retrace")
+    global LAUNCHES
     dev = words.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def fn(*a):
-        global LAUNCHES
-        rc = lib.rt_trace_retrace(*a)
-        if rc != 0:
-            raise RuntimeError(f"rt_trace_retrace launch failed: "
-                               f"{lib.rt_error_string(rc).decode()}")
-        LAUNCHES += 1
-        return 0
-
     n = scene.objects.count
-    return launch_all(fn, kernel_pack.word_pointers(words, n)[0], n, dev, cfg, g, return_primal,
-                      (dev.index, stream))
+    out = launch_all(load_cuda_library("trace_retrace"), "rt_trace_retrace",
+                     kernel_pack.word_pointers(words, n)[0], n, dev, cfg, g, return_primal,
+                     (dev.index, stream))
+    LAUNCHES += 1
+    return out
 
 
 def render_grads_retrace(scene: Scene, cfg: RenderConfig, g: Color,

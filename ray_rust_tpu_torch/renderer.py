@@ -12,6 +12,12 @@ device of the scene's tensors:
 - CPU: the plain PyTorch version, differentiable by autograd, through the
   march's implicit VJP in march mode.
 
+Each path renders a window of the frame at its global origin (``origin=``,
+``shape=``: ``ops/rays.window``; the whole frame by default), each pixel the
+whole frame's: the multi-device layer (``parallel/shard.py``) renders its
+mesh cells through this one dispatch. The backward kernels render the whole
+frame only, so a CUDA scene that requires grad takes no window.
+
 A march with ``cfg.differentiable`` takes the plain version on either
 device: the scan-mode march (``ops/march.py``), the gradient oracle that
 autograd differentiates step by step, which the march kernels never run.
@@ -26,21 +32,29 @@ from .config import RenderConfig
 from .models.scene import Scene
 from .models.vec import Color
 from .ops import kernel_march, kernel_march_bwd, kernel_trace, kernel_trace_bwd
+from .ops.rays import window
 
-__all__ = ["render_color", "render_u8", "to_u8"]
+__all__ = ["render_color", "render", "render_u8", "to_u8"]
 
 
-def render_color(scene: Scene, cfg: RenderConfig) -> Color:
+def render_color(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> Color:
     """Forward render: scene -> Color of ``(H, W)`` planes on the scene's
-    device."""
+    device, or of the window's ``(h, w)`` at ``origin`` of size ``shape``."""
     dev = scene.device
     march = cfg.use_raymarching
     kernels = kernel_march if march else kernel_trace
     if dev.type == "cpu" or (march and cfg.differentiable):
-        return kernels.render_color_plain(scene, cfg)
+        return kernels.render_color_plain(scene, cfg, origin, shape)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render path for device {dev}")
-    if any(t.requires_grad for t in scene.tensors()):
+    grad = any(t.requires_grad for t in scene.tensors())
+    if grad and window(cfg, origin, shape) != (0, 0, cfg.yres, cfg.xres):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "no CUDA gradient of a window: the backward kernels (K2, K4) render the "
+                "whole frame; the sharded gradient is not ported yet")
+        grad = False  # a forward alone: K1 or K3 takes the window
+    if grad:
         grads = kernel_march_bwd if march else kernel_trace_bwd
         reason = grads.unsupported_reason(scene, cfg)
         if reason is not None:
@@ -49,7 +63,13 @@ def render_color(scene: Scene, cfg: RenderConfig) -> Color:
     reason = kernels.unsupported_reason(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"no CUDA render path: {reason}")
-    return kernels.render_color_kernel(scene, cfg)
+    return kernels.render_color_kernel(scene, cfg, origin, shape)
+
+
+def render(scene: Scene, cfg: RenderConfig) -> Color:
+    """The render the JAX package jits (``ray_rust_tpu.render``): here
+    :func:`render_color` itself, differentiable as that is."""
+    return render_color(scene, cfg)
 
 
 def to_u8(img: Color) -> torch.Tensor:

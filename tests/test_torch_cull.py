@@ -92,7 +92,7 @@ def _host_render(lib, scene, cfg, cull_switch, ops=None):
     sx, sy = fov_scales(cfg)
     args = kt.kernel_args(cfg) + kt.texture_args(None, torch.device("cpu")) + [int(cull_switch)]
     lib.rt_trace_host(*(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
-                      sx, sy, *args, *(p.data_ptr() for p in out),
+                      *kt.window(cfg), sx, sy, *args, *(p.data_ptr() for p in out),
                       None if ops is None else ops.data_ptr())
     return out.permute(1, 2, 0).numpy()
 

@@ -268,7 +268,7 @@ def _host_render(lib, scene, cfg, ops=None):
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
     sx, sy = fov_scales(cfg)
     lib.rt_trace_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
-                      scene.objects.count, cfg.xres, cfg.yres, sx, sy,
+                      scene.objects.count, cfg.xres, cfg.yres, *kt.window(cfg), sx, sy,
                       *kt.launch_args(cfg, tex, torch.device("cpu"), scene.objects.count),
                       out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                       None if ops is None else ops.data_ptr())

@@ -81,7 +81,7 @@ def _host_render(lib, fn, scene, cfg, args):
     out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32)
     sx, sy = fov_scales(cfg)
     getattr(lib, fn)(*(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
-                     sx, sy, *args, *(p.data_ptr() for p in out), None)
+                     *kt.window(cfg), sx, sy, *args, *(p.data_ptr() for p in out), None)
     return out.permute(1, 2, 0).numpy()
 
 

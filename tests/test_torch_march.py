@@ -215,7 +215,7 @@ def _host_render(lib, scene, cfg, ops=None):
     sx, sy = fov_scales(cfg)
     args = km.launch_args(cfg, None, torch.device("cpu"))
     lib.rt_march_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(), light.data_ptr(),
-                      scene.objects.count, cfg.xres, cfg.yres, sx, sy, *args,
+                      scene.objects.count, cfg.xres, cfg.yres, *kt.window(cfg), sx, sy, *args,
                       out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                       None if ops is None else ops.data_ptr())
     return out.permute(1, 2, 0).numpy()

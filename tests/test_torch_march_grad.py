@@ -428,7 +428,8 @@ def test_host_build_of_march_backward_with_floor_tail(host_lib, march_host_lib, 
     k3 = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
     march_host_lib.rt_march_host(f32t.data_ptr(), i32t.data_ptr(), cam.data_ptr(),
-                                 light.data_ptr(), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
+                                 light.data_ptr(), scene.objects.count, cfg.xres, cfg.yres,
+                                 *kt.window(cfg), sx, sy,
                                  *km.launch_args(cfg, None, torch.device("cpu")),
                                  *(c.data_ptr() for c in k3), None)
     np.testing.assert_array_equal(prim, np.stack([c.numpy() for c in k3], -1))

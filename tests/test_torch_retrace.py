@@ -115,7 +115,7 @@ def _launch_host(lib, scene, cfg, g, return_primal, tail):
     """``kr.launch_all`` on K5's host build ``lib`` and the plain tables of
     ``scene``, held until it returns."""
     tables = kt.pack_scene(scene)
-    return kr.launch_all(lib.rt_trace_retrace_host, [t.data_ptr() for t in tables],
+    return kr.launch_all(lib, "rt_trace_retrace_host", [t.data_ptr() for t in tables],
                          tables[0].shape[0], torch.device("cpu"), cfg, g, return_primal, tail)
 
 
@@ -144,7 +144,8 @@ def _fwd_host(libs, scene, cfg):
     out = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
     libs["trace"].rt_trace_host(
-        *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
+        *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
+        *kt.window(cfg), sx, sy,
         *kt.launch_args(cfg, None, torch.device("cpu"), scene.objects.count),
         *(p.data_ptr() for p in out), None)
     return _img(out)
@@ -256,6 +257,19 @@ def test_host_primal_equals_forward_host_build(libs, case):
     np.testing.assert_array_equal(prim, _fwd_host(libs, scene, cfg))
 
 
+def test_failed_host_launch_names_its_error(libs):
+    """A launch the host build refuses (a negative object count, which the
+    wrapper's own checks let through) raises with the error's name from the
+    build's rt_error_string, as the CUDA launchers name theirs."""
+    cfg = rtt.RenderConfig(xres=8, yres=6, max_reflections=2)
+    tables = kt.pack_scene(rtt.default_scene(device="cpu")[0])
+    with pytest.raises(RuntimeError, match="rt_trace_retrace_host launch failed: invalid argument"):
+        kr.launch_all(libs["trace_retrace"], "rt_trace_retrace_host",
+                      [t.data_ptr() for t in tables], -1, torch.device("cpu"), cfg,
+                      _planes(cfg, 0), False, (None,))
+    assert libs["trace_retrace"].rt_error_string(0).decode() == "no error"
+
+
 def test_unsupported_reason_and_cpu_routing():
     scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=6, max_reflections=2)
@@ -263,8 +277,8 @@ def test_unsupported_reason_and_cpu_routing():
     assert kr.n_out(scene.objects.count) == 5 * 19 + 10
     assert "64 objects" in kr.unsupported_reason(_many_spheres(rtt, 64), cfg)
     with pytest.raises(ValueError, match="at most 64 objects"):  # before any launch
-        kr.launch_all(None, [None] * 4, _many_spheres(rtt, 64).objects.count, torch.device("cpu"),
-                      cfg, None, False, ())
+        kr.launch_all(None, None, [None] * 4, _many_spheres(rtt, 64).objects.count,
+                      torch.device("cpu"), cfg, None, False, ())
     assert kr.unsupported_reason(_many_spheres(rtt, 63), cfg) is None
     textured = textured_scene(rtt, 1)
     assert "textures" in kr.unsupported_reason(textured, cfg)

@@ -60,7 +60,8 @@ def render(lib, scene, cfg):
     out = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
     lib.rt_march_host(*(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
-                      sx, sy, *km.launch_args(cfg, tex, CPU), *(p.data_ptr() for p in out), None)
+                      *kt.window(cfg), sx, sy, *km.launch_args(cfg, tex, CPU),
+                      *(p.data_ptr() for p in out), None)
     return out.permute(1, 2, 0).numpy()
 
 
