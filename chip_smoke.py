@@ -220,7 +220,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    on the card joining a gloo group (``init_distributed(backend="gloo")``)
    and gathering a 1920x1080 frame with ``render_multihost`` (one K1
    launch each), both bit-equal to the single-process frame, importing no
-   JAX, their wall time.
+   JAX, their wall time;
+8. the multi-device layer's gradient half (``parallel/train.py``; K2 and K4
+   with a window): K2 on the 2x2 mesh's 1080p cell (untextured and with
+   ``bar.png`` in Nearest) and K4 on its 720p cell (the same two scenes)
+   against the whole-frame launch with the cotangent zero outside the cell,
+   the blocks within relative L2 REGIME_REL_L2 (atomics), the primal K1's
+   (K3's) window bit for bit; both on the ragged window of 320x240 and on
+   those cells against torch autograd of the windowed plain version (phase
+   2 renders it under the build and keeps its graph), per scene leaf within
+   GRAD_BUDGET and, under the march contract, MARCH_GRAD_BUDGET; the main
+   path, with the
+   launch counts set to 0 just before it and read just after:
+   ``sgd_train_step(..., mesh=)`` on the material colours at 1920x1080 on
+   the 2x2 and 3x1 meshes of cuda:0, at 1280x720 in march + glow and at
+   3840x2160 (BASELINE.md configuration 5) on the 2x2 mesh, and the
+   example's Adam step (``make_train_step(cfg, SceneAdam, mesh=)``) at
+   1920x1080 on the 2x2 mesh, each against its whole-frame step: the loss
+   within 1e-6 relative, the colours' step within REGIME_REL_L2, Adam's
+   trained leaves within ``STEP_ATOL`` (lr for a noise entry) and its frozen
+   ones bit for bit; times by events (3 warm-ups, 10 steps) of the
+   whole-frame and 2x2 steps at the three shapes and of K2 and K4 on the
+   cells, with the image and without it; two ranks over gloo and one over NCCL (a group of one) on the
+   card, started together, each taking the 1080p step over
+   ``multihost.global_mesh()`` (one K1 and one K2 launch) against the
+   single-process step, importing no JAX, their host-clock times and wall
+   time; ``measure_scaling(devices=[cuda:0])``'s report (the one-card row),
+   ``dryrun.run(4)`` on cuda:0 cells, ``entry()``'s 96x128 frame, and the
+   CLI at 320x240 with ``--no-pallas``: no launch, its PNG the plain
+   ``render_u8``'s bit for bit.
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
@@ -237,6 +265,14 @@ that took the cull, its ``max_abs_err`` against K1 without the cull.
 main path: its launches, the windows' largest error against the windowed
 plain versions, the 2x2 mesh's last cell alone by events (``ms``), the
 windowed plain version of that cell (``plain_ms``) and its bound.
+``trace_bwd_window`` and ``march_bwd_window`` are K2 and K4 on phase 8's
+main path: its launches, the largest relative L2 of the windows' cotangents
+(a cell's block against the whole frame's, the ragged window's leaves
+and the cells' leaves against plain autograd), the 2x2 mesh's last cell
+through the wrapper by events with the image (``ms``, the plain version's
+function) and without it (``main_ms``, the main path's call), the bound of
+the work ``ms`` times, and the plain version's forward and backward of that
+cell (``plain_ms``).
 """
 
 from __future__ import annotations
@@ -329,6 +365,27 @@ def off_boundary(ref, bad):
     h, w = lum.shape
     win = np.stack([pad[r:r + h, c:c + w] for r in range(3) for c in range(3)])
     return int((bad & (win.max(0) - win.min(0) <= KNIFE_EDGE["contrast"])).sum())
+
+
+def leaf_err(name, scene, got, want):
+    """The largest relative L2 (norm floor 1e-2) of table cotangents ``got``
+    against ``want`` over the scene's leaves, and its leaf; every leaf of
+    ``got`` must be finite (``pattern_scale`` is checked finite only)."""
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+
+    got, want = kb.leaf_grads(scene, got), kb.leaf_grads(scene, want)
+    worst, worst_leaf = 0.0, None
+    for path, w in want.items():
+        a = got[path].detach().cpu().numpy().astype(np.float64)
+        if not np.isfinite(a).all():
+            raise SystemExit(f"chip_smoke: {name}: {path} cotangent not finite")
+        if "pattern_scale" in path:
+            continue
+        b = w.detach().cpu().numpy().astype(np.float64)
+        rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-2))
+        if rel >= worst:
+            worst, worst_leaf = rel, path
+    return worst, worst_leaf
 
 
 def knife_edge_only(name, on, off):
@@ -482,7 +539,7 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None, win
     return tuple(int(v) for v in ops)
 
 
-def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
+def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0, window=None):
     """The f32 operations of backward kernel ``name``'s record pass
     (``"trace_bwd"``: its raycasts; ``"march_bwd"``: its SDF steps) on the
     default scene under ``cfg``, textured from ``texture_dir``, and the texel
@@ -490,7 +547,8 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     -DRT_COUNT_OPS (all ``kernel_march.OPS_SLOTS`` counts, as
     :func:`count_ops`; the trace backward's slots 2-5 are its accumulator's
     adds, their distinct (warp, entry) pairs, the sites and the most sites of
-    one pixel, csrc/trace_bwd_host.cpp, for cotangent 1 on every pixel)."""
+    one pixel, csrc/trace_bwd_host.cpp, for cotangent 1 on every pixel).
+    ``window`` (row0, col0, h, w) counts that window of the frame alone."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
@@ -504,13 +562,14 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0):
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)
     trace = name == "trace_bwd"
     args = mod.launch_args(cfg, tex, torch.device("cpu"))
-    g = (torch.ones if trace else torch.zeros)((3, cfg.yres, cfg.xres), dtype=torch.float32)
+    window = kt.window(cfg) if window is None else window
+    g = (torch.ones if trace else torch.zeros)((3, window[2], window[3]), dtype=torch.float32)
     block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
     ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
     getattr(lib, f"rt_{name}_host")(
-        *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, sx, sy,
-        *args, *(plane.data_ptr() for plane in g), block.data_ptr(), None, None, None,
+        *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, *window,
+        sx, sy, *args, *(plane.data_ptr() for plane in g), block.data_ptr(), None, None, None,
         ops.data_ptr())
     return tuple(int(v) for v in ops)
 
@@ -1343,7 +1402,8 @@ def multi_device(torch, rtt, kt, km, card, scenes, window_plain, march_small_pla
     ``scenes``: the default scene, the Nearest textured one and
     configuration 4's 101 objects, on the card; ``window_plain``: phase 2's
     plain marches of the 2x2 mesh's cell at 1280x720 and of SMALL_WINDOW at
-    320x240, each with its ms; ``march_small_plain`` phase 2's whole
+    320x240 (phase 8's, rendered from the packed tables under autograd),
+    each with its ms; ``march_small_plain`` phase 2's whole
     320x240 plain march; ``ops`` the counting builds' futures. Returns the
     figures of the windows' kernel lines. Raises SystemExit on any
     failure."""
@@ -1464,6 +1524,381 @@ def multi_device(torch, rtt, kt, km, card, scenes, window_plain, march_small_pla
             "bounds": bounds, "times": times, "ranks_wall_s": wall}
 
 
+# Phase 8, the multi-device layer's gradient half: K2 and K4 on phase 7's
+# cells and on its ragged window, and the sharded training steps.
+# Two ranks on the one card over gloo, and one over NCCL (a group of one,
+# where the all-reduce is the identity), each runs the SGD step on the
+# material colours over the global mesh (argv: the output file, the
+# backend, the learning rate, the width and the height); each saves its
+# trained leaves to argv[1] and prints its launches (the first step,
+# counted alone), its loss and the host's clock of three more steps as its
+# last line.
+GRAD_RANK_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+import ray_rust_tpu_torch as rtt
+from ray_rust_tpu_torch.ops import kernel_trace as kt
+from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+from ray_rust_tpu_torch.parallel import multihost, sgd_train_step
+
+assert multihost.init_distributed(backend=sys.argv[2], timeout=300) is True
+scene, _ = rtt.default_scene(device=multihost.local_device())
+cfg = rtt.RenderConfig(xres=int(sys.argv[4]), yres=int(sys.argv[5]))
+m = scene.materials
+red = m.diffuse.r.clone()
+red[2] += 0.1
+with torch.no_grad():
+    target = rtt.render_color(scene._replace(materials=m._replace(
+        diffuse=m.diffuse._replace(r=red))), cfg).to_array()
+colours = lambda c: type(c)(*(t.detach().clone().requires_grad_() for t in c))
+s = scene._replace(materials=m._replace(diffuse=colours(m.diffuse), specular=colours(m.specular)))
+mesh = multihost.global_mesh()
+kt.LAUNCHES = kb.LAUNCHES = 0
+new, loss = sgd_train_step(s, cfg, target, lr=float(sys.argv[3]), mesh=mesh)
+torch.cuda.synchronize()
+launches = [kt.LAUNCHES, kb.LAUNCHES]
+times = []
+for _ in range(3):
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    sgd_train_step(s, cfg, target, lr=float(sys.argv[3]), mesh=mesh)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+nm = new.materials
+np.save(sys.argv[1], torch.stack([*nm.diffuse, *nm.specular]).detach().cpu().numpy())
+bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ray_rust_tpu."))]
+print(json.dumps({"rank": torch.distributed.get_rank(), "backend": sys.argv[2],
+                  "world": torch.distributed.get_world_size(), "launches": launches,
+                  "cells": len(mesh.local_cells()), "loss": float(loss), "ms": times,
+                  "jax": bad}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def grad_ranks(torch, lr, w, h):
+    """Two GRAD_RANK_CHILD ranks over gloo and one over NCCL on the card,
+    all started together, each taking the step at ``w`` x ``h``: each
+    rank's trained leaves and report, and the wall time from the start of
+    all three to the end of all three (s). Raises SystemExit if a rank
+    fails."""
+    import socket
+
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    groups = (("gloo", 2, ports[0]), ("nccl", 1, ports[1]))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        procs = [(backend, rank, os.path.join(d, f"{backend}{rank}.npy"), subprocess.Popen(
+            [sys.executable, "-c", GRAD_RANK_CHILD, os.path.join(d, f"{backend}{rank}.npy"),
+             backend, str(lr), str(w), str(h)], cwd=HERE,
+            env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for backend, world, port in groups for rank in range(world)]
+        try:
+            outs = [p.communicate(timeout=400) for *_, p in procs]
+        finally:
+            for *_, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        got = []
+        for (backend, rank, path, p), (out, err) in zip(procs, outs):
+            if p.returncode != 0:
+                raise SystemExit(f"chip_smoke: {backend} rank {rank} failed (rc {p.returncode}):"
+                                 f"\n{err}")
+            got.append((np.load(path), json.loads(out.strip().splitlines()[-1])))
+    return got, wall
+
+
+def sharded_grad(torch, rtt, card, scenes, grad_plain, ops):
+    """Phase 8: the multi-device layer's gradient half on the one card
+    (``parallel/train.py``, K2 and K4 with a window). ``scenes``: the
+    default scene and the Nearest textured one on the card; ``grad_plain``:
+    phase 2's plain images of SMALL_WINDOW of 320x240 and of the main
+    paths' 2x2 cells, trace and march + glow, with their pull-backs
+    (``kernel_trace_bwd.plain_vjp``) and ms;
+    ``ops`` the counting builds' futures. Returns the figures of the
+    windows' kernel lines. Raises SystemExit on any failure."""
+    from ray_rust_tpu_torch import cli
+    from ray_rust_tpu_torch.entry import entry
+    from ray_rust_tpu_torch.examples import inverse_rendering as example
+    from ray_rust_tpu_torch.models.scene import leaf_paths
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_pack as kp
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.parallel import (
+        SceneAdam,
+        TrainState,
+        dryrun,
+        format_report,
+        make_mesh,
+        make_train_step,
+        measure_scaling,
+        sgd_train_step,
+    )
+    from ray_rust_tpu_torch.utils.image import load_png
+
+    dev = torch.device("cuda", 0)
+    default, textured = scenes
+    cfg_main = rtt.RenderConfig(xres=W, yres=H)
+    cfg_march = rtt.RenderConfig(xres=MW, yres=MH, use_raymarching=True, glow_effect=1.0)
+    cfg_uhd = rtt.RenderConfig(xres=UHD_W, yres=UHD_H)
+    mesh22 = make_mesh([dev] * 4, dp=2, sp=2)
+    mesh31 = make_mesh([dev] * 3, dp=3, sp=1)
+
+    def planes(shape, seed):
+        rng = np.random.default_rng(seed)
+        return rtt.Color(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                           .to(dev) for _ in range(3)))
+
+    def flat(tables):
+        return torch.cat([t.reshape(-1) for t in tables]).detach().double().cpu().numpy()
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    # -- K2 and K4 on a mesh cell against the whole frame with the cotangent
+    # zero outside it (the atomics add in another order: REGIME_REL_L2), the
+    # primal K1's (K3's) window bit for bit
+    errs = {"trace_bwd": [], "march_bwd": []}
+    cell_g = {}
+    print("  K2 and K4 on a cell against the whole frame (cotangent zero outside the cell), "
+          "the primal against K1's (K3's) window:")
+    for key, bwd, fwd, scene, cfg, win, what in (
+            ("trace_bwd", kb, kt, default, cfg_main, CELL, "untextured"),
+            ("trace_bwd", kb, kt, textured, cfg_main, CELL, "bar.png Nearest"),
+            ("march_bwd", kmb, km, default, cfg_march, MCELL, "untextured"),
+            ("march_bwd", kmb, km, textured, cfg_march, MCELL, "bar.png Nearest")):
+        r0, c0, h, w = win
+        g = planes((h, w), 7)
+        cell_g.setdefault(key, g)
+        full = [torch.zeros((cfg.yres, cfg.xres), device=dev) for _ in range(3)]
+        for plane, part in zip(full, g):
+            plane[r0:r0 + h, c0:c0 + w] = part
+        got, prim = bwd.render_grads_kernel(scene, cfg, g, return_primal=True,
+                                            origin=win[:2], shape=win[2:])
+        e = rel(flat(got), flat(bwd.render_grads_kernel(scene, cfg, rtt.Color(*full))))
+        with torch.no_grad():
+            same = np.array_equal(img(prim), img(fwd.render_color_kernel(scene, cfg, win[:2],
+                                                                         win[2:])))
+        ok = e <= REGIME_REL_L2 and same
+        print(f"    {key} {what}, cell {win} of {cfg.xres}x{cfg.yres}: block relative L2 "
+              f"{e:.3g} ({REGIME_REL_L2}), primal bit-equal {same} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: windowed {key} ({what}) is not the whole frame's")
+        errs[key].append(e)
+
+    # -- the ragged window and the main paths' cells against plain autograd
+    # of the windowed plain version (phase 2's graphs), the march under its
+    # contract; a cell's plain forward and backward is its kernel line's
+    # plain_ms
+    plain_ms = {}
+    small = rtt.RenderConfig(xres=320, yres=240)
+    for key, bwd, fwd, cfg, win, budget in (
+            ("trace", kb, kt, small, SMALL_WINDOW, GRAD_BUDGET),
+            ("march", kmb, km, small.with_(use_raymarching=True, glow_effect=1.0), SMALL_WINDOW,
+             MARCH_GRAD_BUDGET),
+            ("trace cell", kb, kt, cfg_main, CELL, GRAD_BUDGET),
+            ("march cell", kmb, km, cfg_march, MCELL, MARCH_GRAD_BUDGET)):
+        plain_img, vjp, fwd_ms = grad_plain.pop(key)  # the graph goes with its last use
+        name = f"{key[:5]}_bwd"
+        g = planes(win[2:], 8) if win == SMALL_WINDOW else cell_g[name]
+        with torch.no_grad():
+            k_img = img(fwd.render_color_kernel(default, cfg, win[:2], win[2:]))
+        note = ""
+        if key.startswith("march"):  # tests/test_pallas_bwd.py:29-72,306-321
+            agree = np.abs(k_img - plain_img).max(-1) < 1e-4
+            off = off_boundary(plain_img, ~agree)
+            note = (f", forwards agree on {agree.mean():.4%} of pixels, {int((~agree).sum())} "
+                    f"masked, {off} off a decision boundary")
+            if not agree.mean() > 0.9 or off:
+                raise SystemExit(f"chip_smoke: the windowed march forwards disagree off the "
+                                 f"boundaries on {win}")
+            g = rtt.Color(*(c * torch.from_numpy(agree).to(dev) for c in g))
+        got, prim = bwd.render_grads_kernel(default, cfg, g, return_primal=True,
+                                            origin=win[:2], shape=win[2:])
+        want, bwd_ms = event_ms(torch, lambda: vjp(g))
+        if win != SMALL_WINDOW:
+            plain_ms[name] = fwd_ms + bwd_ms
+        worst, leaf = leaf_err(f"windowed {key} backward", default, got, want)
+        same = np.array_equal(img(prim), k_img)
+        ok = worst <= budget and same
+        print(f"  {bwd.__name__.rsplit('.', 1)[1]} on window {win} of {cfg.xres}x{cfg.yres} vs "
+              f"plain autograd of the windowed plain version{note}: largest leaf relative L2 "
+              f"{worst:.3g} ({leaf}; budget {budget}), primal bit-equal to the kernel's window "
+              f"{same}; plain {fwd_ms:.1f} ms forward (phase 2) + {bwd_ms:.1f} ms backward -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the windowed {key} backward is off its plain version")
+        errs[name].append(worst)
+
+    # -- the main path: sharded steps through the public entry points, the
+    # counts set to 0 just before it and read just after
+    m = default.materials
+    red = m.diffuse.r.clone()
+    red[2] += 0.1
+    redder = default._replace(materials=m._replace(diffuse=m.diffuse._replace(r=red)))
+    with torch.no_grad():
+        targets = {c: rtt.render_color(redder, c).to_array() for c in (cfg_main, cfg_march,
+                                                                         cfg_uhd)}
+        adam_target = rtt.render_color(default, cfg_main).to_array()
+
+    def colours(c):
+        return type(c)(*(t.detach().clone().requires_grad_() for t in c))
+
+    start = default._replace(materials=m._replace(diffuse=colours(m.diffuse),
+                                                  specular=colours(m.specular)))
+    sgd_cases = [("1080p 2x2", cfg_main, mesh22, TRAIN_LR),
+                 ("1080p 3x1", cfg_main, mesh31, TRAIN_LR),
+                 ("720p march + glow 2x2", cfg_march, mesh22, MARCH_TRAIN_LR),
+                 ("4K 2x2", cfg_uhd, mesh22, TRAIN_LR)]
+    opt = SceneAdam(0.5)  # the example's default learning rate
+    adam_scenes = [example.perturbed(default) for _ in range(2)]
+    adam_states = [TrainState(s, opt.init(s)) for s in adam_scenes]
+    kt.LAUNCHES = kb.LAUNCHES = km.LAUNCHES = kmb.LAUNCHES = kp.LAUNCHES = kp.VJP_LAUNCHES = 0
+    sharded = [sgd_train_step(start, cfg, targets[cfg], lr=lr, mesh=mesh)
+               for _, cfg, mesh, lr in sgd_cases]
+    _, adam_loss = make_train_step(cfg_main, opt, mesh=mesh22)(adam_states[0], adam_target)
+    torch.cuda.synchronize()
+    launches = {"trace_fwd": kt.LAUNCHES, "trace_bwd": kb.LAUNCHES, "march_fwd": km.LAUNCHES,
+                "march_bwd": kmb.LAUNCHES, "pack": kp.LAUNCHES, "pull_back": kp.VJP_LAUNCHES}
+    want = {"trace_fwd": 4 + 3 + 4 + 4, "trace_bwd": 15, "march_fwd": 4, "march_bwd": 4,
+            "pack": 19, "pull_back": 19}
+    print(f"  main path (SGD steps on the material colours: 1080p on 2x2 and 3x1 meshes of "
+          f"cuda:0, 720p march + glow and 4K on 2x2; the example's Adam step at 1080p on 2x2): "
+          f"launches {launches}, expected {want}")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: the sharded steps launched {launches}, not {want}")
+
+    # each against the whole-frame step: the loss within 1e-6 relative, the
+    # trained leaves' step within REGIME_REL_L2
+    trained = lambda s: flat([*s.materials.diffuse, *s.materials.specular])  # noqa: E731
+    before = trained(start)
+    whole = {}
+    for (name, cfg, mesh, lr), (new, loss) in zip(sgd_cases, sharded):
+        if cfg not in whole:
+            whole[cfg] = sgd_train_step(start, cfg, targets[cfg], lr=lr)
+        w_new, w_loss = whole[cfg]
+        loss_rel = abs(float(loss) / float(w_loss) - 1)
+        step_rel = rel(trained(new) - before, trained(w_new) - before)
+        ok = loss_rel <= 1e-6 and step_rel <= REGIME_REL_L2
+        print(f"  SGD {name} vs the whole frame: loss {float(loss):.8g} ({loss_rel:.3g} "
+              f"relative), the colours' step within relative L2 {step_rel:.3g} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the sharded step {name} is not the whole frame's")
+    _, w_adam_loss = make_train_step(cfg_main, opt)(adam_states[1], adam_target)
+    adam = adam_states[1].opt_state
+    moments = {id(p): adam.state[p]["exp_avg"] for p in adam.param_groups[0]["params"]}
+    worst = 0.0
+    for path, a, b in zip(leaf_paths(adam_scenes[0]), adam_scenes[0].tensors(),
+                          adam_scenes[1].tensors()):
+        d = np.abs(a.detach().cpu().numpy().astype(np.float64) - b.detach().cpu().numpy())
+        if path not in opt.trained:
+            if d.max(initial=0.0) != 0:
+                raise SystemExit(f"chip_smoke: the sharded Adam step moved the frozen {path}")
+            continue
+        noise = np.abs(moments[id(b)].cpu().numpy() / 0.1) < NOISE_MOMENT
+        worst = max(worst, float(d[~noise].max(initial=0.0)))
+        if d[~noise].max(initial=0.0) > STEP_ATOL or d[noise].max(initial=0.0) > opt.lr:
+            raise SystemExit(f"chip_smoke: the sharded Adam step moved {path} apart: {d.max()}")
+    adam_rel = abs(float(adam_loss) / float(w_adam_loss) - 1)
+    print(f"  Adam (make_train_step + SceneAdam) 1080p 2x2 vs the whole frame: loss "
+          f"{adam_rel:.3g} relative, trained leaves with a gradient within {worst:.3g} "
+          f"({STEP_ATOL}), frozen leaves bit-equal")
+    if adam_rel > 1e-6:
+        raise SystemExit("chip_smoke: the sharded Adam step's loss is not the whole frame's")
+
+    # -- times by events (3 warm-ups, 10 steps): whole frame and 2x2 mesh
+    times = {}
+    for tag, cfg, lr in (("1080p", cfg_main, TRAIN_LR), ("720p march", cfg_march, MARCH_TRAIN_LR),
+                         ("4K", cfg_uhd, TRAIN_LR)):
+        times[tag] = {k: cuda_ms(torch, lambda cfg=cfg, lr=lr, mesh=mesh: sgd_train_step(
+            start, cfg, targets[cfg], lr=lr, mesh=mesh)) for k, mesh in (("whole", None),
+                                                                         ("2x2", mesh22))}
+        print(f"  SGD step {tag} {cfg.xres}x{cfg.yres} ({card}), ms by events: whole "
+              f"{times[tag]['whole']:.4f}, 2x2 {times[tag]['2x2']:.4f}")
+    # the cells' K2 and K4 through the wrapper: with the image (the plain
+    # version's function, the kernel line's ms and bound) and without it (the
+    # backward of the main path's cell)
+    cell_ms, cell_main_ms = {}, {}
+    for name, bwd, cfg, win in (("trace_bwd", kb, cfg_main, CELL),
+                                ("march_bwd", kmb, cfg_march, MCELL)):
+        for out, primal in ((cell_ms, True), (cell_main_ms, False)):
+            out[name] = cuda_ms(torch, lambda bwd=bwd, cfg=cfg, win=win, primal=primal:
+                                bwd.render_grads_kernel(default, cfg, cell_g[name],
+                                                        return_primal=primal, origin=win[:2],
+                                                        shape=win[2:]))
+        print(f"  {name} on the {cfg.xres}x{cfg.yres} cell {win} through the wrapper ({card}): "
+              f"{cell_ms[name]:.4f} ms with the image, {cell_main_ms[name]:.4f} ms without "
+              f"(the main path's call); plain forward and backward {plain_ms[name]:.1f} ms")
+
+    # -- ranks: two over gloo and one over NCCL, each against the
+    # single-process 1080p step
+    w_new, w_loss = whole[cfg_main]
+    ranks, wall = grad_ranks(torch, TRAIN_LR, W, H)
+    for leaves, r in ranks:
+        loss_rel = abs(r["loss"] / float(w_loss) - 1)
+        step_rel = rel(leaves.astype(np.float64).ravel() - before, trained(w_new) - before)
+        ok = (loss_rel <= 1e-6 and step_rel <= REGIME_REL_L2 and r["launches"] == [1, 1]
+              and r["cells"] == 1 and not r["jax"])
+        print(f"  {r['backend']} rank {r['rank']} of {r['world']}: launches (K1, K2) "
+              f"{r['launches']}, loss {loss_rel:.3g} relative, step {step_rel:.3g}, later steps "
+              + ", ".join(f"{t:.1f}" for t in r["ms"]) + f" ms by the host's clock -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: a rank's step is not the single-process one: {r}")
+    print(f"  three ranks ({card}): wall {wall:.2f} s from start to exit")
+
+    # -- scaling, the dry run, the entry, --no-pallas
+    scaling = measure_scaling(devices=[dev])
+    print(f"  measure_scaling(devices=[cuda:0]) ({card}):")
+    for line in format_report(scaling).splitlines():
+        print("    " + line)
+    print(f"    {scaling}")
+    dryrun.run(4)
+    fn, args = entry()
+    with torch.no_grad():
+        out = fn(*args).to_array()
+    if tuple(out.shape) != (96, 128, 3) or not torch.isfinite(out).all():
+        raise SystemExit(f"chip_smoke: entry() gave {tuple(out.shape)}")
+    kt.LAUNCHES = kb.LAUNCHES = km.LAUNCHES = kmb.LAUNCHES = kp.LAUNCHES = kp.VJP_LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "plain.png")
+        rc = cli.main(["320", "240", "-o", path, "--no-pallas"])
+        png = load_png(path)
+    plain_launches = (kt.LAUNCHES, kb.LAUNCHES, km.LAUNCHES, kmb.LAUNCHES, kp.LAUNCHES)
+    want_png = rtt.render_u8(default, small.with_(use_pallas=False))
+    print(f"  entry() 96x128, dryrun.run(4) on cuda:0 cells; the CLI 320x240 --no-pallas: exit "
+          f"{rc}, launches (K1, K2, K3, K4, pack) {plain_launches}, PNG bit-equal to the plain "
+          f"render_u8 {np.array_equal(png, want_png)}")
+    if rc != 0 or any(plain_launches) or not np.array_equal(png, want_png):
+        raise SystemExit("chip_smoke: --no-pallas launched a kernel or is not the plain image")
+
+    # the cells' bounds, of the timed work with the image: the tables read,
+    # the cotangent planes read, the primal planes and the block written
+    bounds = {}
+    for name, cfg, cell in (("trace_bwd", cfg_main, CELL), ("march_bwd", cfg_march, MCELL)):
+        n_ops = ops[f"{name}_window"].result()[0]
+        pixels = cell[2] * cell[3]
+        nbytes = (io_bytes(default, cfg, pixels) + 3 * 4 * pixels
+                  + 4 * (default.objects.count + 1) * kb.GRAD_COLS)
+        bounds[name] = roofline(n_ops, nbytes)
+        print(f"  bound, {name} window {cell} of {cfg.xres}x{cfg.yres}: {n_ops} f32 operations, "
+              f"{nbytes} bytes -> {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    return {"launches": launches, "max_abs_err": {k: max(v) for k, v in errs.items()},
+            "ms": cell_ms, "main_ms": cell_main_ms, "plain_ms": plain_ms, "bounds": bounds,
+            "times": times, "ranks_wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -1535,7 +1970,12 @@ def run(torch, tex_dir) -> int:
                    "trace_fwd_window": counting.submit(count_ops, "trace", kt, cfg_main,
                                                        window=CELL),
                    "march_fwd_window": counting.submit(count_ops, "march", km, cfg_march,
-                                                       window=MCELL)}
+                                                       window=MCELL),
+                   # phase 8's: K2 and K4 on the same cells
+                   "trace_bwd_window": counting.submit(count_bwd_ops, "trace_bwd", kb, cfg_main,
+                                                       window=CELL),
+                   "march_bwd_window": counting.submit(count_bwd_ops, "march_bwd", kmb,
+                                                       cfg_march, window=MCELL)}
 
     # 2. the builds, one nvcc each, all started together; meanwhile the card
     # renders the plain versions of phase 3's small march cases, which need
@@ -1562,14 +2002,26 @@ def run(torch, tex_dir) -> int:
         building = pool.submit(build)
         march_plain = {name: img(km.render_color_plain(scene.to(dev), cfg))
                        for name, scene, cfg in march_cases}
-        # phase 7's windowed plain marches: the 2x2 mesh's cell of the march
-        # main path and a ragged window of the first case's frame
-        window_plain = {}
-        for key, cfg, win in (("cell", cfg_march, MCELL),
-                              ("small", march_cases[0][2], SMALL_WINDOW)):
-            out, ms = event_ms(torch, lambda cfg=cfg, win=win: km.render_color_plain(
+        # phase 7's windowed plain march of the 2x2 mesh's cell of the march
+        # main path
+        out, ms = event_ms(torch, lambda: km.render_color_plain(default, cfg_march, MCELL[:2],
+                                                               MCELL[2:]))
+        window_plain = {"cell": (img(out), ms)}
+        # phase 8's plain references: the windowed plain trace and march
+        # under autograd of a ragged window of the first case's frame and of
+        # the main paths' 2x2 cells, their graphs kept for the kernels'
+        # cotangents (the march contract masks them by K3's image); the
+        # ragged march's image, rendered from the packed tables, is the plain
+        # march's bit for bit and serves phase 7 too
+        grad_plain = {}
+        for key, cfg, win in (("trace", rtt.RenderConfig(xres=320, yres=240), SMALL_WINDOW),
+                              ("march", march_cases[0][2], SMALL_WINDOW),
+                              ("trace cell", cfg_main, CELL),
+                              ("march cell", cfg_march, MCELL)):
+            (out, vjp), ms = event_ms(torch, lambda cfg=cfg, win=win: kb.plain_vjp(
                 default, cfg, win[:2], win[2:]))
-            window_plain[key] = (img(out), ms)
+            grad_plain[key] = (img(out), vjp, ms)
+        window_plain["small"] = (grad_plain["march"][0], grad_plain["march"][2])
         plain_s = time.time() - t0
         built_at = building.result()
     print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
@@ -1752,25 +2204,6 @@ def run(torch, tex_dir) -> int:
                                                    small.with_(march_floor_skip=False))))
 
     print("backward kernel vs torch autograd of the plain version:")
-
-    def leaf_err(name, scene, got, want):
-        """The largest relative L2 (norm floor 1e-2) of table cotangents
-        ``got`` against ``want`` over the scene's leaves, and its leaf; every
-        leaf of ``got`` must be finite (``pattern_scale`` is checked finite
-        only)."""
-        got, want = kb.leaf_grads(scene, got), kb.leaf_grads(scene, want)
-        worst, worst_leaf = 0.0, None
-        for path, w in want.items():
-            a = got[path].detach().cpu().numpy().astype(np.float64)
-            if not np.isfinite(a).all():
-                raise SystemExit(f"chip_smoke: {name}: {path} cotangent not finite")
-            if "pattern_scale" in path:
-                continue
-            b = w.detach().cpu().numpy().astype(np.float64)
-            rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-2))
-            if rel >= worst:
-                worst, worst_leaf = rel, path
-        return worst, worst_leaf
 
     def grad_case(name, scene, cfg, seed=0, bwd=kb, fwd=kt.render_color_plain,
                   budget=GRAD_BUDGET, bit_equal=False, kernels=None, agree_with=None):
@@ -2587,6 +3020,13 @@ def run(torch, tex_dir) -> int:
     md = multi_device(torch, rtt, kt, km, card, (default.to(dev), tex_scenes[0], conf4),
                       window_plain, march_plain["march default 320x240"], ops_futures)
     phase_s["7"] = time.time() - t_phase
+
+    # 8. the multi-device layer's gradient half
+    t_phase = time.time()
+    print("multi-device layer, gradient half (parallel/train.py; K2 and K4 with a window):")
+    md8 = sharded_grad(torch, rtt, card, (default.to(dev), tex_scenes[0]), grad_plain,
+                       ops_futures)
+    phase_s["8"] = time.time() - t_phase
     print("phase wall times: " + ", ".join(f"{k} {v:.0f} s" for k, v in phase_s.items()))
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
@@ -2696,7 +3136,17 @@ def run(torch, tex_dir) -> int:
         "bound_ms": md["bounds"][name][0], "bound_by": md["bounds"][name][1],
         "library_ms": None,
     } for name, replaces in (("trace_fwd", "ray_rust_tpu/ops/pallas_trace.py:1275"),
-                             ("march_fwd", "ray_rust_tpu/ops/pallas_march.py:814"))]}))
+                             ("march_fwd", "ray_rust_tpu/ops/pallas_march.py:814"))] + [{
+        "name": f"{name}_window", "route": "cuda",
+        "source": f"ray_rust_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": md8["launches"][name], "max_abs_err": md8["max_abs_err"][name],
+        "ms": md8["ms"][name], "main_ms": md8["main_ms"][name],
+        "plain_ms": md8["plain_ms"][name],
+        "bound_ms": md8["bounds"][name][0], "bound_by": md8["bounds"][name][1],
+        "library_ms": None,
+    } for name, replaces in (("trace_bwd", "ray_rust_tpu/ops/pallas_bwd.py:563"),
+                             ("march_bwd", "ray_rust_tpu/ops/pallas_bwd.py:1060"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

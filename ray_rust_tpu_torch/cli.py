@@ -3,7 +3,8 @@
 PyTorch counterpart of ``ray_rust_tpu/cli.py``. Renders the default scene,
 or a scene file's (``-d``), to a PNG on ``--device`` (default ``cuda``), in
 trace mode or, with ``-m``, in march mode with an optional glow strength
-``-g``; ``-s`` writes the scene to a file::
+``-g``, through the hand-written kernels on a card (``--no-pallas``: the
+plain PyTorch version); ``-s`` writes the scene to a file::
 
     python -m ray_rust_tpu_torch.cli 1920 1080 -o out.png
     python -m ray_rust_tpu_torch.cli 1280 720 -m -g 1.0 -o out.png
@@ -65,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Override the reflection depth cap")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
+    p.add_argument("--no-pallas", action="store_true",
+                   help="Render through the plain PyTorch version (the hand-written "
+                        "kernels are the default on a card)")
     return p
 
 
@@ -85,7 +89,7 @@ def main(argv=None) -> int:
     cfg = RenderConfig(xres=args.width, yres=args.height, xfov=1.0,
                        yfov=args.height / args.width,  # main.rs:135-136
                        use_raymarching=args.raymarch, glow_effect=args.gloweffect,
-                       **caps)
+                       use_pallas=False if args.no_pallas else None, **caps)
     if args.webserver:
         from .webserver import run_webserver
 

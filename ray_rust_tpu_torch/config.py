@@ -2,10 +2,10 @@
 
 PyTorch counterpart of ``ray_rust_tpu/config.py``. It keeps the semantic
 fields, the scan-mode march's ``differentiable`` and ``march_budget``, and
-of the JAX package's kernel switches only ``march_floor_skip``, which the
-march kernels take, and ``pallas_prefilter``, which the trace kernel takes;
-the TPU tiling knobs have no meaning here. A render runs on the device of
-the scene's tensors.
+of the JAX package's kernel switches ``use_pallas`` (the kernels, or the
+plain version by name), ``march_floor_skip``, which the march kernels take,
+and ``pallas_prefilter``, which the trace kernel takes; the TPU tiling knobs
+have no meaning here. A render runs on the device of the scene's tensors.
 """
 
 from __future__ import annotations
@@ -57,6 +57,12 @@ class RenderConfig:
     march_budget: int = 512  # scan length in differentiable mode
 
     bg: str = "default_sky"  # background shader registry key
+
+    # The hand-written kernels (the JAX package's switch of its Pallas
+    # kernels, the CLI's --no-pallas): None takes them on a CUDA scene, which
+    # launches a kernel or raises; False asks by name for the plain PyTorch
+    # version on any device (renderer.render_color), which launches none.
+    use_pallas: Optional[bool] = None
 
     # The march kernels' closed-form floor tail (csrc/march_body.cuh:
     # floor_tail, the JAX package's field of the same name): while a floor

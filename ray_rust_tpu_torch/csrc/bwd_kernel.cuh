@@ -12,8 +12,15 @@
 // sums, K4's SharedAcc lane by lane): more global atomics, and again a
 // summation order that changes from run to run.
 //
-// ``Body::run(s, p, cutoff, cam, ix, iy, g, acc)`` is the per-pixel program:
-// it adds the pixel's cotangents through ``acc`` and returns its colour. It
+// A launch covers a window of the frame (``P``'s row0, col0, h, w; the whole
+// frame is 0, 0, yres, xres), as the forward kernels' do: the grid covers
+// the window and masks its ragged edge, the cotangent and primal planes are
+// the window's, and the body takes the global pixel, so a window's
+// cotangents are the whole frame's with the image cotangent zero outside it.
+//
+// ``Body::run(s, p, cutoff, cam, ix, iy, g, acc)`` is the per-pixel program
+// at global pixel (ix, iy): it adds the pixel's cotangents through ``acc``
+// and returns its colour. It
 // must be forced inline: chip_smoke.py fails when ptxas reports a device
 // function besides the kernel, and a plain __device__ run was left as one.
 // ``Body::Acc`` is its accumulator, built as ``{block}`` on the shared block;
@@ -106,10 +113,10 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   }
   __syncthreads();
 
-  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+  const int lx = blockIdx.x * blockDim.x + threadIdx.x;  // the pixel in the window
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   typename Body::Acc acc = {GLOBAL ? out_block : s_acc};
-  if (ix < p.xres && iy < p.yres) {  // every thread reaches the flush and the barrier
+  if (lx < p.w && ly < p.h) {  // every thread reaches the flush and the barrier
     SceneView s;
     s.f32 = GLOBAL ? f32t : s_f32;
     s.i32 = GLOBAL ? i32t : s_i32;
@@ -119,8 +126,9 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
       s.tx = tx;
       s.tx.meta = s_meta;
     }
-    const size_t o = static_cast<size_t>(iy) * p.xres + ix;
-    C3 c = Body::run(s, p, cutoff, s_cam, ix, iy, c3(g_r[o], g_g[o], g_b[o]), acc);
+    const size_t o = static_cast<size_t>(ly) * p.w + lx;
+    C3 c = Body::run(s, p, cutoff, s_cam, p.col0 + lx, p.row0 + ly, c3(g_r[o], g_g[o], g_b[o]),
+                     acc);
     if (prim_r != nullptr) {
       prim_r[o] = c.r;
       prim_g[o] = c.g;
@@ -137,15 +145,20 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   }
 }
 
-// Launch bwd_kernel<Body> on ``stream`` of ``device``. ``out_block`` is
-// (n+1, 20) f32 and must hold zeros; the cotangents are added to it. The
-// primal planes may be null; ``tx`` is all zero for an untextured scene.
-// Returns the cudaError_t of the launch (0 = success).
+// Launch bwd_kernel<Body> on ``stream`` of ``device`` over the window of
+// ``p``: the cotangent planes and the primal planes are the window's (h x
+// w), and each pixel's program takes its global pixel (col0 + lx, row0 +
+// ly) of the xres x yres frame, so a window's pixels differentiate as the
+// whole frame's. ``out_block`` is (n+1, 20) f32 and must hold zeros; the
+// cotangents are added to it. The primal planes may be null; ``tx`` is all
+// zero for an untextured scene. Returns the cudaError_t of the launch (0 =
+// success), cudaErrorInvalidValue for a window not window_ok.
 template <class Body, class P>
 int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float* light, int n,
                const P& p, const TexArgs& tx, float cutoff, const float* g_r, const float* g_g,
                const float* g_b, float* out_block, float* prim_r, float* prim_g, float* prim_b,
                int device, void* stream) {
+  if (!window_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = bwd_smem(n, Body::TEXTURED ? tx.n_tex : 0);
@@ -155,8 +168,7 @@ int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   static_assert(Body::BLOCK_X * Body::BLOCK_Y % 32 == 0, "whole warps: acc.flush may shuffle");
   dim3 block(Body::BLOCK_X, Body::BLOCK_Y);
-  dim3 grid((p.xres + Body::BLOCK_X - 1) / Body::BLOCK_X,
-            (p.yres + Body::BLOCK_Y - 1) / Body::BLOCK_Y);
+  dim3 grid((p.w + Body::BLOCK_X - 1) / Body::BLOCK_X, (p.h + Body::BLOCK_Y - 1) / Body::BLOCK_Y);
   bwd_kernel<Body, P><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g,
       prim_b);

@@ -179,7 +179,7 @@ constexpr int OPS_CLEAR_FLOOR = 14;
 #endif
 
 // March-mode render parameters; the frame and the window as Params's
-// (trace_body.cuh): K3 renders the window, K4 the whole frame.
+// (trace_body.cuh): K3 and K4 cover the window.
 struct MarchParams {
   int xres, yres;
   int row0 = 0, col0 = 0, h = 0, w = 0;

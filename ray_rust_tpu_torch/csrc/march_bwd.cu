@@ -11,7 +11,9 @@
 // launches a second instance of the kernel, whose hits read the texture atlas
 // and whose adjoint takes the texture's (u, v) cotangents through
 // fetch_texture_adj, as K2's textured sites do; an untextured scene launches
-// the kernel as it was before textures (its ptxas figures are pinned).
+// the kernel as it was before textures (its ptxas figures are pinned). A
+// launch covers a window of the frame at its global origin, as K3's does
+// (bwd_kernel.cuh).
 //
 // What bounds it: its slowest thread, not bytes. It reads the tables and
 // three f32 planes and writes an (n+1, 20) block and at most three planes,
@@ -56,19 +58,24 @@ extern "C" {
 // Shared memory the launch needs for n objects and n_tex textures, in bytes.
 size_t rt_march_bwd_smem(int n, int n_tex) { return rt::bwd_smem(n, n_tex); }
 
-// Launch the march backward on ``stream`` of ``device`` (rt::launch_bwd):
-// the textured instance where ``n_tex`` > 0, else the untextured one. The
-// texture arguments are rt_trace_fwd's (trace_fwd.cu).
+// Launch the march backward on ``stream`` of ``device`` (rt::launch_bwd)
+// over the window of rt_march_fwd (march_fwd.cu), as rt_trace_bwd's
+// (trace_bwd.cu): the textured instance where ``n_tex`` > 0, else the
+// untextured one. The texture arguments are rt_trace_fwd's (trace_fwd.cu).
 int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const float* light,
-                 int n, int xres, int yres, float sx, float sy, int refraction_cap, int bg,
-                 int max_laps, int max_iter, float eps, float far_away, int glow_on, float glow,
-                 int floor_skip, float cutoff, const void* tex, const int* tex_meta, int n_tex,
-                 int tex_stride, int tex_len, const float* g_r, const float* g_g,
-                 const float* g_b, float* out_block, float* prim_r, float* prim_g,
-                 float* prim_b, int device, void* stream) {
+                 int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
+                 float sy, int refraction_cap, int bg, int max_laps, int max_iter, float eps,
+                 float far_away, int glow_on, float glow, int floor_skip, float cutoff,
+                 const void* tex, const int* tex_meta, int n_tex, int tex_stride, int tex_len,
+                 const float* g_r, const float* g_g, const float* g_b, float* out_block,
+                 float* prim_r, float* prim_g, float* prim_b, int device, void* stream) {
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
   p.sx = sx;
   p.sy = sy;
   p.refraction_cap = refraction_cap;

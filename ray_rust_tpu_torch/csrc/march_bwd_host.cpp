@@ -1,8 +1,11 @@
 // Host build of the march backward's per-pixel body (march_bwd_body.cuh): a
 // plain loop over the pixels on the CPU, so the kernel's adjoint can be
 // tested against torch autograd of the plain PyTorch version where there is
-// no card. Same arguments as rt_march_bwd in march_bwd.cu (the texture atlas
-// too: the textured body where ``n_tex`` > 0), minus the device and stream.
+// no card. Same arguments as rt_march_bwd in march_bwd.cu (the window, each
+// pixel at its global place in the frame, and the texture atlas: the
+// textured body where ``n_tex`` > 0), minus the device and stream; it
+// returns 0, or 1 (cudaErrorInvalidValue) for a window with no pixel or past
+// the frame.
 // Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and
 // -DRT_COUNT_OPS to count into ops_total[0..5] as march_host.cpp does).
 
@@ -17,15 +20,15 @@ struct HostAcc {
 
 }  // namespace
 
-extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const float* cam,
-                                  const float* light, int n, int xres, int yres, float sx,
-                                  float sy, int refraction_cap, int bg, int max_laps,
-                                  int max_iter, float eps, float far_away, int glow_on,
-                                  float glow, int floor_skip, float cutoff, const void* tex,
-                                  const int* tex_meta, int n_tex, int tex_stride, int tex_len,
-                                  const float* g_r, const float* g_g,
-                                  const float* g_b, float* out_block, float* prim_r,
-                                  float* prim_g, float* prim_b, unsigned long long* ops_total) {
+extern "C" int rt_march_bwd_host(const float* f32t, const int* i32t, const float* cam,
+                                 const float* light, int n, int xres, int yres, int row0,
+                                 int col0, int h, int w, float sx, float sy, int refraction_cap,
+                                 int bg, int max_laps, int max_iter, float eps, float far_away,
+                                 int glow_on, float glow, int floor_skip, float cutoff,
+                                 const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                                 int tex_len, const float* g_r, const float* g_g,
+                                 const float* g_b, float* out_block, float* prim_r,
+                                 float* prim_g, float* prim_b, unsigned long long* ops_total) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
@@ -40,6 +43,11 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
+  if (!rt::window_ok(p)) return 1;
   p.sx = sx;
   p.sy = sy;
   p.refraction_cap = refraction_cap;
@@ -52,9 +60,10 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
   p.glow = glow;
   p.floor_skip = floor_skip;
   HostAcc acc = {out_block};
-  for (int iy = 0; iy < yres; ++iy) {
-    for (int ix = 0; ix < xres; ++ix) {
-      const long o = static_cast<long>(iy) * xres + ix;
+  for (int ly = 0; ly < h; ++ly) {  // the pixel in the window
+    for (int lx = 0; lx < w; ++lx) {
+      const long o = static_cast<long>(ly) * w + lx;
+      const int ix = col0 + lx, iy = row0 + ly;
       RT_PIXEL_COUNT_BEGIN(ops_total);
       const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
       const rt::C3 c = n_tex > 0 ? rt::march_pixel_grad<true>(s, p, cutoff, cam, ix, iy, g, acc)
@@ -67,4 +76,5 @@ extern "C" void rt_march_bwd_host(const float* f32t, const int* i32t, const floa
       }
     }
   }
+  return 0;
 }

@@ -416,9 +416,9 @@ RT_FI auto table_row(const SceneViewT<T>& s, int i) {
 
 // Render parameters: image size, the window a launch renders, 2*fov in
 // f32, depth caps, background id. The camera rays take the frame's global
-// pixel (ix, iy) and its size xres, yres; K1 renders rows row0 .. row0+h-1
-// and columns col0 .. col0+w-1 of the frame into h x w output planes. The
-// backward kernels render the whole frame and leave the window at zero.
+// pixel (ix, iy) and its size xres, yres; K1 and the backward kernels K2
+// and K4 (bwd_kernel.cuh) cover rows row0 .. row0+h-1 and columns col0 ..
+// col0+w-1 of the frame with h x w planes. K5 takes the whole frame.
 struct Params {
   int xres, yres;
   int row0 = 0, col0 = 0, h = 0, w = 0;
@@ -427,6 +427,15 @@ struct Params {
   int refraction_cap;  // min(max_refractions, refraction_unroll)
   int bg;
 };
+
+// Whether the window of ``p`` (Params or MarchParams) holds a pixel and lies
+// in its xres x yres frame; the backward launchers and their host builds
+// return cudaErrorInvalidValue (1) for any other, never an empty grid.
+template <class P>
+inline bool window_ok(const P& p) {
+  return p.h > 0 && p.w > 0 && p.row0 >= 0 && p.col0 >= 0 && p.row0 + p.h <= p.yres &&
+         p.col0 + p.w <= p.xres;
+}
 
 // One object's intersection parameter, or +inf (ops/intersect.py), for
 // object row ``o`` (table_row).

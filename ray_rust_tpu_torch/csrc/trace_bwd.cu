@@ -5,7 +5,9 @@
 // scene tables and the cotangent planes of the image it computes the
 // cotangent of every object's 19 table columns and of the camera and the
 // light, and optionally the image itself. The per-pixel program lives in
-// trace_bwd_body.cuh.
+// trace_bwd_body.cuh. A launch covers a window of the frame at its global
+// origin, as K1's does (bwd_kernel.cuh), so the multi-device layer
+// differentiates a frame as windows.
 //
 // What bounds it: per-thread arithmetic, not bytes. It reads the tables and
 // three f32 planes and writes an (n+1, 20) block and at most three planes,
@@ -153,17 +155,25 @@ size_t rt_trace_bwd_smem(int n, int n_tex) { return rt::bwd_smem(n, n_tex); }
 
 // Launch the trace backward with room for ``site_cap`` sites a pixel (one
 // of rt::with_site_cap's caps, else cudaErrorInvalidValue) on ``stream`` of
-// ``device`` (rt::launch_bwd); the texture arguments as rt_trace_fwd's
-// (trace_fwd.cu).
+// ``device`` (rt::launch_bwd) over the window of rt_trace_fwd (trace_fwd.cu):
+// rows row0 .. row0+h-1 and columns col0 .. col0+w-1 of the xres x yres
+// frame, the cotangent and primal planes h x w (cudaErrorInvalidValue for a
+// window with no pixel or past the frame); the texture arguments as
+// rt_trace_fwd's.
 int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const float* light,
-                 int n, int xres, int yres, float sx, float sy, int max_reflections,
-                 int refraction_cap, int bg, float cutoff, int site_cap, const void* tex,
-                 const int* tex_meta, int n_tex, int tex_stride, int tex_len, const float* g_r,
-                 const float* g_g, const float* g_b, float* out_block, float* prim_r,
-                 float* prim_g, float* prim_b, int device, void* stream) {
+                 int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
+                 float sy, int max_reflections, int refraction_cap, int bg, float cutoff,
+                 int site_cap, const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                 int tex_len, const float* g_r, const float* g_g, const float* g_b,
+                 float* out_block, float* prim_r, float* prim_g, float* prim_b, int device,
+                 void* stream) {
   rt::Params p;
   p.xres = xres;
   p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
   p.sx = sx;
   p.sy = sy;
   p.max_reflections = max_reflections;

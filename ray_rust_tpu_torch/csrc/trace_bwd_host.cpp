@@ -1,15 +1,17 @@
 // Host build of the trace backward's per-pixel body (trace_bwd_body.cuh): a
 // plain loop over the pixels on the CPU, so the kernel's adjoint can be
 // tested against torch autograd of the plain PyTorch version where there is
-// no card. Same arguments as rt_trace_bwd in trace_bwd.cu, minus the device
-// and stream; a record cap the kernel is not built for leaves NaN in the
-// block. It reads the tables where they lie and adds each cotangent straight
-// to the block, as the -DRT_GLOBAL_TABLES build does. Build with ``g++
-// -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and -DRT_COUNT_OPS to add
-// to ops_total: [0] the operation count, [1] the texel bytes of the record
-// pass's texture fetches, [2] the accumulator's adds, [3] the distinct (warp,
-// block entry) pairs among them, a warp being 32 pixels of a row, [4] the
-// sites, [5] the most sites of one pixel).
+// no card. Same arguments as rt_trace_bwd in trace_bwd.cu (the window too:
+// the loop covers it, each pixel at its global place in the frame), minus
+// the device and stream; it returns 0, or 1 (cudaErrorInvalidValue) for a
+// window with no pixel or past the frame; a record cap the kernel is not
+// built for leaves NaN in the block. It reads the tables where they lie and
+// adds each cotangent straight to the block, as the -DRT_GLOBAL_TABLES build
+// does. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC``
+// (and -DRT_COUNT_OPS to add to ops_total: [0] the operation count, [1] the
+// texel bytes of the record pass's texture fetches, [2] the accumulator's
+// adds, [3] the distinct (warp, block entry) pairs among them, a warp being
+// 32 pixels of a row, [4] the sites, [5] the most sites of one pixel).
 //
 // The host accumulator adds each nonzero entry as it comes, lane by lane,
 // as the kernel's accumulator did before it summed over a warp; the pairs
@@ -63,13 +65,13 @@ struct HostAcc {
 
 extern "C" {
 
-void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
-                       const float* light, int n, int xres, int yres, float sx, float sy,
-                       int max_reflections, int refraction_cap, int bg, float cutoff,
-                       int site_cap, const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                       int tex_len, const float* g_r, const float* g_g, const float* g_b,
-                       float* out_block, float* prim_r, float* prim_g, float* prim_b,
-                       unsigned long long* ops_total) {
+int rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
+                      const float* light, int n, int xres, int yres, int row0, int col0, int h,
+                      int w, float sx, float sy, int max_reflections, int refraction_cap, int bg,
+                      float cutoff, int site_cap, const void* tex, const int* tex_meta,
+                      int n_tex, int tex_stride, int tex_len, const float* g_r,
+                      const float* g_g, const float* g_b, float* out_block, float* prim_r,
+                      float* prim_g, float* prim_b, unsigned long long* ops_total) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
@@ -84,6 +86,11 @@ void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
   rt::Params p;
   p.xres = xres;
   p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
+  if (!rt::window_ok(p)) return 1;
   p.sx = sx;
   p.sy = sy;
   p.max_reflections = max_reflections;
@@ -99,12 +106,13 @@ void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
   // the kernel's choice of the deep task stack (trace_bwd.cu)
   const bool deep = 1 + r * (r - 1) / 2 > rt::STACK_CAP && site_cap > rt::STACK_CAP;
   const int rc = rt::with_site_cap(site_cap, [&](auto cap) {
-    for (int iy = 0; iy < yres; ++iy) {
-      for (int ix = 0; ix < xres; ++ix) {
+    for (int ly = 0; ly < h; ++ly) {  // the pixel in the window
+      for (int lx = 0; lx < w; ++lx) {
 #ifdef RT_COUNT_OPS
-        if (ix % 32 == 0) acc.new_warp();
+        if (lx % 32 == 0) acc.new_warp();
 #endif
-        const long o = static_cast<long>(iy) * xres + ix;
+        const long o = static_cast<long>(ly) * w + lx;
+        const int ix = col0 + lx, iy = row0 + ly;
         constexpr int C = decltype(cap)::value;
         const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
         rt::C3 c = deep ? rt::trace_pixel_grad<C, rt::STACK_CAP_DEEP>(s, p, cutoff, cam, ix, iy, g,
@@ -120,6 +128,7 @@ void rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
     return 0;
   });
   if (rc != 0) out_block[0] = nanf("");
+  return 0;
 }
 
 // light (3), d (3m), g (3m) -> g_light (3m), g_d (3m): default sky.
@@ -155,16 +164,17 @@ void rt_bend_adj(int m, const float* eye, const float* n, const float* refr, con
   }
 }
 
-// The camera rays of an xres x yres image: cam (8), g_eye (3 * xres * yres,
-// pixel-major) -> g_rot (4): the summed rotation cotangent.
-void rt_camera_ray_adj(int xres, int yres, float sx, float sy, const float* cam,
-                       const float* g_eye, float* g_rot) {
+// The camera rays of the window (row0, col0, h, w) of an xres x yres image,
+// at their global pixels: cam (8), g_eye (3 * h * w, pixel-major) -> g_rot
+// (4): the summed rotation cotangent.
+void rt_camera_ray_adj(int xres, int yres, int row0, int col0, int h, int w, float sx,
+                       float sy, const float* cam, const float* g_eye, float* g_rot) {
   for (int k = 0; k < 4; ++k) g_rot[k] = 0.0f;
-  for (int iy = 0; iy < yres; ++iy) {
-    for (int ix = 0; ix < xres; ++ix) {
-      const float* ge = g_eye + 3 * (static_cast<long>(iy) * xres + ix);
-      rt::Q4 gq =
-          rt::camera_ray_adj(xres, yres, sx, sy, cam, ix, iy, rt::v3(ge[0], ge[1], ge[2]));
+  for (int ly = 0; ly < h; ++ly) {
+    for (int lx = 0; lx < w; ++lx) {
+      const float* ge = g_eye + 3 * (static_cast<long>(ly) * w + lx);
+      rt::Q4 gq = rt::camera_ray_adj(xres, yres, sx, sy, cam, col0 + lx, row0 + ly,
+                                     rt::v3(ge[0], ge[1], ge[2]));
       g_rot[0] += gq.x, g_rot[1] += gq.y, g_rot[2] += gq.z, g_rot[3] += gq.w;
     }
   }

@@ -175,6 +175,8 @@ int rt_trace_retrace(const float* f32t, const int* i32t, const float* cam, const
   rt::Params p;
   p.xres = xres;
   p.yres = yres;
+  p.h = yres;  // the whole frame (rt::launch_bwd's window)
+  p.w = xres;
   p.sx = sx;
   p.sy = sy;
   p.max_reflections = max_reflections;

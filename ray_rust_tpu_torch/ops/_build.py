@@ -57,16 +57,14 @@ _F = ctypes.c_float
 
 # C signatures, up to the output planes: the CUDA launchers add the device
 # and the stream, their host loops the operation counter. Each takes the
-# tables, n and the frame's size; the forward kernels K1 and K3 (and their
-# host builds) then take the window they render (kernel_trace.window:
-# row0, col0, h, w). The trace and march kernels take the texture atlas
-# after their render arguments (kernel_trace.texture_args).
+# tables, n and the frame's size; K1-K4 (and their host builds) then take
+# the window they cover (kernel_trace.window: row0, col0, h, w), K5 the
+# whole frame. The trace and march kernels take the texture atlas after
+# their render arguments (kernel_trace.texture_args).
 _FRAME = [_P, _P, _P, _P, _I, _I, _I]
 _WINDOW = [_I, _I, _I, _I]
 _TRACE_RENDER = [_F, _F, _I, _I, _I]
 _MARCH_RENDER = [_F, _F, _I, _I, _I, _I, _F, _F, _I, _F, _I]
-_TRACE_CFG = _FRAME + _TRACE_RENDER
-_MARCH_CFG = _FRAME + _MARCH_RENDER
 _TEX_ARGS = [_P, _P, _I, _I, _I]
 # the trace forward takes K1b's switch after the atlas
 _TRACE_ARGS = _FRAME + _WINDOW + _TRACE_RENDER + _TEX_ARGS + [_I] + [_P, _P, _P]
@@ -74,11 +72,11 @@ _MARCH_ARGS = _FRAME + _WINDOW + _MARCH_RENDER + _TEX_ARGS + [_P, _P, _P]
 # the backward kernels: the forward's render arguments, the cutoff, (trace:
 # the record cap), the atlas, the three cotangent planes, the block, the
 # three primal planes
-_BWD_ARGS = _TRACE_CFG + [_F, _I] + _TEX_ARGS + [_P] * 7
-_MARCH_BWD_ARGS = _MARCH_CFG + [_F] + _TEX_ARGS + [_P] * 7
-# the re-trace gradient: the trace backward's, without the record cap and
-# the atlas
-_RETRACE_ARGS = _TRACE_CFG + [_F] + [_P] * 7
+_BWD_ARGS = _FRAME + _WINDOW + _TRACE_RENDER + [_F, _I] + _TEX_ARGS + [_P] * 7
+_MARCH_BWD_ARGS = _FRAME + _WINDOW + _MARCH_RENDER + [_F] + _TEX_ARGS + [_P] * 7
+# the re-trace gradient: the trace backward's, without the window, the record
+# cap and the atlas
+_RETRACE_ARGS = _FRAME + _TRACE_RENDER + [_F] + [_P] * 7
 # the scene pack: the leaves' pointer array, n, m, the texture count, the
 # texels a texture, the output words; its pull-back: the block, the material
 # indices, n, m, the output
@@ -95,16 +93,16 @@ _HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host",
              "trace_retrace": ("rt_trace_retrace_host", _RETRACE_ARGS),
              "pack_scene": ("rt_pack_scene_host", _PACK_ARGS)}
 # Other functions a library exports (its CUDA and host builds alike):
-# name -> (argtypes, restype). The host builds' main functions return
-# nothing, but the re-trace's returns an error code, as its CUDA launcher
-# does (_HOST_RESTYPES). The pull-back's host build keeps the kernel's
+# name -> (argtypes, restype). The forward host builds' main functions
+# return nothing; the backwards' and the re-trace's return an error code, as
+# their CUDA launchers do (_HOST_RESTYPES). The pull-back's host build keeps the kernel's
 # interface (csrc/pack_scene_host.cpp).
 _EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I),
                                  "rt_error_string": ([_I], ctypes.c_char_p)},
               "trace": {"rt_cull_masks_host": ([_P] * 4 + [_I] * 3 + [_F] * 2 + [_I] * 2
                                                + [_P] * 2, None)},
               "pack_scene": {"rt_pack_scene_vjp": (_PACK_VJP_ARGS + [_I, _P], _I)}}
-_HOST_RESTYPES = {"trace_retrace": _I}
+_HOST_RESTYPES = {"trace_retrace": _I, "trace_bwd": _I, "march_bwd": _I}
 
 # Each build's compiler output (for nvcc, ptxas's registers, stack and
 # spills), by library stem, and the seconds its compiler took (this process's

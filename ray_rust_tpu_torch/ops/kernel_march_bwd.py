@@ -22,7 +22,9 @@ does.
 float leaves to the image: its forward packs the scene (``kernel_pack``)
 and launches the march kernel on the tables, its backward launches this
 kernel and pulls its block back to the leaves
-(``kernel_pack.pack_scene_vjp``).
+(``kernel_pack.pack_scene_vjp``). Each covers a window of the frame at its
+global origin (``origin=``, ``shape=``; the whole frame by default), as the
+trace backward's do (``kernel_trace_bwd``).
 
 :func:`render_grads_kernel` launches the kernel or raises; it never falls
 back. :func:`render_grads_plain` computes the same three cotangents with
@@ -43,6 +45,7 @@ from ..models.vec import Color
 from . import kernel_march, kernel_pack, kernel_trace
 from . import kernel_trace_bwd as ktb
 from .kernel_trace import check_launchable, texture_args
+from .rays import window
 
 __all__ = [
     "SITE_CAP",
@@ -131,11 +134,13 @@ def launch_args(cfg: RenderConfig, tex, device) -> list:
     return kernel_args(cfg) + texture_args(tex, device)
 
 
-def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal: bool):
+def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal: bool,
+                 origin=(0, 0), shape=None):
     """Launch the march backward kernel on the pack kernel's ``words`` of
     ``scene`` (``kernel_pack.launch_pack``) and its cached texture atlas,
-    straight from their addresses (``kernel_trace_bwd.launch_block``),
-    counting it: its block and, with ``return_primal``, the image."""
+    straight from their addresses (``kernel_trace_bwd.launch_block``), over
+    the window at ``origin`` of size ``shape``, counting it: its block and,
+    with ``return_primal``, the window's image."""
     global LAUNCHES
     from ._build import load_cuda_library
 
@@ -144,21 +149,24 @@ def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal
     lib = load_cuda_library(kernel_trace.library("march_bwd", n, ktb.SHARED_TABLE_MAX))
     out = ktb.launch_block(lib, lib.rt_march_bwd, ptrs, n, words.device, cfg,
                            kernel_args(cfg) + kernel_pack.texture_pointers(scene, meta), g,
-                           return_primal)
+                           return_primal, origin, shape)
     LAUNCHES += 1
     return out
 
 
 def render_grads_kernel(scene: Scene, cfg: RenderConfig, g: Color,
-                        return_primal: bool = False):
+                        return_primal: bool = False, origin=(0, 0), shape=None):
     """The cotangents of the packed tables through the CUDA march backward
-    kernel, for image cotangent ``g`` (three ``(H, W)`` f32 planes on the
-    scene's CUDA device), the scene packed by the pack kernel.
-    ``return_primal=True`` also returns the image the kernel marched (the
-    march kernel's). Raises on anything the kernels do not take."""
+    kernel, for image cotangent ``g`` of the window at ``origin`` of size
+    ``shape`` (three ``(h, w)`` f32 planes on the scene's CUDA device; the
+    whole frame by default), the scene packed by the pack kernel.
+    ``return_primal=True`` also returns the window's image the kernel
+    marched (the march kernel's). Raises on anything the kernels do not
+    take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "march backward")
     block, prim = launch_words(scene, kernel_pack.launch_pack(scene), cfg,
-                               Color(*(c.contiguous() for c in g)), return_primal)
+                               Color(*(c.contiguous() for c in g)), return_primal, origin,
+                               shape)
     grads = ktb.split_block(block, scene.objects.count)
     return (grads, prim) if return_primal else grads
 
@@ -167,26 +175,30 @@ class MarchRender(torch.autograd.Function):
     """The march image as a function of the scene's float leaves
     (``kernel_pack.float_leaves``): the pack kernel, then the march kernel,
     in the forward pass; the march backward kernel, then the pull-back
-    kernel, in the backward pass. The integer leaves and the config get no
+    kernel, in the backward pass, both over the window at ``origin`` of size
+    ``shape``. The integer leaves, the config and the window get no
     gradient."""
 
     @staticmethod
-    def forward(ctx, scene, cfg, *leaves):
+    def forward(ctx, scene, cfg, origin, shape, *leaves):
         words = kernel_pack.launch_pack(scene)
-        ctx.scene, ctx.cfg, ctx.words = scene, cfg, words
-        img = kernel_march.render_words_kernel(scene, words, cfg)
+        ctx.scene, ctx.cfg, ctx.words, ctx.window = scene, cfg, words, (origin, shape)
+        img = kernel_march.render_words_kernel(scene, words, cfg, origin, shape)
         return img.r, img.g, img.b
 
     @staticmethod
     def backward(ctx, g_r, g_g, g_b):
         g = Color(*(c.contiguous() for c in (g_r, g_g, g_b)))
-        block, _ = launch_words(ctx.scene, ctx.words, ctx.cfg, g, False)
-        return (None, None, *kernel_pack.pack_scene_vjp(ctx.scene, block))
+        block, _ = launch_words(ctx.scene, ctx.words, ctx.cfg, g, False, *ctx.window)
+        return (None, None, None, None, *kernel_pack.pack_scene_vjp(ctx.scene, block))
 
 
-def render_color_grad(scene: Scene, cfg: RenderConfig) -> Color:
-    """Render a CUDA march scene through :class:`MarchRender`, so that
-    autograd takes its gradient with the march backward kernel. Raises on
-    anything the kernels do not take."""
+def render_color_grad(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> Color:
+    """Render a CUDA march scene, or the window at ``origin`` of size
+    ``shape`` of its frame, through :class:`MarchRender`, so that autograd
+    takes its gradient with the march backward kernel. Raises on anything
+    the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "march backward")
-    return Color(*MarchRender.apply(scene, cfg, *kernel_pack.float_leaves(scene)))
+    window(cfg, origin, shape)  # raises before a launch on a window not in the frame
+    return Color(*MarchRender.apply(scene, cfg, origin, shape,
+                                    *kernel_pack.float_leaves(scene)))

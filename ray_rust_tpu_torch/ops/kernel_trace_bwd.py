@@ -26,6 +26,15 @@ keeps; its backward launches this kernel and pulls the block back to the
 leaves in one launch (``kernel_pack.pack_scene_vjp``, the counterpart of
 ``jax.vjp(pack_f32, scene)``); the atlas rides along as a constant.
 
+Each of them covers a window of the frame at its global origin (``origin=``,
+``shape=``: ``kernel_trace.window``; the whole frame by default), as the JAX
+kernels' ``origin=`` and ``shape=`` do: the cotangent and the primal are the
+window's ``(h, w)`` planes, and each pixel differentiates as the whole
+frame's, so a window's block is the whole frame's with the image cotangent
+zero outside it (another summation order: the kernel adds with atomics).
+The multi-device layer (``parallel/shard.py``) differentiates a frame as
+windows.
+
 :func:`render_grads_kernel` launches the kernel or raises; it never falls
 back. :func:`render_grads_plain` computes the same three cotangents with
 torch autograd of the plain trace (``kernel_trace.render_color_plain``); the
@@ -47,7 +56,7 @@ from ..models.vec import Color, Vec3
 from . import kernel_pack, kernel_trace
 from .kernel_pack import GRAD_COLS, split_block
 from .kernel_trace import check_launchable, check_tensor, library, pack_scene, texture_args
-from .rays import fov_scales
+from .rays import fov_scales, window
 
 __all__ = [
     "SITE_CAPS",
@@ -63,6 +72,7 @@ __all__ = [
     "split_block",
     "render_grads_kernel",
     "render_grads_plain",
+    "plain_vjp",
     "leaf_grads",
     "TraceRender",
     "render_color_grad",
@@ -190,18 +200,34 @@ def _scene_from_tables(f32t, i32t, cam, light, textures, texture_filter) -> Scen
                  textures)
 
 
-def render_grads_plain(scene: Scene, cfg: RenderConfig, g: Color):
-    """The kernel's function in plain PyTorch: torch autograd of
-    ``render_color_plain`` pulls the image cotangent ``g`` back to the packed
-    tables. Returns ``(g_f32t (N, 19), g_cam (1, 8), g_light (1, 4))``."""
+def plain_vjp(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None):
+    """``(image, vjp)``: the plain version's image of the window at
+    ``origin`` of size ``shape`` (``render_color_plain``; the whole frame by
+    default), rendered from the packed tables under autograd, and the
+    function that pulls a cotangent ``g`` of that image back to the tables
+    once: ``vjp(g) -> (g_f32t (N, 19), g_cam (1, 8), g_light (1, 4))``. The
+    graph lives until then, so the cotangent may depend on the image."""
     f32t, i32t, cam, light = (t.detach() for t in pack_scene(scene))
     wrt = tuple(t.requires_grad_() for t in (f32t, cam, light))
     filt = scene.materials.texture_filter[scene.objects.mat.long()]
     with torch.enable_grad():
         img = kernel_trace.render_color_plain(
-            _scene_from_tables(f32t, i32t, cam, light, scene.textures, filt), cfg)
+            _scene_from_tables(f32t, i32t, cam, light, scene.textures, filt), cfg, origin, shape)
+
+    def vjp(g: Color):
         grads = torch.autograd.grad(tuple(img), wrt, tuple(g), allow_unused=True)
-    return tuple(torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads))
+        return tuple(torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads))
+
+    return Color(*(c.detach() for c in img)), vjp
+
+
+def render_grads_plain(scene: Scene, cfg: RenderConfig, g: Color, origin=(0, 0), shape=None):
+    """The kernel's function in plain PyTorch: torch autograd of
+    ``render_color_plain`` over the window at ``origin`` of size ``shape``
+    (the whole frame by default) pulls the window's image cotangent ``g``
+    back to the packed tables (:func:`plain_vjp`). Returns ``(g_f32t (N,
+    19), g_cam (1, 8), g_light (1, 4))``."""
+    return plain_vjp(scene, cfg, origin, shape)[1](g)
 
 
 def kernel_args(cfg: RenderConfig) -> list:
@@ -221,39 +247,41 @@ def launch_args(cfg: RenderConfig, tex, device) -> list:
 
 
 def launch_block(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list, g: Color,
-                 return_primal: bool):
+                 return_primal: bool, origin=(0, 0), shape=None):
     """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres,
-    yres, sx, sy, *args, g_r, g_g, g_b, block, prim_r, prim_g, prim_b,
-    device, stream)`` (``args``: :func:`launch_args` for this kernel, the
-    march backward's ``kernel_args`` for it) on the tables' addresses
-    ``ptrs`` (f32 table, i32 table, camera, light: the pack kernel's words,
-    ``kernel_pack.word_pointers``) of ``n`` objects and image cotangent
-    planes ``g`` on CUDA device ``dev``; returns the kernel's ``(n+1,
-    GRAD_COLS)`` block and, with ``return_primal``, the image the kernel
-    traced (else None). Raises if the cotangent or the launch is not as the
-    kernel takes it."""
+    yres, row0, col0, h, w, sx, sy, *args, g_r, g_g, g_b, block, prim_r,
+    prim_g, prim_b, device, stream)`` (``args``: :func:`launch_args` for
+    this kernel, the march backward's ``kernel_args`` for it) on the
+    tables' addresses ``ptrs`` (f32 table, i32 table, camera, light: the
+    pack kernel's words, ``kernel_pack.word_pointers``) of ``n`` objects
+    and the image cotangent planes ``g`` of the window at ``origin`` of size
+    ``shape`` (``(h, w)``; the whole frame by default) on CUDA device
+    ``dev``; returns the kernel's ``(n+1, GRAD_COLS)`` block and, with
+    ``return_primal``, the window's image the kernel traced (else None).
+    Raises if the cotangent or the launch is not as the kernel takes it."""
+    row0, col0, h, w = window(cfg, origin, shape)
     for name, plane in zip("rgb", g):
-        check_tensor(plane, f"cotangent {name}", torch.float32, (cfg.yres, cfg.xres), dev)
+        check_tensor(plane, f"cotangent {name}", torch.float32, (h, w), dev)
     block = torch.zeros((n + 1, GRAD_COLS), dtype=torch.float32, device=dev)
-    prim = (torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=dev)
-            if return_primal else None)
-    plane = 4 * cfg.yres * cfg.xres
+    prim = torch.empty((3, h, w), dtype=torch.float32, device=dev) if return_primal else None
+    plane = 4 * h * w
     prim_ptrs = ([prim.data_ptr() + k * plane for k in range(3)] if return_primal
                  else [None] * 3)
     sx, sy = fov_scales(cfg)
-    rc = fn(*ptrs, n, cfg.xres, cfg.yres, sx, sy, *args, *(c.data_ptr() for c in g),
-            block.data_ptr(), *prim_ptrs, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*ptrs, n, cfg.xres, cfg.yres, row0, col0, h, w, sx, sy, *args,
+            *(c.data_ptr() for c in g), block.data_ptr(), *prim_ptrs, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
     return block, (Color(*prim.unbind(0)) if return_primal else None)
 
 
 def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
-                 return_primal: bool):
+                 return_primal: bool, origin=(0, 0), shape=None):
     """Launch the backward kernel on the pack kernel's ``words`` of
     ``scene`` (``kernel_pack.launch_pack``) and its cached atlas, straight
-    from their addresses, counting it; returns as
-    :func:`launch_block`."""
+    from their addresses, over the window at ``origin`` of size ``shape``,
+    counting it; returns as :func:`launch_block`."""
     global LAUNCHES
     from ._build import load_cuda_library
 
@@ -261,21 +289,24 @@ def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
     ptrs, meta = kernel_pack.word_pointers(words, n)
     lib = load_cuda_library(library("trace_bwd", n, SHARED_TABLE_MAX))
     args = kernel_args(cfg) + [site_cap(cfg)] + kernel_pack.texture_pointers(scene, meta)
-    out = launch_block(lib, lib.rt_trace_bwd, ptrs, n, words.device, cfg, args, g, return_primal)
+    out = launch_block(lib, lib.rt_trace_bwd, ptrs, n, words.device, cfg, args, g, return_primal,
+                       origin, shape)
     LAUNCHES += 1
     return out
 
 
 def render_grads_kernel(scene: Scene, cfg: RenderConfig, g: Color,
-                        return_primal: bool = False):
+                        return_primal: bool = False, origin=(0, 0), shape=None):
     """The cotangents of the packed tables through the CUDA backward kernel,
-    for image cotangent ``g`` (three ``(H, W)`` f32 planes on the scene's
-    CUDA device), the scene packed by the pack kernel. ``return_primal=True``
-    also returns the image the kernel traced (the forward kernel's). Raises
-    on anything the kernels do not take."""
+    for image cotangent ``g`` of the window at ``origin`` of size ``shape``
+    (three ``(h, w)`` f32 planes on the scene's CUDA device; the whole frame
+    by default), the scene packed by the pack kernel. ``return_primal=True``
+    also returns the window's image the kernel traced (the forward kernel's).
+    Raises on anything the kernels do not take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace backward")
     block, prim = launch_words(scene, kernel_pack.launch_pack(scene), cfg,
-                               Color(*(c.contiguous() for c in g)), return_primal)
+                               Color(*(c.contiguous() for c in g)), return_primal, origin,
+                               shape)
     grads = split_block(block, scene.objects.count)
     return (grads, prim) if return_primal else grads
 
@@ -299,26 +330,31 @@ class TraceRender(torch.autograd.Function):
     kernel and launches the trace kernel on the tables, which it keeps; the
     backward launches the backward kernel on them and pulls its block back
     to the leaves with the pull-back kernel (zeros for ``frac`` and
-    ``pyr``, which the tables do not read). The integer leaves, the texture
-    atlas and the config get no gradient."""
+    ``pyr``, which the tables do not read). Both kernels cover the window at
+    ``origin`` of size ``shape`` (the whole frame for ``shape=None``). The
+    integer leaves, the texture atlas, the config and the window get no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, scene, cfg, *leaves):
+    def forward(ctx, scene, cfg, origin, shape, *leaves):
         words = kernel_pack.launch_pack(scene)
-        ctx.scene, ctx.cfg, ctx.words = scene, cfg, words
-        img = kernel_trace.render_words_kernel(scene, words, cfg)
+        ctx.scene, ctx.cfg, ctx.words, ctx.window = scene, cfg, words, (origin, shape)
+        img = kernel_trace.render_words_kernel(scene, words, cfg, origin, shape)
         return img.r, img.g, img.b
 
     @staticmethod
     def backward(ctx, g_r, g_g, g_b):
         g = Color(*(c.contiguous() for c in (g_r, g_g, g_b)))
-        block, _ = launch_words(ctx.scene, ctx.words, ctx.cfg, g, False)
-        return (None, None, *kernel_pack.pack_scene_vjp(ctx.scene, block))
+        block, _ = launch_words(ctx.scene, ctx.words, ctx.cfg, g, False, *ctx.window)
+        return (None, None, None, None, *kernel_pack.pack_scene_vjp(ctx.scene, block))
 
 
-def render_color_grad(scene: Scene, cfg: RenderConfig) -> Color:
-    """Render a CUDA scene through :class:`TraceRender`, so that autograd
-    takes its gradient with the backward kernel. Raises on anything the
-    kernels do not take."""
+def render_color_grad(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> Color:
+    """Render a CUDA scene, or the window at ``origin`` of size ``shape``
+    of its frame, through :class:`TraceRender`, so that autograd takes its
+    gradient with the backward kernel. Raises on anything the kernels do not
+    take."""
     check_launchable(scene, unsupported_reason(scene, cfg), "trace backward")
-    return Color(*TraceRender.apply(scene, cfg, *kernel_pack.float_leaves(scene)))
+    window(cfg, origin, shape)  # raises before a launch on a window not in the frame
+    return Color(*TraceRender.apply(scene, cfg, origin, shape,
+                                    *kernel_pack.float_leaves(scene)))

@@ -1,9 +1,9 @@
 """The multi-device layer: the ``(dp, sp)`` mesh and sharded rendering
 (``shard.py``), multi-process rendering over ``torch.distributed``
-(``multihost.py``), and training over the renderer on one device
-(``train.py``: the loss, the SGD step, the optimizer step with its state).
-The sharded gradient, weak scaling and the dry run of the JAX package's
-layer come in a later slice."""
+(``multihost.py``), training on one device or over a mesh and across ranks
+(``train.py``: the loss, the SGD step, the optimizer step with its state,
+the gradient's all-reduce), weak scaling (``scaling.py``) and the dry run
+(``dryrun.py``)."""
 
 from .multihost import (
     global_mesh,
@@ -13,6 +13,7 @@ from .multihost import (
     render_multihost,
     world_size,
 )
+from .scaling import format_report, measure_scaling
 from .shard import (
     Mesh,
     Tile,
@@ -27,6 +28,7 @@ from .train import (
     SceneAdam,
     TrainState,
     make_train_step,
+    reduce_gradients,
     render_loss,
     sgd_train_step,
     train_state_from_numpy,
@@ -35,5 +37,6 @@ from .train import (
 __all__ = ["Mesh", "Tile", "make_mesh", "render_tiles", "render_sharded",
            "render_sharded_kernel", "render_tiled_u8", "init_distributed", "is_primary",
            "world_size", "local_device", "global_mesh", "render_multihost",
-           "render_loss", "sgd_train_step", "TrainState", "make_train_step", "SceneAdam",
-           "train_state_from_numpy", "EXAMPLE_TRAINED"]
+           "render_loss", "reduce_gradients", "sgd_train_step", "TrainState",
+           "make_train_step", "SceneAdam", "train_state_from_numpy", "EXAMPLE_TRAINED",
+           "measure_scaling", "format_report"]

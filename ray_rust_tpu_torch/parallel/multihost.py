@@ -9,10 +9,17 @@ the frame is gathered only when it is written out.
 Usage, one process per card (torchrun's ``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE`` and ``RANK``, or the arguments)::
 
-    from ray_rust_tpu_torch.parallel import multihost
+    from ray_rust_tpu_torch.parallel import multihost, sgd_train_step
     multihost.init_distributed()            # False, and nothing done, in one process
     mesh = multihost.global_mesh()          # (dp, sp) over every rank's device
     img = multihost.render_multihost(scene, cfg, mesh)   # (H, W, 3) on every rank
+    # a training step: each rank its cells' loss and gradient, then one
+    # all_reduce of the trained leaves' gradients and the loss (train.py);
+    # every rank holds the same scene, leaves and (H, W, 3) target
+    scene, loss = sgd_train_step(scene, cfg, target, lr=1e-3, mesh=mesh)
+
+run as ``torchrun --nproc_per_node=N script.py`` (N cards, NCCL), or with
+``init_distributed(backend="gloo")`` for two ranks on one card.
 
 The backend is named, never guessed after a failure: NCCL where each rank
 holds its own card (the default where CUDA is available), gloo where the
@@ -23,6 +30,7 @@ through host copies.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -41,7 +49,8 @@ __all__ = ["init_distributed", "is_primary", "world_size", "local_device", "glob
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     backend: Optional[str] = None) -> bool:
+                     backend: Optional[str] = None,
+                     timeout: Optional[float] = None) -> bool:
     """Join the default process group; returns whether it spans more than
     one process.
 
@@ -52,7 +61,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     on a laptop's CPU, on one card, or on many. ``backend`` defaults to
     ``nccl`` where CUDA is available (each rank then takes its card,
     :func:`local_device`); elsewhere the caller names one (``gloo``). A
-    backend that fails raises; none is swapped for another.
+    backend that fails raises; none is swapped for another. ``timeout``
+    (seconds; torch's default where None) bounds how long a collective waits
+    for the other ranks before it raises.
     """
     if dist.is_initialized():
         return world_size() > 1
@@ -76,8 +87,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     if backend == "nccl":
         torch.cuda.set_device(local_device(process_id))
     url = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend, init_method=url, world_size=num_processes,
-                            rank=process_id)
+                            rank=process_id, **kw)
     return True
 
 

@@ -10,9 +10,15 @@ by a process (rank); a cell may repeat a device (eight ``cpu`` cells, or a
 frame through the renderer's one dispatch (``renderer.render_color`` with
 ``origin=`` and ``shape=``): K1 or K3 on CUDA, the plain version on the
 CPU. A window's pixels are the whole frame's bit for bit, so a sharded
-render is the whole-frame render. Rays never communicate: the only
-collective is the gather of a frame across processes
-(``parallel/multihost.py``).
+render is the whole-frame render. A scene that requires grad differentiates
+through the same dispatch: on CUDA each cell is a ``TraceRender`` (or
+``MarchRender``) on its window, K2 (K4) in its backward, and autograd sums
+the cells' pull-backs on the scene's own leaves through ``scene.to(dev)``
+and :func:`assemble`'s ``torch.cat`` (the JAX package's replicated scene,
+whose gradient XLA sums over the mesh). Rays never communicate: the
+collectives are the gather of a frame across processes
+(``parallel/multihost.py``) and the training step's sum of the gradient
+across them (``parallel/train.py``).
 
 For images too large for one launch (4K, 8K), :func:`render_tiled_u8`
 renders row bands in turn, each split over the mesh and converted to u8 on
@@ -157,22 +163,17 @@ def assemble(tiles: List[Tile], mesh: Mesh, device=None) -> Color:
 
 
 def render_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh) -> Color:
-    """Forward render with the pixel grid sharded over the one-process
-    ``mesh`` (:func:`render_tiles`), assembled on the mesh's first device.
-    Each CUDA cell launches K1 (K3 in march mode) on its window, each CPU
-    cell renders the plain version, autograd through it included. Raises
-    ValueError where the image does not divide over the mesh, and
-    NotImplementedError for a CUDA scene that requires grad: the sharded
-    gradient (K2 and K4 with a window, and the gradient's all-reduce) is not
-    ported yet."""
+    """Render with the pixel grid sharded over the one-process ``mesh``
+    (:func:`render_tiles`), assembled on the mesh's first device. Each CUDA
+    cell launches K1 (K3 in march mode) on its window, each CPU cell renders
+    the plain version. Differentiable: on a scene that requires grad each
+    CUDA cell's backward launches K2 (K4) on its window, and the leaves'
+    gradient sums the cells' (in another order than the whole frame's).
+    Raises ValueError where the image does not divide over the mesh."""
     if mesh.multiprocess:
         raise ValueError("render_sharded takes a mesh of one process; "
                          "multihost.render_multihost renders a global mesh")
     cell_shape(cfg.yres, cfg, mesh)
-    cuda = any(d.type == "cuda" for row in mesh.devices for d in row) or scene.device.type == "cuda"
-    if cuda and torch.is_grad_enabled() and any(t.requires_grad for t in scene.tensors()):
-        raise NotImplementedError("the sharded gradient on CUDA (K2 and K4 with a window, the "
-                                  "gradient's all-reduce) is not ported yet")
     return assemble(render_tiles(scene, cfg, mesh), mesh)
 
 

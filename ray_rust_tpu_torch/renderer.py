@@ -14,13 +14,15 @@ device of the scene's tensors:
 
 Each path renders a window of the frame at its global origin (``origin=``,
 ``shape=``: ``ops/rays.window``; the whole frame by default), each pixel the
-whole frame's: the multi-device layer (``parallel/shard.py``) renders its
-mesh cells through this one dispatch. The backward kernels render the whole
-frame only, so a CUDA scene that requires grad takes no window.
+whole frame's, and differentiates it (K2 and K4 cover the window too): the
+multi-device layer (``parallel/shard.py``, ``parallel/train.py``) renders
+and trains its mesh cells through this one dispatch.
 
-A march with ``cfg.differentiable`` takes the plain version on either
-device: the scan-mode march (``ops/march.py``), the gradient oracle that
-autograd differentiates step by step, which the march kernels never run.
+Two settings take the plain version on either device, each asked for by
+name: ``cfg.use_pallas=False`` (the CLI's ``--no-pallas``, the JAX
+package's switch of its kernels) and a march with ``cfg.differentiable``,
+the scan-mode march (``ops/march.py``), the gradient oracle that autograd
+differentiates step by step, which the march kernels never run.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from .config import RenderConfig
 from .models.scene import Scene
 from .models.vec import Color
 from .ops import kernel_march, kernel_march_bwd, kernel_trace, kernel_trace_bwd
-from .ops.rays import window
 
 __all__ = ["render_color", "render", "render_u8", "to_u8"]
 
@@ -43,23 +44,16 @@ def render_color(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> 
     dev = scene.device
     march = cfg.use_raymarching
     kernels = kernel_march if march else kernel_trace
-    if dev.type == "cpu" or (march and cfg.differentiable):
+    if dev.type == "cpu" or cfg.use_pallas is False or (march and cfg.differentiable):
         return kernels.render_color_plain(scene, cfg, origin, shape)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render path for device {dev}")
-    grad = any(t.requires_grad for t in scene.tensors())
-    if grad and window(cfg, origin, shape) != (0, 0, cfg.yres, cfg.xres):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "no CUDA gradient of a window: the backward kernels (K2, K4) render the "
-                "whole frame; the sharded gradient is not ported yet")
-        grad = False  # a forward alone: K1 or K3 takes the window
-    if grad:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in scene.tensors()):
         grads = kernel_march_bwd if march else kernel_trace_bwd
         reason = grads.unsupported_reason(scene, cfg)
         if reason is not None:
             raise NotImplementedError(f"no CUDA gradient path: {reason}")
-        return grads.render_color_grad(scene, cfg)
+        return grads.render_color_grad(scene, cfg, origin, shape)
     reason = kernels.unsupported_reason(scene, cfg)
     if reason is not None:
         raise NotImplementedError(f"no CUDA render path: {reason}")

@@ -71,7 +71,7 @@ def host_lib(tmp_path_factory):
     p, i, f = _build.ctypes.c_void_p, _build.ctypes.c_int, _build.ctypes.c_float
     lib.rt_sky_adj.argtypes = [i, p, p, p, p, p]
     lib.rt_bend_adj.argtypes = [i, p, p, p, p, p, p, p]
-    lib.rt_camera_ray_adj.argtypes = [i, i, f, f, p, p, p]
+    lib.rt_camera_ray_adj.argtypes = [i, i, i, i, i, i, f, f, p, p, p]
     lib.rt_pow_adj.argtypes = [i, p, p, p, p, p]
     for fn in (lib.rt_sky_adj, lib.rt_bend_adj, lib.rt_camera_ray_adj, lib.rt_pow_adj):
         fn.restype = None
@@ -210,7 +210,8 @@ def test_camera_ray_adjoint(host_lib):
     g_eye = _f32(rng, 7, 9, 3)
     g_rot = np.zeros(4, np.float32)
     sx, sy = fov_scales(cfg)
-    host_lib.rt_camera_ray_adj(9, 7, sx, sy, _ptr(cam), _ptr(g_eye), _ptr(g_rot))
+    host_lib.rt_camera_ray_adj(9, 7, *kt.window(cfg), sx, sy, _ptr(cam), _ptr(g_eye),
+                               _ptr(g_rot))
 
     rot = Quat(*(torch.tensor(cam[3 + k]).requires_grad_() for k in range(4)))
     _, eye = camera_rays(scene.camera.position, rot, cfg)
@@ -242,7 +243,8 @@ def _host_grads(lib, scene, cfg, g):
     block = torch.zeros((n + 1, kb.GRAD_COLS))
     prim = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
-    lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
+    lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres,
+                          *kt.window(cfg), sx, sy,
                           *kb.launch_args(cfg, tex, torch.device("cpu")),
                           *(c.data_ptr() for c in g), block.data_ptr(),
                           *(p.data_ptr() for p in prim), None)
@@ -333,7 +335,8 @@ def _count_host(lib, scene, cfg, g):
     block = torch.zeros((n + 1, kb.GRAD_COLS))
     ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
     sx, sy = fov_scales(cfg)
-    lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
+    lib.rt_trace_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres,
+                          *kt.window(cfg), sx, sy,
                           *kb.launch_args(cfg, None, torch.device("cpu")),
                           *(c.data_ptr() for c in g), block.data_ptr(), None, None, None,
                           ops.data_ptr())

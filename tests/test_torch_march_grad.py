@@ -346,7 +346,8 @@ def _host_grads(lib, scene, cfg, g):
     block = torch.zeros((n + 1, kb.GRAD_COLS))
     prim = torch.empty((3, cfg.yres, cfg.xres))
     sx, sy = fov_scales(cfg)
-    lib.rt_march_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres, sx, sy,
+    lib.rt_march_bwd_host(*(t.data_ptr() for t in tables), n, cfg.xres, cfg.yres,
+                          *kt.window(cfg), sx, sy,
                           *kmb.launch_args(cfg, None, torch.device("cpu")),
                           *(c.data_ptr() for c in g), block.data_ptr(),
                           *(p.data_ptr() for p in prim), None)

@@ -29,7 +29,6 @@ from ray_rust_tpu_torch.ops import kernel_trace as kt
 from ray_rust_tpu_torch.ops.rays import fov_scales
 from ray_rust_tpu_torch.parallel import multihost
 from ray_rust_tpu_torch.parallel.shard import (
-    Mesh,
     make_mesh,
     render_sharded,
     render_sharded_kernel,
@@ -239,17 +238,14 @@ def test_make_mesh_needs_a_card_or_devices(monkeypatch):
     assert mesh.shape == {"dp": 8, "sp": 1} and not mesh.multiprocess
 
 
-def test_cuda_scene_gradient_is_not_sharded(default_scene):
-    """A scene that requires grad on a CUDA mesh raises NotImplementedError
-    naming the sharded gradient, before any launch; on a CPU mesh autograd
-    runs through the plain version of every window (the leaf's gradient sums
-    the windows' parts, in another order than the whole frame's)."""
+def test_cpu_sharded_gradient_sums_the_windows(default_scene):
+    """On a CPU mesh autograd runs through the plain version of every window:
+    the leaf's gradient sums the windows' parts (in another order than the
+    whole frame's) and is the whole frame's. The CUDA mesh's gradient, K2 and
+    K4 on each window, is tests/test_torch_sharded_grad.py's."""
     leaf = default_scene.light.x.clone().requires_grad_()
     scene = default_scene._replace(light=default_scene.light._replace(x=leaf))
     cfg = rtt.RenderConfig(xres=16, yres=8, max_reflections=1, refraction_unroll=0)
-    cuda_mesh = Mesh([torch.device("cuda", 0)] * 4, 2, 2)
-    with pytest.raises(NotImplementedError, match="sharded gradient"):
-        render_sharded(scene, cfg, cuda_mesh)
     render_sharded(scene, cfg, _cpu_mesh(2, 2)).r.sum().backward()
     want = torch.autograd.grad(rtt.render_color(scene, cfg).r.sum(), leaf)[0]
     torch.testing.assert_close(leaf.grad, want, rtol=1e-6, atol=0.0)
