@@ -248,7 +248,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    time; ``measure_scaling(devices=[cuda:0])``'s report (the one-card row),
    ``dryrun.run(4)`` on cuda:0 cells, ``entry()``'s 96x128 frame, and the
    CLI at 320x240 with ``--no-pallas``: no launch, its PNG the plain
-   ``render_u8``'s bit for bit.
+   ``render_u8``'s bit for bit;
+9. deep ray trees (``kernel_trace.stack_tasks``: the task stack K1, K2 and
+   K5 run; K2's buffer instance past 192 sites, K4's past 35 laps), with
+   the launch counts set to 0 just before its main path and read just
+   after: the CLI's ``-d`` on a scene file with ``max_reflections: 12`` at
+   1920x1080 (one K1 launch, its PNG ``render_u8`` of the file's scene),
+   ``sgd_train_step`` on the material colours at 1920x1080 at 12
+   reflections (K1, K2 at record cap 192) and at 7 reflections with
+   ``refraction_unroll=None`` (319 sites: K2's buffer instance, one launch
+   a band of rows) and at 1280x720 in march + glow at
+   ``raymarch_max_reflections=7`` (39 laps: K4's buffer instance); then
+   K1 at 12 and 16 reflections and its 64-task instance (17 tasks, on an
+   opaque scene, against the plain trace at refraction cap 0) at 320x240
+   within the golden budget, K5 and K2 at 8 reflections (320x240), K2 at
+   319 sites and K4 at 39 laps (160x120; the step-by-step march at 2 000
+   steps) and the 64-task instances of K2 and K5 (64x48) against plain
+   autograd per scene leaf (GRAD_BUDGET,
+   MARCH_GRAD_BUDGET), their images the forward kernels' bit for bit (the
+   plain references rendered in phase 2 under the build); each buffer
+   instance forced on the default config at the main paths' shapes
+   against its local-record instance (blocks within REGIME_REL_L2, images
+   bit for bit), timed in turns; K1 at 12 reflections at 1920x1080 against
+   the plain trace and timed, K2 at 319 sites at 1920x1080 and K4 at 39
+   laps at 1280x720 timed, and their bounds.
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
@@ -272,7 +295,16 @@ and the cells' leaves against plain autograd), the 2x2 mesh's last cell
 through the wrapper by events with the image (``ms``, the plain version's
 function) and without it (``main_ms``, the main path's call), the bound of
 the work ``ms`` times, and the plain version's forward and backward of that
-cell (``plain_ms``).
+cell (``plain_ms``). ``trace_fwd_deep``, ``trace_bwd_buf`` and
+``march_bwd_buf`` are phase 9's: K1 at 12 reflections, K2's and K4's
+buffer instances at 319 sites and 39 laps, their launches in phase 9's main
+path, their largest error against the plain versions (K1's image, the
+backwards' largest leaf relative L2), their times by events at the main
+paths' shapes with the image, the plain version's ms at ``plain_shape``
+(the backwards' plain autograd at 160x120, phase 2) and, for the buffer
+instances, ``forced_ms``: the local-record instance and the buffer
+instance forced on the default config, in turns (local, buffer, buffer,
+local).
 """
 
 from __future__ import annotations
@@ -324,10 +356,12 @@ PINNED_PTXAS = {"trace_bwd": [(119, 2512, 0, 0), (119, 7504, 0, 0), (119, 20816,
 PINNED_KERNELS = {"trace_bwd": "9TraceBodyI", "march_bwd": "MarchBodyILb0E"}
 # The kernels each library holds, its global-table build the same: K1 with
 # and without K1b's cull at task stacks of 16 and 64, K2 at its three record
-# caps and, for 64 and 192, with the deep stack, K4 untextured and textured
+# caps and, for 64 and 192, with the deep stack, and its buffer instance at
+# both stacks, K4 untextured and textured, K4's buffer instance (a library
+# of its own), K5 at both stacks
 KERNEL_COUNTS = {"trace_fwd": 4, "trace_fwd_global": 4, "march_fwd": 1, "march_fwd_global": 1,
-                 "trace_bwd": 5, "trace_bwd_global": 5, "march_bwd": 2, "march_bwd_global": 2,
-                 "trace_retrace": 1, "pack_scene": 2}
+                 "trace_bwd": 7, "trace_bwd_global": 7, "march_bwd": 2, "march_bwd_global": 2,
+                 "march_bwd_buf": 1, "trace_retrace": 2, "pack_scene": 2}
 # The largest relative L2 between a backward's cotangent blocks from its two
 # table regimes on the same inputs: their atomics add in different orders
 # (2.7e-6 to 4.2e-6 for K2 and K4 on 640 and 1 024 objects, PERF.md §6),
@@ -338,6 +372,9 @@ REGIME_REL_L2 = 1e-4
 # checks need (the plain trace loops over the objects in Python)
 MANY_SMALL = (320, 240)  # K1 against the plain trace on 1 024 objects
 MANY_GRAD = (160, 120)  # K3, K2 and K4 against the plain versions on 1 024 objects
+# The host memory a counting build's record buffer may take (the buffer
+# instances' host twins, band by band)
+HOST_RECORD_BUDGET = 2**30
 # frames per keyframe = duration / FRAME_STEP (ray_rust_tpu/animation.py:22)
 FRAME_STEP = 0.5
 
@@ -548,29 +585,37 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0, window=None
     :func:`count_ops`; the trace backward's slots 2-5 are its accumulator's
     adds, their distinct (warp, entry) pairs, the sites and the most sites of
     one pixel, csrc/trace_bwd_host.cpp, for cotangent 1 on every pixel).
-    ``window`` (row0, col0, h, w) counts that window of the frame alone."""
+    ``window`` (row0, col0, h, w) counts that window of the frame alone. A
+    configuration past the local records runs the buffer instance's host
+    twin band by band, as the wrapper launches the kernel (within
+    ``HOST_RECORD_BUDGET``)."""
     import torch
 
+    from ray_rust_tpu_torch.models.vec import Color
     from ray_rust_tpu_torch.ops import _build
     from ray_rust_tpu_torch.ops import kernel_march as km
     from ray_rust_tpu_torch.ops import kernel_trace as kt
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
-    from ray_rust_tpu_torch.ops.rays import fov_scales
 
     lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
     scene = _host_scene(texture_dir, texture_filter)
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)
     trace = name == "trace_bwd"
-    args = mod.launch_args(cfg, tex, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    args = mod.launch_args(cfg, tex, cpu)
     window = kt.window(cfg) if window is None else window
-    g = (torch.ones if trace else torch.zeros)((3, window[2], window[3]), dtype=torch.float32)
-    block = torch.zeros((scene.objects.count + 1, kb.GRAD_COLS), dtype=torch.float32)
+    g = Color(*(torch.ones if trace else torch.zeros)((3, window[2], window[3]),
+                                                       dtype=torch.float32))
     ops = torch.zeros(km.OPS_SLOTS, dtype=torch.int64)
-    sx, sy = fov_scales(cfg)
-    getattr(lib, f"rt_{name}_host")(
-        *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres, *window,
-        sx, sy, *args, *(plane.data_ptr() for plane in g), block.data_ptr(), None, None, None,
-        ops.data_ptr())
+    ptrs, n = [t.data_ptr() for t in tables], scene.objects.count
+    common = (ptrs, n, cpu, cfg, args, g, False, window[:2], window[2:])
+    if mod.buffered(cfg):
+        cap = kb.site_cap(cfg) if trace else mod.count_sites(cfg)
+        kb.launch_buffered(lib, getattr(lib, f"rt_{name}_buf_host"), *common,
+                           cap_words=mod.RECORD_WORDS * cap, extra=() if trace else (cap,),
+                           budget=HOST_RECORD_BUDGET, tail=(ops.data_ptr(),))
+    else:
+        kb.launch_block(lib, getattr(lib, f"rt_{name}_host"), *common, tail=(ops.data_ptr(),))
     return tuple(int(v) for v in ops)
 
 
@@ -1899,6 +1944,489 @@ def sharded_grad(torch, rtt, card, scenes, grad_plain, ops):
             "times": times, "ranks_wall_s": wall}
 
 
+# Phase 9, deep ray trees: the exact task-stack bound (K1, K2 and K5 take
+# any max_reflections at the default unroll, their 64-task instances past
+# a refraction cap of 17) and the buffer instances of K2 (past 192 sites)
+# and K4 (past 35 laps). The checks' shapes, whose plain references phase
+# 2 renders under the build (deep_plain):
+DEEP_SMALL = (320, 240)  # K1 at 12 and 16 reflections, K5 at 8, against the plain version
+DEEP_GRAD = (160, 120)  # K2 at 319 sites and K4 at 39 laps against plain autograd
+DEEP_TINY = (64, 48)  # the 64-task instances of K2 and K5 (17 tasks)
+# The bands the buffer instances' checks against plain autograd and their
+# forced comparisons at the main paths' shapes run in (a record budget of
+# a quarter of the frame's rows), beside one band.
+DEEP_BANDS = 4
+# The bands K2's buffer instance is timed in at 319 sites and 1080p: a 4
+# GiB budget's 17, RECORD_BUDGET's 5, and 2.
+SWEEP_BANDS = (17, 5, 2)
+
+
+def opaque_scene(rtt):
+    """A checkered floor and two mirror spheres, nothing transparent: no
+    pixel pushes a refraction sub-trace, so its image and gradient are the
+    same at any refraction cap, and the plain version at cap 0 checks the
+    kernels' 64-task instances (17 tasks at a cap of 18) cheaply."""
+    mats = [rtt.MaterialSpec(name="floor", diffuse=(0.8, 0.8, 0.8), pattern=1,
+                             pattern_scale=40.0),
+            rtt.MaterialSpec(name="mirror", diffuse=(0.1, 0.1, 0.3), specular=(0.7, 0.7, 0.7),
+                             pn=16)]
+    objs = [rtt.FloorSpec("floor", (0.0, -120.0, 0.0), (0.0, 1.0, 0.0), uvmap=2)] + [
+        rtt.SphereSpec("mirror", 45.0, (x, -40.0, z)) for x, z in [(-50, 150), (50, 150)]]
+    return rtt.build_scene(mats, objs, (0.0, 0.0, -150.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0))[0]
+
+
+def box_scene(rtt):
+    """Six transparent planes facing in, a box round the camera: every ray
+    inside hits one, and one that leaves through a plane meets the sides'
+    fronts, so a pixel's ray tree fills most of the static one (at 42
+    reflections more than 192 of its 319 sites). Object 0, whose hit ends
+    the bounce loop, is a small sphere out of reach."""
+    mats = [rtt.MaterialSpec(name="dot", diffuse=(0.5, 0.5, 0.5)),
+            rtt.MaterialSpec(name="glass", transparency=0.9, refraction=1.3,
+                             diffuse=(0.1, 0.2, 0.1), specular=(0.95, 0.95, 0.95), pn=16,
+                             pattern=1, pattern_scale=40.0)]
+    objs = [rtt.SphereSpec("dot", 1.0, (0.0, 0.0, 5000.0))] + [
+        rtt.FloorSpec("glass", tuple(-half * c for c in n), n)
+        for half, axis in ((100.0, 0), (120.0, 1), (140.0, 2)) for sign in (1.0, -1.0)
+        for n in [tuple(sign if k == axis else 0.0 for k in range(3))]]
+    return rtt.build_scene(mats, objs, (10.0, 5.0, -20.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0))[0]
+
+
+def glass_cluster(rtt):
+    """Six overlapping glass spheres over a floor: a march lap below the
+    refraction cap pushes a sub-march at nearly every hit, so a pixel runs
+    all 39 laps of raymarch_max_reflections=7."""
+    mats = [rtt.MaterialSpec(name="floor", diffuse=(0.8, 0.8, 0.8), pattern=1,
+                             pattern_scale=40.0),
+            rtt.MaterialSpec(name="glass", transparency=0.5, refraction=1.3,
+                             diffuse=(0.1, 0.2, 0.1), specular=(0.6, 0.6, 0.6), pn=16)]
+    objs = [rtt.FloorSpec("floor", (0.0, -120.0, 0.0), (0.0, 1.0, 0.0), uvmap=2)] + [
+        rtt.SphereSpec("glass", 45.0, (x, y, z))
+        for x, y, z in [(-50, -40, 150), (0, -40, 180), (50, -40, 150), (-25, 20, 170),
+                        (25, 20, 170), (0, -60, 120)]]
+    return rtt.build_scene(mats, objs, (0.0, 0.0, -150.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0))[0]
+
+
+def deep_cases(rtt):
+    """Phase 9's checks: name -> (scene, the kernels' cfg, the plain
+    reference's cfg, whether the reference is a gradient)."""
+    default, opaque = rtt.default_scene()[0], opaque_scene(rtt)
+    trace = rtt.RenderConfig(xres=DEEP_SMALL[0], yres=DEEP_SMALL[1])
+    deep17 = dict(max_reflections=17, max_refractions=18, refraction_unroll=None)
+    k319 = rtt.RenderConfig(xres=DEEP_GRAD[0], yres=DEEP_GRAD[1], max_reflections=7,
+                            refraction_unroll=None)
+    # the step-by-step march at 2 000 steps, the kernels' floor tail off (its
+    # plain reference runs as long as its longest lane's steps)
+    k39 = rtt.RenderConfig(xres=DEEP_GRAD[0], yres=DEEP_GRAD[1], use_raymarching=True,
+                           glow_effect=1.0, raymarch_max_reflections=7, march_max_iter=2000,
+                           march_floor_skip=False)
+    tiny = rtt.RenderConfig(xres=DEEP_TINY[0], yres=DEEP_TINY[1], **deep17)
+    cases = {"K1 12 reflections": (default, trace.with_(max_reflections=12), False),
+             "K1 16 reflections": (default, trace.with_(max_reflections=16), False),
+             "K1 17 tasks, opaque": (opaque, trace.with_(**deep17), False),
+             "K5 and K2 8 reflections": (default, trace.with_(max_reflections=8), True),
+             "K2 319 sites": (default, k319, True),
+             "K4 39 laps": (default, k39, True),
+             "K5 and K2 17 tasks, opaque": (opaque, tiny, True)}
+    return {name: (scene, cfg, cfg.with_(max_refractions=0) if scene is opaque else cfg, grad)
+            for name, (scene, cfg, grad) in cases.items()}
+
+
+def deep_plain(torch, rtt, kb, kt):
+    """Phase 9's plain references, rendered in phase 2 under the build:
+    name -> (image, vjp or None, ms by events); a gradient's graph is kept
+    for one cotangent (``kernel_trace_bwd.plain_vjp``)."""
+    out = {}
+    for name, (scene, _, cfg, grad) in deep_cases(rtt).items():
+        if grad:
+            (image, vjp), ms = event_ms(torch, lambda s=scene, c=cfg: kb.plain_vjp(s, c))
+        else:
+            (image, vjp), ms = event_ms(
+                torch, lambda s=scene, c=cfg: (kt.render_color_plain(s, c), None))
+        out[name] = (img(image), vjp, ms)
+    return out
+
+
+def deep_trees(torch, rtt, cli, plain, ops):
+    """Phase 9: deep ray trees on the card. The main path, with the launch
+    counts set to 0 just before it and read just after: the CLI's ``-d`` on
+    a scene file with ``max_reflections: 12`` at 1920x1080 (one K1 launch,
+    its PNG ``render_u8`` of the file's scene); ``sgd_train_step`` on the
+    material colours at 1920x1080 at 12 reflections (3 tasks: K1 and K2 at
+    record cap 192), at 7 reflections and refraction_unroll=None (319
+    sites: K2's buffer instance, in bands of rows) and at 1280x720 in march
+    + glow at raymarch_max_reflections=7 (39 laps: K4's buffer instance).
+    Then, against the plain references of phase 2 (``plain``): K1 at 12 and
+    16 reflections and its 64-task instance (17 tasks, an opaque scene)
+    within the golden budget; K5 and K2 at 8 reflections, K2 at 319 sites,
+    K4 at 39 laps (also as the main path runs it: the floor tail on, the
+    default step budget) and the 64-task instances of K2 and K5 against
+    plain autograd per scene leaf (GRAD_BUDGET, MARCH_GRAD_BUDGET), their
+    images the forward kernels' bit for bit, the cotangent masked where the
+    kernel's image and the plain one differ (each such pixel on a decision
+    boundary), the buffer instances in DEEP_BANDS bands; past the local
+    caps, K2 at 319 sites in the box of planes against K5 and K4 at 39 laps
+    on the glass cluster against one band, with the most sites or laps one
+    pixel recorded; each buffer instance forced on the default
+    config at the main paths' shapes against its local-record instance, in
+    one band and in 4 or more (blocks within REGIME_REL_L2, images bit for
+    bit); K2 at 319 sites at 1920x1080 in SWEEP_BANDS bands, the same block
+    and image, timed in turns; times by events of K1 at 12 reflections at
+    1920x1080, K2 at 319 sites at 1920x1080 and K4 at 39 laps at 1280x720,
+    the forced buffer instances beside the local ones, and their bounds.
+    Returns phase 9's entries of the kernels line."""
+    from ray_rust_tpu_torch.models.serialize import deserialize_scene, serialize_scene
+    from ray_rust_tpu_torch.ops import _build
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_pack as kp
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.ops import kernel_trace_retrace as kr
+    from ray_rust_tpu_torch.parallel import sgd_train_step
+    from ray_rust_tpu_torch.utils.image import load_png
+
+    dev = torch.device("cuda", 0)
+    default, meta = rtt.default_scene()
+    cfg12 = rtt.RenderConfig(xres=W, yres=H, max_reflections=12)
+    cfg319 = rtt.RenderConfig(xres=W, yres=H, max_reflections=7, refraction_unroll=None)
+    cfg39 = rtt.RenderConfig(xres=MW, yres=MH, use_raymarching=True, glow_effect=1.0,
+                             raymarch_max_reflections=7)
+    print(f"deep ray trees (the task stack: kernel_trace.stack_tasks; records: "
+          f"kernel_trace_bwd.RECORD_BUDGET {kb.RECORD_BUDGET} bytes):")
+    for name, cfg in (("12 reflections", cfg12), ("319 sites", cfg319)):
+        print(f"  {name}: {kt.stack_tasks(cfg)} tasks, {kb.count_sites(cfg)} sites, record cap "
+              f"{kb.site_cap(cfg)}, buffered {kb.buffered(cfg)}")
+    print(f"  39 laps: {kmb.count_sites(cfg39)} laps, buffered {kmb.buffered(cfg39)}")
+    bands = (len(kb.record_bands(H, W, 4 * kb.RECORD_WORDS * kb.site_cap(cfg319))),
+             len(kb.record_bands(MH, MW, 4 * kmb.RECORD_WORDS * kmb.count_sites(cfg39))))
+
+    # -- the main path: the counts set to 0 just before it, read just after
+    m = default.materials
+    red = m.diffuse.r.clone()
+    red[2] += 0.1
+    redder = default._replace(materials=m._replace(diffuse=m.diffuse._replace(r=red)))
+    with torch.no_grad():
+        targets = {c: rtt.render_color(redder, c).to_array() for c in (cfg12, cfg319, cfg39)}
+
+    def colours(c):
+        return type(c)(*(t.detach().clone().requires_grad_() for t in c))
+
+    start = default._replace(materials=m._replace(diffuse=colours(m.diffuse),
+                                                  specular=colours(m.specular)))
+    with tempfile.TemporaryDirectory() as sd:
+        path, png_path = os.path.join(sd, "deep.yaml"), os.path.join(sd, "deep.png")
+        text = serialize_scene(default, meta)
+        with open(path, "w") as f:
+            f.write(re.sub(r"(?m)^max_reflections: \d+$", "max_reflections: 12", text))
+        kt.LAUNCHES = kb.LAUNCHES = kb.BUF_LAUNCHES = km.LAUNCHES = kmb.LAUNCHES = 0
+        kmb.BUF_LAUNCHES = kp.LAUNCHES = kp.VJP_LAUNCHES = 0
+        t0 = time.time()
+        rc = cli.main([str(W), str(H), "-d", path, "-o", png_path])
+        losses = [float(sgd_train_step(start, cfg, targets[cfg], lr=lr)[1])
+                  for cfg, lr in ((cfg12, TRAIN_LR), (cfg319, TRAIN_LR),
+                                  (cfg39, MARCH_TRAIN_LR))]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"trace_fwd": kt.LAUNCHES, "trace_bwd": kb.LAUNCHES,
+                    "trace_bwd_buf": kb.BUF_LAUNCHES, "march_fwd": km.LAUNCHES,
+                    "march_bwd": kmb.LAUNCHES, "march_bwd_buf": kmb.BUF_LAUNCHES,
+                    "pack_scene": kp.LAUNCHES, "pack_scene_vjp": kp.VJP_LAUNCHES}
+        with open(path) as f:
+            loaded, _, caps = deserialize_scene(f.read())
+        png = load_png(png_path)
+    want = {"trace_fwd": 3, "trace_bwd": 1, "trace_bwd_buf": bands[0], "march_fwd": 1,
+            "march_bwd": 0, "march_bwd_buf": bands[1], "pack_scene": 4, "pack_scene_vjp": 3}
+    print(f"main path, deep trees: the CLI -d (max_reflections {caps['max_reflections']}) at "
+          f"{W}x{H}, sgd_train_step at 12 reflections and at 319 sites ({W}x{H}) and at 39 "
+          f"laps ({MW}x{MH} march + glow) in {wall:.2f} s; launches {launches}; losses "
+          + ", ".join(f"{v:.6g}" for v in losses))
+    if rc != 0 or launches != want or not np.isfinite(losses).all():
+        raise SystemExit(f"chip_smoke: the deep main path: CLI exit {rc}, launches {launches} "
+                         f"(want {want}), losses {losses}")
+    if caps["max_reflections"] != 12 or not np.array_equal(
+            png, rtt.render_u8(loaded, rtt.RenderConfig(xres=W, yres=H, **caps))):
+        raise SystemExit("chip_smoke: the deep -d PNG is not render_u8 of the file's scene")
+
+    # -- each deep instance against its plain version (phase 2's references);
+    # the buffer instances in DEEP_BANDS bands, and how many records one
+    # pixel wrote
+    def record_words(mod, cfg):
+        return (kb.RECORD_WORDS * kb.site_cap(cfg) if mod is kb
+                else kmb.RECORD_WORDS * kmb.count_sites(cfg))
+
+    def most_recorded(mod, scene, cfg):
+        """The most sites (K2) or laps (K4) one pixel of ``cfg``'s frame
+        recorded: a one-band launch of the buffer instance into a buffer
+        filled with RECORD_FILL (``kernel_trace_bwd.recorded``)."""
+        words = kp.launch_pack(scene)
+        n = scene.objects.count
+        ptrs, meta_ptr = kp.word_pointers(words, n)
+        tex = kp.texture_pointers(scene, meta_ptr)
+        cap_words, pixels = record_words(mod, cfg), cfg.xres * cfg.yres
+        if mod is kb:
+            lib = _build.load_cuda_library(kb.library("trace_bwd", n, kb.SHARED_TABLE_MAX))
+            fn, cap, first = lib.rt_trace_bwd_buf, kb.site_cap(cfg), kb.SITE_WORDS
+            args, extra = kb.kernel_args(cfg) + [cap] + tex, ()
+        else:
+            lib = _build.load_cuda_library("march_bwd_buf")
+            fn, cap, first = lib.rt_march_bwd_buf, kmb.count_sites(cfg), kmb.LAP_WORDS
+            args, extra = kmb.kernel_args(cfg) + tex, (cap,)
+        buf = torch.full((pixels * cap_words,), kb.RECORD_FILL, dtype=torch.int32, device=dev)
+        zero = rtt.Color(*(torch.zeros(cfg.yres, cfg.xres, device=dev) for _ in range(3)))
+        kb.launch_buffered(lib, fn, ptrs, n, dev, cfg, args, zero, False, cap_words=cap_words,
+                           extra=extra, budget=4 * pixels * cap_words, buf=buf)
+        return int(kb.recorded(buf, cap, first, pixels).max())
+
+    def banded(mod, cfg, fn):
+        """``fn()`` with the record budget cut to a DEEP_BANDS-th of
+        ``cfg``'s frame, and the buffer instance's launches it made."""
+        saved, before = kb.RECORD_BUDGET, mod.BUF_LAUNCHES
+        kb.RECORD_BUDGET = 4 * record_words(mod, cfg) * cfg.xres * -(-cfg.yres // DEEP_BANDS)
+        try:
+            out = fn()
+        finally:
+            kb.RECORD_BUDGET = saved
+        return out, mod.BUF_LAUNCHES - before
+
+    errs = {"trace_fwd_deep": [], "trace_bwd_buf": [], "march_bwd_buf": []}
+    most = {}
+    # K4's buffer instance as the main path runs it too (the floor tail on,
+    # the default step budget), against the 2 000-step plain reference: the
+    # pixels where either image differs from it (lanes past 2 000 steps, the
+    # tail's knife edges) masked, each on a decision boundary
+    cfg39s = cfg39.with_(xres=DEEP_GRAD[0], yres=DEEP_GRAD[1])
+    also = {"K4 39 laps": [("the tail on, the default step budget", cfg39s)]}
+    for name, (scene, cfg, _, grad) in deep_cases(rtt).items():
+        ref, vjp, plain_ms = plain[name]
+        march = cfg.use_raymarching
+        fwd = km if march else kt
+        got = img(fwd.render_color_kernel(scene, cfg))
+        if not grad:
+            errs["trace_fwd_deep"].append(compare(f"{name} {cfg.xres}x{cfg.yres} (plain "
+                                                  f"{plain_ms:.1f} ms)", ref, got))
+            continue
+        runs = [("", cfg, got)] + [(label, c, img(fwd.render_color_kernel(scene, c)))
+                                   for label, c in also.get(name, [])]
+        agree = np.logical_and.reduce([np.abs(im - ref).max(-1) < 1e-4 for _, _, im in runs])
+        flat = off_boundary(ref, ~agree)
+        rng = np.random.default_rng(cfg.xres)
+        g = rtt.Color(*(torch.from_numpy(rng.standard_normal(agree.shape).astype(np.float32)
+                                         * agree).to(dev) for _ in range(3)))
+        want_g = vjp(g)
+        # the 319-site and 39-lap cases (the 64-task one's 196 607 sites
+        # keep the default budget's bands)
+        deep = name.startswith(("K2 319", "K4 39"))
+        mods = [kmb] if march else [kb] + ([kr] if "K5" in name else [])
+        for mod, (label, c, im) in [(m, r) for m in mods for r in runs]:
+            bands = 0
+            if mod is kr:
+                out, prim = kr.render_grads_retrace(scene, c, g, return_primal=True)
+            elif deep:
+                (out, prim), bands = banded(mod, c, lambda m=mod, c=c: (
+                    m.render_grads_kernel(scene, c, g, return_primal=True)))
+            else:
+                out, prim = mod.render_grads_kernel(scene, c, g, return_primal=True)
+            worst, leaf = leaf_err(name, scene, out, want_g)
+            same = float((img(prim) == im).all(-1).mean())
+            budget = MARCH_GRAD_BUDGET if march else GRAD_BUDGET
+            ok = (worst <= budget and same == 1.0 and agree.mean() > 0.9 and flat == 0
+                  and bands == (DEEP_BANDS if deep and mod is not kr else 0))
+            print(f"  {name}{', ' + label if label else ''} {c.xres}x{c.yres}, "
+                  f"{mod.__name__.split('.')[-1]}" + (f" in {bands} bands" if bands else "")
+                  + f": forwards agree on {agree.mean():.4%}, {flat} masked off a "
+                  f"boundary; image the forward kernel's on {same:.4%}; largest leaf relative "
+                  f"L2 {worst:.3g} ({leaf}); plain autograd {plain_ms:.1f} ms (phase 2) -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {name}: {mod.__name__} off plain autograd")
+            if mod is not kr and mod.buffered(c):
+                errs["march_bwd_buf" if march else "trace_bwd_buf"].append(worst)
+            if deep and not label:
+                most[name] = (most_recorded(mod, scene, c),
+                              kb.SITE_CAPS[-1] if mod is kb else kmb.SITE_CAP)
+
+    # -- past the local caps, where the default scene's pixels stop early:
+    # K2 at 319 sites in the box of planes (42 reflections) in DEEP_BANDS
+    # bands against K5 (forward-mode duals, held against plain autograd
+    # above), K4 at 39 laps on the glass cluster in DEEP_BANDS bands against
+    # one band; images the forward kernels' bit for bit (the host twins
+    # against autograd on both scenes: tests/test_torch_deep.py)
+    box, cluster = box_scene(rtt), glass_cluster(rtt)
+    cfg_box = rtt.RenderConfig(xres=DEEP_GRAD[0], yres=DEEP_GRAD[1], max_reflections=42)
+    cfg_cluster = cfg39s.with_(march_max_iter=2000, march_floor_skip=False)
+    rng = np.random.default_rng(42)
+    gd = rtt.Color(*(torch.from_numpy(rng.standard_normal((DEEP_GRAD[1], DEEP_GRAD[0]))
+                                      .astype(np.float32)).to(dev) for _ in range(3)))
+    got = img(kt.render_color_kernel(box, cfg_box))
+    (out, prim), bands = banded(kb, cfg_box, lambda: kb.render_grads_kernel(
+        box, cfg_box, gd, return_primal=True))
+    want_g, prim5 = kr.render_grads_retrace(box, cfg_box, gd, return_primal=True)
+    worst, leaf = leaf_err("K2 319 sites, box", box, out, want_g)
+    same = float(((img(prim) == got) & (img(prim5) == got)).all(-1).mean())
+    most["K2 319 sites, box"] = (most_recorded(kb, box, cfg_box), kb.SITE_CAPS[-1])
+    ok = worst <= GRAD_BUDGET and same == 1.0 and bands == DEEP_BANDS
+    print(f"  K2 319 sites, box of planes (42 reflections) {cfg_box.xres}x{cfg_box.yres} in "
+          f"{bands} bands vs K5: images K1's on {same:.4%}; largest leaf relative L2 "
+          f"{worst:.3g} ({leaf}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: K2 in the box of planes is off K5")
+    errs["trace_bwd_buf"].append(worst)
+    got = img(km.render_color_kernel(cluster, cfg_cluster))
+    (out, prim), bands = banded(kmb, cfg_cluster, lambda: kmb.render_grads_kernel(
+        cluster, cfg_cluster, gd, return_primal=True))
+    one, prim1 = kmb.render_grads_kernel(cluster, cfg_cluster, gd, return_primal=True)
+    rel = float((torch.cat([t.flatten() for t in out]) - torch.cat([t.flatten() for t in one]))
+                .norm() / torch.cat([t.flatten() for t in one]).norm())
+    same = float(((img(prim) == got) & (img(prim1) == got)).all(-1).mean())
+    most["K4 39 laps, glass cluster"] = (most_recorded(kmb, cluster, cfg_cluster), kmb.SITE_CAP)
+    ok = rel <= REGIME_REL_L2 and same == 1.0 and bands == DEEP_BANDS
+    print(f"  K4 39 laps, glass cluster {cfg_cluster.xres}x{cfg_cluster.yres} in {bands} bands "
+          f"vs one band: images K3's on {same:.4%}; cotangents within {rel:.3g} "
+          f"(REGIME_REL_L2) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: K4 on the glass cluster depends on its bands")
+    print("  the most records one pixel wrote (a one-band launch into a filled buffer): "
+          + "; ".join(f"{k} {v} (local cap {c})" for k, (v, c) in most.items()))
+    for key in ("K2 319 sites, box", "K4 39 laps, glass cluster"):
+        if most[key][0] <= most[key][1]:
+            raise SystemExit(f"chip_smoke: {key}: no pixel recorded past the local cap")
+    plain_ms = {"trace_fwd_deep": None,
+                "trace_bwd_buf": plain["K2 319 sites"][2],
+                "march_bwd_buf": plain["K4 39 laps"][2]}
+    for name, (image, _, ms) in list(plain.items()):  # the graphs are done with
+        plain[name] = (image, None, ms)
+    torch.cuda.empty_cache()
+
+    # -- each buffer instance forced on the default config against its
+    # local-record instance, at the main paths' shapes, in one band and in
+    # DEEP_BANDS, and the times
+    cfg_main = rtt.RenderConfig(xres=W, yres=H)
+    cfg_march = rtt.RenderConfig(xres=MW, yres=MH, use_raymarching=True, glow_effect=1.0)
+    words = kp.launch_pack(default)
+    n = default.objects.count
+    ptrs, meta_ptr = kp.word_pointers(words, n)
+    tex = kp.texture_pointers(default, meta_ptr)
+    rng = np.random.default_rng(9)
+    gt, gm = (rtt.Color(*(torch.from_numpy(rng.standard_normal((c.yres, c.xres))
+                                           .astype(np.float32)).to(dev) for _ in range(3)))
+              for c in (cfg_main, cfg_march))
+    lib2, lib4 = _build.load_cuda_library("trace_bwd"), _build.load_cuda_library("march_bwd_buf")
+    cap4 = kmb.count_sites(cfg_march)
+
+    def quarter(cap_words, h, w):  # the budget of DEEP_BANDS bands
+        return 4 * cap_words * w * -(-h // DEEP_BANDS)
+
+    def buf2(cfg, g, budget=None):
+        c = kb.site_cap(cfg)
+        return kb.launch_buffered(lib2, lib2.rt_trace_bwd_buf, ptrs, n, dev, cfg,
+                                  kb.kernel_args(cfg) + [c] + tex, g, True,
+                                  cap_words=kb.RECORD_WORDS * c, budget=budget)
+
+    def buf4(budget=None):
+        return kb.launch_buffered(lib4, lib4.rt_march_bwd_buf, ptrs, n, dev, cfg_march,
+                                  kmb.kernel_args(cfg_march) + tex, gm, True,
+                                  cap_words=kmb.RECORD_WORDS * cap4, extra=(cap4,),
+                                  budget=budget)
+
+    forced = {
+        "trace_bwd_buf": (lambda: kb.launch_words(default, words, cfg_main, gt, True),
+                          lambda b=None: buf2(cfg_main, gt, b)),
+        "march_bwd_buf": (lambda: kmb.launch_words(default, words, cfg_march, gm, True),
+                          buf4)}
+    small = {"trace_bwd_buf": quarter(kb.RECORD_WORDS * kb.site_cap(cfg_main), H, W),
+             "march_bwd_buf": quarter(kmb.RECORD_WORDS * cap4, MH, MW)}
+    forced_ms, forced_bands = {}, {}
+    for key, (local, buffered) in forced.items():
+        b_local, p_local = local()
+        for budget in (None, small[key]):
+            b_buf, p_buf, bands = buffered(budget)
+            rel = float((b_buf - b_local).norm() / b_local.norm())
+            same = bool(torch.equal(torch.stack(list(p_local)), torch.stack(list(p_buf))))
+            print(f"  {key} forced on the default config in {bands} band(s): block within "
+                  f"{rel:.3g} of the local records' (REGIME_REL_L2 {REGIME_REL_L2}), image "
+                  f"bit-equal {same}")
+            if rel > REGIME_REL_L2 or not same:
+                raise SystemExit(f"chip_smoke: {key} forced is not its local-record instance")
+            forced_bands[key] = bands
+        if forced_bands[key] != DEEP_BANDS:
+            raise SystemExit(f"chip_smoke: {key} forced ran in {forced_bands[key]} bands")
+        forced_ms[key] = [cuda_ms(torch, f) for f in (
+            local, buffered, lambda f=buffered, b=small[key]: f(b),
+            lambda f=buffered, b=small[key]: f(b), buffered, local)]
+        print(f"  {key} forced, ms in turns (local, buffer in 1 band, in "
+              f"{forced_bands[key]} bands, in {forced_bands[key]} bands, in 1 band, local) "
+              + ", ".join(f"{v:.4f}" for v in forced_ms[key]))
+
+    # -- K2 at 319 sites and 1080p in SWEEP_BANDS bands: the same block and
+    # image, and the time in turns
+    cap_words = kb.RECORD_WORDS * kb.site_cap(cfg319)
+    row_bytes = 4 * cap_words * W
+    budgets = {nb: row_bytes * -(-H // nb) for nb in SWEEP_BANDS}
+    sweep = {}
+    for nb, budget in budgets.items():
+        block, prim, bands = buf2(cfg319, gt, budget)
+        if bands != nb:
+            raise SystemExit(f"chip_smoke: K2 at 319 sites ran in {bands} bands, not {nb}")
+        sweep[nb] = (block, prim)
+    b0, p0 = sweep[SWEEP_BANDS[0]]
+    for nb, (block, prim) in sweep.items():
+        rel = float((block - b0).norm() / b0.norm())
+        same = bool(torch.equal(torch.stack(list(p0)), torch.stack(list(prim))))
+        print(f"  trace_bwd_buf at 319 sites {W}x{H} in {nb} bands: block within {rel:.3g} of "
+              f"{SWEEP_BANDS[0]} bands' (REGIME_REL_L2), image bit-equal {same}")
+        if rel > REGIME_REL_L2 or not same:
+            raise SystemExit("chip_smoke: K2's buffer instance depends on its bands")
+    del sweep, b0, p0
+    order = list(SWEEP_BANDS) + list(reversed(SWEEP_BANDS))
+    sweep_ms = [cuda_ms(torch, lambda b=budgets[nb]: buf2(cfg319, gt, b)) for nb in order]
+    print(f"  trace_bwd_buf at 319 sites {W}x{H}, ms in turns by bands "
+          + ", ".join(f"{nb}: {v:.4f}" for nb, v in zip(order, sweep_ms)))
+    bands_ms = {str(nb): [v for b, v in zip(order, sweep_ms) if b == nb] for nb in SWEEP_BANDS}
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        ms = {"trace_fwd_deep": cuda_ms(torch, lambda: kt.render_color_kernel(default, cfg12))}
+        ref12, plain12_ms = event_ms(torch, lambda: kt.render_color_plain(default, cfg12))
+    errs["trace_fwd_deep"].append(compare(f"K1 12 reflections {W}x{H}", img(ref12),
+                                          img(kt.render_color_kernel(default, cfg12))))
+    plain_ms["trace_fwd_deep"] = plain12_ms
+    ms["trace_bwd_buf"] = cuda_ms(torch, lambda: kb.render_grads_kernel(
+        default, cfg319, gt, return_primal=True))
+    ms["march_bwd_buf"] = cuda_ms(torch, lambda: kmb.render_grads_kernel(
+        default, cfg39, gm, return_primal=True))
+    bounds = {}
+    for key, cfg in (("trace_fwd_deep", cfg12), ("trace_bwd_buf", cfg319),
+                     ("march_bwd_buf", cfg39)):
+        n_ops = ops[key].result()[0]
+        nbytes = io_bytes(default, cfg)
+        if key != "trace_fwd_deep":  # + the cotangent planes read, the block written
+            nbytes += 3 * 4 * cfg.xres * cfg.yres + 4 * (n + 1) * kb.GRAD_COLS
+        bounds[key] = roofline(n_ops, nbytes)
+        print(f"  {key} {cfg.xres}x{cfg.yres}: {ms[key]:.4f} ms by events with the image "
+              f"(plain {plain_ms[key]:.1f} ms), bound {n_ops} f32 operations, {nbytes} bytes -> "
+              f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
+    return [{
+        "name": key, "route": "cuda", "source": f"ray_rust_tpu_torch/csrc/{source}",
+        "replaces": replaces, "launches": launches[main_key],
+        "max_abs_err": max(errs[key]),
+        "ms": ms[key], "plain_ms": plain_ms[key], "plain_shape": plain_shape,
+        "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
+        **({"forced_ms": forced_ms[key], "forced_bands": forced_bands[key]}
+           if key in forced_ms else {}),
+        **({"bands_ms": bands_ms} if key == "trace_bwd_buf" else {}),
+    } for key, main_key, source, replaces, plain_shape in (
+        ("trace_fwd_deep", "trace_fwd", "trace_fwd.cu", "ray_rust_tpu/ops/pallas_trace.py:1275",
+         [W, H]),
+        ("trace_bwd_buf", "trace_bwd_buf", "trace_bwd.cu", "ray_rust_tpu/ops/pallas_bwd.py:563",
+         list(DEEP_GRAD)),
+        ("march_bwd_buf", "march_bwd_buf", "march_bwd_buf.cu",
+         "ray_rust_tpu/ops/pallas_bwd.py:1060", list(DEEP_GRAD)))]
+
+
 def main() -> int:
     import torch
 
@@ -1975,7 +2503,15 @@ def run(torch, tex_dir) -> int:
                    "trace_bwd_window": counting.submit(count_bwd_ops, "trace_bwd", kb, cfg_main,
                                                        window=CELL),
                    "march_bwd_window": counting.submit(count_bwd_ops, "march_bwd", kmb,
-                                                       cfg_march, window=MCELL)}
+                                                       cfg_march, window=MCELL),
+                   # phase 9's: K1 at 12 reflections, K2 at 319 sites, K4 at 39 laps
+                   "trace_fwd_deep": counting.submit(count_ops, "trace", kt,
+                                                     cfg_main.with_(max_reflections=12)),
+                   "trace_bwd_buf": counting.submit(
+                       count_bwd_ops, "trace_bwd", kb,
+                       cfg_main.with_(max_reflections=7, refraction_unroll=None)),
+                   "march_bwd_buf": counting.submit(count_bwd_ops, "march_bwd", kmb,
+                                                    cfg_march.with_(raymarch_max_reflections=7))}
 
     # 2. the builds, one nvcc each, all started together; meanwhile the card
     # renders the plain versions of phase 3's small march cases, which need
@@ -2022,6 +2558,8 @@ def run(torch, tex_dir) -> int:
                 default, cfg, win[:2], win[2:]))
             grad_plain[key] = (img(out), vjp, ms)
         window_plain["small"] = (grad_plain["march"][0], grad_plain["march"][2])
+        # phase 9's plain references, the gradients' graphs kept
+        deep_refs = deep_plain(torch, rtt, kb, kt)
         plain_s = time.time() - t0
         built_at = building.result()
     print(f"build: {', '.join(f'{stem}.cu' for stem in stems)} with nvcc in "
@@ -3027,6 +3565,11 @@ def run(torch, tex_dir) -> int:
     md8 = sharded_grad(torch, rtt, card, (default.to(dev), tex_scenes[0]), grad_plain,
                        ops_futures)
     phase_s["8"] = time.time() - t_phase
+
+    # 9. deep ray trees
+    t_phase = time.time()
+    deep = deep_trees(torch, rtt, cli, deep_refs, ops_futures)
+    phase_s["9"] = time.time() - t_phase
     print("phase wall times: " + ", ".join(f"{k} {v:.0f} s" for k, v in phase_s.items()))
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
@@ -3146,7 +3689,7 @@ def run(torch, tex_dir) -> int:
         "bound_ms": md8["bounds"][name][0], "bound_by": md8["bounds"][name][1],
         "library_ms": None,
     } for name, replaces in (("trace_bwd", "ray_rust_tpu/ops/pallas_bwd.py:563"),
-                             ("march_bwd", "ray_rust_tpu/ops/pallas_bwd.py:1060"))]}))
+                             ("march_bwd", "ray_rust_tpu/ops/pallas_bwd.py:1060"))] + deep}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -63,10 +63,13 @@
 //
 // A site's record is 68 bytes and a frame's 124, so the two local arrays
 // take MARCH_SITE_CAP * 192 bytes a thread (6.7 KB at MARCH_SITE_CAP = 35, the
-// count of refraction_unroll=None at 3 laps; ops/kernel_march_bwd.py refuses
-// configurations with more sites), beside the forward's registers. A record
-// that would overflow turns the pixel and the block to NaN rather than drop
-// a lap.
+// count of refraction_unroll=None at 3 laps), beside the forward's
+// registers. Configurations with more laps run march_pixel_grad_buf, whose
+// records lie in a buffer in device memory that the wrapper allocates for
+// the launch's window (trace_bwd_body.cuh: RecBuf, BufRecs; the cap a
+// launch argument); the recorder and the sweep read and write them through
+// their stores, one code for both. A record that would overflow turns the
+// pixel and the block to NaN rather than drop a lap.
 //
 // Every function is forced inline, so the kernel is one straight program:
 // real device calls between the march levels faulted on the card (ROADMAP
@@ -112,24 +115,29 @@ struct MFrame {
   C3 g_fcs;          // and of the throughput
 };
 
+static_assert(sizeof(MSite) == 68 && sizeof(MFrame) == 124,
+              "ops/kernel_march_bwd.py: RECORD_WORDS");
+
 // The recorder raymarch calls (march_body.cuh): frames and sites in
-// execution order. TEX: whether hits read the texture atlas (the textured
-// kernel); the untextured kernel compiles the fetch out.
-template <bool TEX>
+// execution order, at most ``sites.size()`` of each, in the stores
+// ``sites`` and ``frames`` (trace_bwd_body.cuh: LocalRecs or BufRecs). TEX:
+// whether hits read the texture atlas (the textured kernel); the
+// untextured kernel compiles the fetch out.
+template <bool TEX, class Sites, class Frames>
 struct MarchRecorder {
   static constexpr bool TRACK_GLOW = true;
   static constexpr bool TEXTURED = TEX;
-  MSite* sites;
-  MFrame* frames;
+  Sites sites;
+  Frames frames;
   int n_sites, n_frames;
   bool overflow;
 
   RT_AD int frame(int parent) {
-    if (overflow || n_frames >= MARCH_SITE_CAP) {  // a frame holds at least one lap
+    if (overflow || n_frames >= frames.size()) {  // a frame holds at least one lap
       overflow = true;
       return -1;
     }
-    MFrame& f = frames[n_frames];
+    auto&& f = frames.fresh(n_frames);
     f.parent = parent;
     f.last = -1;
     f.min_min = INFINITY;
@@ -137,16 +145,21 @@ struct MarchRecorder {
     f.gobj = 0;
     f.glap = -1;
     f.gend = false;
-    if (parent >= 0) sites[parent].child = n_frames;
+    frames.put(n_frames, f);
+    if (parent >= 0) {
+      auto&& ps = sites.ref(parent);
+      ps.child = n_frames;
+      sites.put(parent, ps);
+    }
     return n_frames++;
   }
 
   RT_AD int site(int frame, V3 eye, int ig, int flags, C3 fcs, const March& m, bool hit) {
-    if (overflow || frame < 0 || n_sites >= MARCH_SITE_CAP) {
+    if (overflow || frame < 0 || n_sites >= sites.size()) {
       overflow = true;
       return -1;
     }
-    MSite& st = sites[n_sites];
+    auto&& st = sites.fresh(n_sites);
     st.eye = eye;
     st.pt = m.pos;
     st.fcs = fcs;
@@ -159,30 +172,43 @@ struct MarchRecorder {
     st.child = -1;
     st.hit = hit;
     st.lit = false;
-    MFrame& f = frames[frame];
-    if (f.last >= 0) sites[f.last].next = n_sites;
+    sites.put(n_sites, st);
+    auto&& f = frames.ref(frame);
+    if (f.last >= 0) {
+      auto&& pl = sites.ref(f.last);
+      pl.next = n_sites;
+      sites.put(f.last, pl);
+    }
     f.last = n_sites;
+    frames.put(frame, f);
     return n_sites++;
   }
 
   RT_AD void lit(int site, bool l) {
-    if (site >= 0) sites[site].lit = l;
+    if (site >= 0) {
+      auto&& st = sites.ref(site);
+      st.lit = l;
+      sites.put(site, st);
+    }
   }
 
   RT_AD void glow(int frame, int site, const March& m, bool hit) {
     if (frame < 0) return;
-    MFrame& f = frames[frame];
+    auto&& f = frames.ref(frame);
     f.min_min = m.min_dist;
     f.gpos = m.glow_pos;
     f.gobj = m.glow_obj;
     f.glap = site;
     f.gend = hit && m.glow_iter == m.iter - 1;
+    frames.put(frame, f);
   }
 
   RT_AD void frame_end(int frame, C3 ret, C3 out) {
     if (frame < 0) return;
-    frames[frame].ret = ret;
-    frames[frame].out = out;
+    auto&& f = frames.ref(frame);
+    f.ret = ret;
+    f.out = out;
+    frames.put(frame, f);
   }
 };
 
@@ -260,15 +286,17 @@ RT_AD V3 sdf_grad(const SceneView& s, int i, V3 pos) {
 // The adjoint of a lap that hit: shade_adj at the hit point (TEX: its
 // texture's adjoint where the hit is textured), then the hit point through
 // the implicit function theorem. Updates its frame's running cotangents
-// (``F``) to those before the lap.
-template <bool TEX, class Acc>
+// (``F``) to those before the lap; reads the sub-march the lap started from
+// ``frames`` (a store of trace_bwd_body.cuh).
+template <bool TEX, class Frames, class Acc>
 RT_AD void lap_adj(const SceneView& s, float cutoff, int i, const MSite& st, MFrame& F,
-                   const MFrame* frames, C3 gret, V3* g_light, Acc& acc) {
+                   const Frames& frames, C3 gret, V3* g_light, Acc& acc) {
   const float* o = s.f32 + st.idx * F32_COLS;
   const int* oi = s.i32 + st.idx * I32_COLS;
   float g_row[F32_COLS];
   for (int k = 0; k < F32_COLS; ++k) g_row[k] = 0.0f;
-  const MFrame* ch = st.child >= 0 ? &frames[st.child] : nullptr;
+  MFrame child;  // the sub-march's record, where the store holds no array
+  const MFrame* ch = frames.ptr(st.child, child);
   const C3 zc = c3(0.0f, 0.0f, 0.0f);
   const V3 zv = v3(0.0f, 0.0f, 0.0f);
   C3 col = zc;  // the frame's colour is recorded; shade_adj's sum goes unused
@@ -299,21 +327,20 @@ RT_AD void lap_adj(const SceneView& s, float cutoff, int i, const MSite& st, MFr
 }
 
 // The pixel's cotangent g pulled back to the scene tables through ``acc``
-// (rows 0..n-1: the objects' 19 columns; row n: camera, light). Returns the
+// (rows 0..n-1: the objects' 19 columns; row n: camera, light), recording
+// at most ``rec.sites.size()`` laps and frames in ``rec``'s stores. Returns the
 // pixel's colour (march_pixel's). TEX: the scene may be textured.
-template <bool TEX, class Acc>
-RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff,
-                          const float* cam, int ix, int iy, C3 g, Acc& acc) {
-  MSite sites[MARCH_SITE_CAP];
-  MFrame frames[MARCH_SITE_CAP];
-  MarchRecorder<TEX> rec;
-  rec.sites = sites;
-  rec.frames = frames;
+template <bool TEX, class Sites, class Frames, class Acc>
+RT_AD C3 march_sweep(MarchRecorder<TEX, Sites, Frames>& rec, const SceneView& s,
+                     const MarchParams& p, float cutoff, const float* cam, int ix, int iy,
+                     C3 g, Acc& acc) {
+  const Sites& sites = rec.sites;
+  const Frames& frames = rec.frames;
   rec.n_sites = 0;
   rec.n_frames = 0;
   rec.overflow = false;
   C3 out = march_pixel(s, p, cam, ix, iy, rec);
-  if (rec.overflow) {  // unreachable under MARCH_SITE_CAP: poison, never drop a lap
+  if (rec.overflow) {  // unreachable at the wrapper's cap: poison, never drop a lap
     acc.add(s.n, 0, nanf(""));
     return c3(nanf(""), nanf(""), nanf(""));
   }
@@ -321,12 +348,12 @@ RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff
   // each frame's weight, parents first, and its glow factor's adjoint
   const V3 zv = v3(0.0f, 0.0f, 0.0f);
   for (int k = 0; k < rec.n_frames; ++k) {
-    MFrame& F = frames[k];
+    auto&& F = frames.ref(k);
     if (F.parent < 0) {
       F.w = c3(1.0f, 1.0f, 1.0f);
     } else {  // out_parent = factor * sum(face * fcs), face = base*(1 - f) + out*f
-      const MSite& ps = sites[F.parent];
-      const MFrame& P = frames[ps.frame];
+      const auto& ps = sites.get(F.parent);
+      const auto& P = frames.get(ps.frame);
       const float f = s.f32[ps.idx * F32_COLS + 13];
       F.w = c3((ps.flags & RIGNORE) ? 0.0f : P.w.r * P.factor * ps.fcs.r * f,
                (ps.flags & GIGNORE) ? 0.0f : P.w.g * P.factor * ps.fcs.g * f,
@@ -347,12 +374,13 @@ RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff
       sdf_adj(s, F.gobj, F.gpos, gm * o[18], &gx, acc);
       if (F.gend) F.g_glow = gx;  // else the argmin position is a constant
     }
+    frames.put(k, F);
   }
 
   V3 g_light = zv;
   for (int i = rec.n_sites - 1; i >= 0; --i) {
-    const MSite& st = sites[i];
-    MFrame& F = frames[st.frame];
+    const auto& st = sites.get(i);
+    auto&& F = frames.ref(st.frame);
     const C3 gret = c3(g.r * F.w.r * F.factor, g.g * F.w.g * F.factor, g.b * F.w.b * F.factor);
     if (st.hit) {
       lap_adj<TEX>(s, cutoff, i, st, F, frames, gret, &g_light, acc);
@@ -364,14 +392,37 @@ RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff
                      c3(gret.r * st.fcs.r, gret.g * st.fcs.g, gret.b * st.fcs.b), &g_light,
                      &F.g_eye);
     }
+    frames.put(st.frame, F);
   }
   // the camera ray's march is frame 0: its start is the camera
-  Q4 gq = camera_ray_adj(p.xres, p.yres, p.sx, p.sy, cam, ix, iy, frames[0].g_eye);
-  const float gcam[10] = {frames[0].g_pos.x, frames[0].g_pos.y, frames[0].g_pos.z,
+  const auto& f0 = frames.get(0);
+  Q4 gq = camera_ray_adj(p.xres, p.yres, p.sx, p.sy, cam, ix, iy, f0.g_eye);
+  const float gcam[10] = {f0.g_pos.x, f0.g_pos.y, f0.g_pos.z,
                           gq.x, gq.y, gq.z, gq.w, g_light.x, g_light.y, g_light.z};
   for (int k = 0; k < 10; ++k)
     if (gcam[k] != 0.0f) acc.add(s.n, k, gcam[k]);
   return out;
+}
+
+// march_sweep with MARCH_SITE_CAP laps and frames in two local arrays.
+template <bool TEX, class Acc>
+RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff,
+                          const float* cam, int ix, int iy, C3 g, Acc& acc) {
+  MSite sites[MARCH_SITE_CAP];
+  MFrame frames[MARCH_SITE_CAP];
+  MarchRecorder<TEX, LocalRecs<MSite, MARCH_SITE_CAP>, LocalRecs<MFrame, MARCH_SITE_CAP>> rec;
+  rec.sites = {sites};
+  rec.frames = {frames};
+  return march_sweep(rec, s, p, cutoff, cam, ix, iy, g, acc);
+}
+
+// march_sweep with p.cap laps and frames in p's buffer (rec_stores).
+template <bool TEX, class Acc>
+RT_AD C3 march_pixel_grad_buf(const SceneView& s, const RecBuf<MarchParams>& p, float cutoff,
+                              const float* cam, int ix, int iy, C3 g, Acc& acc) {
+  MarchRecorder<TEX, BufRecs<MSite>, BufRecs<MFrame>> rec;
+  rec_stores(p, ix, iy, &rec.sites, &rec.frames);
+  return march_sweep(rec, s, p, cutoff, cam, ix, iy, g, acc);
 }
 
 }  // namespace rt

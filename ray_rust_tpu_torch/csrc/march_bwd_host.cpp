@@ -6,6 +6,8 @@
 // textured body where ``n_tex`` > 0), minus the device and stream; it
 // returns 0, or 1 (cudaErrorInvalidValue) for a window with no pixel or past
 // the frame.
+// rt_march_bwd_buf_host is rt_march_bwd_buf's (march_bwd_buf.cu), with
+// its records in a buffer the caller passes.
 // Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and
 // -DRT_COUNT_OPS to count into ops_total[0..5] as march_host.cpp does).
 
@@ -18,17 +20,14 @@ struct HostAcc {
   void add(int row, int col, float v) { block[row * rt::GRAD_COLS + col] += v; }
 };
 
-}  // namespace
-
-extern "C" int rt_march_bwd_host(const float* f32t, const int* i32t, const float* cam,
-                                 const float* light, int n, int xres, int yres, int row0,
-                                 int col0, int h, int w, float sx, float sy, int refraction_cap,
-                                 int bg, int max_laps, int max_iter, float eps, float far_away,
-                                 int glow_on, float glow, int floor_skip, float cutoff,
-                                 const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                                 int tex_len, const float* g_r, const float* g_g,
-                                 const float* g_b, float* out_block, float* prim_r,
-                                 float* prim_g, float* prim_b, unsigned long long* ops_total) {
+// The host loop over the window's pixels: ``pixel(s, ix, iy, g, acc)`` runs
+// one pixel's body; returns rt_march_bwd_host's code.
+template <class P, class F>
+int host_loop(const float* f32t, const int* i32t, const float* light, int n, const P& p,
+              const void* tex, const int* tex_meta, int n_tex, int tex_stride, int tex_len,
+              const float* g_r, const float* g_g, const float* g_b, float* out_block,
+              float* prim_r, float* prim_g, float* prim_b, unsigned long long* ops_total,
+              F&& pixel) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
@@ -40,6 +39,27 @@ extern "C" int rt_march_bwd_host(const float* f32t, const int* i32t, const float
 #else
   (void)ops_total;
 #endif
+  if (!rt::window_ok(p)) return 1;
+  HostAcc acc = {out_block};
+  for (int ly = 0; ly < p.h; ++ly) {  // the pixel in the window
+    for (int lx = 0; lx < p.w; ++lx) {
+      const long o = static_cast<long>(ly) * p.w + lx;
+      RT_PIXEL_COUNT_BEGIN(ops_total);
+      const rt::C3 c = pixel(s, p.col0 + lx, p.row0 + ly, rt::c3(g_r[o], g_g[o], g_b[o]), acc);
+      RT_PIXEL_COUNT_END(ops_total);
+      if (prim_r != nullptr) {
+        prim_r[o] = c.r;
+        prim_g[o] = c.g;
+        prim_b[o] = c.b;
+      }
+    }
+  }
+  return 0;
+}
+
+rt::MarchParams params(int xres, int yres, int row0, int col0, int h, int w, float sx, float sy,
+                       int refraction_cap, int bg, int max_laps, int max_iter, float eps,
+                       float far_away, int glow_on, float glow, int floor_skip) {
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;
@@ -47,7 +67,6 @@ extern "C" int rt_march_bwd_host(const float* f32t, const int* i32t, const float
   p.col0 = col0;
   p.h = h;
   p.w = w;
-  if (!rt::window_ok(p)) return 1;
   p.sx = sx;
   p.sy = sy;
   p.refraction_cap = refraction_cap;
@@ -59,22 +78,55 @@ extern "C" int rt_march_bwd_host(const float* f32t, const int* i32t, const float
   p.glow_on = glow_on;
   p.glow = glow;
   p.floor_skip = floor_skip;
-  HostAcc acc = {out_block};
-  for (int ly = 0; ly < h; ++ly) {  // the pixel in the window
-    for (int lx = 0; lx < w; ++lx) {
-      const long o = static_cast<long>(ly) * w + lx;
-      const int ix = col0 + lx, iy = row0 + ly;
-      RT_PIXEL_COUNT_BEGIN(ops_total);
-      const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
-      const rt::C3 c = n_tex > 0 ? rt::march_pixel_grad<true>(s, p, cutoff, cam, ix, iy, g, acc)
-                                 : rt::march_pixel_grad<false>(s, p, cutoff, cam, ix, iy, g, acc);
-      RT_PIXEL_COUNT_END(ops_total);
-      if (prim_r != nullptr) {
-        prim_r[o] = c.r;
-        prim_g[o] = c.g;
-        prim_b[o] = c.b;
-      }
-    }
-  }
-  return 0;
+  return p;
+}
+
+}  // namespace
+
+extern "C" int rt_march_bwd_host(const float* f32t, const int* i32t, const float* cam,
+                                 const float* light, int n, int xres, int yres, int row0,
+                                 int col0, int h, int w, float sx, float sy, int refraction_cap,
+                                 int bg, int max_laps, int max_iter, float eps, float far_away,
+                                 int glow_on, float glow, int floor_skip, float cutoff,
+                                 const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                                 int tex_len, const float* g_r, const float* g_g,
+                                 const float* g_b, float* out_block, float* prim_r,
+                                 float* prim_g, float* prim_b, unsigned long long* ops_total) {
+  const rt::MarchParams p = params(xres, yres, row0, col0, h, w, sx, sy, refraction_cap, bg,
+                                   max_laps, max_iter, eps, far_away, glow_on, glow, floor_skip);
+  return host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_len, g_r, g_g,
+                   g_b, out_block, prim_r, prim_g, prim_b, ops_total,
+                   [&](const rt::SceneView& s, int ix, int iy, rt::C3 g, HostAcc& acc) {
+                     return n_tex > 0
+                                ? rt::march_pixel_grad<true>(s, p, cutoff, cam, ix, iy, g, acc)
+                                : rt::march_pixel_grad<false>(s, p, cutoff, cam, ix, iy, g, acc);
+                   });
+}
+
+// rt_march_bwd_buf's twin (march_bwd_buf.cu): the textured body with the
+// records of ``site_cap`` laps a pixel in ``buf``, laid out as the kernel
+// lays them out.
+extern "C" int rt_march_bwd_buf_host(const float* f32t, const int* i32t, const float* cam,
+                                     const float* light, int n, int xres, int yres, int row0,
+                                     int col0, int h, int w, float sx, float sy,
+                                     int refraction_cap, int bg, int max_laps, int max_iter,
+                                     float eps, float far_away, int glow_on, float glow,
+                                     int floor_skip, float cutoff, const void* tex,
+                                     const int* tex_meta, int n_tex, int tex_stride,
+                                     int tex_len, const float* g_r, const float* g_g,
+                                     const float* g_b, float* out_block, float* prim_r,
+                                     float* prim_g, float* prim_b, int site_cap, unsigned* buf,
+                                     unsigned long long* ops_total) {
+  if (site_cap < 1 || buf == nullptr) return 1;
+  rt::RecBuf<rt::MarchParams> p;
+  static_cast<rt::MarchParams&>(p) = params(xres, yres, row0, col0, h, w, sx, sy,
+                                            refraction_cap, bg, max_laps, max_iter, eps,
+                                            far_away, glow_on, glow, floor_skip);
+  p.buf = buf;
+  p.cap = site_cap;
+  return host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_len, g_r, g_g,
+                   g_b, out_block, prim_r, prim_g, prim_b, ops_total,
+                   [&](const rt::SceneView& s, int ix, int iy, rt::C3 g, HostAcc& acc) {
+                     return rt::march_pixel_grad_buf<true>(s, p, cutoff, cam, ix, iy, g, acc);
+                   });
 }

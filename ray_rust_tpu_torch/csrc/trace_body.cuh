@@ -16,12 +16,21 @@
 // sub-traces. A sub-trace's colour enters its parent's pixel linearly, with
 // weight (parent weight) * (parent throughput) * transparency, and nothing
 // the parent does next depends on it, so a shading site pushes the sub-trace
-// with that weight and the parent runs on. A task at level L pushes at most
-// max(1, max_reflections - L) children, all at deeper levels, so the stack
-// never holds more than 1 + R(R-1)/2 tasks for R = max_reflections
-// (STACK_CAP, or STACK_CAP_DEEP in the instances a recorder with STACK
-// selects; ops/kernel_trace.py checks the bound; a push past it would turn
-// the pixel to NaN rather than lose the sub-trace).
+// with that weight and the parent runs on. A task at level L raycasts at
+// levels L+1 .. L+max(1, R - L) (R = max_reflections) and pushes a sub-trace
+// only at a level below the refraction cap C, and the stack pops its top
+// first. So the stack's levels rise strictly from bottom to top, all below
+// C: a popped task at level L replaces itself by children at levels above
+// L. And at most one task on it lies at level R or deeper: a task there
+// raycasts once, so it pushes at most one sub-trace, at its level + 1, after
+// it left the stack. So the stack never holds more than stack_tasks(R, C)
+// = max(1, min(R, C - 1)) tasks: 3 at the default refraction_unroll=4,
+// whatever R. The instances run STACK_CAP tasks, or STACK_CAP_DEEP where a
+// recorder with STACK selects it; the launchers pick the 16-task instance
+// whenever stack_tasks is 16 or less and refuse past 64
+// (ops/kernel_trace.py: stack_tasks); a push past the stack would turn the
+// pixel to NaN rather than lose the sub-trace. The counting build keeps the
+// most tasks a pixel's stack held in *SceneViewT::tasks.
 //
 // Vectors, the sky, uv maps, patterns and the normal are shared with the
 // march-mode body (march_body.cuh). The traversal takes a recorder: the
@@ -122,6 +131,15 @@
 #else
 #define RT_COUNT_SLOT(s, slot, k) ((void)0)
 #endif
+// The most tasks a pixel's stack held, where the counting build was given
+// a place for it (SceneViewT::tasks).
+#ifdef RT_COUNT_OPS
+#define RT_COUNT_TASKS(s, k) \
+  ((s).tasks != nullptr && static_cast<unsigned long long>(k) > *(s).tasks \
+       ? (void)(*(s).tasks = static_cast<unsigned long long>(k)) : (void)0)
+#else
+#define RT_COUNT_TASKS(s, k) ((void)0)
+#endif
 
 namespace rt {
 
@@ -150,9 +168,16 @@ constexpr int BIGNORE = 1 << 4;
 constexpr int BG_DEFAULT_SKY = 0;
 constexpr int BG_BLACK = 1;
 constexpr int STACK_CAP = 16;
-// The deeper task stack (1 + R(R-1)/2 tasks for R = max_reflections: up to
-// R = 11), a second instance of each trace kernel that takes it.
+// The deeper task stack, a second instance of each trace kernel that takes
+// it: refraction caps 18 to 65 past 16 reflections (stack_tasks).
 constexpr int STACK_CAP_DEEP = 64;
+
+// The most tasks a pixel's stack holds at once (see above): the launchers'
+// choice of instance, ops/kernel_trace.py:stack_tasks's twin.
+inline int stack_tasks(int max_reflections, int refraction_cap) {
+  const int m = max_reflections < refraction_cap - 1 ? max_reflections : refraction_cap - 1;
+  return m > 1 ? m : 1;
+}
 // K1b's tile: the forward kernel's block (trace_fwd.cu).
 constexpr int CULL_TILE = 16;
 // The table regime a kernel library is built for: each of K1-K4 builds a
@@ -399,6 +424,7 @@ struct SceneViewT {
   float cutoff = INFINITY;
 #ifdef RT_COUNT_OPS
   unsigned long long* ops;  // this thread's counts: f32 operations, texel bytes
+  unsigned long long* tasks = nullptr;  // the most tasks a stack held, where given
 #endif
 };
 using SceneView = SceneViewT<float>;
@@ -936,6 +962,7 @@ RT_FI void trace_task(const SceneViewT<T>& s, const Params& p, const TaskT<T>& t
                    mb ? tk.w.b * (fcs.b * f) : 0.0f};
       if (*sp < RecStack<Rec>::value) {
         stack[(*sp)++] = c;
+        RT_COUNT_TASKS(s, *sp);
       } else {  // unreachable under the bound: poison the pixel, never drop work
         out->r = out->g = out->b = nanf("");
       }
@@ -991,6 +1018,7 @@ RT_FI C3T<T> trace_pixel(const SceneViewT<T>& s, const Params& p, const float* c
   stack[0].flags = 0;
   stack[0].parent = -1;
   int sp = 1;
+  RT_COUNT_TASKS(s, sp);
   C3T<T> out = {0.0f, 0.0f, 0.0f};
   while (sp > 0) {
     TaskT<T> tk = stack[--sp];

@@ -34,12 +34,17 @@
 //
 // The records are sized from the config: the kernel is built for each cap
 // of rt::with_site_cap, and the wrapper launches the smallest cap at or
-// above the config's site count. Its record pass runs the forward's task
-// stack: 16 tasks, or 64 (DeepTraceBody) where max_reflections needs more
-// (1 + R(R-1)/2 > 16, with more than 16 sites). The -DRT_GLOBAL_TABLES build
-// (bwd_kernel.cuh) holds the same five instances. K1b's cull
-// is not compiled in: the record pass scans every object, as the JAX
-// kernel's does.
+// above the config's site count. Past the largest cap (192 sites: 7
+// reflections at refraction_unroll=None need 319) rt_trace_bwd_buf launches
+// BufTraceBody, whose records lie in a buffer in device memory
+// (trace_bwd_body.cuh: RecBuf) that the wrapper sizes from the site count
+// and a budget, launching the frame in row bands through the window so the
+// buffer stays within it. Its record pass runs the forward's task stack: 16
+// tasks, or 64 (DeepTraceBody, BufTraceBody<64>) where rt::stack_tasks
+// needs more (a refraction cap past 17, with more than 16 sites). The
+// -DRT_GLOBAL_TABLES build (bwd_kernel.cuh) holds the same seven instances.
+// K1b's cull is not compiled in: the record pass scans every object, as the
+// JAX kernel's does.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_trace_bwd.py).
@@ -136,7 +141,7 @@ struct TraceBody : rt::BwdFrame {
   }
 };
 
-// TraceBody with the deep task stack (max_reflections 7 to 11).
+// TraceBody with the deep task stack (more than 16 tasks, rt::stack_tasks).
 template <int CAP>
 struct DeepTraceBody : TraceBody<CAP> {
   __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s, const rt::Params& p,
@@ -145,6 +150,35 @@ struct DeepTraceBody : TraceBody<CAP> {
     return rt::trace_pixel_grad<CAP, rt::STACK_CAP_DEEP>(s, p, cutoff, cam, ix, iy, g, acc);
   }
 };
+
+// TraceBody with its records in the launch's buffer (any cap), its task
+// stack of STACK tasks.
+template <int STACK>
+struct BufTraceBody : TraceBody<rt::STACK_CAP> {
+  __device__ __forceinline__ static rt::C3 run(const rt::SceneView& s,
+                                               const rt::RecBuf<rt::Params>& p, float cutoff,
+                                               const float* cam, int ix, int iy, rt::C3 g,
+                                               WarpAcc& acc) {
+    return rt::trace_pixel_grad_buf<STACK>(s, p, cutoff, cam, ix, iy, g, acc);
+  }
+};
+
+rt::Params trace_params(int xres, int yres, int row0, int col0, int h, int w, float sx, float sy,
+                        int max_reflections, int refraction_cap, int bg) {
+  rt::Params p;
+  p.xres = xres;
+  p.yres = yres;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.h = h;
+  p.w = w;
+  p.sx = sx;
+  p.sy = sy;
+  p.max_reflections = max_reflections;
+  p.refraction_cap = refraction_cap;
+  p.bg = bg;
+  return p;
+}
 
 }  // namespace
 
@@ -167,23 +201,13 @@ int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const flo
                  int tex_len, const float* g_r, const float* g_g, const float* g_b,
                  float* out_block, float* prim_r, float* prim_g, float* prim_b, int device,
                  void* stream) {
-  rt::Params p;
-  p.xres = xres;
-  p.yres = yres;
-  p.row0 = row0;
-  p.col0 = col0;
-  p.h = h;
-  p.w = w;
-  p.sx = sx;
-  p.sy = sy;
-  p.max_reflections = max_reflections;
-  p.refraction_cap = refraction_cap;
-  p.bg = bg;
+  const rt::Params p = trace_params(xres, yres, row0, col0, h, w, sx, sy, max_reflections,
+                                    refraction_cap, bg);
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
                           tex_len};
-  const int r = max_reflections > 1 ? max_reflections : 1;
-  const int tasks = 1 + r * (r - 1) / 2;  // and at most the sites: a task holds one
+  const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
   if (tasks > rt::STACK_CAP_DEEP) return static_cast<int>(cudaErrorInvalidValue);
+  // and at most the sites: a task holds one
   const bool deep = tasks > rt::STACK_CAP && site_cap > rt::STACK_CAP;
   const int rc = rt::with_site_cap(site_cap, [&](auto cap) {
     constexpr int C = decltype(cap)::value;
@@ -197,6 +221,37 @@ int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const flo
                                         out_block, prim_r, prim_g, prim_b, device, stream);
   });
   return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;
+}
+
+// rt_trace_bwd with the records of ``site_cap`` sites a pixel (any cap of
+// at least 1) in ``buf``: 26 * site_cap words for each pixel of the window
+// (trace_bwd_body.cuh: RecBuf, rec_stores), which the caller allocates and
+// need not clear. The window is one band of the wrapper's.
+int rt_trace_bwd_buf(const float* f32t, const int* i32t, const float* cam, const float* light,
+                     int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
+                     float sy, int max_reflections, int refraction_cap, int bg, float cutoff,
+                     int site_cap, const void* tex, const int* tex_meta, int n_tex,
+                     int tex_stride, int tex_len, const float* g_r, const float* g_g,
+                     const float* g_b, float* out_block, float* prim_r, float* prim_g,
+                     float* prim_b, unsigned* buf, int device, void* stream) {
+  rt::RecBuf<rt::Params> p;
+  static_cast<rt::Params&>(p) = trace_params(xres, yres, row0, col0, h, w, sx, sy,
+                                             max_reflections, refraction_cap, bg);
+  p.buf = buf;
+  p.cap = site_cap;
+  const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
+                          tex_len};
+  const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
+  if (tasks > rt::STACK_CAP_DEEP || site_cap < 1 || buf == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tasks > rt::STACK_CAP)
+    return rt::launch_bwd<BufTraceBody<rt::STACK_CAP_DEEP>>(f32t, i32t, cam, light, n, p, tx,
+                                                            cutoff, g_r, g_g, g_b, out_block,
+                                                            prim_r, prim_g, prim_b, device,
+                                                            stream);
+  return rt::launch_bwd<BufTraceBody<rt::STACK_CAP>>(f32t, i32t, cam, light, n, p, tx, cutoff,
+                                                     g_r, g_g, g_b, out_block, prim_r, prim_g,
+                                                     prim_b, device, stream);
 }
 
 const char* rt_error_string(int code) {

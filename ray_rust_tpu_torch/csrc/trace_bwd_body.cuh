@@ -51,9 +51,13 @@
 // 56 and 48 bytes a record, and the kernel is built for each cap of
 // SITE_CAPS; ops/kernel_trace_bwd.py launches the smallest cap at or above
 // the config's site count (count_sites: 11 at the default config, 191 at 6
-// reflections and refraction_unroll=None, the most the forward kernel
-// takes). A record that would overflow turns the pixel and the block to NaN
-// rather than drop a site.
+// reflections and refraction_unroll=None). Past the largest,
+// trace_pixel_grad_buf keeps them in a buffer in device memory that the
+// wrapper allocates for the launch's window (RecBuf: record-major and
+// pixel-minor, so a warp's lanes touch consecutive words), with the cap a
+// launch argument. The sweep reads and writes a record through its store
+// (LocalRecs or BufRecs), one code for both. A record that would overflow
+// turns the pixel and the block to NaN rather than drop a site.
 //
 // A build with -DRT_COUNT_OPS also counts each pixel's sites into
 // SceneView::ops[4] and keeps the most sites of one pixel in ops[5]
@@ -64,6 +68,8 @@
 // the card (ROADMAP queue 3), and chip_smoke.py fails when ptxas reports a
 // function of trace_bwd.cu besides the kernel.
 #pragma once
+
+#include <string.h>
 
 #include <type_traits>
 
@@ -97,6 +103,72 @@ inline int with_site_cap(int cap, F&& f) {
       return f(std::integral_constant<int, 192>{});
   }
   return -1;
+}
+
+// A pixel's records in its thread's own array of N: a record is edited in
+// place through the reference ``ref`` gives, so ``put`` has nothing to do.
+template <class R, int N>
+struct LocalRecs {
+  R* a;
+  RT_AD static constexpr int size() { return N; }
+  RT_AD R& ref(int i) const { return a[i]; }
+  RT_AD R& fresh(int i) const { return a[i]; }
+  RT_AD const R& get(int i) const { return a[i]; }
+  RT_AD void put(int, const R&) const {}
+  // the record i, or null for i < 0
+  RT_AD const R* ptr(int i, R&) const { return i >= 0 ? &a[i] : nullptr; }
+};
+
+// A pixel's ``cap`` records in device memory: word k of record i at
+// base[(i * W + k) * stride], base the pixel's first word (RecBuf). ``ref``
+// and ``get`` load a copy, which ``put`` stores back; ``fresh`` is a zeroed
+// record.
+template <class R>
+struct BufRecs {
+  static constexpr int W = sizeof(R) / sizeof(unsigned);
+  static_assert(sizeof(R) % sizeof(unsigned) == 0, "a record is whole words");
+  unsigned* base;
+  size_t stride;
+  int cap;
+  RT_AD int size() const { return cap; }
+  RT_AD R get(int i) const {
+    unsigned w[W];
+    for (int k = 0; k < W; ++k) w[k] = base[(static_cast<size_t>(i) * W + k) * stride];
+    R r;
+    memcpy(&r, w, sizeof(R));
+    return r;
+  }
+  RT_AD R ref(int i) const { return get(i); }
+  RT_AD R fresh(int) const { return R{}; }
+  RT_AD void put(int i, const R& r) const {
+    unsigned w[W];
+    memcpy(w, &r, sizeof(R));
+    for (int k = 0; k < W; ++k) base[(static_cast<size_t>(i) * W + k) * stride] = w[k];
+  }
+  RT_AD const R* ptr(int i, R& tmp) const {
+    if (i < 0) return nullptr;
+    tmp = get(i);
+    return &tmp;
+  }
+};
+
+// The parameters of a launch whose records live in device memory: ``buf``
+// holds ``cap`` records of each of the body's two kinds for every pixel of
+// the window (row0, col0, h, w), the first kind's words first.
+template <class P>
+struct RecBuf : P {
+  unsigned* buf;
+  int cap;
+};
+
+// Pixel (ix, iy)'s stores of records A and B in ``p``'s buffer: word k of
+// its record i at (i * W + k) * h * w + its place in the window.
+template <class A, class B, class P>
+RT_AD void rec_stores(const RecBuf<P>& p, int ix, int iy, BufRecs<A>* a, BufRecs<B>* b) {
+  const size_t stride = static_cast<size_t>(p.h) * p.w;
+  const size_t o = static_cast<size_t>(iy - p.row0) * p.w + (ix - p.col0);
+  *a = {p.buf + o, stride, p.cap};
+  *b = {p.buf + static_cast<size_t>(BufRecs<A>::W) * p.cap * stride + o, stride, p.cap};
 }
 
 RT_AD void acc3(V3* a, V3 b) {
@@ -432,32 +504,42 @@ struct TaskRec {
   V3 g_vi, g_eye;  // cotangents of its start ray, from the reverse sweep
 };
 
-// The recorder trace_task calls (trace_body.cuh): up to CAP sites and CAP
-// tasks in execution order, the traversal's task stack holding STACK_.
-template <int CAP, int STACK_ = STACK_CAP>
+static_assert(sizeof(Site) == 56 && sizeof(TaskRec) == 48, "ops/kernel_trace_bwd.py: RECORD_WORDS");
+
+// The recorder trace_task calls (trace_body.cuh): up to ``tasks.size()``
+// tasks and as many sites in execution order, in the stores ``sites`` and
+// ``tasks`` (LocalRecs or BufRecs), the traversal's task stack holding
+// STACK_.
+template <class Sites, class Tasks, int STACK_ = STACK_CAP>
 struct SiteRecorder {
   static constexpr int STACK = STACK_;
-  Site* sites;
-  TaskRec* tasks;
+  Sites sites;
+  Tasks tasks;
   int n_sites, n_tasks;
   bool overflow;
 
   RT_AD void task(const Task& tk) {
-    if (n_tasks >= CAP) {  // a task holds at least one site, so never
+    if (n_tasks >= tasks.size()) {  // a task holds at least one site, so never
       overflow = true;
       return;
     }
-    tasks[n_tasks].w = tk.w;
-    if (tk.parent >= 0) sites[tk.parent].child = n_tasks;
+    auto&& tr = tasks.fresh(n_tasks);
+    tr.w = tk.w;
+    tasks.put(n_tasks, tr);
+    if (tk.parent >= 0) {
+      auto&& ps = sites.ref(tk.parent);
+      ps.child = n_tasks;
+      sites.put(tk.parent, ps);
+    }
     ++n_tasks;
   }
 
   RT_AD int site(V3 vi, V3 eye, C3 fcs, int flags, int idx, bool hit, bool lit) {
-    if (n_sites >= CAP || overflow) {
+    if (n_sites >= sites.size() || overflow) {
       overflow = true;
       return -1;
     }
-    Site& st = sites[n_sites];
+    auto&& st = sites.fresh(n_sites);
     st.vi = vi;
     st.eye = eye;
     st.fcs = fcs;
@@ -467,6 +549,7 @@ struct SiteRecorder {
     st.child = -1;
     st.hit = hit;
     st.lit = lit;
+    sites.put(n_sites, st);
     return n_sites++;
   }
 };
@@ -603,11 +686,12 @@ RT_AD void shade_adj(const SceneView& s, const float* o, const int* oi, V3 eye, 
 
 // The reverse sweep's step for a shading site (a hit): shade_adj at the hit
 // point pt = vi + eye*t, then pt's cotangent through t (a constant past the
-// cutoff). Arguments as shade_adj's, the child read from ``tasks``; adds the
-// winner's field cotangents through ``acc`` and returns the cotangents of
-// the site's own ray in ``*g_vi``, ``*g_eye``.
+// cutoff). Arguments as shade_adj's, ``ch`` the record of the site's
+// refraction sub-trace (null where it pushed none); adds the winner's field
+// cotangents through ``acc`` and returns the cotangents of the site's own
+// ray in ``*g_vi``, ``*g_eye``.
 template <class Acc>
-RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskRec* tasks,
+RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskRec* ch,
                    bool cont, C3 gc, V3 g_next_vi, V3 g_next_eye, C3* g_fcs, C3* col,
                    V3* g_vi, V3* g_eye, V3* g_light, Acc& acc) {
   const float* o = s.f32 + st.idx * F32_COLS;
@@ -619,7 +703,6 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
 
   float g_row[F32_COLS];
   for (int k = 0; k < F32_COLS; ++k) g_row[k] = 0.0f;
-  const TaskRec* ch = st.child >= 0 ? &tasks[st.child] : nullptr;
   const C3 zc = c3(0.0f, 0.0f, 0.0f);
   const V3 zv = v3(0.0f, 0.0f, 0.0f);
   V3 gpt, ge;
@@ -641,16 +724,14 @@ RT_AD void hit_adj(const SceneView& s, float cutoff, const Site& st, const TaskR
 
 // The pixel's cotangent g pulled back to the scene tables through ``acc``
 // (rows 0..n-1: the objects' 19 columns; row n: camera, light), recording
-// at most CAP sites, its traversal's task stack holding STACK tasks. Returns
-// the pixel's colour (trace_pixel's).
-template <int CAP, int STACK = STACK_CAP, class Acc>
-RT_AD C3 trace_pixel_grad(const SceneView& s, const Params& p, float cutoff, const float* cam,
-                          int ix, int iy, C3 g, Acc& acc) {
-  Site sites[CAP];
-  TaskRec tasks[CAP];
-  SiteRecorder<CAP, STACK> rec;
-  rec.sites = sites;
-  rec.tasks = tasks;
+// at most ``rec.sites.size()`` sites in ``rec``'s stores, its traversal's task stack
+// holding STACK tasks. Returns the pixel's colour (trace_pixel's).
+template <class Sites, class Tasks, int STACK, class Acc>
+RT_AD C3 sweep_pixel(SiteRecorder<Sites, Tasks, STACK>& rec, const SceneView& s,
+                     const Params& p, float cutoff, const float* cam, int ix, int iy, C3 g,
+                     Acc& acc) {
+  const Sites& sites = rec.sites;
+  const Tasks& tasks = rec.tasks;
   rec.n_sites = 0;
   rec.n_tasks = 0;
   rec.overflow = false;
@@ -668,17 +749,18 @@ RT_AD C3 trace_pixel_grad(const SceneView& s, const Params& p, float cutoff, con
   V3 g_vi = v3(0.0f, 0.0f, 0.0f), g_eye = v3(0.0f, 0.0f, 0.0f);
   C3 g_fcs = c3(0.0f, 0.0f, 0.0f), col = c3(0.0f, 0.0f, 0.0f);
   for (int i = rec.n_sites - 1; i >= 0; --i) {
-    const Site& st = sites[i];
-    TaskRec& tk = tasks[st.task];
-    const bool cont = i + 1 < rec.n_sites && sites[i + 1].task == st.task;
+    const auto& st = sites.get(i);
+    auto&& tk = tasks.ref(st.task);
+    const bool cont = i + 1 < rec.n_sites && sites.get(i + 1).task == st.task;
     if (!cont) {  // the trace's last site
       g_vi = g_eye = v3(0.0f, 0.0f, 0.0f);
       g_fcs = col = c3(0.0f, 0.0f, 0.0f);
     }
     C3 gc = c3(g.r * tk.w.r, g.g * tk.w.g, g.b * tk.w.b);
     if (st.hit) {
-      hit_adj(s, cutoff, st, tasks, cont, gc, g_vi, g_eye, &g_fcs, &col, &g_vi, &g_eye,
-              &g_light, acc);
+      TaskRec child;
+      hit_adj(s, cutoff, st, tasks.ptr(st.child, child), cont, gc, g_vi, g_eye, &g_fcs, &col,
+              &g_vi, &g_eye, &g_light, acc);
     } else {  // a miss adds bg*fcs, unguarded, and ends its trace
       C3 bg = background(p.bg, s.light, st.eye);
       col.r += bg.r * st.fcs.r;
@@ -689,20 +771,43 @@ RT_AD C3 trace_pixel_grad(const SceneView& s, const Params& p, float cutoff, con
       background_adj(p.bg, s.light, st.eye,
                      c3(gc.r * st.fcs.r, gc.g * st.fcs.g, gc.b * st.fcs.b), &g_light, &g_eye);
     }
-    if (i == 0 || sites[i - 1].task != st.task) {  // the trace's first site
+    if (i == 0 || sites.get(i - 1).task != st.task) {  // the trace's first site
       tk.col = col;
       tk.g_vi = g_vi;
       tk.g_eye = g_eye;
+      tasks.put(st.task, tk);
     }
   }
   // the camera ray's trace is task 0: its start is the camera
   if (rec.n_sites > 0) {
-    Q4 gq = camera_ray_adj(p.xres, p.yres, p.sx, p.sy, cam, ix, iy, tasks[0].g_eye);
-    const float gcam[CAM_GRADS] = {tasks[0].g_vi.x, tasks[0].g_vi.y, tasks[0].g_vi.z,
+    const auto& t0 = tasks.get(0);
+    Q4 gq = camera_ray_adj(p.xres, p.yres, p.sx, p.sy, cam, ix, iy, t0.g_eye);
+    const float gcam[CAM_GRADS] = {t0.g_vi.x, t0.g_vi.y, t0.g_vi.z,
                                    gq.x, gq.y, gq.z, gq.w, g_light.x, g_light.y, g_light.z};
     acc.add_cam(s.n, gcam);
   }
   return out;
+}
+
+// sweep_pixel with CAP sites and CAP tasks in two local arrays.
+template <int CAP, int STACK = STACK_CAP, class Acc>
+RT_AD C3 trace_pixel_grad(const SceneView& s, const Params& p, float cutoff, const float* cam,
+                          int ix, int iy, C3 g, Acc& acc) {
+  Site sites[CAP];
+  TaskRec tasks[CAP];
+  SiteRecorder<LocalRecs<Site, CAP>, LocalRecs<TaskRec, CAP>, STACK> rec;
+  rec.sites = {sites};
+  rec.tasks = {tasks};
+  return sweep_pixel(rec, s, p, cutoff, cam, ix, iy, g, acc);
+}
+
+// sweep_pixel with p.cap sites and p.cap tasks in p's buffer (rec_stores).
+template <int STACK = STACK_CAP, class Acc>
+RT_AD C3 trace_pixel_grad_buf(const SceneView& s, const RecBuf<Params>& p, float cutoff,
+                              const float* cam, int ix, int iy, C3 g, Acc& acc) {
+  SiteRecorder<BufRecs<Site>, BufRecs<TaskRec>, STACK> rec;
+  rec_stores(p, ix, iy, &rec.sites, &rec.tasks);
+  return sweep_pixel(rec, s, p, cutoff, cam, ix, iy, g, acc);
 }
 
 }  // namespace rt

@@ -17,6 +17,9 @@
 // as the kernel's accumulator did before it summed over a warp; the pairs
 // are the fewest adds a warp-aggregated scatter can reach.
 //
+// rt_trace_bwd_buf_host is rt_trace_bwd_buf's twin: the records of every
+// pixel in ``buf``, laid out as the kernel lays them out.
+//
 // The rt_*_adj functions expose single adjoint steps for the tests, each
 // over ``m`` cases laid out as flat arrays.
 
@@ -61,17 +64,14 @@ struct HostAcc {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
-int rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
-                      const float* light, int n, int xres, int yres, int row0, int col0, int h,
-                      int w, float sx, float sy, int max_reflections, int refraction_cap, int bg,
-                      float cutoff, int site_cap, const void* tex, const int* tex_meta,
-                      int n_tex, int tex_stride, int tex_len, const float* g_r,
-                      const float* g_g, const float* g_b, float* out_block, float* prim_r,
-                      float* prim_g, float* prim_b, unsigned long long* ops_total) {
+// The host loop over the window's pixels: ``pixel(s, p, ix, iy, g, acc)``
+// runs one pixel's body; returns rt_trace_bwd_host's code.
+template <class F>
+int host_loop(const float* f32t, const int* i32t, const float* light, int n, rt::Params p,
+              const void* tex, const int* tex_meta, int n_tex, int tex_stride, int tex_len,
+              const float* g_r, const float* g_g, const float* g_b, float* out_block,
+              float* prim_r, float* prim_g, float* prim_b, unsigned long long* ops_total,
+              F&& pixel) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
@@ -83,6 +83,33 @@ int rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
 #else
   (void)ops_total;
 #endif
+  if (!rt::window_ok(p)) return 1;
+  HostAcc acc;
+  acc.block = out_block;
+#ifdef RT_COUNT_OPS
+  acc.ops = ops_total;
+  acc.seen.assign(static_cast<size_t>(n + 1) * rt::GRAD_COLS, 0);
+#endif
+  for (int ly = 0; ly < p.h; ++ly) {  // the pixel in the window
+    for (int lx = 0; lx < p.w; ++lx) {
+#ifdef RT_COUNT_OPS
+      if (lx % 32 == 0) acc.new_warp();
+#endif
+      const long o = static_cast<long>(ly) * p.w + lx;
+      const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
+      rt::C3 c = pixel(s, p.col0 + lx, p.row0 + ly, g, acc);
+      if (prim_r != nullptr) {
+        prim_r[o] = c.r;
+        prim_g[o] = c.g;
+        prim_b[o] = c.b;
+      }
+    }
+  }
+  return 0;
+}
+
+rt::Params params(int xres, int yres, int row0, int col0, int h, int w, float sx, float sy,
+                  int max_reflections, int refraction_cap, int bg) {
   rt::Params p;
   p.xres = xres;
   p.yres = yres;
@@ -90,45 +117,72 @@ int rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
   p.col0 = col0;
   p.h = h;
   p.w = w;
-  if (!rt::window_ok(p)) return 1;
   p.sx = sx;
   p.sy = sy;
   p.max_reflections = max_reflections;
   p.refraction_cap = refraction_cap;
   p.bg = bg;
-  HostAcc acc;
-  acc.block = out_block;
-#ifdef RT_COUNT_OPS
-  acc.ops = ops_total;
-  acc.seen.assign(static_cast<size_t>(n + 1) * rt::GRAD_COLS, 0);
-#endif
-  const int r = max_reflections > 1 ? max_reflections : 1;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+int rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
+                      const float* light, int n, int xres, int yres, int row0, int col0, int h,
+                      int w, float sx, float sy, int max_reflections, int refraction_cap, int bg,
+                      float cutoff, int site_cap, const void* tex, const int* tex_meta,
+                      int n_tex, int tex_stride, int tex_len, const float* g_r,
+                      const float* g_g, const float* g_b, float* out_block, float* prim_r,
+                      float* prim_g, float* prim_b, unsigned long long* ops_total) {
+  const rt::Params p = params(xres, yres, row0, col0, h, w, sx, sy, max_reflections,
+                              refraction_cap, bg);
+  if (!rt::window_ok(p)) return 1;
   // the kernel's choice of the deep task stack (trace_bwd.cu)
-  const bool deep = 1 + r * (r - 1) / 2 > rt::STACK_CAP && site_cap > rt::STACK_CAP;
-  const int rc = rt::with_site_cap(site_cap, [&](auto cap) {
-    for (int ly = 0; ly < h; ++ly) {  // the pixel in the window
-      for (int lx = 0; lx < w; ++lx) {
-#ifdef RT_COUNT_OPS
-        if (lx % 32 == 0) acc.new_warp();
-#endif
-        const long o = static_cast<long>(ly) * w + lx;
-        const int ix = col0 + lx, iy = row0 + ly;
-        constexpr int C = decltype(cap)::value;
-        const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
-        rt::C3 c = deep ? rt::trace_pixel_grad<C, rt::STACK_CAP_DEEP>(s, p, cutoff, cam, ix, iy, g,
-                                                                       acc)
-                        : rt::trace_pixel_grad<C>(s, p, cutoff, cam, ix, iy, g, acc);
-        if (prim_r != nullptr) {
-          prim_r[o] = c.r;
-          prim_g[o] = c.g;
-          prim_b[o] = c.b;
-        }
-      }
-    }
+  const bool deep = rt::stack_tasks(max_reflections, refraction_cap) > rt::STACK_CAP &&
+                    site_cap > rt::STACK_CAP;
+  int rc = 0;
+  const int cap_rc = rt::with_site_cap(site_cap, [&](auto cap) {
+    constexpr int C = decltype(cap)::value;
+    rc = host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_len, g_r, g_g,
+                   g_b, out_block, prim_r, prim_g, prim_b, ops_total,
+                   [&](const rt::SceneView& s, int ix, int iy, rt::C3 g, HostAcc& acc) {
+                     return deep ? rt::trace_pixel_grad<C, rt::STACK_CAP_DEEP>(s, p, cutoff,
+                                                                               cam, ix, iy, g,
+                                                                               acc)
+                                 : rt::trace_pixel_grad<C>(s, p, cutoff, cam, ix, iy, g, acc);
+                   });
     return 0;
   });
-  if (rc != 0) out_block[0] = nanf("");
-  return 0;
+  if (cap_rc != 0) out_block[0] = nanf("");
+  return rc;
+}
+
+int rt_trace_bwd_buf_host(const float* f32t, const int* i32t, const float* cam,
+                          const float* light, int n, int xres, int yres, int row0, int col0,
+                          int h, int w, float sx, float sy, int max_reflections,
+                          int refraction_cap, int bg, float cutoff, int site_cap,
+                          const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                          int tex_len, const float* g_r, const float* g_g, const float* g_b,
+                          float* out_block, float* prim_r, float* prim_g, float* prim_b,
+                          unsigned* buf, unsigned long long* ops_total) {
+  rt::RecBuf<rt::Params> p;
+  static_cast<rt::Params&>(p) = params(xres, yres, row0, col0, h, w, sx, sy, max_reflections,
+                                       refraction_cap, bg);
+  p.buf = buf;
+  p.cap = site_cap;
+  const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
+  if (tasks > rt::STACK_CAP_DEEP || site_cap < 1 || buf == nullptr) return 1;
+  return host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_len, g_r, g_g,
+                   g_b, out_block, prim_r, prim_g, prim_b, ops_total,
+                   [&](const rt::SceneView& s, int ix, int iy, rt::C3 g, HostAcc& acc) {
+                     return tasks > rt::STACK_CAP
+                                ? rt::trace_pixel_grad_buf<rt::STACK_CAP_DEEP>(s, p, cutoff, cam,
+                                                                               ix, iy, g, acc)
+                                : rt::trace_pixel_grad_buf<rt::STACK_CAP>(s, p, cutoff, cam, ix,
+                                                                          iy, g, acc);
+                   });
 }
 
 // light (3), d (3m), g (3m) -> g_light (3m), g_d (3m): default sky.

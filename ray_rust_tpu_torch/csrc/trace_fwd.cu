@@ -28,8 +28,9 @@
 // each: index order for free, n/4 bytes a block, no prefix sum. The root
 // trace's first raycast and its shadow ray then scan only their mask's set
 // bits (trace_body.cuh: nearest_in), which gives the full scan's image bit
-// for bit. A task stack of 64 for max_reflections 7 to 11 is a third
-// template argument (STACK). The texture atlas (K1a; 1 MB for one 256x256 texture)
+// for bit. A task stack of 64, where a refraction cap past 17 needs more
+// than 16 tasks (trace_body.cuh: stack_tasks), is a second template
+// argument (STACK). The texture atlas (K1a; 1 MB for one 256x256 texture)
 // stays in global memory: a textured hit reads its texel's four taps in one
 // 16-byte read-only load, and neighbouring pixels of a floor read
 // neighbouring texels, which the L1 and L2 caches serve.
@@ -147,8 +148,9 @@ size_t rt_trace_fwd_smem(int n, int n_tex, int cull) {
 // into h x w output planes. ``tex`` is the atlas of
 // ``tex_len`` 16-byte texels, ``tex_stride`` a row, and ``tex_meta`` its
 // (n_tex, 4) table; null and zeros for an untextured scene. ``cull`` takes
-// K1b's per-tile cull. The task stack holds 64 tasks where 1 + R(R-1)/2 >
-// 16 for R = max_reflections (R <= 11), else 16, in either build.
+// K1b's per-tile cull. The task stack holds 16 tasks where
+// rt::stack_tasks(max_reflections, refraction_cap) is 16 or less, else 64,
+// in either build; past 64 the launch returns cudaErrorInvalidValue.
 int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                  float sy, int max_reflections, int refraction_cap, int bg, const void* tex,
@@ -156,8 +158,7 @@ int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const flo
                  float* out_r, float* out_g, float* out_b, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int r = max_reflections > 1 ? max_reflections : 1;
-  const int tasks = 1 + r * (r - 1) / 2;
+  const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
   if (tasks > rt::STACK_CAP_DEEP) return static_cast<int>(cudaErrorInvalidValue);
   const bool deep = tasks > rt::STACK_CAP;
   const size_t smem = rt_trace_fwd_smem(n, n_tex, cull);

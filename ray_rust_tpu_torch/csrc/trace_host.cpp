@@ -10,7 +10,8 @@
 // -fPIC`` (and -DRT_COUNT_OPS to add the operation count to ops_total[0],
 // the texel bytes read to ops_total[1], the shading, sky and camera-ray
 // operations to ops_total[2], and the cull's counts to ops_total[3..7],
-// trace_body.cuh).
+// trace_body.cuh; that build also exports rt_trace_tasks_host, which gives
+// the most tasks a pixel's stack held).
 
 #define RT_COUNT_SHADING
 #include <vector>
@@ -88,25 +89,28 @@ rt::SceneView view(const float* f32t, const int* i32t, const float* light, int n
   return s;
 }
 
-}  // namespace
-
-// The task stack as rt_trace_fwd sizes it: 64 where 1 + R(R-1)/2 > 16.
-extern "C" void rt_trace_host(const float* f32t, const int* i32t, const float* cam,
-                              const float* light, int n, int xres, int yres, int row0,
-                              int col0, int h, int w, float sx, float sy,
-                              int max_reflections, int refraction_cap, int bg,
-                              const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                              int tex_len, int cull, float* out_r, float* out_g,
-                              float* out_b, unsigned long long* ops_total) {
+// The task stack as rt_trace_fwd sizes it: 64 where rt::stack_tasks > 16.
+// ``tasks`` (the counting build's, else null) receives the most tasks a
+// pixel's stack held.
+void trace_host(const float* f32t, const int* i32t, const float* cam, const float* light, int n,
+                int xres, int yres, int row0, int col0, int h, int w, float sx, float sy,
+                int max_reflections, int refraction_cap, int bg, const void* tex,
+                const int* tex_meta, int n_tex, int tex_stride, int tex_len, int cull,
+                float* out_r, float* out_g, float* out_b, unsigned long long* ops_total,
+                unsigned long long* tasks) {
   rt::SceneView s = view(f32t, i32t, light, n, ops_total);
+#ifdef RT_COUNT_OPS
+  s.tasks = tasks;
+#else
+  (void)tasks;
+#endif
   s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
   rt::Params p = params(xres, yres, sx, sy, max_reflections, refraction_cap, bg);
   p.row0 = row0;
   p.col0 = col0;
   p.h = h;
   p.w = w;
-  const int r = max_reflections > 1 ? max_reflections : 1;
-  const bool deep = 1 + r * (r - 1) / 2 > rt::STACK_CAP;
+  const bool deep = rt::stack_tasks(max_reflections, refraction_cap) > rt::STACK_CAP;
   if (cull) {
     deep ? render<true, rt::STACK_CAP_DEEP>(s, p, cam, out_r, out_g, out_b)
          : render<true, rt::STACK_CAP>(s, p, cam, out_r, out_g, out_b);
@@ -115,6 +119,37 @@ extern "C" void rt_trace_host(const float* f32t, const int* i32t, const float* c
          : render<false, rt::STACK_CAP>(s, p, cam, out_r, out_g, out_b);
   }
 }
+
+}  // namespace
+
+extern "C" void rt_trace_host(const float* f32t, const int* i32t, const float* cam,
+                              const float* light, int n, int xres, int yres, int row0,
+                              int col0, int h, int w, float sx, float sy,
+                              int max_reflections, int refraction_cap, int bg,
+                              const void* tex, const int* tex_meta, int n_tex, int tex_stride,
+                              int tex_len, int cull, float* out_r, float* out_g,
+                              float* out_b, unsigned long long* ops_total) {
+  trace_host(f32t, i32t, cam, light, n, xres, yres, row0, col0, h, w, sx, sy, max_reflections,
+             refraction_cap, bg, tex, tex_meta, n_tex, tex_stride, tex_len, cull, out_r, out_g,
+             out_b, ops_total, nullptr);
+}
+
+#ifdef RT_COUNT_OPS
+// rt_trace_host, and the most tasks any pixel's stack held into *tasks.
+extern "C" void rt_trace_tasks_host(const float* f32t, const int* i32t, const float* cam,
+                                    const float* light, int n, int xres, int yres, int row0,
+                                    int col0, int h, int w, float sx, float sy,
+                                    int max_reflections, int refraction_cap, int bg,
+                                    const void* tex, const int* tex_meta, int n_tex,
+                                    int tex_stride, int tex_len, int cull, float* out_r,
+                                    float* out_g, float* out_b, unsigned long long* ops_total,
+                                    unsigned long long* tasks) {
+  *tasks = 0;
+  trace_host(f32t, i32t, cam, light, n, xres, yres, row0, col0, h, w, sx, sy, max_reflections,
+             refraction_cap, bg, tex, tex_meta, n_tex, tex_stride, tex_len, cull, out_r, out_g,
+             out_b, ops_total, tasks);
+}
+#endif
 
 // K1b's two candidate masks of the tile whose top-left pixel is (col0,
 // row0), for the tests: ceil(n/32) words each.

@@ -41,7 +41,9 @@
 // 32x8 threads and two blocks an SM: at 128 registers with 8 bytes of
 // spills, with two lanes, it beat one block (143 registers) and three (80,
 // with spills) and every shape at one or four lanes. Built with --fmad=false, as the forward kernel, so
-// the value pass is the forward's image bit for bit.
+// the value pass is the forward's image bit for bit. Both traversals run
+// the forward's task stack: 16 tasks, or 64 (RetraceBody<64>) where
+// rt::stack_tasks needs more, as K1 and K2 pick theirs.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_trace_retrace.py).
@@ -145,6 +147,9 @@ struct RetraceAcc {
 
 // The frame's launch shape (32x8 threads, two blocks an SM: the lane and
 // shape sweep's best, PERF.md §6) with K5's own accumulator.
+// STACK: the task stack of both traversals, rt::STACK_CAP or, where
+// rt::stack_tasks needs more, rt::STACK_CAP_DEEP.
+template <int STACK>
 struct RetraceBody : rt::BwdFrame {
   static constexpr bool TEXTURED = false;
   using Acc = RetraceAcc;
@@ -152,10 +157,12 @@ struct RetraceBody : rt::BwdFrame {
                                                float cutoff, const float* cam, int ix, int iy,
                                                rt::C3 g, RetraceAcc& acc) {
     unsigned long long winners;
-    return rt::retrace_pixel<rt::RETRACE_LANES>(s, p, cutoff, cam, ix, iy, g, acc, winners);
+    return rt::retrace_pixel<rt::RETRACE_LANES, STACK>(s, p, cutoff, cam, ix, iy, g, acc,
+                                                       winners);
   }
 };
-static_assert(RetraceBody::BLOCK_X * RetraceBody::BLOCK_Y == THREADS, "one stage slot a thread");
+static_assert(rt::BwdFrame::BLOCK_X * rt::BwdFrame::BLOCK_Y == THREADS,
+              "one stage slot a thread");
 
 }  // namespace
 
@@ -183,8 +190,16 @@ int rt_trace_retrace(const float* f32t, const int* i32t, const float* cam, const
   p.refraction_cap = refraction_cap;
   p.bg = bg;
   const rt::TexArgs tx = {nullptr, nullptr, 0, 0, 0};
-  return rt::launch_bwd<RetraceBody>(f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b,
-                                     out_block, prim_r, prim_g, prim_b, device, stream);
+  const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
+  if (tasks > rt::STACK_CAP_DEEP) return static_cast<int>(cudaErrorInvalidValue);
+  if (tasks > rt::STACK_CAP)
+    return rt::launch_bwd<RetraceBody<rt::STACK_CAP_DEEP>>(f32t, i32t, cam, light, n, p, tx,
+                                                           cutoff, g_r, g_g, g_b, out_block,
+                                                           prim_r, prim_g, prim_b, device,
+                                                           stream);
+  return rt::launch_bwd<RetraceBody<rt::STACK_CAP>>(f32t, i32t, cam, light, n, p, tx, cutoff,
+                                                    g_r, g_g, g_b, out_block, prim_r, prim_g,
+                                                    prim_b, device, stream);
 }
 
 const char* rt_error_string(int code) {

@@ -39,8 +39,11 @@ namespace rt {
 // two lanes at two blocks were the fastest.
 constexpr int RETRACE_LANES = 2;
 
-// The value pass's recorder: bit i for each hit site won by object i.
+// The value pass's recorder: bit i for each hit site won by object i; its
+// traversal's task stack holds STACK_ tasks.
+template <int STACK_ = STACK_CAP>
 struct WinnerMask {
+  static constexpr int STACK = STACK_;
   unsigned long long bits = 0;
   template <class Tk>
   RT_FI void task(const Tk&) {}
@@ -49,6 +52,13 @@ struct WinnerMask {
     if (hit) bits |= 1ull << idx;
     return -1;
   }
+};
+
+// The Dual passes' recorder: records nothing; its traversal's task stack
+// holds STACK_ tasks.
+template <int STACK_>
+struct DualStack : NoRecord {
+  static constexpr int STACK = STACK_;
 };
 
 // Dual passes of L lanes over the local entries of a pixel with winners ``mask``.
@@ -72,11 +82,12 @@ RT_FI int nth_bit(unsigned long long mask, int j) {
 // each e once a pixel), ``add(i, c, v)`` for object i's column c (rows
 // 0..n-1), zeros too, so that the lanes of a pass call it together; hits at
 // t >= cutoff pass nothing through their point. Sets ``mask`` to the
-// pixel's winners and returns its colour (trace_pixel's).
-template <int L, class Acc>
+// pixel's winners and returns its colour (trace_pixel's). Both traversals'
+// task stacks hold STACK tasks.
+template <int L, int STACK = STACK_CAP, class Acc>
 RT_FI C3 retrace_pixel(const SceneView& s, const Params& p, float cutoff, const float* cam,
                        int ix, int iy, C3 g, Acc& acc, unsigned long long& mask) {
-  WinnerMask winners;
+  WinnerMask<STACK> winners;
   const C3 colour = trace_pixel(s, p, cam, ix, iy, winners);
   mask = winners.bits;
 
@@ -89,6 +100,7 @@ RT_FI C3 retrace_pixel(const SceneView& s, const Params& p, float cutoff, const 
   sd.cutoff = cutoff;
 #ifdef RT_COUNT_OPS
   sd.ops = s.ops;
+  sd.tasks = s.tasks;
 #endif
   const int live = SCENE_ENTRIES + F32_COLS * popcount64(mask);
   for (int seed = 0; seed < live; seed += L) {
@@ -96,7 +108,8 @@ RT_FI C3 retrace_pixel(const SceneView& s, const Params& p, float cutoff, const 
     sd.light = v3(D::seeded(s.light.x, LIGHT_ENTRY - seed),
                   D::seeded(s.light.y, LIGHT_ENTRY + 1 - seed),
                   D::seeded(s.light.z, LIGHT_ENTRY + 2 - seed));
-    const C3T<D> c = trace_pixel(sd, p, cam, ix, iy);
+    DualStack<STACK> none;
+    const C3T<D> c = trace_pixel(sd, p, cam, ix, iy, none);
     for (int k = 0; k < L; ++k) {
       const int e = seed + k;
       if (e >= live) break;

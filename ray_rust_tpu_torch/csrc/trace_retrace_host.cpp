@@ -14,7 +14,10 @@
 // with w distinct winners for w = 0 .. 64. It returns 0, or 1 (the CUDA
 // runtime's cudaErrorInvalidValue, named by rt_error_string below) for
 // arguments no launch takes: a negative count or more than 64 objects (a
-// pixel's winners are one 64-bit mask), an empty image, a null plane.
+// pixel's winners are one 64-bit mask), an empty image, a null plane, more
+// than 64 tasks (rt::stack_tasks). The counting build also exports
+// rt_trace_retrace_tasks_host, which gives the most tasks a pixel's stack
+// held.
 
 #include "trace_retrace_body.cuh"
 
@@ -33,23 +36,17 @@ constexpr int SLOT_PASSES = 2, SLOT_MOST = 3, SLOT_WARP = 4, SLOT_HIST = 5;
 constexpr int WARP_X = 32;
 #endif
 
-}  // namespace
-
-extern "C" {
-
-int rt_trace_retrace_lanes() { return rt::RETRACE_LANES; }
-
-const char* rt_error_string(int code) {
-  return code == 0 ? "no error" : code == 1 ? "invalid argument" : "unknown error";
-}
-
-int rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
-                           const float* light, int n, int xres, int yres, float sx, float sy,
-                           int max_reflections, int refraction_cap, int bg, float cutoff,
-                           const float* g_r, const float* g_g, const float* g_b,
-                           float* out_block, float* prim_r, float* prim_g, float* prim_b,
-                           unsigned long long* ops_total) {
-  if (n < 0 || n > 64 || xres <= 0 || yres <= 0 || !g_r || !g_g || !g_b || !out_block) return 1;
+// rt_trace_retrace_host; ``tasks`` (the counting build's, else null)
+// receives the most tasks a pixel's stack held.
+int retrace_host(const float* f32t, const int* i32t, const float* cam, const float* light, int n,
+                 int xres, int yres, float sx, float sy, int max_reflections,
+                 int refraction_cap, int bg, float cutoff, const float* g_r, const float* g_g,
+                 const float* g_b, float* out_block, float* prim_r, float* prim_g,
+                 float* prim_b, unsigned long long* ops_total, unsigned long long* tasks) {
+  const int stack = rt::stack_tasks(max_reflections, refraction_cap);
+  if (n < 0 || n > 64 || xres <= 0 || yres <= 0 || !g_r || !g_g || !g_b || !out_block ||
+      stack > rt::STACK_CAP_DEEP)
+    return 1;
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
@@ -57,9 +54,11 @@ int rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
   s.light = rt::v3(light[0], light[1], light[2]);
 #ifdef RT_COUNT_OPS
   s.ops = ops_total;
+  s.tasks = tasks;
   rt::dual_op_count = 0;
 #else
   (void)ops_total;
+  (void)tasks;
 #endif
   rt::Params p;
   p.xres = xres;
@@ -77,8 +76,13 @@ int rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
     for (int ix = 0; ix < xres; ++ix) {
       const long o = static_cast<long>(iy) * xres + ix;
       unsigned long long mask;
-      rt::C3 c = rt::retrace_pixel<rt::RETRACE_LANES>(
-          s, p, cutoff, cam, ix, iy, rt::c3(g_r[o], g_g[o], g_b[o]), acc, mask);
+      const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
+      // the kernel's choice of the task stack (trace_retrace.cu)
+      rt::C3 c = stack > rt::STACK_CAP
+                     ? rt::retrace_pixel<rt::RETRACE_LANES, rt::STACK_CAP_DEEP>(
+                           s, p, cutoff, cam, ix, iy, g, acc, mask)
+                     : rt::retrace_pixel<rt::RETRACE_LANES>(s, p, cutoff, cam, ix, iy, g, acc,
+                                                            mask);
       if (prim_r != nullptr) {
         prim_r[o] = c.r;
         prim_g[o] = c.g;
@@ -102,5 +106,43 @@ int rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
 #endif
   return 0;
 }
+
+}  // namespace
+
+extern "C" {
+
+int rt_trace_retrace_lanes() { return rt::RETRACE_LANES; }
+
+const char* rt_error_string(int code) {
+  return code == 0 ? "no error" : code == 1 ? "invalid argument" : "unknown error";
+}
+
+int rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,
+                           const float* light, int n, int xres, int yres, float sx, float sy,
+                           int max_reflections, int refraction_cap, int bg, float cutoff,
+                           const float* g_r, const float* g_g, const float* g_b,
+                           float* out_block, float* prim_r, float* prim_g, float* prim_b,
+                           unsigned long long* ops_total) {
+  return retrace_host(f32t, i32t, cam, light, n, xres, yres, sx, sy, max_reflections,
+                      refraction_cap, bg, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g,
+                      prim_b, ops_total, nullptr);
+}
+
+#ifdef RT_COUNT_OPS
+// rt_trace_retrace_host, and the most tasks any pixel's stack held (in its
+// value pass or a Dual pass) into *tasks.
+int rt_trace_retrace_tasks_host(const float* f32t, const int* i32t, const float* cam,
+                                const float* light, int n, int xres, int yres, float sx,
+                                float sy, int max_reflections, int refraction_cap, int bg,
+                                float cutoff, const float* g_r, const float* g_g,
+                                const float* g_b, float* out_block, float* prim_r,
+                                float* prim_g, float* prim_b, unsigned long long* ops_total,
+                                unsigned long long* tasks) {
+  *tasks = 0;
+  return retrace_host(f32t, i32t, cam, light, n, xres, yres, sx, sy, max_reflections,
+                      refraction_cap, bg, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g,
+                      prim_b, ops_total, tasks);
+}
+#endif
 
 }  // extern "C"

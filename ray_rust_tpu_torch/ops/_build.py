@@ -1,7 +1,8 @@
 """Build and load the port's native kernels from ``ray_rust_tpu_torch/csrc``.
 
 The CUDA kernels (``trace_fwd.cu``, ``march_fwd.cu``, ``trace_bwd.cu``,
-``march_bwd.cu``, ``trace_retrace.cu``, ``pack_scene.cu``) are compiled at
+``march_bwd.cu``, ``march_bwd_buf.cu``, ``trace_retrace.cu``,
+``pack_scene.cu``) are compiled at
 first use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a
 plain C interface, which are loaded with ``ctypes``. A library's file name carries
 a hash of the sources and flags, so an edited source is rebuilt and a stale
@@ -13,7 +14,9 @@ compiler each. Each of ``trace_fwd``, ``march_fwd``, ``trace_bwd`` and
 ``march_bwd`` also builds as ``<name>_global`` with ``-DRT_GLOBAL_TABLES``:
 the same launcher, its kernels reading the object tables from global memory
 (``csrc/trace_body.cuh: GLOBAL_TABLES``) for scenes too large for shared
-memory.
+memory. ``march_bwd_buf`` (K4 with its records in device memory, past 35
+laps) is a library of its own beside ``march_bwd``, whose builds set the
+build's time, and reads the tables from global memory only.
 
 :func:`build_host_library` compiles a kernel's per-pixel body for the CPU
 with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
@@ -22,7 +25,10 @@ with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
 tests; with ``count_ops=True`` it builds it with ``-DRT_COUNT_OPS``, which
 adds the f32 operations the body takes to a counter, for the kernels'
 roofline bound (the march bodies also count object passes and each pixel's
-largest counts, ``kernel_march.OPS_SLOTS``).
+largest counts, ``kernel_march.OPS_SLOTS``; the trace bodies' counting
+builds also export ``rt_trace_tasks_host`` and
+``rt_trace_retrace_tasks_host``, which give the most tasks a pixel's stack
+held).
 """
 
 from __future__ import annotations
@@ -74,6 +80,10 @@ _MARCH_ARGS = _FRAME + _WINDOW + _MARCH_RENDER + _TEX_ARGS + [_P, _P, _P]
 # three primal planes
 _BWD_ARGS = _FRAME + _WINDOW + _TRACE_RENDER + [_F, _I] + _TEX_ARGS + [_P] * 7
 _MARCH_BWD_ARGS = _FRAME + _WINDOW + _MARCH_RENDER + [_F] + _TEX_ARGS + [_P] * 7
+# the backward kernels' buffer instances: the record buffer after the primal
+# planes (the march backward's after its record cap)
+_BWD_BUF_ARGS = _BWD_ARGS + [_P]
+_MARCH_BWD_BUF_ARGS = _MARCH_BWD_ARGS + [_I, _P]
 # the re-trace gradient: the trace backward's, without the window, the record
 # cap and the atlas
 _RETRACE_ARGS = _FRAME + _TRACE_RENDER + [_F] + [_P] * 7
@@ -85,6 +95,7 @@ _PACK_VJP_ARGS = [_P, _P, _I, _I, _P]
 _CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march_fwd", _MARCH_ARGS),
              "trace_bwd": ("rt_trace_bwd", _BWD_ARGS),
              "march_bwd": ("rt_march_bwd", _MARCH_BWD_ARGS),
+             "march_bwd_buf": ("rt_march_bwd_buf", _MARCH_BWD_BUF_ARGS),
              "trace_retrace": ("rt_trace_retrace", _RETRACE_ARGS),
              "pack_scene": ("rt_pack_scene", _PACK_ARGS)}
 _HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host", _MARCH_ARGS),
@@ -103,6 +114,16 @@ _EXTRA_FNS = {"trace_retrace": {"rt_trace_retrace_lanes": ([], _I),
                                                + [_P] * 2, None)},
               "pack_scene": {"rt_pack_scene_vjp": (_PACK_VJP_ARGS + [_I, _P], _I)}}
 _HOST_RESTYPES = {"trace_retrace": _I, "trace_bwd": _I, "march_bwd": _I}
+# Functions of the CUDA libraries alone (after their arguments, the device
+# and the stream), of the host builds alone (after theirs, the operation
+# counter) and of the counting host builds alone: the backwards' buffer
+# instances and their twins, the stack counts.
+_CUDA_EXTRA_FNS = {"trace_bwd": {"rt_trace_bwd_buf": (_BWD_BUF_ARGS + [_I, _P], _I)}}
+_HOST_EXTRA_FNS = {"trace_bwd": {"rt_trace_bwd_buf_host": (_BWD_BUF_ARGS + [_P], _I)},
+                   "march_bwd": {"rt_march_bwd_buf_host": (_MARCH_BWD_BUF_ARGS + [_P], _I)}}
+_COUNT_EXTRA_FNS = {"trace": {"rt_trace_tasks_host": (_TRACE_ARGS + [_P, _P], None)},
+                    "trace_retrace": {"rt_trace_retrace_tasks_host": (_RETRACE_ARGS + [_P, _P],
+                                                                      _I)}}
 
 # Each build's compiler output (for nvcc, ptxas's registers, stack and
 # spills), by library stem, and the seconds its compiler took (this process's
@@ -180,13 +201,14 @@ def _compile_cuda(name: str) -> Path:
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"``,
-    ``"march_fwd"``, ``"trace_bwd"``, ``"march_bwd"``, ``"trace_retrace"``
-    or ``"pack_scene"``; the first four also with ``_global``)."""
+    ``"march_fwd"``, ``"trace_bwd"``, ``"march_bwd"``, ``"march_bwd_buf"``,
+    ``"trace_retrace"`` or ``"pack_scene"``; the first four also with
+    ``_global``)."""
     if name not in _cuda_libs:
         src = _source(name)[0]
         fn_name, argtypes = _CUDA_FNS[src]
         lib = _bind(_compile_cuda(name), fn_name, argtypes + [_I, _P], _I,
-                    _EXTRA_FNS.get(src, {}))
+                    {**_EXTRA_FNS.get(src, {}), **_CUDA_EXTRA_FNS.get(src, {})})
         lib.rt_error_string.argtypes = [_I]
         lib.rt_error_string.restype = ctypes.c_char_p
         _cuda_libs[name] = lib
@@ -215,12 +237,16 @@ def called_functions(ptxas_log: str) -> list:
 def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
     """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
     a CPU loop (``rt_trace_host``, with K1b's ``rt_cull_masks_host``,
-    ``rt_march_host``, ``rt_trace_bwd_host``, ``rt_march_bwd_host``,
+    ``rt_march_host``, ``rt_trace_bwd_host`` with ``rt_trace_bwd_buf_host``,
+    ``rt_march_bwd_host`` with ``rt_march_bwd_buf_host``,
     ``rt_trace_retrace_host`` or ``rt_pack_scene_host``, with
-    ``rt_pack_scene_vjp``)."""
+    ``rt_pack_scene_vjp``; the counting builds of ``"trace"`` and
+    ``"trace_retrace"`` also with ``rt_trace_tasks_host`` and
+    ``rt_trace_retrace_tasks_host``)."""
     stem = f"{name}_host" + ("_ops" if count_ops else "")
     path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
                        CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)
     fn_name, argtypes = _HOST_FNS[name]
-    return _bind(path, fn_name, argtypes + [_P], _HOST_RESTYPES.get(name),
-                 _EXTRA_FNS.get(name, {}))
+    extra = {**_EXTRA_FNS.get(name, {}), **_HOST_EXTRA_FNS.get(name, {}),
+             **(_COUNT_EXTRA_FNS.get(name, {}) if count_ops else {})}
+    return _bind(path, fn_name, argtypes + [_P], _HOST_RESTYPES.get(name), extra)

@@ -15,7 +15,13 @@ light ``(1, 4)``. It records each pixel's raymarch calls and laps with the
 march kernel's own traversal, then runs a hand-written adjoint over them
 backwards, with the hit points pulled back by the implicit function theorem
 and the glow through its recorded argmin, as ``ops/march.py``'s implicit VJP
-does.
+does. It records at most :data:`SITE_CAP` laps a pixel in local arrays;
+configurations with more (``raymarch_max_reflections=7`` needs 39) launch
+its buffer instance (``csrc/march_bwd_buf.cu``, a library of its own, in the
+global-table regime, textured or not), whose records, :data:`RECORD_WORDS`
+words a lap, lie in a buffer in device memory that
+``kernel_trace_bwd.launch_buffered`` fills band by band of the window's
+rows within ``kernel_trace_bwd.RECORD_BUDGET``.
 
 :class:`MarchRender` pairs the march kernel with it, as ``_fast_march_fn``
 (``pallas_trace.py:1705-1740``) pairs the JAX kernels, from the scene's
@@ -49,9 +55,9 @@ from .rays import window
 
 __all__ = [
     "SITE_CAP",
-    "march_nodes",
     "count_sites",
     "count_frames",
+    "buffered",
     "unsupported_reason",
     "kernel_supported",
     "kernel_args",
@@ -63,12 +69,20 @@ __all__ = [
 ]
 
 # Launches of the march backward kernel since import (or since a caller
-# reset it).
+# reset it): its instances with local records, and its buffer instance (one
+# a band).
 LAUNCHES = 0
+BUF_LAUNCHES = 0
 
-# Laps a pixel may record (csrc/march_bwd_body.cuh: rt::MARCH_SITE_CAP):
-# refraction_unroll=None at 3 laps needs 35.
+# Laps a pixel may record in local arrays (csrc/march_bwd_body.cuh:
+# rt::MARCH_SITE_CAP): refraction_unroll=None at 3 laps needs 35. Past it
+# the buffer instance runs.
 SITE_CAP = 35
+# Words of a lap's records in the buffer instance: its MSite (68 bytes),
+# the buffer's first kind of record, and its MFrame (124;
+# csrc/march_bwd_body.cuh, static_assert).
+LAP_WORDS = 17
+RECORD_WORDS = LAP_WORDS + 31
 
 # The kernel's function in plain PyTorch: autograd of the plain march, pulled
 # back to the packed tables (the trace backward's, which renders through
@@ -76,46 +90,45 @@ SITE_CAP = 35
 render_grads_plain = ktb.render_grads_plain
 
 
-def march_nodes(cfg: RenderConfig) -> tuple:
-    """The static lap-site tree of a march (``pallas_bwd.py:_march_unroll_nodes``):
-    the trace tree with the laps' compile-time cap ``raymarch_max_reflections``
-    in place of ``max_reflections``."""
-    return ktb._site_nodes(cfg.with_(max_reflections=cfg.raymarch_max_reflections))
-
-
 def count_sites(cfg: RenderConfig) -> int:
     """The most laps one pixel can run under ``cfg`` (11 at the default
-    config, 35 at ``refraction_unroll=None``)."""
-    return ktb._count(march_nodes(cfg))
+    config, 35 at ``refraction_unroll=None``): the static lap-site tree
+    (``pallas_bwd.py:_march_unroll_nodes``) is the trace tree with the laps'
+    compile-time cap ``raymarch_max_reflections`` in place of
+    ``max_reflections`` (``kernel_trace.tree_counts``)."""
+    return kernel_trace.tree_counts(cfg.raymarch_max_reflections, cfg.refraction_cap())[0]
 
 
 def count_frames(cfg: RenderConfig) -> int:
     """The most raymarch calls one pixel can make (one glow record each,
     ``pallas_bwd.py:_glow_sid_map``): the camera ray's, and one sub-march
     under every lap below the refraction cap."""
-    def calls(nodes):
-        return 1 + sum(calls(n.children) for n in nodes if n.children)
+    return kernel_trace.tree_counts(cfg.raymarch_max_reflections, cfg.refraction_cap())[1]
 
-    return calls(march_nodes(cfg))
+
+def buffered(cfg: RenderConfig) -> bool:
+    """Whether the kernel keeps ``cfg``'s records in a buffer in device
+    memory: more laps than :data:`SITE_CAP`."""
+    return count_sites(cfg) > SITE_CAP
 
 
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the two march kernels cannot take a gradient of ``scene`` under
-    ``cfg``, or None: the march kernel's reasons, and the site cap."""
+    ``cfg``, or None: the march kernel's reasons, then a pixel's records
+    past ``kernel_trace_bwd.RECORD_BUDGET``."""
     reason = kernel_march.unsupported_reason(scene, cfg)
     if reason is not None:
         return reason
-    sites = count_sites(cfg)
-    if sites > SITE_CAP:
-        return f"{sites} laps per pixel; the march backward kernel records at most {SITE_CAP}"
-    return None
+    laps = count_sites(cfg)
+    return ktb.record_reason(RECORD_WORDS * laps, ktb.RECORD_BUDGET, f"{laps} laps per pixel")
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
     """March mode, scenes within ``kernel_trace.size_reason``'s limit (the
     pack's int32 words and K1b's masks in a block's shared memory; textured
     within the atlas limits), refraction depth at most
-    ``kernel_march.FRAME_CAP``, at most ``SITE_CAP`` laps per pixel."""
+    ``kernel_march.FRAME_CAP``, a pixel's records within
+    ``kernel_trace_bwd.RECORD_BUDGET``."""
     return unsupported_reason(scene, cfg) is None
 
 
@@ -139,16 +152,26 @@ def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal
     """Launch the march backward kernel on the pack kernel's ``words`` of
     ``scene`` (``kernel_pack.launch_pack``) and its cached texture atlas,
     straight from their addresses (``kernel_trace_bwd.launch_block``), over
-    the window at ``origin`` of size ``shape``, counting it: its block and,
-    with ``return_primal``, the window's image."""
-    global LAUNCHES
+    the window at ``origin`` of size ``shape``, counting it: an instance
+    with local records, or past :data:`SITE_CAP` laps the buffer instance
+    band by band (``kernel_trace_bwd.launch_buffered``). Returns its block
+    and, with ``return_primal``, the window's image."""
+    global LAUNCHES, BUF_LAUNCHES
     from ._build import load_cuda_library
 
     n = scene.objects.count
     ptrs, meta = kernel_pack.word_pointers(words, n)
+    args = kernel_args(cfg) + kernel_pack.texture_pointers(scene, meta)
+    if buffered(cfg):
+        lib = load_cuda_library("march_bwd_buf")
+        cap = count_sites(cfg)
+        block, prim, bands = ktb.launch_buffered(lib, lib.rt_march_bwd_buf, ptrs, n,
+                                                 words.device, cfg, args, g, return_primal,
+                                                 origin, shape, RECORD_WORDS * cap, (cap,))
+        BUF_LAUNCHES += bands
+        return block, prim
     lib = load_cuda_library(kernel_trace.library("march_bwd", n, ktb.SHARED_TABLE_MAX))
-    out = ktb.launch_block(lib, lib.rt_march_bwd, ptrs, n, words.device, cfg,
-                           kernel_args(cfg) + kernel_pack.texture_pointers(scene, meta), g,
+    out = ktb.launch_block(lib, lib.rt_march_bwd, ptrs, n, words.device, cfg, args, g,
                            return_primal, origin, shape)
     LAUNCHES += 1
     return out

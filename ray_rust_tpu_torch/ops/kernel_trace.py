@@ -13,9 +13,11 @@ reach, and the root trace's first raycast and shadow ray scan only those;
 the cull is exact, so it changes no pixel (:mod:`.cull` is its plain
 version, for the tests). Scenes above :data:`SHARED_TABLE_MAX` objects run
 the kernel's global-table build (``trace_fwd_global``), which reads the
-tables where the pack wrote them; ``max_reflections`` 7 to 11 run its
-64-task stack. The texture atlas goes to the kernel as
-:func:`pack_textures` lays it out. On the card the scene's tables come from
+tables where the pack wrote them. Its refraction sub-traces wait on a task
+stack of :func:`stack_tasks` tasks at most: the 16-task instance takes every
+``max_reflections`` up to refraction caps of 17 (the default unroll's 4
+among them), the 64-task instance the deeper caps. The texture atlas goes
+to the kernel as :func:`pack_textures` lays it out. On the card the scene's tables come from
 the pack kernel (``kernel_pack``: one launch from the scene's leaves, the
 atlas built once per bank), and the kernel is launched on their addresses;
 ``kernel_pack.pack_scene`` and ``pack_textures`` (imported here) are the
@@ -34,6 +36,7 @@ as windows.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -62,6 +65,9 @@ __all__ = [
     "texture_args",
     "texture_reason",
     "kernel_supported",
+    "count_sites",
+    "tree_counts",
+    "stack_tasks",
     "unsupported_reason",
     "size_reason",
     "render_color_kernel",
@@ -80,7 +86,7 @@ LAUNCHES = 0
 CULL_LAUNCHES = 0
 
 STACK_CAP = 16  # csrc/trace_body.cuh: rt::STACK_CAP
-STACK_CAP_DEEP = 64  # rt::STACK_CAP_DEEP: max_reflections up to 11
+STACK_CAP_DEEP = 64  # rt::STACK_CAP_DEEP: refraction caps 18 to 65 past 16 reflections
 TEXTURE_MAX = 1024  # the meta rows share the block's shared memory with the tables
 # K1b runs above this many objects (the JAX kernel's _KERNEL_UNROLL_MAX);
 # below, the full scan (PERF.md §6 has the times of both at 5 objects).
@@ -97,6 +103,39 @@ SHARED_TABLE_MAX = 480
 BLOCK_SMEM_MAX = 232448
 # The pack's words (kernel_pack.pack_words) are indexed in int32.
 WORDS_MAX = 2**31 - 1
+
+
+def count_sites(cfg: RenderConfig) -> int:
+    """The most raycast sites one pixel can reach under ``cfg`` (11 at the
+    default config, 35 at ``refraction_unroll=None``): the records of the
+    trace backward (K2, ``kernel_trace_bwd``)."""
+    return tree_counts(cfg.max_reflections, cfg.refraction_cap())[0]
+
+
+@functools.lru_cache(maxsize=None)
+def tree_counts(reflections: int, refraction_cap: int) -> tuple:
+    """The static ray tree's ``(sites, traces)`` for ``reflections``
+    bounces a trace and ``refraction_cap`` (``pallas_bwd.py:_site_nodes``,
+    counted level by level rather than built): a trace at level L raycasts at
+    levels L+1 .. L+max(1, reflections - L), and under each one below the
+    cap a sub-trace runs from that level."""
+    sites, traces = {}, {}
+    for lev in range(max(refraction_cap - 1, 0), -1, -1):
+        levels = range(lev + 1, lev + 1 + max(1, reflections - lev))
+        deep = [lv for lv in levels if lv < refraction_cap]
+        sites[lev] = len(levels) + sum(sites[lv] for lv in deep)
+        traces[lev] = 1 + sum(traces[lv] for lv in deep)
+    return sites[0], traces[0]
+
+
+def stack_tasks(cfg: RenderConfig) -> int:
+    """The most refraction sub-traces a pixel's task stack holds at once
+    under ``cfg`` (``csrc/trace_body.cuh:stack_tasks``, which says why):
+    ``max(1, min(max_reflections, refraction_cap - 1))``, 3 at the default
+    ``refraction_unroll=4`` whatever ``max_reflections``. K1, K2 and K5
+    launch their 16-task instances up to 16 and their 64-task ones up to
+    :data:`STACK_CAP_DEEP`."""
+    return max(1, min(cfg.max_reflections, cfg.refraction_cap() - 1))
 
 
 def texture_args(tex, device) -> list:
@@ -140,10 +179,11 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
         return reason
     if cfg.bg not in BG_IDS:
         return f"unknown background {cfg.bg!r}"
-    r = max(cfg.max_reflections, 1)
-    if 1 + r * (r - 1) // 2 > STACK_CAP_DEEP:
-        return (f"max_reflections={cfg.max_reflections} overflows the kernel's task stack "
-                f"({STACK_CAP_DEEP} tasks: max_reflections up to 11)")
+    tasks = stack_tasks(cfg)
+    if tasks > STACK_CAP_DEEP:
+        return (f"max_reflections={cfg.max_reflections} at refraction cap "
+                f"{cfg.refraction_cap()} needs {tasks} tasks; the kernels' task stack holds "
+                f"at most {STACK_CAP_DEEP}")
     return None
 
 
@@ -166,8 +206,8 @@ def size_reason(scene: Scene) -> Optional[str]:
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
     """Trace mode, textured or not (the JAX kernel's ``pallas_supported``
     with its in-kernel textures, for atlases within its cap, and the scenes
-    past 512 objects it renders through jnp), ``max_reflections`` up to
-    11."""
+    past 512 objects it renders through jnp), any ``max_reflections`` whose
+    task stack (:func:`stack_tasks`) holds at most 64 tasks."""
     return unsupported_reason(scene, cfg) is None
 
 

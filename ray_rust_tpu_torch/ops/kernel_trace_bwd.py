@@ -14,9 +14,13 @@ then runs a hand-written adjoint over them backwards; at a textured hit only
 the bilinear weights depend on the uv (the u8 texels get no gradient). Its
 records are sized from the config: it is built for each record cap of
 :data:`SITE_CAPS`, and :func:`site_cap` picks the smallest that holds the
-config's sites; ``max_reflections`` 7 to 11 record with the forward's
-64-task stack. The JAX kernel's pruned replay variants are not carried
-over.
+config's sites. Past the largest (7 reflections at ``refraction_unroll=None``
+need 319) a third kind of instance keeps the records in a buffer in device
+memory (:data:`RECORD_WORDS` words a site), which :func:`launch_buffered`
+allocates within :data:`RECORD_BUDGET` and fills band by band of the
+window's rows (:func:`record_bands`). It records with the forward's task
+stack (``kernel_trace.stack_tasks``: 16 tasks, or 64 past a refraction cap
+of 17). The JAX kernel's pruned replay variants are not carried over.
 
 :class:`TraceRender` pairs the forward kernel with it, as ``_fast_fn``
 (``pallas_trace.py:1670-1701``) pairs the JAX kernels, from the scene's
@@ -43,8 +47,7 @@ tests and ``chip_smoke.py`` hold the kernel against it.
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -55,14 +58,29 @@ from ..models.scene import Camera, ObjectTable, Scene, scene_to_numpy
 from ..models.vec import Color, Vec3
 from . import kernel_pack, kernel_trace
 from .kernel_pack import GRAD_COLS, split_block
-from .kernel_trace import check_launchable, check_tensor, library, pack_scene, texture_args
+from .kernel_trace import (
+    check_launchable,
+    check_tensor,
+    count_sites,
+    library,
+    pack_scene,
+    texture_args,
+)
 from .rays import fov_scales, window
 
 __all__ = [
     "SITE_CAPS",
     "SHARED_TABLE_MAX",
+    "SITE_WORDS",
+    "RECORD_WORDS",
+    "RECORD_BUDGET",
+    "RECORD_FILL",
     "count_sites",
     "site_cap",
+    "buffered",
+    "record_bands",
+    "launch_buffered",
+    "recorded",
     "unsupported_reason",
     "kernel_supported",
     "kernel_args",
@@ -78,14 +96,32 @@ __all__ = [
     "render_color_grad",
 ]
 
-# Launches of the backward kernel since import (or since a caller reset it).
+# Launches of the backward kernel since import (or since a caller reset it):
+# its instances with local records, and its buffer instance (one a band).
 LAUNCHES = 0
+BUF_LAUNCHES = 0
 
 # The record caps the kernel is built for (csrc/trace_bwd_body.cuh:
 # rt::with_site_cap): the default config's 11 sites, refraction_unroll=None
-# up to 4 reflections (63), and up to 191, the most of any config the
-# forward kernel takes (6 reflections, refraction_unroll=None).
+# up to 4 reflections (63), and up to 191 (6 reflections,
+# refraction_unroll=None; 25 at the default unroll). Past it the buffer
+# instance runs.
 SITE_CAPS = (16, 64, 192)
+# Words of a site's records in the buffer instance: its Site (56 bytes),
+# the buffer's first kind of record, and its TaskRec (48;
+# csrc/trace_bwd_body.cuh, static_assert).
+SITE_WORDS = 14
+RECORD_WORDS = SITE_WORDS + 12
+# The device memory a buffer instance's records may take at once (K2's and
+# K4's), read at each launch: a 1080p frame at 319 sites would need 69 GB,
+# so it runs in 5 bands of 269 rows. Each band costs a launch and a tail:
+# on an H100 K2 there took 0.62 ms in 17 bands (a 4 GiB budget), 0.44 in 5
+# and 0.39 in 2 (34 GB; PERF.md §6), so the budget trades a fifth of an 80
+# GB card for most of that gain.
+RECORD_BUDGET = 16 * 2**30
+# The word :func:`recorded` finds where a launch wrote no record: a NaN
+# whose payload no record word takes.
+RECORD_FILL = 0x7FBADBAD
 
 # The most objects whose tables and (n+1, 20) cotangent block the backward
 # frame (csrc/bwd_kernel.cuh, K2's and K4's) keeps in shared memory: its
@@ -95,79 +131,63 @@ SITE_CAPS = (16, 64, 192)
 SHARED_TABLE_MAX = 640
 
 
-class _Node(NamedTuple):
-    """One raycast site of the unrolled ray tree and the sites of its
-    refraction sub-trace (``pallas_bwd.py:_Node``)."""
-
-    sid: int
-    children: tuple
-
-
-def _site_nodes(cfg: RenderConfig, lev: int = 0, counter=None) -> tuple:
-    """The static site tree of a trace at level ``lev``
-    (``pallas_bwd.py:_site_nodes``): one site per bounce, and under each
-    bounce below the refraction cap the sites of its sub-trace."""
-    if counter is None:
-        counter = [0]
-    nodes = []
-    for step in range(max(1, cfg.max_reflections - lev)):
-        lev_i = lev + 1 + step
-        sid = counter[0]
-        counter[0] += 1
-        children = _site_nodes(cfg, lev_i, counter) if lev_i < cfg.refraction_cap() else ()
-        nodes.append(_Node(sid, children))
-    return tuple(nodes)
-
-
-def _count(nodes) -> int:
-    return sum(1 + _count(n.children) for n in nodes)
-
-
-def count_sites(cfg: RenderConfig) -> int:
-    """The most raycast sites one pixel can reach under ``cfg`` (11 at the
-    default config, 35 at ``refraction_unroll=None``)."""
-    return _count_sites(cfg.max_reflections, cfg.refraction_cap())
-
-
-@functools.lru_cache(maxsize=None)
-def _count_sites(max_reflections: int, refraction_cap: int) -> int:
-    """:func:`count_sites` of the two fields the site tree reads."""
-    cfg = RenderConfig(max_reflections=max_reflections, max_refractions=refraction_cap,
-                       refraction_unroll=None)
-    return _count(_site_nodes(cfg))
-
-
 def site_cap(cfg: RenderConfig) -> int:
     """The record cap the kernel is launched with under ``cfg``: the
-    smallest of :data:`SITE_CAPS` that holds :func:`count_sites`."""
+    smallest of :data:`SITE_CAPS` that holds :func:`count_sites`, or past
+    the largest the site count itself, which the buffer instance takes
+    (:func:`buffered`)."""
     sites = count_sites(cfg)
-    for cap in SITE_CAPS:
-        if cap >= sites:
-            return cap
-    raise ValueError(f"{sites} raycast sites per pixel; the backward kernel is built for at "
-                     f"most {SITE_CAPS[-1]}")
+    return next((cap for cap in SITE_CAPS if cap >= sites), sites)
+
+
+def buffered(cfg: RenderConfig) -> bool:
+    """Whether the kernel keeps ``cfg``'s records in a buffer in device
+    memory: more sites than the largest of :data:`SITE_CAPS`."""
+    return count_sites(cfg) > SITE_CAPS[-1]
+
+
+def record_reason(words: int, budget: int, what: str) -> Optional[str]:
+    """Why a pixel's ``words`` record words do not fit ``budget`` bytes,
+    or None."""
+    if 4 * words > budget:
+        return (f"{what}: {4 * words} bytes of records a pixel; the record buffer holds "
+                f"{budget}")
+    return None
 
 
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the two trace kernels cannot take a gradient of ``scene`` under
-    ``cfg``, or None: the forward kernel's reasons, then the record caps
-    (``refraction_unroll=None`` past 6 reflections needs more than 192
-    sites)."""
+    ``cfg``, or None: the forward kernel's reasons (its task stack among
+    them), then a pixel's records past :data:`RECORD_BUDGET`."""
     reason = kernel_trace.unsupported_reason(scene, cfg)
     if reason is not None:
         return reason
-    sites = count_sites(cfg)
-    if sites > SITE_CAPS[-1]:
-        return (f"{sites} raycast sites per pixel; the backward kernel records at most "
-                f"{SITE_CAPS[-1]}")
-    return None
+    return record_reason(RECORD_WORDS * site_cap(cfg), RECORD_BUDGET,
+                         f"{count_sites(cfg)} raycast sites per pixel")
 
 
 def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
     """Trace mode, scenes within ``kernel_trace.size_reason``'s limit (the
     pack's int32 words and K1b's masks in a block's shared memory),
-    textured or not, at most ``SITE_CAPS[-1]`` raycast sites per pixel."""
+    textured or not, a task stack of at most 64 tasks, and a pixel's records
+    within :data:`RECORD_BUDGET`."""
     return unsupported_reason(scene, cfg) is None
+
+
+def record_bands(h: int, w: int, pixel_bytes: int, budget: Optional[int] = None) -> list:
+    """Bands ``(r0, c0, rows, cols)`` of an ``(h, w)`` window whose
+    records, ``pixel_bytes`` a pixel, fit ``budget`` bytes each (by default
+    :data:`RECORD_BUDGET`): runs of whole rows, or pieces of one row where a
+    row does not fit. Each band's planes are one contiguous run of the
+    window's."""
+    budget = RECORD_BUDGET if budget is None else budget
+    per = budget // pixel_bytes
+    if per < 1:
+        raise ValueError(f"{pixel_bytes} bytes of records a pixel; the buffer holds {budget}")
+    if per >= w:
+        rows = min(h, per // w)
+        return [(r, 0, min(rows, h - r), w) for r in range(0, h, rows)]
+    return [(r, c, 1, min(per, w - c)) for r in range(h) for c in range(0, w, per)]
 
 
 def _scene_from_tables(f32t, i32t, cam, light, textures, texture_filter) -> Scene:
@@ -247,33 +267,73 @@ def launch_args(cfg: RenderConfig, tex, device) -> list:
 
 
 def launch_block(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list, g: Color,
-                 return_primal: bool, origin=(0, 0), shape=None):
+                 return_primal: bool, origin=(0, 0), shape=None, bands=None, extra=(),
+                 tail=None):
     """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres,
     yres, row0, col0, h, w, sx, sy, *args, g_r, g_g, g_b, block, prim_r,
-    prim_g, prim_b, device, stream)`` (``args``: :func:`launch_args` for
-    this kernel, the march backward's ``kernel_args`` for it) on the
+    prim_g, prim_b, *extra, device, stream)`` (``args``: :func:`launch_args`
+    for this kernel, the march backward's ``kernel_args`` for it) on the
     tables' addresses ``ptrs`` (f32 table, i32 table, camera, light: the
     pack kernel's words, ``kernel_pack.word_pointers``) of ``n`` objects
     and the image cotangent planes ``g`` of the window at ``origin`` of size
     ``shape`` (``(h, w)``; the whole frame by default) on CUDA device
-    ``dev``; returns the kernel's ``(n+1, GRAD_COLS)`` block and, with
-    ``return_primal``, the window's image the kernel traced (else None).
-    Raises if the cotangent or the launch is not as the kernel takes it."""
+    ``dev``, or on the CPU a host build's launcher (``tail``: the arguments
+    after ``extra``, by default the device and the stream, or on the CPU a
+    null operation counter); once for the window, or once for each of its
+    ``bands`` (:func:`record_bands`), all adding to one block. Returns
+    the ``(n+1, GRAD_COLS)`` block and, with ``return_primal``, the window's
+    image the kernel traced (else None). Raises if the cotangent or a launch
+    is not as the kernel takes it."""
     row0, col0, h, w = window(cfg, origin, shape)
     for name, plane in zip("rgb", g):
         check_tensor(plane, f"cotangent {name}", torch.float32, (h, w), dev)
     block = torch.zeros((n + 1, GRAD_COLS), dtype=torch.float32, device=dev)
     prim = torch.empty((3, h, w), dtype=torch.float32, device=dev) if return_primal else None
-    plane = 4 * h * w
-    prim_ptrs = ([prim.data_ptr() + k * plane for k in range(3)] if return_primal
-                 else [None] * 3)
+    planes = list(g) + (list(prim.unbind(0)) if return_primal else [])
     sx, sy = fov_scales(cfg)
-    rc = fn(*ptrs, n, cfg.xres, cfg.yres, row0, col0, h, w, sx, sy, *args,
-            *(c.data_ptr() for c in g), block.data_ptr(), *prim_ptrs, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
+    if tail is None:
+        tail = ((dev.index, torch.cuda.current_stream(dev).cuda_stream) if dev.type == "cuda"
+                else (None,))
+    for r, c, bh, bw in bands or [(0, 0, h, w)]:
+        ptrs_rc = [p.data_ptr() + 4 * (r * w + c) for p in planes]  # the band's run of rows
+        prim_ptrs = ptrs_rc[3:] if return_primal else [None] * 3
+        rc = fn(*ptrs, n, cfg.xres, cfg.yres, row0 + r, col0 + c, bh, bw, sx, sy, *args,
+                *ptrs_rc[:3], block.data_ptr(), *prim_ptrs, *extra, *tail)
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__} launch failed: "
+                               f"{lib.rt_error_string(rc).decode()}")
     return block, (Color(*prim.unbind(0)) if return_primal else None)
+
+
+def launch_buffered(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list, g: Color,
+                    return_primal: bool, origin=(0, 0), shape=None, cap_words: int = 0,
+                    extra=(), budget: Optional[int] = None, tail=None, buf=None):
+    """:func:`launch_block` for a buffer instance's launcher ``fn``, whose
+    records take ``cap_words`` words a pixel: a buffer for the largest of
+    the window's :func:`record_bands` within ``budget`` bytes (by default
+    :data:`RECORD_BUDGET`), allocated on ``dev`` (or the caller's int32
+    ``buf``, as large or larger) and passed after ``extra`` (K4's record
+    cap) to each band's launch, then ``tail``. Returns the block, the image
+    (or None) and the launches."""
+    row0, col0, h, w = window(cfg, origin, shape)
+    bands = record_bands(h, w, 4 * cap_words, budget)
+    words = bands[0][2] * bands[0][3] * cap_words
+    if buf is None:
+        buf = torch.empty(words, dtype=torch.int32, device=dev)
+    elif buf.dtype != torch.int32 or buf.numel() < words or buf.device != dev:
+        raise ValueError(f"the record buffer must hold {words} int32 words on {dev}")
+    block, prim = launch_block(lib, fn, ptrs, n, dev, cfg, args, g, return_primal, origin, shape,
+                               bands, tuple(extra) + (buf.data_ptr(),), tail)
+    return block, prim, len(bands)
+
+
+def recorded(buf: torch.Tensor, cap: int, words: int, pixels: int) -> torch.Tensor:
+    """The records of the first kind (``words`` words each, ``cap`` a
+    pixel: K2's sites, K4's laps) that each pixel of a one-band launch over
+    ``pixels`` pixels wrote into ``buf``, filled with :data:`RECORD_FILL`
+    before it: one past the last record any of whose words changed."""
+    written = (buf[:cap * words * pixels].view(cap, words, pixels) != RECORD_FILL).any(1)
+    return (torch.arange(1, cap + 1, device=buf.device)[:, None] * written).amax(0)
 
 
 def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
@@ -281,14 +341,23 @@ def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
     """Launch the backward kernel on the pack kernel's ``words`` of
     ``scene`` (``kernel_pack.launch_pack``) and its cached atlas, straight
     from their addresses, over the window at ``origin`` of size ``shape``,
-    counting it; returns as :func:`launch_block`."""
-    global LAUNCHES
+    counting it: an instance with local records, or past :data:`SITE_CAPS`
+    the buffer instance band by band (:func:`launch_buffered`); returns as
+    :func:`launch_block`."""
+    global LAUNCHES, BUF_LAUNCHES
     from ._build import load_cuda_library
 
     n = scene.objects.count
     ptrs, meta = kernel_pack.word_pointers(words, n)
     lib = load_cuda_library(library("trace_bwd", n, SHARED_TABLE_MAX))
-    args = kernel_args(cfg) + [site_cap(cfg)] + kernel_pack.texture_pointers(scene, meta)
+    cap = site_cap(cfg)
+    args = kernel_args(cfg) + [cap] + kernel_pack.texture_pointers(scene, meta)
+    if buffered(cfg):
+        block, prim, bands = launch_buffered(lib, lib.rt_trace_bwd_buf, ptrs, n, words.device,
+                                             cfg, args, g, return_primal, origin, shape,
+                                             RECORD_WORDS * cap)
+        BUF_LAUNCHES += bands
+        return block, prim
     out = launch_block(lib, lib.rt_trace_bwd, ptrs, n, words.device, cfg, args, g, return_primal,
                        origin, shape)
     LAUNCHES += 1

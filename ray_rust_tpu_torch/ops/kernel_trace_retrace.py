@@ -14,7 +14,8 @@ camera's 7, the light's 3 and the 19 of each object it hits, of the
 over the pixels. One launch computes the whole cotangent. Like the JAX
 function it takes untextured scenes of at most 64 objects (the winners of a
 pixel are one 64-bit mask), and no config flag routes a gradient through it:
-it is the oracle that K2 is held against.
+it is the oracle that K2 is held against. It runs the forward's task stack
+(16 tasks, or 64 past a refraction cap of 17: ``kernel_trace.stack_tasks``).
 
 :func:`render_grads_retrace` launches the kernel on a CUDA scene or raises;
 it never falls back. On a CPU scene it returns the plain version. K5 computes
@@ -74,16 +75,12 @@ def n_out(n_objects: int) -> int:
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the re-trace kernel cannot take a gradient of ``scene`` under
     ``cfg``, or None: its own limits (the JAX function's), then the forward
-    kernel's reasons, whose trace body it runs."""
+    kernel's reasons, whose trace body and task stacks it runs."""
     if scene.objects.count > OBJECT_MAX:
         return (f"more than {OBJECT_MAX} objects: the re-trace oracle's cap, as the JAX "
                 f"kernel's (K2 takes larger scenes)")
     if scene.textures is not None:
         return "image textures: the re-trace oracle takes untextured scenes, as the JAX kernel"
-    r = max(cfg.max_reflections, 1)
-    if 1 + r * (r - 1) // 2 > kernel_trace.STACK_CAP:
-        return (f"max_reflections={cfg.max_reflections} overflows the re-trace oracle's task "
-                f"stack ({kernel_trace.STACK_CAP} tasks: max_reflections up to 6)")
     return kernel_trace.unsupported_reason(scene, cfg)
 
 

@@ -113,11 +113,13 @@ def test_site_cap_is_the_smallest_that_holds_the_jax_site_tree(reflections):
 
 
 def test_unsupported_reason_adds_the_site_cap():
-    """The backward kernel takes the configs the forward kernel takes
-    whose sites fit its largest record cap (4 reflections at
-    refraction_unroll=None: 63 sites; 11 reflections at the default unroll:
-    71), refuses the others with the forward kernel's reason, and names the
-    site cap past it (7 reflections at refraction_unroll=None: 319)."""
+    """The backward kernel takes the configs the forward kernel takes:
+    within its largest record cap (4 reflections at refraction_unroll=None:
+    63 sites; 11 and 12 reflections at the default unroll: 71 and 79) in
+    local records, past it (7 reflections at refraction_unroll=None: 319)
+    in its buffer instance, whose record cap is the site count; it refuses
+    the others with the forward kernel's reason (a task stack past 64), and
+    names the sites where a pixel's records outgrow the record buffer."""
     scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=8)
     assert kb.unsupported_reason(scene, cfg) is None
@@ -126,12 +128,18 @@ def test_unsupported_reason_adds_the_site_cap():
                                                   refraction_unroll=None)) is None
     assert kb.unsupported_reason(scene, cfg.with_(max_reflections=11)) is None
     deep = cfg.with_(max_reflections=12)
-    assert kb.unsupported_reason(scene, deep) == kt.unsupported_reason(scene, deep)
-    assert "task stack" in kb.unsupported_reason(scene, deep)
-    assert "sites" in kb.unsupported_reason(scene, cfg.with_(max_reflections=7,
+    assert kb.unsupported_reason(scene, deep) is None
+    assert kb.site_cap(deep) == 192 and not kb.buffered(deep)
+    past = cfg.with_(max_reflections=65, max_refractions=66, refraction_unroll=None)
+    assert kb.unsupported_reason(scene, past) == kt.unsupported_reason(scene, past)
+    assert "task stack" in kb.unsupported_reason(scene, past)
+    assert kb.unsupported_reason(scene, cfg.with_(max_reflections=7,
+                                                  refraction_unroll=None)) is None
+    assert kb.buffered(cfg.with_(max_reflections=7, refraction_unroll=None))
+    assert kb.site_cap(cfg.with_(max_reflections=7, refraction_unroll=None)) == 319
+    assert "sites" in kb.unsupported_reason(scene, cfg.with_(max_reflections=40,
+                                                           max_refractions=41,
                                                            refraction_unroll=None))
-    with pytest.raises(ValueError, match="sites"):
-        kb.site_cap(cfg.with_(max_reflections=7, refraction_unroll=None))
     assert "K3" in kb.unsupported_reason(scene, cfg.with_(use_raymarching=True))
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],

@@ -247,13 +247,15 @@ def test_cpu_render_takes_plain_version():
 @pytest.mark.parametrize("change,names", [
     (dict(use_raymarching=True), "K3"),
     (dict(bg="sunset"), "background"),
-    (dict(max_reflections=12), "task stack"),
+    (dict(max_reflections=65, max_refractions=66, refraction_unroll=None), "task stack"),
 ])
 def test_unsupported_reason_names_what_is_missing(change, names):
     scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=8)
     assert kt.unsupported_reason(scene, cfg) is None
     assert kt.unsupported_reason(scene, cfg.with_(max_reflections=11)) is None
+    # 12 reflections hold 3 tasks at the default unroll (kernel_trace.stack_tasks)
+    assert kt.unsupported_reason(scene, cfg.with_(max_reflections=12)) is None
     assert names in kt.unsupported_reason(scene, cfg.with_(**change))
 
 
@@ -341,10 +343,13 @@ def test_cuda_kernel_matches_plain():
         assert got.shape == (cfg.yres, cfg.xres, 3)
         _compare(_img(kt.render_color_plain(scene, cfg)), got, frac_budget=0.02,
                   mean_tol=0.01)
-    # a gradient the kernels do not cover is refused, not faked or moved to
-    # the CPU (tests/test_torch_kernel_bwd.py runs the ones they cover): a
-    # textured scene in march mode with more laps than the march backward
-    # records
+    # a textured scene in march mode with more laps (63) than the march
+    # backward's local records (35) differentiates through its buffer
+    # instance (tests/test_torch_kernel_bwd.py runs the other gradients); a
+    # gradient past the kernels' task stack is refused, not faked or moved
+    # to the CPU
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
                                   [rtt.SphereSpec("t", 10.0, (0.0, 0.0, 50.0))],
@@ -352,5 +357,12 @@ def test_cuda_kernel_matches_plain():
     light = textured.light.x.clone().requires_grad_()
     textured = textured._replace(light=textured.light._replace(x=light))
     march = cfg.with_(use_raymarching=True, raymarch_max_reflections=4)
-    with pytest.raises(NotImplementedError, match="laps per pixel"):
-        rtt.render_color(textured, march)
+    assert kmb.count_sites(march) == 63 and kmb.buffered(march)
+    before = kmb.BUF_LAUNCHES
+    out = rtt.render_color(textured, march)
+    (out.r.sum() + out.g.sum() + out.b.sum()).backward()
+    torch.cuda.synchronize()
+    assert kmb.BUF_LAUNCHES > before and torch.isfinite(light.grad)
+    past = cfg.with_(max_reflections=65, max_refractions=66)
+    with pytest.raises(NotImplementedError, match="task stack"):
+        rtt.render_color(textured, past)

@@ -5,8 +5,9 @@ The JAX package renders such scenes through its jnp path (its Pallas kernels
 decline more than 512 objects, ``pallas_trace.py:124``, and fall back,
 ``:1743-1757``); the port's kernels take them, reading the tables from
 global memory above their shared-memory limits (``kernel_trace.
-SHARED_TABLE_MAX`` and its siblings) and running a 64-task stack for 7 to
-11 reflections. On the CPU: the kernels' host builds (which read the tables
+SHARED_TABLE_MAX`` and its siblings), and any number of reflections whose
+task stack (``kernel_trace.stack_tasks``) holds at most 64 tasks (8 and 11
+at refraction_unroll=7 hold 6). On the CPU: the kernels' host builds (which read the tables
 where they lie and add straight to the cotangent block, as the global-table
 builds do) against the plain version and its autograd on a floor and 599
 seeded spheres, and at 8 and 11 reflections; the plain version against the
@@ -194,18 +195,17 @@ def test_host_march_bwd_600_objects_matches_autograd(libs, big):
 
 @pytest.mark.parametrize("reflections", [8, 11])
 def test_host_trace_deep_reflections_matches_plain(libs, reflections):
-    """K1's host build with the 64-task stack against the plain trace on a
-    cluster of glass spheres (tests/test_torch_kernel_trace.py's, whose
-    refraction sub-traces fill the 16-task stack at 6 reflections) at
-    refraction_unroll=7, 32x24, within the golden budget; K1 takes the
-    config and K5 (16 tasks) names its stack; at the default unroll K2
-    takes it too."""
+    """K1's host build against the plain trace on a cluster of glass
+    spheres (tests/test_torch_kernel_trace.py's, whose refraction sub-traces
+    fill the stack) at refraction_unroll=7, 32x24, within the golden budget:
+    6 tasks (kernel_trace.stack_tasks), so the 16-task instance; K1 and K5
+    take the config, and at the default unroll K2 takes it too."""
     scene = _glass_cluster(rtt)
     cfg = rtt.RenderConfig(xres=32, yres=24, max_reflections=reflections, refraction_unroll=7)
-    assert 1 + reflections * (reflections - 1) // 2 > kt.STACK_CAP
+    assert kt.stack_tasks(cfg) == 6 <= kt.STACK_CAP
     assert kt.unsupported_reason(scene, cfg) is None
     assert kb.unsupported_reason(scene, cfg.with_(refraction_unroll=4)) is None
-    assert "task stack" in kr.unsupported_reason(scene, cfg)
+    assert kr.unsupported_reason(scene, cfg) is None
     got = _trace_host(libs["trace"], scene, cfg)
     assert np.isfinite(got).all()
     _compare(_img(kt.render_color_plain(scene, cfg)), got, frac_budget=0.02, mean_tol=0.01)
@@ -231,14 +231,19 @@ def test_plain_deep_reflections_matches_jax_render(reflections):
 
 
 def test_deep_reflections_past_the_stack_are_refused():
-    """12 reflections need 67 tasks: K1, K2 and K5 refuse with the stack's
-    reason; K2 past its largest record cap names the sites."""
+    """12 reflections hold 3 tasks at the default unroll (kernel_trace.
+    stack_tasks): K1, K2 and K5 take them; 65 reflections at a refraction
+    cap of 66 need 65 tasks, and all three refuse with the stack's reason.
+    K2 takes 8 reflections at refraction_unroll=None (511 sites) in its
+    buffer instance."""
     scene = rtt.default_scene(device="cpu")[0]
     cfg = rtt.RenderConfig(xres=8, yres=8, max_reflections=12)
+    past = cfg.with_(max_reflections=65, max_refractions=66, refraction_unroll=None)
     for mod in (kt, kb, kr):
-        assert "task stack" in mod.unsupported_reason(scene, cfg), mod.__name__
-    assert "sites" in kb.unsupported_reason(scene, cfg.with_(max_reflections=8,
-                                                            refraction_unroll=None))
+        assert mod.unsupported_reason(scene, cfg) is None, mod.__name__
+        assert "task stack" in mod.unsupported_reason(scene, past), mod.__name__
+    deep = cfg.with_(max_reflections=8, refraction_unroll=None)
+    assert kb.unsupported_reason(scene, deep) is None and kb.site_cap(deep) == 511
 
 
 def test_cli_reads_600_object_file(big, tmp_path, monkeypatch):
@@ -282,8 +287,8 @@ def test_cuda_kernels_take_600_objects():
 
 @pytest.mark.cuda
 def test_cuda_kernel_max_reflections_8():
-    """On the card: K1 with the 64-task stack at 8 reflections, bit for bit
-    against the plain trace, at 320x240."""
+    """On the card: K1 at 8 reflections (3 tasks, the 16-task instance),
+    bit for bit against the plain trace, at 320x240."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     scene = rtt.default_scene()[0]

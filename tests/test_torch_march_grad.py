@@ -324,7 +324,11 @@ def test_march_unsupported_reason_adds_the_site_cap():
     cfg = rtt.RenderConfig(xres=8, yres=8, use_raymarching=True, glow_effect=1.0)
     assert kmb.unsupported_reason(scene, cfg) is None
     assert kmb.unsupported_reason(scene, cfg.with_(refraction_unroll=None)) is None
-    assert "laps" in kmb.unsupported_reason(scene, cfg.with_(raymarch_max_reflections=4,
+    # 63 laps: the buffer instance; past the record buffer the laps are named
+    assert kmb.unsupported_reason(scene, cfg.with_(raymarch_max_reflections=4,
+                                                   refraction_unroll=None)) is None
+    assert kmb.buffered(cfg.with_(raymarch_max_reflections=4, refraction_unroll=None))
+    assert "laps" in kmb.unsupported_reason(scene, cfg.with_(raymarch_max_reflections=10**6,
                                                              refraction_unroll=None))
     assert "K1" in kmb.unsupported_reason(scene, cfg.with_(use_raymarching=False))
     with pytest.raises(ValueError, match="CUDA tensors"):

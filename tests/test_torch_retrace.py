@@ -283,7 +283,10 @@ def test_unsupported_reason_and_cpu_routing():
     textured = textured_scene(rtt, 1)
     assert "textures" in kr.unsupported_reason(textured, cfg)
     assert "K3" in kr.unsupported_reason(scene, cfg.with_(use_raymarching=True))
-    assert "stack" in kr.unsupported_reason(scene, cfg.with_(max_reflections=7))
+    # 7 reflections hold 3 tasks at the default unroll (kernel_trace.stack_tasks)
+    assert kr.unsupported_reason(scene, cfg.with_(max_reflections=7)) is None
+    assert "stack" in kr.unsupported_reason(scene, cfg.with_(
+        max_reflections=65, max_refractions=66, refraction_unroll=None))
     g = Color(*(torch.zeros(6, 8) for _ in range(3)))
     with pytest.raises(ValueError, match="textures"):
         kr.render_grads_retrace(textured, cfg, g)

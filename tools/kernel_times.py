@@ -20,7 +20,11 @@ and K5 are also timed alone on what their wrappers pack, packed once: the
 pack kernel's words (``render_words_kernel``, ``launch_words``), or on a
 checkout without the pack kernel the tables of ``pack_scene`` (``render_tables_kernel``,
 ``render_grads_tables``); K2 both ways also on the default scene textured
-with the goldens' noise as ``bar.png`` in Bilinear. Last, the 1920x1080 training step of
+with the goldens' noise as ``bar.png`` in Bilinear. K1 is also timed as
+``K1 launches 1920x1080``: 50 launches of its C launcher back to back on
+prepared arguments, per launch, where the wrapper's Python (~0.08 ms a
+call) no longer paces a frame that takes as long (checkouts with the pack
+kernel). Last, the 1920x1080 training step of
 ``chip_smoke.training_step`` (render, MSE, the gradient of every float
 leaf): by CUDA events; by the host's clock around enqueueing the same 10
 steps (``host``); and from a ``torch.profiler`` trace of the card alone
@@ -99,6 +103,29 @@ def cap_times(torch, kb, kp, build, scene, cfg, g) -> dict:
         out[f"K2 cap {cap} alone 1920x1080 turn {k}"] = chip_smoke.cuda_ms(
             torch, lambda cap=cap: launch(cap))
     return out
+
+
+def k1_launches(torch, kt, kp, build, scene, cfg, reps=50) -> float:
+    """K1's C launcher called ``reps`` times back to back on the pack
+    kernel's words of ``scene``, by CUDA events: ms a launch."""
+    from ray_rust_tpu_torch.ops.rays import fov_scales
+
+    n = scene.objects.count
+    words = kp.launch_pack(scene)
+    ptrs, meta = kp.word_pointers(words, n)
+    lib = build.load_cuda_library(kt.library("trace_fwd", n, kt.SHARED_TABLE_MAX))
+    out = torch.empty((3, cfg.yres, cfg.xres), dtype=torch.float32, device=words.device)
+    plane = 4 * cfg.xres * cfg.yres
+    args = (*ptrs, n, cfg.xres, cfg.yres, *kt.window(cfg), *fov_scales(cfg),
+            *kt.kernel_args(cfg), *kp.texture_pointers(scene, meta), int(kt.cull_on(cfg, n)),
+            out.data_ptr(), out.data_ptr() + plane, out.data_ptr() + 2 * plane,
+            words.device.index, torch.cuda.current_stream(words.device).cuda_stream)
+
+    def launches():
+        for _ in range(reps):
+            lib.rt_trace_fwd(*args)
+
+    return chip_smoke.cuda_ms(torch, launches) / reps
 
 
 def pack_times(torch, kt, kb, kp, scene, textured, ms) -> dict:
@@ -223,6 +250,8 @@ def main() -> int:
     with torch.no_grad():
         times["K1 1920x1080"] = ms(lambda: kt.render_color_kernel(scene, cfg))
         times["K1 alone 1920x1080"] = ms(alone(scene)[0])
+        if kp is not None:
+            times["K1 launches 1920x1080"] = k1_launches(torch, kt, kp, _build, scene, cfg)
         for tag, c in march:
             times[f"K3 1280x720{tag}"] = ms(lambda c=c: km.render_color_kernel(scene, c))
     for tag, s in (("", scene), (" Bilinear", textured)):
