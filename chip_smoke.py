@@ -24,8 +24,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. each kernel against its plain PyTorch version on the card, and against
    its full-depth golden image, each within the JAX package's golden budget:
    at most 2% of pixels off by more than 1e-3, mean difference at most 0.01;
-   also at the shape of its main path; the trace kernel with image textures
-   (K1a: the default scene with the goldens' 256x256 noise texture as
+   also at the shape of its main path. There (the march kernels at
+   1280x720, the trace backward and the re-trace oracle at 1920x1080, and
+   the textured twins of each) the kernel launches on the whole frame and
+   the plain version renders ``check_rows`` alone in one call (every 8th
+   row, the horizon's rows and the glass sphere's edges: 99 of 720 rows,
+   144 of 1080): the forward kernels' whole frame is first held bit for bit
+   against their own launches on ``partition()``'s 4 bands of rows, and
+   the backwards' whole-frame block against the sum of their blocks on
+   those bands (REGIME_REL_L2), their images bit for bit, before the
+   kernel's frame, or its block for cotangent planes zero off the checked
+   rows, is held against the plain version on those rows; a march
+   gradient's agreement mask comes from the plain call whose autograd it
+   masks (the plain forward renders once). The march's plain calls at
+   1280x720 (untextured and in both filters, image and autograd; phase
+   10's two images) run in two child processes of this script on the card,
+   started once the build is done, while phases 3 and 4 run (a plain march
+   takes tens of seconds on its host thread at any pixel count); phase 4b
+   waits for them before it times anything. The trace kernel with image
+   textures (K1a: the default scene with the goldens' 256x256 noise texture as
    ``bar.png``) against its plain version at 1920x1080 in Nearest and in
    Bilinear, and against the two textured goldens (mean at most 0.015,
    tests/test_parity.py:192-214); the pack kernel against
@@ -271,7 +288,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against its local-record instance (blocks within REGIME_REL_L2, images
    bit for bit), timed in turns; K1 at 12 reflections at 1920x1080 against
    the plain trace and timed, K2 at 319 sites at 1920x1080 and K4 at 39
-   laps at 1280x720 timed, and their bounds.
+   laps at 1280x720 timed, and their bounds;
+10. deep marches and large banks (``deep_marches``): with the launch
+   counts set to 0 just before each main path and read just after, the
+   CLI's ``-m -g 1.0 --max_refractions 12 --refraction_unroll 12`` at
+   1280x720 and one march ``sgd_train_step`` at refraction cap 12 (K3's
+   deep instance ``march_fwd_deep`` twice, K4's buffer instance on the
+   deep march once), then a bank of BANK_TEXTURES textures (the floor's the
+   last): ``render_u8`` at 1920x1080 and at 1280x720 march + glow and one
+   ``sgd_train_step`` at each (K1-K4 in their global-table builds, which
+   read the meta rows from global memory); K3's deep instance forced at
+   refraction caps 4 and 10 bit-equal to ``march_fwd`` at 1280x720, at
+   cap 12 by phase 3's method (tail off bit for bit, on within the golden
+   budget and knife-edge-only against off), and on phase 9's box of
+   transparent planes at 160x120 bit-equal to the plain march; K4's buffer
+   instance at cap 12 against plain autograd at 160x120 (2 000 steps, tail
+   off; MARCH_GRAD_BUDGET on the agreeing pixels) in 1 and DEEP_BANDS
+   bands on the default scene and on the box, whose records show a pixel
+   nesting more than 10 raymarch calls (a one-band launch into a buffer
+   filled with RECORD_FILL, ``kernel_march_bwd.nesting``); the bank's K1
+   and K3 by phase 3's method and K2 and K4 against plain autograd at
+   160x120; times by events of K3's deep instance forced at cap 4 beside
+   ``march_fwd`` in turns, of K3 and K4 at cap 12 and of the bank's four
+   kernels at the main paths' shapes, with their bounds.
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
@@ -304,14 +343,24 @@ paths' shapes with the image, the plain version's ms at ``plain_shape``
 (the backwards' plain autograd at 160x120, phase 2) and, for the buffer
 instances, ``forced_ms``: the local-record instance and the buffer
 instance forced on the default config, in turns (local, buffer, buffer,
-local).
+local). Where ``plain_rows`` is given, the plain version ran on that many
+rows of the frame (phase 3's ``check_rows``; for phase 10's gradients the
+160x120 frame's rows). Phase 10's entries, named for the configuration
+they ran (``build``: the library): ``march_fwd_deep`` (K3's deep instance
+at refraction cap 12 at 1280x720; ``forced_cap4_ms``: it and
+``march_fwd`` in turns at cap 4, alone on packed words), the buffer
+instance at cap 12 (1280x720 with the image), and each of K1-K4 in its
+global-table build on the bank of BANK_TEXTURES textures at the main paths'
+shapes; their launches in phase 10's main paths.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -357,11 +406,12 @@ PINNED_KERNELS = {"trace_bwd": "9TraceBodyI", "march_bwd": "MarchBodyILb0E"}
 # The kernels each library holds, its global-table build the same: K1 with
 # and without K1b's cull at task stacks of 16 and 64, K2 at its three record
 # caps and, for 64 and 192, with the deep stack, and its buffer instance at
-# both stacks, K4 untextured and textured, K4's buffer instance (a library
-# of its own), K5 at both stacks
+# both stacks, K4 untextured and textured, K4's buffer instance and K3's
+# deep instance (libraries of their own), K5 at both stacks
 KERNEL_COUNTS = {"trace_fwd": 4, "trace_fwd_global": 4, "march_fwd": 1, "march_fwd_global": 1,
                  "trace_bwd": 7, "trace_bwd_global": 7, "march_bwd": 2, "march_bwd_global": 2,
-                 "march_bwd_buf": 1, "trace_retrace": 2, "pack_scene": 2}
+                 "march_bwd_buf": 1, "march_fwd_deep": 1, "trace_retrace": 2,
+                 "pack_scene": 2}
 # The largest relative L2 between a backward's cotangent blocks from its two
 # table regimes on the same inputs: their atomics add in different orders
 # (2.7e-6 to 4.2e-6 for K2 and K4 on 640 and 1 024 objects, PERF.md §6),
@@ -377,6 +427,47 @@ MANY_GRAD = (160, 120)  # K3, K2 and K4 against the plain versions on 1 024 obje
 HOST_RECORD_BUDGET = 2**30
 # frames per keyframe = duration / FRAME_STEP (ray_rust_tpu/animation.py:22)
 FRAME_STEP = 0.5
+# Phase 3's checks at the main paths' shapes hold the kernel's launch on
+# the whole frame against its plain version on CHECK_ROWS rows (check_rows:
+# every CHECK_STEP-th row, the horizon and the glass sphere's edges), one
+# plain call; the whole frame is held against the kernel's own launches on
+# PARTITION bands of rows (kernel against kernel, cheap)
+CHECK_STEP = 8
+PARTITION = 4
+
+
+def check_rows(h):
+    """The rows of an h-row frame of the default camera on which phase 3
+    and phase 10 hold a main-path launch against its plain version: every
+    CHECK_STEP-th row from CHECK_STEP // 2, the horizon's two rows (h/2 - 1
+    and h/2, where grazing rays crawl and the floor tail's knife edges
+    lie) and the glass sphere's top and bottom edges (0.4 h and 0.807 h at
+    1280x720 and 1920x1080), each with the rows either side."""
+    rows = set(range(CHECK_STEP // 2, h, CHECK_STEP))
+    for r in (h // 2 - 1, h // 2, round(0.4 * h), round(0.807 * h)):
+        rows.update((r - 1, r, r + 1))
+    return sorted(r for r in rows if 0 <= r < h)
+
+
+def partition(h, n=PARTITION):
+    """``n`` bands of rows ``(row0, rows)`` that cover an h-row frame."""
+    cuts = [round(k * h / n) for k in range(n + 1)]
+    return [(a, b - a) for a, b in zip(cuts, cuts[1:]) if b > a]
+
+
+def banded_frame(torch, mod, scene, cfg):
+    """Forward kernel ``mod``'s image of the whole frame, held bit for bit
+    against its own launches on partition()'s bands of rows."""
+    with torch.no_grad():
+        got = img(mod.render_color_kernel(scene, cfg))
+        for r0, h in partition(cfg.yres):
+            band = img(mod.render_color_kernel(scene, cfg, (r0, 0), (h, cfg.xres)))
+            if not np.array_equal(band, got[r0:r0 + h]):
+                raise SystemExit(f"chip_smoke: {mod.__name__} {cfg.xres}x{cfg.yres} on rows "
+                                 f"{r0}..{r0 + h - 1} is not the whole frame's")
+    print(f"  {mod.__name__.split('.')[-1]} {cfg.xres}x{cfg.yres}: the whole frame bit-equal to "
+          f"its launches on {PARTITION} bands of rows")
+    return got
 
 
 def compare(name, ref, got, mean_budget=BUDGET["mean"]):
@@ -539,7 +630,8 @@ def _host_scene(texture_dir, texture_filter):
                              device="cpu")[0]
 
 
-def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None, window=None):
+def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None, window=None,
+              fn=None):
     """The f32 operations kernel ``name``'s body (``"trace"`` or
     ``"march"``) takes on the default scene (or the CPU ``scene``) under
     ``cfg``, textured from ``texture_dir``, and the texel bytes its texture
@@ -551,7 +643,8 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None, win
     objects the cull tested, the primary candidates scanned and the scans,
     and the shadow candidates scanned and the scans (eight counts in
     all). ``window`` (row0, col0, h, w) counts that window of the frame
-    alone (the multi-device layer's cells)."""
+    alone (the multi-device layer's cells); ``fn`` names another host loop
+    of the library (``rt_march_deep_host``: the deep march)."""
     import torch
 
     from ray_rust_tpu_torch.ops import _build
@@ -570,13 +663,13 @@ def count_ops(name, mod, cfg, texture_dir=".", texture_filter=0, scene=None, win
     cpu = torch.device("cpu")
     args = (kt.launch_args(cfg, tex, cpu, scene.objects.count) if mod is kt
             else mod.launch_args(cfg, tex, cpu))
-    getattr(lib, f"rt_{name}_host")(
+    getattr(lib, fn or f"rt_{name}_host")(
         *(t.data_ptr() for t in tables), scene.objects.count, cfg.xres, cfg.yres,
         *window, sx, sy, *args, *(plane.data_ptr() for plane in out), ops.data_ptr())
     return tuple(int(v) for v in ops)
 
 
-def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0, window=None):
+def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0, window=None, scene=None):
     """The f32 operations of backward kernel ``name``'s record pass
     (``"trace_bwd"``: its raycasts; ``"march_bwd"``: its SDF steps) on the
     default scene under ``cfg``, textured from ``texture_dir``, and the texel
@@ -585,10 +678,10 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0, window=None
     :func:`count_ops`; the trace backward's slots 2-5 are its accumulator's
     adds, their distinct (warp, entry) pairs, the sites and the most sites of
     one pixel, csrc/trace_bwd_host.cpp, for cotangent 1 on every pixel).
-    ``window`` (row0, col0, h, w) counts that window of the frame alone. A
-    configuration past the local records runs the buffer instance's host
-    twin band by band, as the wrapper launches the kernel (within
-    ``HOST_RECORD_BUDGET``)."""
+    ``window`` (row0, col0, h, w) counts that window of the frame alone;
+    ``scene`` (on the CPU) replaces the default scene. A configuration the
+    buffer instance takes runs its host twin band by band, as the wrapper
+    launches the kernel (within ``HOST_RECORD_BUDGET``)."""
     import torch
 
     from ray_rust_tpu_torch.models.vec import Color
@@ -598,7 +691,8 @@ def count_bwd_ops(name, mod, cfg, texture_dir=".", texture_filter=0, window=None
     from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
 
     lib = _build.build_host_library(_build.BUILD_DIR, name, count_ops=True)
-    scene = _host_scene(texture_dir, texture_filter)
+    if scene is None:
+        scene = _host_scene(texture_dir, texture_filter)
     tables, tex = kt.pack_scene(scene), kt.pack_textures(scene)
     trace = name == "trace_bwd"
     cpu = torch.device("cpu")
@@ -2427,7 +2521,577 @@ def deep_trees(torch, rtt, cli, plain, ops):
          "ray_rust_tpu/ops/pallas_bwd.py:1060", list(DEEP_GRAD)))]
 
 
+# Phase 10's bank of textures: past kernel_trace.TEXTURE_MAX = 1 024, so each
+# of K1-K4 runs its global-table build, which reads the meta rows from global
+# memory; the floor takes the last
+BANK_TEXTURES = 1101
+# Phase 10's host counts (the bounds) by its kernels line's keys
+DEEP_COUNTS = {"march_fwd_deep": "march_fwd_cap12", "march_bwd_buf": "march_bwd_cap12",
+               "trace_fwd_global": "trace_fwd_bank", "trace_bwd_global": "trace_bwd_bank",
+               "march_fwd_global": "march_fwd_bank", "march_bwd_global": "march_bwd_bank"}
+
+
+def deep_counts(pool, rtt, torch):
+    """Phase 10's host counts, submitted to ``pool``: K3's deep march and
+    K4's buffer instance at refraction cap 12 at 1280x720 on the default
+    scene (the deep march's host loop, rt_march_deep_host, and the buffer
+    instance's twin), and K1-K4 on the bank at the main paths' shapes."""
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+
+    cap12, _, cfg_main, cfg_march = deep_configs(rtt)
+    bank = bank_scene(rtt, device="cpu")
+    return {"march_fwd_cap12": pool.submit(count_ops, "march", km, cap12,
+                                           fn="rt_march_deep_host"),
+            "march_bwd_cap12": pool.submit(count_bwd_ops, "march_bwd", kmb, cap12),
+            "trace_fwd_bank": pool.submit(count_ops, "trace", kt, cfg_main, scene=bank),
+            "trace_bwd_bank": pool.submit(count_bwd_ops, "trace_bwd", kb, cfg_main, scene=bank),
+            "march_fwd_bank": pool.submit(count_ops, "march", km, cfg_march, scene=bank),
+            "march_bwd_bank": pool.submit(count_bwd_ops, "march_bwd", kmb, cfg_march,
+                                          scene=bank)}
+
+
+def bank_scene(rtt, n_tex=BANK_TEXTURES, filt=0, device="cuda"):
+    """The default scene whose floor reads texture ``n_tex - 1`` of a bank of
+    ``n_tex`` 16x16 crops of the goldens' noise texture
+    (tests/goldens/gen_textured.py), crop 1 100 whatever ``n_tex``; the
+    other textures belong to materials no object takes
+    (tests/test_torch_deep_march.py's)."""
+    noise = np.random.default_rng(101).integers(0, 256, (256, 256, 3)).astype(np.uint8)
+
+    def crop(k):
+        row, col = 16 * (k // 16 % 16), 16 * (k % 16)
+        return noise[row:row + 16, col:col + 16]
+
+    mats = [rtt.MaterialSpec(name=f"t{k}", texture=crop(k)) for k in range(n_tex - 1)] + [
+        rtt.MaterialSpec(name="floor", diffuse=(1.0, 1.0, 0.0), pattern=2, pattern_scale=300.0,
+                         pattern_angle_scale=0.2, texture_filter=filt, texture=crop(1100)),
+        rtt.MaterialSpec(name="mirror", specular=(1.0, 1.0, 1.0), pn=24),
+        rtt.MaterialSpec(name="red", diffuse=(0.8, 0.0, 0.0), pn=24, glow_dist=5.0),
+        rtt.MaterialSpec(name="transparent", transparency=1.0, refraction=1.5,
+                         frac=(1.49998, 1.49999, 1.5))]
+    objs = [rtt.FloorSpec("floor", (0.0, -300.0, 0.0), (0.0, 1.0, 0.0), uvmap=2),
+            rtt.SphereSpec("mirror", 80.0, (0.0, -30.0, 172.0)),
+            rtt.SphereSpec("mirror", 80.0, (-200.0, -30.0, 172.0)),
+            rtt.SphereSpec("red", 80.0, (-200.0, -200.0, 172.0)),
+            rtt.SphereSpec("transparent", 100.0, (70.0, -200.0, 150.0))]
+    return rtt.build_scene(mats, objs, (0.0, -150.0, -300.0), (0.0, -np.pi / 2, -np.pi / 2),
+                           (50.0, 60.0, -50.0), device=device)[0]
+
+
+def deep_configs(rtt):
+    """Phase 10's configurations: the march main path at refraction cap 12
+    (1280x720, glow 1.0), its 2 000-step small twin with the floor tail off
+    (the plain autograd's), and the main paths' trace and march."""
+    glow = dict(use_raymarching=True, glow_effect=1.0)
+    cap12 = rtt.RenderConfig(xres=MW, yres=MH, max_refractions=12, refraction_unroll=None,
+                             **glow)
+    small12 = cap12.with_(xres=MANY_GRAD[0], yres=MANY_GRAD[1], march_max_iter=2000,
+                          march_floor_skip=False)
+    return cap12, small12, rtt.RenderConfig(xres=W, yres=H), rtt.RenderConfig(xres=MW, yres=MH,
+                                                                              **glow)
+
+
+def deep_marches(torch, rtt, cli, ops, card, children):
+    """Phase 10: deep marches and large banks on the card. The main paths,
+    each with the launch counts set to 0 just before it and read just
+    after: the CLI's ``-m -g 1.0 --max_refractions 12 --refraction_unroll
+    12`` at 1280x720 (one launch of K3's deep instance, its PNG
+    ``render_u8`` of the same config) and one ``sgd_train_step`` on the
+    material colours at that config (K3's deep instance, K4's buffer
+    instance on the deep march); then the bank of BANK_TEXTURES textures:
+    ``render_u8`` at 1920x1080 and at 1280x720 -m -g 1.0 and one
+    ``sgd_train_step`` at each (K1 twice, K2 once, K3 twice, K4 once, each
+    in its global-table build). Then K3's deep instance forced at caps 4
+    and 10 on the default 1280x720 march bit-equal to march_fwd; at cap 12
+    by phase 3's method (its whole frame against its launches on
+    partition()'s bands, the plain march on check_rows): the floor tail off
+    bit for bit, on within the golden budget and knife-edge-only against
+    off; on the box of planes (160x120, 2 000 steps, tail off) bit-equal
+    to the plain march. K4's buffer instance at cap 12 against plain
+    autograd at 160x120 (2 000 steps, tail off) per scene leaf within
+    MARCH_GRAD_BUDGET on the pixels where K3's image agrees with the plain
+    one (each other on a decision boundary), in one band and in
+    DEEP_BANDS, on the default scene and on the box, whose records (a
+    one-band launch into a buffer filled with RECORD_FILL) show a pixel
+    that nests more than 10 raymarch calls; its image K3's. The bank: K1 at
+    1920x1080 and K3 at 1280x720 by phase 3's method, K2 and K4 at 160x120
+    against plain autograd within GRAD_BUDGET and MARCH_GRAD_BUDGET. Times
+    by events (3 warm-ups, 10 calls): K3's deep instance forced at cap 4
+    beside march_fwd in turns, K3 and K4 at cap 12, the bank's kernels at
+    the main paths' shapes; bounds from the host counts. The plain march
+    images at 1280x720 are the plain children's (``plain_jobs``). Returns
+    phase 10's entries of the kernels line."""
+    from ray_rust_tpu_torch.ops import _build
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_pack as kp
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.parallel import sgd_train_step
+    from ray_rust_tpu_torch.utils.image import load_png
+
+    dev = torch.device("cuda", 0)
+    default = rtt.default_scene()[0]
+    bank = bank_scene(rtt)
+    cap12, small12, cfg_main, cfg_march = deep_configs(rtt)
+    n_tex = kt.texture_count(bank)
+    libs = {"K1": kt.library("trace_fwd", bank.objects.count, kt.SHARED_TABLE_MAX, n_tex),
+            "K2": kt.library("trace_bwd", bank.objects.count, kb.SHARED_TABLE_MAX, n_tex),
+            "K3": km.library_name(bank, cfg_march),
+            "K4": kt.library("march_bwd", bank.objects.count, kb.SHARED_TABLE_MAX, n_tex)}
+    print(f"deep marches and large banks: refraction cap 12 ({kmb.count_sites(cap12)} laps, "
+          f"{kmb.count_frames(cap12)} frames; K3 {km.library_name(default, cap12)}, K4 buffered "
+          f"{kmb.buffered(cap12)}); a bank of {n_tex} textures (staged meta rows "
+          f"{kt.staged_meta(n_tex)}; builds {libs})")
+    if km.library_name(default, cap12) != "march_fwd_deep" or not kmb.buffered(cap12):
+        raise SystemExit("chip_smoke: cap 12 does not route to the deep instances")
+    if any(not v.endswith(_build.GLOBAL_SUFFIX) for v in libs.values()):
+        raise SystemExit(f"chip_smoke: the bank does not route to the global-table builds: {libs}")
+
+    # -- the main paths: the counts set to 0 just before each, read just after
+    def colours(c):
+        return type(c)(*(t.detach().clone().requires_grad_() for t in c))
+
+    def trainable(scene):
+        m = scene.materials
+        return scene._replace(materials=m._replace(diffuse=colours(m.diffuse),
+                                                   specular=colours(m.specular)))
+
+    def redder(scene, cfg):
+        m = scene.materials
+        red = m.diffuse.r.clone()
+        red[-2] += 0.1  # the red sphere's material
+        with torch.no_grad():
+            return rtt.render_color(scene._replace(materials=m._replace(
+                diffuse=m.diffuse._replace(r=red))), cfg).to_array()
+
+    def reset():
+        kt.LAUNCHES = kb.LAUNCHES = kb.BUF_LAUNCHES = km.LAUNCHES = km.DEEP_LAUNCHES = 0
+        kmb.LAUNCHES = kmb.BUF_LAUNCHES = kp.LAUNCHES = kp.VJP_LAUNCHES = 0
+
+    def counts():
+        return {"trace_fwd": kt.LAUNCHES, "trace_bwd": kb.LAUNCHES,
+                "trace_bwd_buf": kb.BUF_LAUNCHES, "march_fwd": km.LAUNCHES,
+                "march_fwd_deep": km.DEEP_LAUNCHES, "march_bwd": kmb.LAUNCHES,
+                "march_bwd_buf": kmb.BUF_LAUNCHES, "pack_scene": kp.LAUNCHES,
+                "pack_scene_vjp": kp.VJP_LAUNCHES}
+
+    target12 = redder(default, cap12)
+    bank_targets = {c: redder(bank, c) for c in (cfg_main, cfg_march)}
+    with tempfile.TemporaryDirectory() as td:
+        png_path = os.path.join(td, "deep.png")
+        reset()
+        t0 = time.time()
+        rc = cli.main([str(MW), str(MH), "-m", "-g", "1.0", "--max_refractions", "12",
+                       "--refraction_unroll", "12", "-o", png_path])
+        loss12 = float(sgd_train_step(trainable(default), cap12, target12, lr=MARCH_TRAIN_LR)[1])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        deep_launches = counts()
+        png = load_png(png_path)
+    want = {"trace_fwd": 0, "trace_bwd": 0, "trace_bwd_buf": 0, "march_fwd": 2,
+            "march_fwd_deep": 2, "march_bwd": 0, "march_bwd_buf": 1, "pack_scene": 2,
+            "pack_scene_vjp": 1}
+    print(f"main path, deep march: the CLI -m -g 1.0 --max_refractions 12 at {MW}x{MH} and "
+          f"sgd_train_step at cap 12 in {wall:.2f} s; launches {deep_launches}; loss {loss12:.6g}")
+    if rc != 0 or deep_launches != want or not np.isfinite(loss12):
+        raise SystemExit(f"chip_smoke: the deep march main path: CLI exit {rc}, launches "
+                         f"{deep_launches} (want {want}), loss {loss12}")
+    if not np.array_equal(png, rtt.render_u8(default, cap12.with_(refraction_unroll=12))):
+        raise SystemExit("chip_smoke: the deep march CLI's PNG is not render_u8 of its config")
+    reset()
+    t0 = time.time()
+    frames = [rtt.render_u8(bank, c) for c in (cfg_main, cfg_march)]
+    bank_losses = [float(sgd_train_step(trainable(bank), c, bank_targets[c],
+                                        lr=TRAIN_LR if c is cfg_main else MARCH_TRAIN_LR)[1])
+                   for c in (cfg_main, cfg_march)]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    bank_launches = counts()
+    want = {"trace_fwd": 2, "trace_bwd": 1, "trace_bwd_buf": 0, "march_fwd": 2,
+            "march_fwd_deep": 0, "march_bwd": 1, "march_bwd_buf": 0, "pack_scene": 4,
+            "pack_scene_vjp": 2}
+    print(f"main path, {n_tex} textures: render_u8 at {W}x{H} and {MW}x{MH} -m -g 1.0 and "
+          f"sgd_train_step at each in {wall:.2f} s; launches {bank_launches}; losses "
+          + ", ".join(f"{v:.6g}" for v in bank_losses))
+    floor = slice(3 * H // 4, H)
+    if (bank_launches != want or not np.isfinite(bank_losses).all()
+            or np.array_equal(frames[0][floor], rtt.render_u8(default, cfg_main)[floor])):
+        raise SystemExit(f"chip_smoke: the bank's main path: launches {bank_launches} (want "
+                         f"{want}), losses {bank_losses}, or its floor is not textured")
+
+    # -- K3's deep instance forced where the recursive instance runs:
+    # bit-equal to march_fwd on the whole frame
+    words = kp.launch_pack(default)
+    n = default.objects.count
+    ptrs, meta = kp.word_pointers(words, n)
+    deep_lib = _build.load_cuda_library("march_fwd_deep")
+
+    def forced_deep(cfg):
+        return lambda: kt.launch(deep_lib, deep_lib.rt_march_fwd, ptrs, n, dev, cfg,
+                                 km.kernel_args(cfg) + kp.texture_pointers(default, meta))
+
+    with torch.no_grad():
+        for cap in (4, 10):
+            c = cfg_march.with_(max_refractions=cap, refraction_unroll=None)
+            same = np.array_equal(img(forced_deep(c)()), img(km.render_color_kernel(default, c)))
+            print(f"  march_fwd_deep forced at refraction cap {cap}, default {MW}x{MH}: bit-equal "
+                  f"to march_fwd {same} -> {'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"chip_smoke: the deep march at cap {cap} is not march_fwd")
+
+    # -- K3 at cap 12 by phase 3's method, and on the box of planes
+    errs = {"march_fwd_deep": [], "march_bwd_buf": [], "trace_fwd_global": [],
+            "trace_bwd_global": [], "march_fwd_global": [], "march_bwd_global": []}
+    plain_ms = {}
+
+    def rows_check(key, scene, cfg, mod, tail_off):
+        """The kernel's whole frame against its launches on partition()'s
+        bands, then against the plain version on check_rows (a plain
+        child's job ``key`` where it has one): within the golden budget, and
+        with ``tail_off`` the kernel with the floor tail off bit for bit
+        (the tail on against off knife-edge-only)."""
+        got = banded_frame(torch, mod, scene, cfg)
+        with torch.no_grad():
+            rows = check_rows(cfg.yres)
+            if any(key in keys for keys in children.keys):
+                plain = children.get(key)
+                ref, ms = plain["image"], float(plain["ms"])
+            else:
+                ref, ms = event_ms(torch, lambda: mod.render_color_plain(scene, cfg, rows=rows))
+                ref = img(ref)
+            plain_ms[key] = (ms, len(rows))
+            errs[key].append(compare(f"{key} {cfg.xres}x{cfg.yres} vs plain on {len(rows)} rows "
+                                     f"(the whole frame its {PARTITION} bands' bit for bit; "
+                                     f"plain {ms:.1f} ms)", ref, got[rows]))
+            if tail_off:
+                off = img(mod.render_color_kernel(scene, cfg.with_(march_floor_skip=False)))
+                same = float((off[rows] == ref).all(-1).mean())
+                print(f"  {key} tail off: bit-equal to the plain version on {same:.4%} of the "
+                      f"pixels of {len(rows)} rows -> {'ok' if same == 1.0 else 'FAIL'}")
+                if same < 1.0:
+                    raise SystemExit(f"chip_smoke: {key} with the tail off is not the plain "
+                                     f"version")
+                knife_edge_only(f"{key} tail on vs off {cfg.xres}x{cfg.yres}", got, off)
+
+    rows_check("march_fwd_deep", default, cap12, km, True)
+    box = box_scene(rtt)
+    box12 = small12
+    box_plain = event_ms(torch, lambda: kb.plain_vjp(box, box12))  # K4's below too
+    with torch.no_grad():
+        got, ref = img(km.render_color_kernel(box, box12)), img(box_plain[0][0])
+    same = np.array_equal(got, ref)
+    errs["march_fwd_deep"].append(float(np.abs(got - ref).max()))
+    print(f"  march_fwd_deep, box of planes {box12.xres}x{box12.yres} (tail off, 2000 steps): "
+          f"bit-equal to the plain march {same} -> {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("chip_smoke: the deep march on the box is not the plain march")
+
+    # -- K4's buffer instance at cap 12 against plain autograd, and the box's
+    # records
+    def grad_vs_plain(key, label, scene, cfg, mod, fwd, budget, bands_too, plain=None):
+        """``mod``'s wrapper against plain autograd on the pixels where
+        ``fwd``'s image agrees with the plain one within 1e-4 (each other
+        pixel on a decision boundary), in one band and with ``bands_too`` in
+        DEEP_BANDS, its image ``fwd``'s bit for bit; the plain time is
+        ``key``'s unless ``label`` names another scene. ``plain`` is
+        ``((image, vjp), ms)`` of a plain_vjp call made before."""
+        (ref, vjp), ms = plain or event_ms(torch, lambda: kb.plain_vjp(scene, cfg))
+        ref = img(ref)
+        got = img(fwd.render_color_kernel(scene, cfg))
+        agree = np.abs(got - ref).max(-1) < 1e-4
+        flat = off_boundary(ref, ~agree)
+        rng = np.random.default_rng(cfg.xres + len(key))
+        g = rtt.Color(*(torch.from_numpy(rng.standard_normal(agree.shape).astype(np.float32)
+                                         * agree).to(dev) for _ in range(3)))
+        want, vjp_ms = event_ms(torch, lambda: vjp(g))
+        if not label:
+            plain_ms[key] = (ms + vjp_ms, cfg.yres)
+        runs = [(1, lambda: mod.render_grads_kernel(scene, cfg, g, return_primal=True))]
+        if bands_too:
+            def banded():
+                saved = kb.RECORD_BUDGET
+                kb.RECORD_BUDGET = (4 * kmb.RECORD_WORDS * kmb.count_sites(cfg) * cfg.xres
+                                    * -(-cfg.yres // DEEP_BANDS))
+                try:
+                    return mod.render_grads_kernel(scene, cfg, g, return_primal=True)
+                finally:
+                    kb.RECORD_BUDGET = saved
+            runs.append((DEEP_BANDS, banded))
+        for nb, fn in runs:
+            before = kmb.BUF_LAUNCHES
+            out, prim = fn()
+            bands = kmb.BUF_LAUNCHES - before
+            worst, leaf = leaf_err(key, scene, out, want)
+            same = float((img(prim) == got).all(-1).mean())
+            ok = (worst <= budget and same == 1.0 and agree.mean() > 0.9 and flat == 0
+                  and (bands == nb or mod is not kmb or not kmb.buffered(cfg)))
+            print(f"  {key}{label} {cfg.xres}x{cfg.yres}" + (f" in {bands} bands" if bands else "")
+                  + f": forwards agree on {agree.mean():.4%}, {flat} masked off a boundary; "
+                  f"image the forward kernel's on {same:.4%}; largest leaf relative L2 "
+                  f"{worst:.3g} ({leaf}); plain autograd {ms + vjp_ms:.1f} ms -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {key}: {mod.__name__} off plain autograd")
+            errs[key].append(worst)
+
+    grad_vs_plain("march_bwd_buf", "", default, small12, kmb, km, MARCH_GRAD_BUDGET, True)
+    grad_vs_plain("march_bwd_buf", ", box of planes", box, box12, kmb, km, MARCH_GRAD_BUDGET,
+                  True, box_plain)
+    cap = kmb.count_sites(box12)
+    bwords = kp.launch_pack(box)
+    bptrs, bmeta = kp.word_pointers(bwords, box.objects.count)
+    buf_lib = _build.load_cuda_library("march_bwd_buf")
+    pixels = box12.xres * box12.yres
+    buf = torch.full((pixels * kmb.RECORD_WORDS * cap,), kb.RECORD_FILL, dtype=torch.int32,
+                     device=dev)
+    zero = rtt.Color(*(torch.zeros(box12.yres, box12.xres, device=dev) for _ in range(3)))
+    kb.launch_buffered(buf_lib, buf_lib.rt_march_bwd_buf, bptrs, box.objects.count, dev, box12,
+                       kmb.kernel_args(box12) + kp.texture_pointers(box, bmeta), zero, False,
+                       cap_words=kmb.RECORD_WORDS * cap, extra=(cap,),
+                       budget=4 * pixels * kmb.RECORD_WORDS * cap, buf=buf)
+    nest = kmb.nesting(buf, cap, pixels)
+    laps = kb.recorded(buf, cap, kmb.LAP_WORDS, pixels)
+    deepest = int(nest.max())
+    print(f"  march_bwd_buf records, box of planes {box12.xres}x{box12.yres} at cap 12: the "
+          f"deepest chain of nested raymarch calls {deepest} (pixels past 10: "
+          f"{int((nest > 10).sum())} of {pixels}), the most laps a pixel {int(laps.max())}")
+    if deepest <= km.FRAME_CAP:
+        raise SystemExit("chip_smoke: no pixel of the box nests past 10 raymarch calls")
+    del buf
+
+    # -- the bank: K1 and K3 by phase 3's method, K2 and K4 against autograd
+    rows_check("trace_fwd_global", bank, cfg_main, kt, False)
+    rows_check("march_fwd_global", bank, cfg_march, km, True)
+    gsmall = rtt.RenderConfig(xres=MANY_GRAD[0], yres=MANY_GRAD[1])
+    grad_vs_plain("trace_bwd_global", "", bank, gsmall, kb, kt, GRAD_BUDGET, False)
+    grad_vs_plain("march_bwd_global", "", bank,
+                  gsmall.with_(use_raymarching=True, glow_effect=1.0, march_max_iter=2000,
+                               march_floor_skip=False), kmb, km, MARCH_GRAD_BUDGET, False)
+
+    # -- times by events at the main paths' shapes
+    rng = np.random.default_rng(10)
+    gt, gm = (rtt.Color(*(torch.from_numpy(rng.standard_normal((c.yres, c.xres))
+                                           .astype(np.float32)).to(dev) for _ in range(3)))
+              for c in (cfg_main, cfg_march))
+    with torch.no_grad():
+        turns = [(k, cuda_ms(torch, forced_deep(cfg_march) if k == "march_fwd_deep"
+                             else lambda: km.render_words_kernel(default, words, cfg_march)))
+                 for k in ("march_fwd", "march_fwd_deep", "march_fwd_deep", "march_fwd")]
+        ms = {"march_fwd_deep": cuda_ms(torch, lambda: km.render_color_kernel(default, cap12)),
+              "trace_fwd_global": cuda_ms(torch, lambda: kt.render_color_kernel(bank, cfg_main)),
+              "march_fwd_global": cuda_ms(torch, lambda: km.render_color_kernel(bank, cfg_march))}
+    print(f"  the default {MW}x{MH} march at cap 4 alone on packed words, in turns ({card}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in turns) + " ms")
+    ms["march_bwd_buf"] = cuda_ms(torch, lambda: kmb.render_grads_kernel(
+        default, cap12, gm, return_primal=True))
+    ms["trace_bwd_global"] = cuda_ms(torch, lambda: kb.render_grads_kernel(
+        bank, cfg_main, gt, return_primal=True))
+    ms["march_bwd_global"] = cuda_ms(torch, lambda: kmb.render_grads_kernel(
+        bank, cfg_march, gm, return_primal=True))
+    shapes = {"march_fwd_deep": (cap12, default), "march_bwd_buf": (cap12, default),
+              "trace_fwd_global": (cfg_main, bank), "trace_bwd_global": (cfg_main, bank),
+              "march_fwd_global": (cfg_march, bank), "march_bwd_global": (cfg_march, bank)}
+    bounds = {}
+    for key, (cfg, scene) in shapes.items():
+        n_ops, fetched = ops[DEEP_COUNTS[key]].result()[:2]
+        nbytes = io_bytes(scene, cfg) + texel_bytes(scene, fetched)
+        if "_bwd" in key:  # + the cotangent planes read, the block written
+            nbytes += 3 * 4 * cfg.xres * cfg.yres + 4 * (scene.objects.count + 1) * kb.GRAD_COLS
+        bounds[key] = roofline(n_ops, nbytes)
+        print(f"  {key} {cfg.xres}x{cfg.yres}: {ms[key]:.4f} ms by events"
+              + (" with the image" if "_bwd" in key else "") + f" ({card}); plain "
+              f"{plain_ms[key][0]:.1f} ms on {plain_ms[key][1]} rows; bound {n_ops} f32 "
+              f"operations, {nbytes} bytes -> {bounds[key][0]:.4f} ms ({bounds[key][1]})")
+    forced = {"march_fwd": [v for k, v in turns if k == "march_fwd"],
+              "march_fwd_deep": [v for k, v in turns if k == "march_fwd_deep"]}
+    launches = {"march_fwd_deep": deep_launches["march_fwd_deep"],
+                "march_bwd_buf": deep_launches["march_bwd_buf"],
+                "trace_fwd_global": bank_launches["trace_fwd"],
+                "trace_bwd_global": bank_launches["trace_bwd"],
+                "march_fwd_global": bank_launches["march_fwd"],
+                "march_bwd_global": bank_launches["march_bwd"]}
+    entries = (("march_fwd_deep", "march_fwd_deep", "march_fwd_deep.cu",
+                "ray_rust_tpu/ops/pallas_march.py:814", "refraction cap 12"),
+               ("march_bwd_buf", "march_bwd_buf", "march_bwd_buf.cu",
+                "ray_rust_tpu/ops/pallas_bwd.py:1060", "refraction cap 12"),
+               ("trace_fwd_global", "trace_fwd_global", "trace_fwd.cu",
+                "ray_rust_tpu/ops/pallas_trace.py:1275", f"{n_tex} textures"),
+               ("trace_bwd_global", "trace_bwd_global", "trace_bwd.cu",
+                "ray_rust_tpu/ops/pallas_bwd.py:563", f"{n_tex} textures"),
+               ("march_fwd_global", "march_fwd_global", "march_fwd.cu",
+                "ray_rust_tpu/ops/pallas_march.py:814", f"{n_tex} textures"),
+               ("march_bwd_global", "march_bwd_global", "march_bwd.cu",
+                "ray_rust_tpu/ops/pallas_bwd.py:1060", f"{n_tex} textures"))
+    return [{
+        "name": f"{key} ({what})", "route": "cuda", "build": build,
+        "source": f"ray_rust_tpu_torch/csrc/{source}", "replaces": replaces,
+        "launches": launches[key], "max_abs_err": max(errs[key]), "ms": ms[key],
+        "plain_ms": plain_ms[key][0], "plain_rows": plain_ms[key][1],
+        "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
+        **({"forced_cap4_ms": forced} if key == "march_fwd_deep" else {}),
+    } for key, build, source, replaces, what in entries]
+
+
+# The plain references that two child processes of this script render on
+# the card while phases 3 and 4 run (each is launch-bound on its own host
+# thread, tens of seconds at any pixel count), by key: the march main
+# path's frame on check_rows, untextured and with bar.png in both filters,
+# each with its plain autograd under phase 3's cotangent (grad_case's seed
+# 0 planes, zero off the rows and where K3's image with the floor tail on
+# and off differ by 1e-4), and phase 10's two plain images at 1280x720 on
+# check_rows (refraction cap 12; the bank). The main process waits for them
+# all before phase 4b, whose kernel times they would share the card with.
+PLAIN_CHILD_FLAG = "--plain-child"
+
+
+def plain_jobs():
+    """The two children's job lists (see above)."""
+    march = dict(xres=MW, yres=MH, use_raymarching=True, glow_effect=1.0)
+    rows = check_rows(MH)
+    first = [{"key": f"march_{s}", "scene": s, "cfg": march, "rows": rows, "kind": "vjp",
+              "seed": 0} for s in ("default", "tex0", "tex1")]
+    second = [{"key": "march_fwd_deep", "scene": "default", "rows": rows, "kind": "image",
+               "cfg": dict(march, max_refractions=12, refraction_unroll=None)},
+              {"key": "march_fwd_global", "scene": "bank", "rows": rows, "kind": "image",
+               "cfg": march}]
+    return [first, second]
+
+
+def cotangent_planes(torch, rtt, seed, cfg, dev):
+    """grad_case's cotangent planes: three standard normal (H, W) planes
+    from numpy's seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    return rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
+                                        .astype(np.float32)).to(dev) for _ in range(3)))
+
+
+def plain_child(jobs_path, out_dir, tex_dir) -> int:
+    """A plain child's work: each job of ``jobs_path`` in turn, its result
+    written to ``out_dir/<key>.npz`` (whole, by a rename): an ``image`` job
+    the plain version's rows and their ms; a ``vjp`` job also the agreement
+    mask, the cotangent planes on the rows and the plain autograd's three
+    cotangents (the tables', the camera's, the light's)."""
+    import torch
+
+    import ray_rust_tpu_torch as rtt
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+
+    dev = torch.device("cuda", 0)
+    scenes = {"default": lambda: rtt.default_scene()[0],
+              "tex0": lambda: rtt.default_scene(texture_dir=tex_dir, texture_filter=0)[0],
+              "tex1": lambda: rtt.default_scene(texture_dir=tex_dir, texture_filter=1)[0],
+              "bank": lambda: bank_scene(rtt)}
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    for job in jobs:
+        scene, cfg, rows = scenes[job["scene"]](), rtt.RenderConfig(**job["cfg"]), job["rows"]
+        if job["kind"] == "image":
+            with torch.no_grad():
+                image, ms = event_ms(torch, lambda: kt.render_color_plain(scene, cfg, rows=rows))
+            out = {"image": img(image), "ms": ms}
+        else:
+            (image, vjp), ms = event_ms(torch, lambda: kb.plain_vjp(scene, cfg, rows=rows))
+            with torch.no_grad():  # grad_case's agreement at the main path's frame
+                on_img, off_img = (img(km.render_color_kernel(scene, c))
+                                   for c in (cfg, cfg.with_(march_floor_skip=False)))
+            agree = np.abs(on_img - off_img).max(-1) < 1e-4
+            on = torch.zeros(cfg.yres, 1, device=dev)
+            on[rows] = 1.0
+            g = rtt.Color(*(c * torch.from_numpy(agree).to(dev) * on
+                            for c in cotangent_planes(torch, rtt, job["seed"], cfg, dev)))
+            g_rows = rtt.Color(*(c[rows] for c in g))
+            want, vjp_ms = event_ms(torch, lambda: vjp(g_rows))
+            out = {"image": img(image), "ms": ms + vjp_ms, "agree": agree,
+                   "g": np.stack([c.cpu().numpy() for c in g_rows]),
+                   **{f"want{i}": w.cpu().numpy() for i, w in enumerate(want)}}
+        tmp = os.path.join(out_dir, f"{job['key']}.part.npz")
+        np.savez(tmp, **out)
+        os.replace(tmp, os.path.join(out_dir, f"{job['key']}.npz"))
+    return 0
+
+
+class PlainChildren:
+    """The plain children (``plain_jobs``), started together; ``get(key)``
+    waits for one result; ``close()`` (also at exit) ends both."""
+
+    def __init__(self, tex_dir):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_plain_")
+        self.procs, self.keys = [], []
+        for k, jobs in enumerate(plain_jobs()):
+            path = os.path.join(self.dir, f"jobs{k}.json")
+            with open(path, "w") as f:
+                json.dump(jobs, f)
+            log = open(os.path.join(self.dir, f"child{k}.log"), "w")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), PLAIN_CHILD_FLAG, path, self.dir,
+                 tex_dir], cwd=HERE, stdout=log, stderr=subprocess.STDOUT), log))
+            self.keys.append([job["key"] for job in jobs])
+        self.t0 = time.time()
+        atexit.register(self.close)
+
+    def get(self, key, timeout=1800):
+        """Job ``key``'s result (a dict of arrays), once it is written."""
+        path = os.path.join(self.dir, f"{key}.npz")
+        proc, log = next(pl for pl, keys in zip(self.procs, self.keys) if key in keys)
+        t0 = time.time()
+        while not os.path.exists(path):
+            if proc.poll() is not None or time.time() - t0 > timeout:
+                log.flush()
+                with open(log.name) as f:
+                    tail = f.read()[-3000:]
+                raise SystemExit(f"chip_smoke: the plain child gave no {key} (exit "
+                                 f"{proc.poll()}):\n{tail}")
+            time.sleep(0.2)
+        with np.load(path) as z:
+            out = {k: z[k] for k in z.files}
+        print(f"  (the plain child's {key}: {float(out['ms']):.1f} ms by events there; waited "
+              f"{time.time() - t0:.1f} s)")
+        return out
+
+    def wait_all(self):
+        """Every job's result, and both children's exit; returns the
+        seconds since they started."""
+        for keys in self.keys:
+            for key in keys:
+                self.get(key)
+        for proc, log in self.procs:
+            if proc.wait(timeout=600) != 0:
+                raise SystemExit(f"chip_smoke: a plain child exited {proc.returncode}")
+        return time.time() - self.t0
+
+    def close(self):
+        for proc, log in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def plain(self, torch, key, dev):
+        """grad_case's ``plain=`` for a ``vjp`` job: the rows' image, a
+        stand-in for the vjp that checks its cotangent planes are the
+        child's bit for bit and returns the child's cotangents, and the
+        ms."""
+        out = self.get(key)
+
+        def vjp(g_rows):
+            got = np.stack([c.cpu().numpy() for c in g_rows])
+            if not np.array_equal(got, out["g"]):
+                raise SystemExit(f"chip_smoke: {key}: the cotangent planes are not the plain "
+                                 f"child's")
+            return tuple(torch.from_numpy(out[f"want{i}"]).to(dev) for i in range(3))
+        return out["image"], vjp, float(out["ms"])
+
+
 def main() -> int:
+    if sys.argv[1:2] == [PLAIN_CHILD_FLAG]:
+        return plain_child(*sys.argv[2:5])
     import torch
 
     if not torch.cuda.is_available():
@@ -2536,8 +3200,15 @@ def run(torch, tex_dir) -> int:
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         building = pool.submit(build)
+        # the first case's plain march under autograd, its graph kept: its
+        # image is the plain march's, and its vjp serves phase 3's march
+        # gradient case on the same frame (one plain forward for both)
+        (first, first_vjp), first_ms = event_ms(
+            torch, lambda: kb.plain_vjp(default.to(dev), march_cases[0][2]))
+        march_first_plain = (img(first), first_vjp, first_ms)
         march_plain = {name: img(km.render_color_plain(scene.to(dev), cfg))
-                       for name, scene, cfg in march_cases}
+                       for name, scene, cfg in march_cases[1:]}
+        march_plain[march_cases[0][0]] = march_first_plain[0]
         # phase 7's windowed plain march of the 2x2 mesh's cell of the march
         # main path
         out, ms = event_ms(torch, lambda: km.render_color_plain(default, cfg_march, MCELL[:2],
@@ -2572,6 +3243,8 @@ def run(torch, tex_dir) -> int:
         for line in _build.build_logs[stem].splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print("    " + line.strip())
+    ops_futures.update(deep_counts(counting, rtt, torch))  # phase 10's, once nvcc is done
+    children = PlainChildren(tex_dir)  # phase 3's and phase 10's plain references
     for stem in stems:
         calls = _build.called_functions(_build.build_logs[stem])
         if calls:
@@ -2595,6 +3268,7 @@ def run(torch, tex_dir) -> int:
             ("trace_fwd_global", "", "K1 global tables: <no cull, 16>, <cull, 16>, "
                                      "<no cull, 64>, <cull, 64>"),
             ("march_fwd_global", "", "K3 global tables"),
+            ("march_fwd_deep", "", "K3's deep instance (the deep march, global tables)"),
             ("trace_bwd_global", "9TraceBodyI", "K2 global tables: caps 192, 64, 16"),
             ("trace_bwd_global", "13DeepTraceBodyI", "K2 global tables, 64-task stack: caps "
                                                      "192, 64"),
@@ -2615,6 +3289,15 @@ def run(torch, tex_dir) -> int:
         end.record()
         torch.cuda.synchronize()
         return got, img(ref), start.elapsed_time(end)
+
+    def rows_both(scene, cfg, mod, key):
+        """The kernel's image of the whole frame, bit-equal to its own
+        launches on partition()'s bands of rows, the plain version's image
+        of check_rows (the plain child's job ``key``) and its ms, and the
+        rows."""
+        got = banded_frame(torch, mod, scene.to(dev), cfg)
+        plain = children.get(key)
+        return got, plain["image"], float(plain["ms"]), check_rows(cfg.yres)
 
     # 3. kernel vs plain on the card, and vs the golden
     phase_s = {"2": time.time() - t0}  # the phases' wall times, printed at the end
@@ -2706,62 +3389,75 @@ def run(torch, tex_dir) -> int:
     got = img(km.render_color_kernel(default.to(dev), rtt.RenderConfig(
         xres=160, yres=120, refraction_unroll=None, **glow)))
     compare("march kernel vs golden default_march_glow_160x120", golden, got)
-    got, ref, march_plain_ms = both(default, cfg_march, km)
-    march_max_abs_err = compare(f"march default {MW}x{MH} (the main path's shape)", ref, got)
-    print("march kernel, floor tail off vs plain version, and on vs off:")
-    off = img(km.render_color_kernel(default.to(dev), cfg_march_off))
-    same = float((off == ref).all(-1).mean())
-    print(f"  tail off, default {MW}x{MH}: bit-equal to the plain version on {same:.4%} of pixels "
-          f"-> {'ok' if same == 1.0 else 'FAIL'}")
-    if same < 1.0:
-        raise SystemExit("chip_smoke: the march kernel with the tail off is not its plain version")
-    knife_edge_only(f"tail on vs off, default {MW}x{MH}", got, off)
     for name, scene, cfg in floor_tail_scenes(rtt):
         scene = scene.to(dev)
         knife_edge_only(f"tail on vs off, {name}", img(km.render_color_kernel(scene, cfg)),
                         img(km.render_color_kernel(scene, cfg.with_(march_floor_skip=False))))
 
-    print("textured march kernel (K3 reading the atlas) vs plain version: tail off bit for bit, "
-          "tail on within the budget, on vs off knife-edge-only:")
-    march_tex_err, march_tex_plain_ms = {}, {}
-    for f, fname in ((0, "Nearest"), (1, "Bilinear")):
-        got, ref, march_tex_plain_ms[f] = both(tex_scenes[f], cfg_march, km)
-        march_tex_err[f] = compare(f"march textured {fname} {MW}x{MH}, tail on", ref, got)
-        off = img(km.render_color_kernel(tex_scenes[f], cfg_march_off))
-        same = float((off == ref).all(-1).mean())
-        print(f"  march textured {fname} {MW}x{MH}, tail off: bit-equal to the plain version on "
-              f"{same:.4%} of pixels (plain {march_tex_plain_ms[f]:.1f} ms) -> "
-              f"{'ok' if same == 1.0 else 'FAIL'}")
-        if same < 1.0:
-            raise SystemExit(f"chip_smoke: textured K3 ({fname}), tail off, is not its plain "
-                             f"version")
-        small = cfg_march.with_(xres=320, yres=240)
-        knife_edge_only(f"textured {fname} tail on vs off 320x240",
-                        img(km.render_color_kernel(tex_scenes[f], small)),
-                        img(km.render_color_kernel(tex_scenes[f],
-                                                   small.with_(march_floor_skip=False))))
-
     print("backward kernel vs torch autograd of the plain version:")
 
+    def banded_blocks(name, scene, cfg, g, kernels):
+        """Each windowed backward wrapper in ``kernels`` on the whole frame
+        against the same wrapper on partition()'s bands of rows (the
+        cotangent planes cut to each band): the blocks' sum within
+        REGIME_REL_L2 of the whole frame's (the atomics add in another
+        order), each band's image the whole frame's rows bit for bit."""
+        for k in kernels:
+            whole, prim = k(scene, cfg, g, return_primal=True)
+            parts = [k(scene, cfg, rtt.Color(*(c[r0:r0 + h] for c in g)), return_primal=True,
+                       origin=(r0, 0), shape=(h, cfg.xres))
+                     for r0, h in partition(cfg.yres)]
+            flat = torch.cat([t.flatten() for t in whole])
+            summed = sum(torch.cat([t.flatten() for t in part]) for part, _ in parts)
+            rel = float((summed - flat).norm() / flat.norm())
+            same = all(torch.equal(torch.stack(list(band)), torch.stack(list(prim))[:, r0:r0 + h])
+                       for (_, band), (r0, h) in zip(parts, partition(cfg.yres)))
+            print(f"  {name}, {k.__module__.split('.')[-1]}: the whole frame against "
+                  f"{len(parts)} bands of rows: blocks within {rel:.3g} (REGIME_REL_L2), images "
+                  f"bit-equal {same}")
+            if rel > REGIME_REL_L2 or not same:
+                raise SystemExit(f"chip_smoke: {name}: the whole frame is not its bands")
+
     def grad_case(name, scene, cfg, seed=0, bwd=kb, fwd=kt.render_color_plain,
-                  budget=GRAD_BUDGET, bit_equal=False, kernels=None, agree_with=None):
+                  budget=GRAD_BUDGET, bit_equal=False, kernels=None, agree_with=None,
+                  rows=None, plain=None):
         """The table cotangents of each kernel wrapper in ``kernels`` (by
         default ``[bwd.render_grads_kernel]``) against one call of autograd
-        of the plain version ``bwd.render_grads_plain`` on the same inputs,
+        of the plain version (``kernel_trace_bwd.plain_vjp``, the function
+        of every backward's ``render_grads_plain``) on the same inputs,
         mapped to the scene's leaves, and each one's image against ``fwd``'s
         (on every pixel when ``bit_equal``); returns each kernel's largest
         relative L2 and the plain version's ms (one call, CUDA events).
-        With ``agree_with`` (a function giving the plain version's image),
-        the JAX package's two steps (tests/test_pallas_bwd.py:29-72,
-        306-321): ``fwd``'s image agrees with it within 1e-4 on more than
-        90% of pixels, each other pixel on a decision boundary, and the
-        cotangent planes are zero there."""
+        With ``agree_with`` (a function giving the plain version's image;
+        the plain version itself takes the plain call's own image, so the
+        plain forward renders once), the
+        JAX package's two steps (tests/test_pallas_bwd.py:29-72, 306-321):
+        ``fwd``'s image agrees with it within 1e-4 on more than 90% of
+        pixels, each other pixel on a decision boundary, and the cotangent
+        planes are zero there. With ``rows`` (check_rows of a main path's
+        frame), the plain version covers those rows alone, in one call: the
+        kernels launch on the whole frame with the cotangent planes zero
+        off those rows, and each windowed kernel's whole-frame block (the
+        planes on every row) is held against the sum of its blocks on
+        partition()'s bands (REGIME_REL_L2), their images the whole frame's
+        bit for bit. ``plain`` is ``(image, vjp, ms)`` of such a plain call
+        made before (phase 2's, the plain child's: ``PlainChildren.plain``)."""
         scene = scene.to(dev)
-        rng = np.random.default_rng(seed)
-        g = rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
-                                         .astype(np.float32)).to(dev) for _ in range(3)))
+        g = cotangent_planes(torch, rtt, seed, cfg, dev)
+        kernels = kernels or [bwd.render_grads_kernel]
+        if rows is not None:
+            banded_blocks(name, scene, cfg, g,
+                          [k for k in kernels if k is not kr.render_grads_retrace])
+        torch.cuda.reset_peak_memory_stats()
+        if plain is None:
+            (plain_img, vjp), plain_ms = event_ms(
+                torch, lambda: kb.plain_vjp(scene, cfg, rows=rows))
+            plain_img = img(plain_img)
+        else:
+            plain_img, vjp, plain_ms = plain
         if agree_with is not None:
-            ref_img = img(agree_with(scene, cfg))
+            ref_img = (plain_img if agree_with is kt.render_color_plain
+                       else img(agree_with(scene, cfg)))
             agree = np.abs(img(fwd(scene, cfg)) - ref_img).max(-1) < 1e-4
             flat = off_boundary(ref_img, ~agree)
             print(f"  {name}: forwards agree on {agree.mean():.4%} of pixels, "
@@ -2769,27 +3465,28 @@ def run(torch, tex_dir) -> int:
             if not agree.mean() > 0.9 or flat:
                 raise SystemExit(f"chip_smoke: {name}: the forwards disagree off the boundaries")
             g = rtt.Color(*(c * torch.from_numpy(agree).to(dev) for c in g))
-        kernels = kernels or [bwd.render_grads_kernel]
+        if rows is not None:
+            on = torch.zeros(cfg.yres, 1, device=dev)
+            on[rows] = 1.0
+            g = rtt.Color(*(c * on for c in g))
         outs = [k(scene, cfg, g, return_primal=True) for k in kernels]
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = bwd.render_grads_plain(scene, cfg, g)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
+        want, vjp_ms = event_ms(torch, lambda: vjp(rtt.Color(*(
+            c if rows is None else c[rows] for c in g))))
+        plain_ms += vjp_ms
         peak = torch.cuda.max_memory_allocated()
-        ref = img(fwd(scene, cfg))
+        plain_fwd = fwd is kt.render_color_plain
+        ref = plain_img if plain_fwd else img(fwd(scene, cfg))
+        sel = rows if rows is not None and plain_fwd else slice(None)
+        where = f" on {len(rows)} rows" if rows is not None else ""
         errs = []
         for k, (got, prim) in zip(kernels, outs):
             label = name if len(kernels) == 1 else f"{name}, {k.__name__}"
-            agree = float((img(prim) == ref).all(-1).mean())
+            agree = float((img(prim)[sel] == ref).all(-1).mean())
             worst, worst_leaf = leaf_err(label, scene, got, want)
             ok = worst <= budget
             print(f"  {label}: image bit-equal to {fwd.__module__}.{fwd.__name__}'s on "
                   f"{agree:.4%} of pixels, largest leaf relative L2 {worst:.3g} ({worst_leaf}), "
-                  f"plain autograd {plain_ms:.1f} ms, peak {peak / 2**30:.2f} GiB -> "
+                  f"plain autograd{where} {plain_ms:.1f} ms, peak {peak / 2**30:.2f} GiB -> "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"chip_smoke: {label}: {worst_leaf} off by relative L2 "
@@ -2820,7 +3517,7 @@ def run(torch, tex_dir) -> int:
         try:
             (bwd_max_err, retrace_max_err), bwd_plain_ms = grad_case(
                 f"default {pw}x{ph}", default, cfg_main.with_(xres=pw, yres=ph),
-                kernels=[kb.render_grads_kernel, kr.render_grads_retrace])
+                kernels=[kb.render_grads_kernel, kr.render_grads_retrace], rows=check_rows(ph))
             break
         except torch.cuda.OutOfMemoryError as e:
             print(f"  default {pw}x{ph}: the plain autograd graph does not fit the card: {e}")
@@ -2838,7 +3535,7 @@ def run(torch, tex_dir) -> int:
     grad_case("textured Nearest 320x240", tex_scenes[0], rtt.RenderConfig(xres=320, yres=240),
               **tex_grad)
     (tex_bwd_err,), tex_bwd_plain_ms = grad_case(f"textured Bilinear {pw}x{ph}", tex_scenes[1],
-                                              cfg_plain, **tex_grad)
+                                                  cfg_plain, rows=check_rows(ph), **tex_grad)
 
     print("march backward kernel vs torch autograd of the plain march (implicit VJP), its "
           "image vs the march kernel's:")
@@ -2857,19 +3554,24 @@ def run(torch, tex_dir) -> int:
         ("march 40 objects 160x120", glowing40,
          rtt.RenderConfig(xres=160, yres=120, max_refractions=1, **glow)),
     ]:
-        grad_case(name, scene, cfg, **mgrad)
+        first = name == march_cases[0][0]  # phase 2's plain call serves it
+        grad_case(name, scene, cfg, plain=march_first_plain if first else None, **mgrad)
 
-    def march_grad_main(name, scene):
-        """``grad_case`` at the march training path's frame, or the largest
-        whose plain autograd graph fits; at that frame the plain image is the
-        march kernel's with the tail off (bit for bit on this frame, phase
-        3), a thousandth of the plain march's time. Returns the largest
-        relative L2, the plain version's ms and the frame."""
+    def march_grad_main(name, scene, key):
+        """``grad_case`` at the march training path's frame (the plain
+        autograd on check_rows), or the largest whose plain autograd graph
+        fits; at that frame the agreement's reference image is the march
+        kernel's with the tail off (bit for bit the plain version on the
+        checked rows, above), a thousandth of the plain march's time; the
+        plain autograd there is the plain child's job ``key``. Returns the
+        largest relative L2, the plain version's ms and the frame."""
         for pw_m, ph_m in ((MW, MH), (960, 540), (640, 360)):
             try:
                 main_frame = (pw_m, ph_m) == (MW, MH)
                 (err,), plain_ms = grad_case(
                     f"{name} {pw_m}x{ph_m}", scene, cfg_march.with_(xres=pw_m, yres=ph_m),
+                    rows=check_rows(ph_m) if main_frame else None,
+                    plain=children.plain(torch, key, dev) if main_frame else None,
                     **{**mgrad, "agree_with": (
                         (lambda s, c: km.render_color_kernel(s, c.with_(march_floor_skip=False)))
                         if main_frame else km.render_color_plain)})
@@ -2881,8 +3583,42 @@ def run(torch, tex_dir) -> int:
         raise SystemExit(f"chip_smoke: {name}: the plain march autograd graph fits at no shape "
                          f"tried")
 
-    march_bwd_max_err, march_bwd_plain_ms, (pw_m, ph_m) = march_grad_main("march default",
-                                                                          default)
+    print("march kernel at the main path's shape vs plain version (the plain child's rows), "
+          "floor tail off bit for bit, on vs off knife-edge-only:")
+    got, ref, march_plain_ms, rows = rows_both(default, cfg_march, km, "march_default")
+    march_max_abs_err = compare(f"march default {MW}x{MH} (the main path's shape) on "
+                                f"{len(rows)} rows", ref, got[rows])
+    off = img(km.render_color_kernel(default.to(dev), cfg_march_off))
+    same = float((off[rows] == ref).all(-1).mean())
+    print(f"  tail off, default {MW}x{MH}: bit-equal to the plain version on {same:.4%} of the "
+          f"pixels of {len(rows)} rows -> {'ok' if same == 1.0 else 'FAIL'}")
+    if same < 1.0:
+        raise SystemExit("chip_smoke: the march kernel with the tail off is not its plain version")
+    knife_edge_only(f"tail on vs off, default {MW}x{MH}", got, off)
+    print("textured march kernel (K3 reading the atlas) vs plain version: tail off bit for bit, "
+          "tail on within the budget, on vs off knife-edge-only:")
+    march_tex_err, march_tex_plain_ms = {}, {}
+    for f, fname in ((0, "Nearest"), (1, "Bilinear")):
+        got, ref, march_tex_plain_ms[f], rows = rows_both(tex_scenes[f], cfg_march, km,
+                                                          f"march_tex{f}")
+        march_tex_err[f] = compare(f"march textured {fname} {MW}x{MH}, tail on, on {len(rows)} "
+                                   f"rows", ref, got[rows])
+        off = img(km.render_color_kernel(tex_scenes[f], cfg_march_off))
+        same = float((off[rows] == ref).all(-1).mean())
+        print(f"  march textured {fname} {MW}x{MH}, tail off: bit-equal to the plain version on "
+              f"{same:.4%} of the pixels of {len(rows)} rows (plain {march_tex_plain_ms[f]:.1f} "
+              f"ms) -> {'ok' if same == 1.0 else 'FAIL'}")
+        if same < 1.0:
+            raise SystemExit(f"chip_smoke: textured K3 ({fname}), tail off, is not its plain "
+                             f"version")
+        small = cfg_march.with_(xres=320, yres=240)
+        knife_edge_only(f"textured {fname} tail on vs off 320x240",
+                        img(km.render_color_kernel(tex_scenes[f], small)),
+                        img(km.render_color_kernel(tex_scenes[f],
+                                                   small.with_(march_floor_skip=False))))
+
+    march_bwd_max_err, march_bwd_plain_ms, (pw_m, ph_m) = march_grad_main(
+        "march default", default, "march_default")
 
     print("textured march backward (K4's textured instance) vs torch autograd of the plain "
           "textured march, its image vs the march kernel's:")
@@ -2896,7 +3632,7 @@ def run(torch, tex_dir) -> int:
             **mgrad)
     for f, fname in ((0, "Nearest"), (1, "Bilinear")):
         march_tex_bwd_err[fname], march_tex_bwd_plain_ms[fname], march_tex_bwd_frame = (
-            march_grad_main(f"march textured {fname}", tex_scenes[f]))
+            march_grad_main(f"march textured {fname}", tex_scenes[f], f"march_tex{f}"))
 
     print("re-trace gradient oracle (K5) vs torch autograd of the plain trace, its image vs "
           "the trace kernel's:")
@@ -3122,6 +3858,8 @@ def run(torch, tex_dir) -> int:
 
     # 4b. many objects: K1b (the cull inside K1) against the full scan, the
     # scenes past 512 objects in K1-K4, max_reflections 8
+    # the plain children share the card with nothing timed from here on
+    print(f"the plain children done {children.wait_all():.1f} s after they started")
     t_phase = time.time()
     print("many objects (K1b, the per-tile cull inside K1; more than 512 objects; "
           "max_reflections 8):")
@@ -3165,9 +3903,13 @@ def run(torch, tex_dir) -> int:
     # the plain march's time is its longest lane's steps: a 2000-step budget
     cfg_big_march = rtt.RenderConfig(xres=gw, yres=gh, march_max_iter=2000, **glow)
     big_glow = spheres_scene(rtt, 11, 1023, glow_dist=3.0).to(dev)
-    got, ref, big_march_plain_ms = both(big_glow, cfg_big_march, km)
-    compare(f"K3 vs plain, 1024 objects {gw}x{gh} march_max_iter=2000 (plain one frame "
-            f"{big_march_plain_ms:.0f} ms)", ref, got)
+    # one plain call under autograd: its image here, its vjp for K4 below
+    (ref, big_vjp), big_march_plain_ms = event_ms(torch, lambda: kb.plain_vjp(big_glow,
+                                                                             cfg_big_march))
+    big_march_plain = (img(ref), big_vjp, big_march_plain_ms)
+    compare(f"K3 vs plain, 1024 objects {gw}x{gh} march_max_iter=2000 (plain one frame under "
+            f"autograd {big_march_plain_ms:.0f} ms)", big_march_plain[0],
+            img(km.render_color_kernel(big_glow, cfg_big_march)))
 
     def regime_args(stem, scene, cfg, tail, cull=None):
         """Launcher ``stem``'s arguments after the field of view for
@@ -3251,7 +3993,7 @@ def run(torch, tex_dir) -> int:
                                     kernels=[kb.render_grads_kernel, staged("trace_bwd")])
     _, big_march_bwd_plain_ms = grad_case(
         f"march 1024 objects {gw}x{gh} march_max_iter=2000", big_glow, cfg_big_march,
-        kernels=[kmb.render_grads_kernel, staged("march_bwd")], **mgrad)
+        kernels=[kmb.render_grads_kernel, staged("march_bwd")], plain=big_march_plain, **mgrad)
     # each kernel's two table regimes (the build a wrapper launches is chosen
     # by n against its SHARED_TABLE_MAX) at its threshold, where both fit its
     # launch shape, and at 1 024 objects, the shapes of the times below
@@ -3350,8 +4092,8 @@ def run(torch, tex_dir) -> int:
               f"{cuda_ms(torch, kernel_step):.3f} ms by events")
     # the plain step is phase 3's plain autograd (the same render and
     # gradient, without the MSE): no yardstick of speed, not run twice
-    print(f"  its plain twin (phase 3's plain autograd at {pw}x{ph}, one call): "
-          f"{bwd_plain_ms:.3f} ms")
+    print(f"  its plain twin (phase 3's plain autograd at {pw}x{ph} on {len(check_rows(ph))} "
+          f"rows, one call): {bwd_plain_ms:.3f} ms")
     # the port's device_trace first, then the smoke's own profile of the step
     trace_frame(torch, rtt, scene_dev, cfg_main)
     busy, span, names = device_busy(torch, kernel_step)
@@ -3392,8 +4134,8 @@ def run(torch, tex_dir) -> int:
     print(f"  host counts, {W}x{H}, cotangent 1 on every pixel: {adds} accumulator adds lane "
           f"by lane, {pairs} distinct (warp of 32 pixels, entry) pairs, {sites} sites "
           f"({sites / (W * H):.3f} a pixel, at most {most})")
-    print(f"  its plain version (autograd of the plain trace) at {pw}x{ph}: {bwd_plain_ms:.3f} ms "
-          f"(one call, phase 3)")
+    print(f"  its plain version (autograd of the plain trace) at {pw}x{ph} on "
+          f"{len(check_rows(ph))} rows: {bwd_plain_ms:.3f} ms (one call, phase 3)")
 
     print(f"textured forward and training step {W}x{H}, default scene with bar.png ({card}):")
     with torch.no_grad():
@@ -3407,7 +4149,8 @@ def run(torch, tex_dir) -> int:
     print(f"  step through the kernels, Bilinear (render, MSE, gradient of every float leaf): "
           f"{tex_step_ms:.3f} ms")
     tex_bwd_ms, tex_bwd_alone_ms = bwd_times(tex_bi, "Bilinear")
-    print(f"  its plain version at {pw}x{ph}: {tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
+    print(f"  its plain version at {pw}x{ph} on {len(check_rows(ph))} rows: "
+          f"{tex_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
     print(f"gradient oracle {W}x{H}, default scene, default cfg ({card}):")
     oracle_words = kp.launch_pack(scene_dev)
@@ -3424,8 +4167,8 @@ def run(torch, tex_dir) -> int:
         print(f"  {name}: {ms:.3f} ms per cotangent")
     retrace_ms, retrace_alone_ms = (float(np.mean([ms for k, ms in oracle_runs if k == name]))
                                     for name in names[:2])
-    print(f"  their plain version (autograd of the plain trace) at {pw}x{ph}: "
-          f"{bwd_plain_ms:.3f} ms (one call, above)")
+    print(f"  their plain version (autograd of the plain trace) at {pw}x{ph} on "
+          f"{len(check_rows(ph))} rows: {bwd_plain_ms:.3f} ms (one call, above)")
     counts = ops["trace_retrace"]
     hist = counts[kr.HIST_SLOT:]
     print(f"  host counts, {W}x{H}: Dual passes of {lanes} lanes {counts[2]} "
@@ -3441,20 +4184,21 @@ def run(torch, tex_dir) -> int:
             c = cfg_march.with_(xres=w, yres=h)
             march_ms[(w, h)] = cuda_ms(torch, lambda c=c: km.render_color_kernel(scene_dev, c))
             print(f"  kernel {w}x{h}: {march_ms[(w, h)]:.3f} ms/frame")
-    print(f"  plain {MW}x{MH}: {march_plain_ms:.1f} ms (one frame, phase 3)")
+    print(f"  plain {MW}x{MH} on {len(check_rows(MH))} rows: {march_plain_ms:.1f} ms (one call, "
+          f"phase 3)")
 
     print(f"march + glow forward + backward {MW}x{MH}, default scene, default cfg ({card}):")
     march_step_ms = cuda_ms(torch, step(rtt.render_color, cfg_march))
     print(f"  step (march kernel + march backward kernel at {MW}x{MH}: render, MSE, gradient "
           f"of every float leaf): {march_step_ms:.3f} ms")
     print(f"  its plain twin (phase 3's plain autograd with the implicit VJP at "
-          f"{pw_m}x{ph_m}, one call): {march_bwd_plain_ms:.3f} ms")
+          f"{pw_m}x{ph_m} on {len(check_rows(ph_m))} rows, one call): {march_bwd_plain_ms:.3f} ms")
     g_march = planes(cfg_march)
     march_bwd_ms = cuda_ms(torch, lambda: kmb.render_grads_kernel(scene_dev, cfg_march, g_march,
                                                                   return_primal=True))
     print(f"  march backward kernel alone at {MW}x{MH} (wrapper, with the image): "
-          f"{march_bwd_ms:.3f} ms; its plain version at {pw_m}x{ph_m}: "
-          f"{march_bwd_plain_ms:.3f} ms (one call, phase 3)")
+          f"{march_bwd_ms:.3f} ms; its plain version at {pw_m}x{ph_m} on "
+          f"{len(check_rows(ph_m))} rows: {march_bwd_plain_ms:.3f} ms (one call, phase 3)")
 
     print(f"textured march {MW}x{MH}, default scene with bar.png, -m -g 1.0, beside the "
           f"untextured in turns ({card}):")
@@ -3474,10 +4218,10 @@ def run(torch, tex_dir) -> int:
     march_tex_step_ms = cuda_ms(torch, step(rtt.render_color, cfg_march, base=tex_bi))
     print(f"  textured march step, Bilinear (render, MSE, gradient of every float leaf): "
           f"{march_tex_step_ms:.3f} ms")
-    print(f"  plain textured march {MW}x{MH}: Nearest {march_tex_plain_ms[0]:.1f} ms, Bilinear "
-          f"{march_tex_plain_ms[1]:.1f} ms (one frame each, phase 3); plain autograd (160x120 "
-          f"with march_max_iter=2000, and the textured frame "
-          f"{march_tex_bwd_frame[0]}x{march_tex_bwd_frame[1]}): "
+    print(f"  plain textured march {MW}x{MH} on {len(check_rows(MH))} rows: Nearest "
+          f"{march_tex_plain_ms[0]:.1f} ms, Bilinear {march_tex_plain_ms[1]:.1f} ms (one call "
+          f"each, phase 3); plain autograd (160x120 with march_max_iter=2000, and the textured "
+          f"frame {march_tex_bwd_frame[0]}x{march_tex_bwd_frame[1]} on its check rows): "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in march_tex_bwd_plain_ms.items())
           + " (phase 3)")
     print(f"  scene files (configuration 4), wall time a CLI request: "
@@ -3570,6 +4314,11 @@ def run(torch, tex_dir) -> int:
     t_phase = time.time()
     deep = deep_trees(torch, rtt, cli, deep_refs, ops_futures)
     phase_s["9"] = time.time() - t_phase
+
+    # 10. deep marches and large banks
+    t_phase = time.time()
+    deep += deep_marches(torch, rtt, cli, ops_futures, card, children)
+    phase_s["10"] = time.time() - t_phase
     print("phase wall times: " + ", ".join(f"{k} {v:.0f} s" for k, v in phase_s.items()))
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:
@@ -3605,6 +4354,7 @@ def run(torch, tex_dir) -> int:
         "launches": march_launches, "max_abs_err": march_max_abs_err,
         "ms": march_ms[(MW, MH)], "plain_ms": march_plain_ms,
         "bound_ms": bounds["march_fwd"][0], "bound_by": bounds["march_fwd"][1],
+        "plain_rows": len(check_rows(MH)),
         "library_ms": None,
     }, {
         "name": "trace_bwd", "route": "cuda",
@@ -3613,6 +4363,7 @@ def run(torch, tex_dir) -> int:
         "launches": train_launches[1], "max_abs_err": bwd_max_err, "ms": bwd_ms,
         "alone_ms": bwd_alone_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["trace_bwd"][0], "bound_by": bounds["trace_bwd"][1],
+        "plain_rows": len(check_rows(ph)),
         "library_ms": None,
     }, {
         "name": "trace_bwd_textured", "route": "cuda",
@@ -3622,6 +4373,7 @@ def run(torch, tex_dir) -> int:
         "alone_ms": tex_bwd_alone_ms, "plain_ms": tex_bwd_plain_ms,
         "bound_ms": bounds["trace_bwd_textured"][0],
         "bound_by": bounds["trace_bwd_textured"][1],
+        "plain_rows": len(check_rows(ph)),
         "library_ms": None,
     }, {
         "name": "march_bwd", "route": "cuda",
@@ -3630,6 +4382,7 @@ def run(torch, tex_dir) -> int:
         "launches": march_train_launches[3], "max_abs_err": march_bwd_max_err,
         "ms": march_bwd_ms, "plain_ms": march_bwd_plain_ms,
         "bound_ms": bounds["march_bwd"][0], "bound_by": bounds["march_bwd"][1],
+        "plain_rows": len(check_rows(ph_m)),
         "library_ms": None,
     }, {
         "name": "march_fwd_textured", "route": "cuda",
@@ -3638,6 +4391,7 @@ def run(torch, tex_dir) -> int:
         "launches": march_tex_launches, "max_abs_err": max(march_tex_err.values()),
         "ms": k3_tex_ms["Nearest"], "plain_ms": march_tex_plain_ms[0],
         "bound_ms": bounds["march_fwd_textured"][0], "bound_by": bounds["march_fwd_textured"][1],
+        "plain_rows": len(check_rows(MH)),
         "library_ms": None,
     }, {
         "name": "march_bwd_textured", "route": "cuda",
@@ -3647,6 +4401,7 @@ def run(torch, tex_dir) -> int:
         "max_abs_err": max(march_tex_bwd_err.values()),
         "ms": k4_tex_ms["Bilinear"], "plain_ms": march_tex_bwd_plain_ms["Bilinear"],
         "bound_ms": bounds["march_bwd_textured"][0], "bound_by": bounds["march_bwd_textured"][1],
+        "plain_rows": len(check_rows(march_tex_bwd_frame[1])),
         "library_ms": None,
     }, {
         "name": "pack_scene", "route": "cuda",
@@ -3669,6 +4424,7 @@ def run(torch, tex_dir) -> int:
         "launches": retrace_launches, "max_abs_err": retrace_max_err, "ms": retrace_ms,
         "alone_ms": retrace_alone_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["trace_retrace"][0], "bound_by": bounds["trace_retrace"][1],
+        "plain_rows": len(check_rows(ph)),
         "library_ms": None,
     }] + [{
         "name": f"{name}_window", "route": "cuda",

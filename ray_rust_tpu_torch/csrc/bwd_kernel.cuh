@@ -34,10 +34,11 @@
 // re-trace bring their own accumulators.
 // ``Body::TEXTURED`` says whether it reads the texture atlas (the trace
 // backward, the march backward's textured instance); then the atlas's meta
-// rows are staged in shared memory beside the tables. The march backward's
-// untextured instance and the re-trace's are false, and the untextured
-// march backward is the kernel it was before textures. ``P`` is the body's
-// parameter struct.
+// rows are staged in shared memory beside the tables (but for a bank past
+// TEXTURE_MAX in the global-table build: trace_body.cuh, staged_meta). The
+// march backward's untextured instance and the re-trace's are false, and
+// the untextured march backward is the kernel it was before textures.
+// ``P`` is the body's parameter struct.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,7 +66,7 @@ inline size_t bwd_smem(int n, int n_tex = 0) {
   const int n_tab = GLOBAL_TABLES ? 0 : n;
   return sizeof(float) * (n_tab * F32_COLS + CAM_COLS + LIGHT_COLS +
                           (GLOBAL_TABLES ? 0 : (n + 1) * GRAD_COLS)) +
-         sizeof(int) * (n_tab * I32_COLS + n_tex * TEX_META_COLS);
+         sizeof(int) * (n_tab * I32_COLS + staged_meta(n_tex) * TEX_META_COLS);
 }
 
 // The launch shape of every body and the accumulator of the march backward:
@@ -108,8 +109,9 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   if (tid < LIGHT_COLS) s_light[tid] = light[tid];
   for (int k = tid; k < acc_len; k += nthreads) s_acc[k] = 0.0f;
   int* s_meta = reinterpret_cast<int*>(s_acc + acc_len);
+  const int n_meta = staged_meta(tx.n_tex);  // meta rows staged in shared memory
   if constexpr (Body::TEXTURED) {
-    for (int k = tid; k < tx.n_tex * TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
+    for (int k = tid; k < n_meta * TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
   }
   __syncthreads();
 
@@ -124,7 +126,7 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
     s.light = v3(s_light[0], s_light[1], s_light[2]);
     if constexpr (Body::TEXTURED) {
       s.tx = tx;
-      s.tx.meta = s_meta;
+      if (n_meta == tx.n_tex) s.tx.meta = s_meta;
     }
     const size_t o = static_cast<size_t>(ly) * p.w + lx;
     C3 c = Body::run(s, p, cutoff, s_cam, p.col0 + lx, p.row0 + ly, c3(g_r[o], g_g[o], g_b[o]),

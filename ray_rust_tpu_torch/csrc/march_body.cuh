@@ -24,9 +24,11 @@
 // ``nest`` = the parent lap's level, which is above the parent's own level
 // and below the refraction cap, so a chain of nested raymarch calls holds
 // at most max(1, refraction_cap) frames. raymarch<D> is instantiated per
-// depth D up to MARCH_FRAMES, so the call graph has no recursion
-// (ops/kernel_march.py refuses a cap past MARCH_FRAMES; a call past it
-// would turn the pixel to NaN rather than drop the sub-march). Every level
+// depth D up to MARCH_FRAMES, so the call graph has no recursion (a call
+// past it would turn the pixel to NaN rather than drop the sub-march);
+// past that cap the wrappers launch the deep march (raymarch_deep, at the
+// end of this file), the same recursion as one loop over an explicit
+// stack of MARCH_FRAMES_DEEP frames. Every level
 // is forced inline, with every function of this file from march_pixel down
 // (RT_INLINE), so the kernel is one straight program: built with real
 // calls between the levels (__noinline__), the optimized kernel read illegal
@@ -699,14 +701,15 @@ template <int D, class Rec>
 RT_INLINE C3 raymarch(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, int lev,
                         int ig, int flags, Rec& rec, int parent_site);
 
-// March shading (render.rs:1020-1140) of a hit on object ``idx`` at level
-// ``nest``, by the raymarch frame at depth D; ``site`` is the recorder's id
-// of the lap. A textured material's hit reads its texel (K1a's
-// fetch_texture, trace_body.cuh) where the pattern would be; the marches
-// read no texture.
-template <int D, class Rec>
-RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3 n, V3 pt,
-                           V3 eye, int nest, Rec& rec, int site) {
+// March shading (render.rs:1020-1092) of a hit on object ``idx`` up to its
+// refraction: Lambert + Phong, the shadow march and the pattern, or the
+// texel where the material is textured (K1a's fetch_texture,
+// trace_body.cuh); the marches read no texture. ``site`` is the recorder's
+// id of the lap. Returns the face colour kd*k1 + k2 and sets *f_out to the
+// hit's transparency.
+template <class Rec>
+RT_INLINE C3 march_shade_base(const SceneView& s, const MarchParams& p, int idx, V3 n, V3 pt,
+                              V3 eye, Rec& rec, int site, float* f_out) {
   const float* o = s.f32 + idx * F32_COLS;
   const int* oi = s.i32 + idx * I32_COLS;
 
@@ -738,16 +741,40 @@ RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3
   } else {
     kd = pattern_diffuse(o, oi[1], u, v);
   }
-  C3 base = c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
-  if (!(nest < p.refraction_cap && f > 0.0f)) return base;
+  *f_out = f;
+  return c3(kd.r * k1 + k2, kd.g * k1 + k2, kd.b * k1 + k2);
+}
 
-  // pseudo-refraction (render.rs:1093-1132): bend, ignore the source, and
-  // march the sub-ray from level ``nest``
+// The pseudo-refraction's sub-ray from a hit on object row ``o`` with
+// normal ``n`` (render.rs:1093-1132): the bent direction, and the
+// sub-march's flags in *sub_flags.
+RT_INLINE V3 refraction_ray(const float* o, V3 n, V3 eye, int* sub_flags) {
   float sp_n = dot(eye, n);
   float fracn = fabsf(o[14]) > 1e-6f ? o[14] : 1.0f;
   float bend = sp_n * ((sp_n > 0.0f ? fracn : 1.0f / fracn) - 1.0f);
-  V3 ray = normalized(add(eye, v3(n.x * bend, n.y * bend, n.z * bend)));
-  int sub_flags = sp_n < 0.0f ? OUTONLY : INONLY;
+  *sub_flags = sp_n < 0.0f ? OUTONLY : INONLY;
+  return normalized(add(eye, v3(n.x * bend, n.y * bend, n.z * bend)));
+}
+
+// A refracting hit's face: its own colour ``base`` and the sub-march's
+// colour ``fc2`` blended by the transparency f.
+RT_INLINE C3 refraction_blend(C3 base, float f, C3 fc2) {
+  return c3(base.r * (1.0f - f) + fc2.r * f, base.g * (1.0f - f) + fc2.g * f,
+            base.b * (1.0f - f) + fc2.b * f);
+}
+
+// March shading (render.rs:1020-1140) of a hit on object ``idx`` at level
+// ``nest``, by the raymarch frame at depth D: march_shade_base, then the
+// pseudo-refraction, which ignores the source and marches the sub-ray from
+// level ``nest``.
+template <int D, class Rec>
+RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3 n, V3 pt,
+                           V3 eye, int nest, Rec& rec, int site) {
+  float f;
+  const C3 base = march_shade_base(s, p, idx, n, pt, eye, rec, site, &f);
+  if (!(nest < p.refraction_cap && f > 0.0f)) return base;
+  int sub_flags;
+  const V3 ray = refraction_ray(s.f32 + idx * F32_COLS, n, eye, &sub_flags);
   C3 fc2;
   if constexpr (D + 1 < MARCH_FRAMES) {
     fc2 = raymarch<D + 1>(s, p, add(pt, scale(ray, F32_EPS)), ray, nest, idx, sub_flags, rec,
@@ -755,8 +782,7 @@ RT_INLINE C3 march_shading(const SceneView& s, const MarchParams& p, int idx, V3
   } else {  // unreachable under the bound: poison the pixel, never drop work
     fc2 = c3(nanf(""), nanf(""), nanf(""));
   }
-  return c3((kd.r * k1 + k2) * (1.0f - f) + fc2.r * f, (kd.g * k1 + k2) * (1.0f - f) + fc2.g * f,
-            (kd.b * k1 + k2) * (1.0f - f) + fc2.b * f);
+  return refraction_blend(base, f, fc2);
 }
 
 // The march + reflect loop of one ray at level ``lev`` (render.rs:1299-1411),
@@ -842,6 +868,196 @@ RT_INLINE C3 march_pixel(const SceneView& s, const MarchParams& p, const float* 
                          int iy) {
   NoMarchRecord rec;
   return march_pixel(s, p, cam, ix, iy, rec);
+}
+
+// The deep march: raymarch's refraction recursion written a second time, as
+// one loop over an explicit stack of suspended raymarch calls, for
+// refraction caps past MARCH_FRAMES (K3's march_fwd_deep.cu, K4's buffer
+// instance march_bwd_buf.cu). A call is suspended where a lap's hit starts
+// a refraction sub-march; the sub-march then runs in the loop's state, and
+// when its glow factor is done its colour resumes the lap that started it,
+// which blends it, accumulates and bounces as raymarch does. Every float
+// operation and every recorder call (frame, site, lit, glow, frame_end)
+// comes in raymarch's order, so the image is the recursive body's bit for
+// bit wherever that one takes the cap, and with march_floor_skip off the
+// plain march's. The stack holds MARCH_FRAMES_DEEP - 1 suspended calls
+// beside the running one: a chain of nested calls climbs through distinct
+// levels below the cap, so it takes refraction caps up to
+// MARCH_FRAMES_DEEP, any raymarch_max_reflections. An entry is 100 bytes,
+// so the stack is 6.3 KB of local memory a thread, touched once a
+// sub-march each way.
+constexpr int MARCH_FRAMES_DEEP = 64;  // ops/kernel_march.py: FRAME_CAP_DEEP
+
+// A raymarch call suspended at the lap whose hit started a sub-march: what
+// the lap needs to finish (its face colour and transparency, the hit's
+// object, point and normal, the direction it marched) and the call's state
+// for its next laps. The lap's successor starts from the hit, so the call's
+// start point, ignored object and march result are dead here.
+struct MarchFrame {
+  V3 eye, n, pt;
+  C3 fcs, ret;   // the call's throughput and colour before the lap's face
+  C3 base;       // the lap's kd*k1 + k2
+  float f;       // the hit's transparency
+  float min_min_dist;
+  int lev, step, flags, idx;
+  int frame;     // the recorder's id of the call
+};
+
+// raymarch<0> of the ray from ``pos`` along ``eye`` on the explicit stack.
+template <class Rec>
+RT_INLINE C3 raymarch_deep(const SceneView& s, const MarchParams& p, V3 pos, V3 eye, Rec& rec) {
+  MarchFrame stack[MARCH_FRAMES_DEEP - 1];
+  int depth = 0;
+  // the running call: raymarch's arguments and locals
+  int lev = 0, ig = -1, flags = 0, step = 0;
+  int frame = rec.frame(-1);
+  C3 fcs = c3(1.0f, 1.0f, 1.0f);
+  C3 ret = c3(0.0f, 0.0f, 0.0f);
+  float min_min_dist = INFINITY;
+  March res;
+  bool need_march = true;
+  // the lap at ``step``: its hit, and after a sub-march (``resumed``) its
+  // colour ``sub``
+  V3 n = v3(0.0f, 0.0f, 0.0f), pt = n;
+  C3 base = c3(0.0f, 0.0f, 0.0f), sub = base;
+  float f = 0.0f;
+  int idx = 0;
+  bool resumed = false;
+  for (;;) {
+    const int laps = p.max_laps - lev > 1 ? p.max_laps - lev : 1;
+    bool called = false;  // a lap started a sub-march, which runs next
+    for (; step < laps; ++step) {
+      const int lev_i = lev + 1 + step;
+      C3 face;
+      if (resumed) {
+        resumed = false;
+        face = refraction_blend(base, f, sub);
+      } else {
+        if (need_march) {
+          res = p.glow_on ? march_single<true, Rec::TRACK_GLOW, Rec::TEXTURED>(s, p, pos, eye, ig)
+                          : march_single<false, Rec::TRACK_GLOW, Rec::TEXTURED>(s, p, pos, eye, ig);
+        }
+        const bool hit = res.final_dist < p.eps;
+        const int site = rec.site(frame, eye, ig, flags, fcs, res, hit);
+        if (res.min_dist < min_min_dist) {
+          min_min_dist = res.min_dist;
+          rec.glow(frame, site, res, hit);
+        }
+        if (!hit) {
+          // a miss keeps the lane and its march, and re-adds the sky each lap
+          C3 bg = background(p.bg, s.light, eye);
+          ret = c3(ret.r + bg.r * fcs.r, ret.g + bg.g * fcs.g, ret.b + bg.b * fcs.b);
+          need_march = false;
+          continue;
+        }
+        idx = res.idx;
+        pt = res.pos;
+        n = surface_normal(s.f32 + idx * F32_COLS, s.i32[idx * I32_COLS], pt);
+        base = march_shade_base(s, p, idx, n, pt, eye, rec, site, &f);
+        face = base;
+        if (lev_i < p.refraction_cap && f > 0.0f) {
+          int sub_flags;
+          const V3 ray = refraction_ray(s.f32 + idx * F32_COLS, n, eye, &sub_flags);
+          if (depth < MARCH_FRAMES_DEEP - 1) {  // suspend this call, start the sub-march
+            MarchFrame& c = stack[depth++];
+            c.eye = eye;
+            c.n = n;
+            c.pt = pt;
+            c.fcs = fcs;
+            c.ret = ret;
+            c.base = base;
+            c.f = f;
+            c.min_min_dist = min_min_dist;
+            c.lev = lev;
+            c.step = step;
+            c.flags = flags;
+            c.idx = idx;
+            c.frame = frame;
+            frame = rec.frame(site);
+            pos = add(pt, scale(ray, F32_EPS));
+            eye = ray;
+            lev = lev_i;
+            ig = idx;
+            flags = sub_flags;
+            step = 0;
+            fcs = c3(1.0f, 1.0f, 1.0f);
+            ret = c3(0.0f, 0.0f, 0.0f);
+            min_min_dist = INFINITY;
+            need_march = true;
+            called = true;
+            break;
+          }
+          // unreachable under the bound: poison the pixel, never drop work
+          face = refraction_blend(base, f, c3(nanf(""), nanf(""), nanf("")));
+        }
+      }
+
+      // accumulate with the per-channel IGNORE guards (render.rs:1175-1186)
+      const float* o = s.f32 + idx * F32_COLS;
+      if (!(flags & RIGNORE)) {
+        ret.r = ret.r + face.r * fcs.r;
+        fcs.r = fcs.r * o[9];
+      }
+      if (!(flags & GIGNORE)) {
+        ret.g = ret.g + face.g * fcs.g;
+        fcs.g = fcs.g * o[10];
+      }
+      if (!(flags & BIGNORE)) {
+        ret.b = ret.b + face.b * fcs.b;
+        fcs.b = fcs.b * o[11];
+      }
+
+      bool cont = idx != 0 && fcs.r + fcs.g + fcs.b > 0.1f && lev_i < p.max_laps;
+      if (!cont) break;
+      // mirror bounce + entry/exit flag flip (render.rs:1199-1211)
+      float en2 = -2.0f * dot(eye, n);
+      V3 new_eye = add(eye, v3(n.x * en2, n.y * en2, n.z * en2));
+      flags = dot(n, new_eye) < 0.0f ? ((flags & ~INONLY) | OUTONLY)
+                                     : ((flags & ~OUTONLY) | INONLY);
+      pos = pt;
+      eye = new_eye;
+      ig = idx;
+      need_march = true;
+    }
+    if (called) continue;
+    C3 out = ret;
+    if (p.glow_on && !(fabsf(min_min_dist) == INFINITY)) {
+      float factor = 1.0f + p.glow * powf(0.99f, min_min_dist);
+      out = c3(ret.r * factor, ret.g * factor, ret.b * factor);
+    }
+    rec.frame_end(frame, ret, out);
+    if (depth == 0) return out;
+    const MarchFrame& c = stack[--depth];  // resume the caller's lap
+    eye = c.eye;
+    n = c.n;
+    pt = c.pt;
+    fcs = c.fcs;
+    ret = c.ret;
+    base = c.base;
+    f = c.f;
+    min_min_dist = c.min_min_dist;
+    lev = c.lev;
+    step = c.step;
+    flags = c.flags;
+    idx = c.idx;
+    frame = c.frame;
+    sub = out;
+    resumed = true;
+  }
+}
+
+// march_pixel through the deep march.
+template <class Rec>
+RT_INLINE C3 march_pixel_deep(const SceneView& s, const MarchParams& p, const float* cam,
+                              int ix, int iy, Rec& rec) {
+  V3 eye = camera_ray(p.xres, p.yres, p.sx, p.sy, cam, ix, iy);
+  return raymarch_deep(s, p, v3(cam[0], cam[1], cam[2]), eye, rec);
+}
+
+RT_INLINE C3 march_pixel_deep(const SceneView& s, const MarchParams& p, const float* cam,
+                              int ix, int iy) {
+  NoMarchRecord rec;
+  return march_pixel_deep(s, p, cam, ix, iy, rec);
 }
 
 }  // namespace rt

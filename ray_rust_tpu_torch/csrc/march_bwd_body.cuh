@@ -64,7 +64,8 @@
 // A site's record is 68 bytes and a frame's 124, so the two local arrays
 // take MARCH_SITE_CAP * 192 bytes a thread (6.7 KB at MARCH_SITE_CAP = 35, the
 // count of refraction_unroll=None at 3 laps), beside the forward's
-// registers. Configurations with more laps run march_pixel_grad_buf, whose
+// registers. Configurations with more laps, or a refraction cap past
+// MARCH_FRAMES, run march_pixel_grad_buf (its record pass the deep march), whose
 // records lie in a buffer in device memory that the wrapper allocates for
 // the launch's window (trace_bwd_body.cuh: RecBuf, BufRecs; the cap a
 // launch argument); the recorder and the sweep read and write them through
@@ -329,8 +330,11 @@ RT_AD void lap_adj(const SceneView& s, float cutoff, int i, const MSite& st, MFr
 // The pixel's cotangent g pulled back to the scene tables through ``acc``
 // (rows 0..n-1: the objects' 19 columns; row n: camera, light), recording
 // at most ``rec.sites.size()`` laps and frames in ``rec``'s stores. Returns the
-// pixel's colour (march_pixel's). TEX: the scene may be textured.
-template <bool TEX, class Sites, class Frames, class Acc>
+// pixel's colour (march_pixel's). TEX: the scene may be textured. DEEP: the
+// record pass runs the deep march (march_body.cuh: raymarch_deep, the same
+// traversal and records on an explicit stack), for refraction caps past
+// MARCH_FRAMES.
+template <bool DEEP = false, bool TEX, class Sites, class Frames, class Acc>
 RT_AD C3 march_sweep(MarchRecorder<TEX, Sites, Frames>& rec, const SceneView& s,
                      const MarchParams& p, float cutoff, const float* cam, int ix, int iy,
                      C3 g, Acc& acc) {
@@ -339,7 +343,12 @@ RT_AD C3 march_sweep(MarchRecorder<TEX, Sites, Frames>& rec, const SceneView& s,
   rec.n_sites = 0;
   rec.n_frames = 0;
   rec.overflow = false;
-  C3 out = march_pixel(s, p, cam, ix, iy, rec);
+  C3 out;
+  if constexpr (DEEP) {
+    out = march_pixel_deep(s, p, cam, ix, iy, rec);
+  } else {
+    out = march_pixel(s, p, cam, ix, iy, rec);
+  }
   if (rec.overflow) {  // unreachable at the wrapper's cap: poison, never drop a lap
     acc.add(s.n, 0, nanf(""));
     return c3(nanf(""), nanf(""), nanf(""));
@@ -416,13 +425,15 @@ RT_AD C3 march_pixel_grad(const SceneView& s, const MarchParams& p, float cutoff
   return march_sweep(rec, s, p, cutoff, cam, ix, iy, g, acc);
 }
 
-// march_sweep with p.cap laps and frames in p's buffer (rec_stores).
+// march_sweep with p.cap laps and frames in p's buffer (rec_stores), its
+// record pass on the deep march: the buffer instance takes every
+// refraction cap up to MARCH_FRAMES_DEEP.
 template <bool TEX, class Acc>
 RT_AD C3 march_pixel_grad_buf(const SceneView& s, const RecBuf<MarchParams>& p, float cutoff,
                               const float* cam, int ix, int iy, C3 g, Acc& acc) {
   MarchRecorder<TEX, BufRecs<MSite>, BufRecs<MFrame>> rec;
   rec_stores(p, ix, iy, &rec.sites, &rec.frames);
-  return march_sweep(rec, s, p, cutoff, cam, ix, iy, g, acc);
+  return march_sweep<true>(rec, s, p, cutoff, cam, ix, iy, g, acc);
 }
 
 }  // namespace rt

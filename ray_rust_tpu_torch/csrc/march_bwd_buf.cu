@@ -17,6 +17,13 @@
 // their store, so the cotangents and the image are the local-array
 // kernel's.
 //
+// Its record pass is the deep march (march_body.cuh: raymarch_deep), the
+// recursive body's traversal on an explicit stack of 64 raymarch frames,
+// so it also takes every refraction cap past 10 up to 64 (the local
+// instances' chain of inlined levels stops at 10): the wrapper launches it
+// for those at any lap count. Its image and records are the recursive
+// body's wherever that one takes the cap.
+//
 // One instance, in a library of its own: the march backward's instances
 // take three minutes of nvcc each, and this one compiles beside them. It
 // is the textured body (it reads the atlas where the scene has one and is
@@ -51,7 +58,8 @@ extern "C" {
 // rt_march_bwd (march_bwd.cu) with the records of ``site_cap`` laps a pixel
 // (any cap of at least 1) in ``buf``: 48 * site_cap words for each pixel of
 // the window, which the caller allocates and need not clear. The window is
-// one band of the wrapper's.
+// one band of the wrapper's. Refraction caps past rt::MARCH_FRAMES_DEEP
+// return cudaErrorInvalidValue.
 int rt_march_bwd_buf(const float* f32t, const int* i32t, const float* cam, const float* light,
                      int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                      float sy, int refraction_cap, int bg, int max_laps, int max_iter, float eps,
@@ -60,7 +68,8 @@ int rt_march_bwd_buf(const float* f32t, const int* i32t, const float* cam, const
                      int tex_len, const float* g_r, const float* g_g, const float* g_b,
                      float* out_block, float* prim_r, float* prim_g, float* prim_b,
                      int site_cap, unsigned* buf, int device, void* stream) {
-  if (site_cap < 1 || buf == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (site_cap < 1 || buf == nullptr || refraction_cap > rt::MARCH_FRAMES_DEEP)
+    return static_cast<int>(cudaErrorInvalidValue);
   rt::RecBuf<rt::MarchParams> p;
   p.xres = xres;
   p.yres = yres;

@@ -7,7 +7,8 @@
 // returns 0, or 1 (cudaErrorInvalidValue) for a window with no pixel or past
 // the frame.
 // rt_march_bwd_buf_host is rt_march_bwd_buf's (march_bwd_buf.cu), with
-// its records in a buffer the caller passes.
+// its records in a buffer the caller passes and its record pass the deep
+// march.
 // Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC`` (and
 // -DRT_COUNT_OPS to count into ops_total[0..5] as march_host.cpp does).
 
@@ -117,7 +118,7 @@ extern "C" int rt_march_bwd_buf_host(const float* f32t, const int* i32t, const f
                                      const float* g_b, float* out_block, float* prim_r,
                                      float* prim_g, float* prim_b, int site_cap, unsigned* buf,
                                      unsigned long long* ops_total) {
-  if (site_cap < 1 || buf == nullptr) return 1;
+  if (site_cap < 1 || buf == nullptr || refraction_cap > rt::MARCH_FRAMES_DEEP) return 1;
   rt::RecBuf<rt::MarchParams> p;
   static_cast<rt::MarchParams&>(p) = params(xres, yres, row0, col0, h, w, sx, sy,
                                             refraction_cap, bg, max_laps, max_iter, eps,

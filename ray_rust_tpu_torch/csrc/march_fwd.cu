@@ -26,8 +26,9 @@
 // loops, and the refraction recursion is a chain of template instances, one
 // per depth, inlined into one program. A textured hit (the JAX package's jnp
 // path: its march kernel declines textures, pallas_march.py:60-73) reads the
-// texture atlas as K1 does: the meta rows in shared memory beside the tables, one 16-byte
-// read-only load a texel from global memory. Not carried over: the
+// texture atlas as K1 does: the meta rows in shared memory beside the tables
+// (in global memory for a bank past TEXTURE_MAX, global-table build), one
+// 16-byte read-only load a texel from global memory. Not carried over: the
 // tile-wide while loop and tile skip, and the ray-parametric step form
 // (pallas_march.py:85-97,127-147), which rounds differently and only saves
 // arithmetic; warps diverge where their pixels' step counts differ. Built
@@ -35,6 +36,10 @@
 // plain PyTorch version (ops/trace.py:raymarch); with march_floor_skip off
 // the kernel is that version bit for bit. A launch renders a window of the
 // frame at its global origin, as K1 does (trace_fwd.cu).
+//
+// Refraction caps past rt::MARCH_FRAMES (10) run the deep build of this
+// file (march_fwd_deep.cu: -DRT_MARCH_DEEP, the deep march on an explicit
+// stack, global tables).
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
 // ops/kernel_march.py).
@@ -61,6 +66,7 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   float* s_cam = reinterpret_cast<float*>(s_i32 + n_tab * rt::I32_COLS);
   float* s_light = s_cam + rt::CAM_COLS;
   int* s_meta = reinterpret_cast<int*>(s_light + rt::LIGHT_COLS);
+  const int n_meta = rt::staged_meta(tx.n_tex);  // meta rows staged in shared memory
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
@@ -70,7 +76,7 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   }
   if (tid < rt::CAM_COLS) s_cam[tid] = cam[tid];
   if (tid < rt::LIGHT_COLS) s_light[tid] = light[tid];
-  for (int k = tid; k < tx.n_tex * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
+  for (int k = tid; k < n_meta * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
   __syncthreads();
 
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;  // the pixel in the window
@@ -83,8 +89,12 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   s.n = n;
   s.light = rt::v3(s_light[0], s_light[1], s_light[2]);
   s.tx = tx;
-  s.tx.meta = s_meta;
+  if (n_meta == tx.n_tex) s.tx.meta = s_meta;
+#ifdef RT_MARCH_DEEP
+  rt::C3 c = rt::march_pixel_deep(s, p, s_cam, p.col0 + lx, p.row0 + ly);
+#else
   rt::C3 c = rt::march_pixel(s, p, s_cam, p.col0 + lx, p.row0 + ly);
+#endif
   const size_t o = static_cast<size_t>(ly) * p.w + lx;
   out_r[o] = c.r;
   out_g[o] = c.g;
@@ -96,11 +106,11 @@ march_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
 extern "C" {
 
 // Shared memory the launch needs for n objects and n_tex textures, in bytes
-// (the tables in the shared-table build only).
+// (the tables in the shared-table build only, the meta rows it stages).
 size_t rt_march_fwd_smem(int n, int n_tex) {
   const int n_tab = rt::GLOBAL_TABLES ? 0 : n;
   return sizeof(float) * (n_tab * rt::F32_COLS + rt::CAM_COLS + rt::LIGHT_COLS) +
-         sizeof(int) * (n_tab * rt::I32_COLS + n_tex * rt::TEX_META_COLS);
+         sizeof(int) * (n_tab * rt::I32_COLS + rt::staged_meta(n_tex) * rt::TEX_META_COLS);
 }
 
 // Launch the march forward on ``stream`` of ``device``; returns the
@@ -108,6 +118,8 @@ size_t rt_march_fwd_smem(int n, int n_tex) {
 // of rt_trace_fwd (trace_fwd.cu): rows row0 .. row0+h-1 and columns col0 ..
 // col0+w-1 of the xres x yres frame. The texture arguments are
 // rt_trace_fwd's (trace_fwd.cu): null and zeros for an untextured scene.
+// The deep build (march_fwd_deep.cu) returns cudaErrorInvalidValue for a
+// refraction cap past rt::MARCH_FRAMES_DEEP.
 int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                  float sy, int refraction_cap, int bg,
@@ -115,6 +127,9 @@ int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const flo
                  float glow, int floor_skip, const void* tex, const int* tex_meta, int n_tex,
                  int tex_stride, int tex_len, float* out_r, float* out_g, float* out_b,
                  int device, void* stream) {
+#ifdef RT_MARCH_DEEP
+  if (refraction_cap > rt::MARCH_FRAMES_DEEP) return static_cast<int>(cudaErrorInvalidValue);
+#endif
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = rt_march_fwd_smem(n, n_tex);

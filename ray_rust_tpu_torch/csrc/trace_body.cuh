@@ -198,6 +198,15 @@ constexpr bool GLOBAL_TABLES = true;
 #else
 constexpr bool GLOBAL_TABLES = false;
 #endif
+// The most textures whose meta rows a launch stages in shared memory beside
+// the tables (ops/kernel_trace.py: TEXTURE_MAX). The wrappers launch a
+// larger bank in the global-table build, which reads the rows where the
+// pack kernel wrote them (TexArgs::meta) instead: 16 bytes a texture,
+// looked up once a textured hit.
+constexpr int TEXTURE_MAX = 1024;
+
+// The meta rows a launch of this build stages for a bank of n_tex textures.
+RT_FI int staged_meta(int n_tex) { return GLOBAL_TABLES && n_tex > TEXTURE_MAX ? 0 : n_tex; }
 // K1b's f32 margins (cull_object): relative to the sphere's distance from
 // the camera, to the camera's distance from the origin, and the least n.L
 // of a plane that culls shadow rays.

@@ -17,7 +17,9 @@
 // memory (ops/kernel_trace.py: SHARED_TABLE_MAX objects) are read where the
 // pack kernel wrote them, through the read-only path, by the kernels of a
 // second build (-DRT_GLOBAL_TABLES, trace_body.cuh: GLOBAL_TABLES); nothing
-// else changes.
+// else changes. That build also reads the meta rows of a bank past
+// TEXTURE_MAX = 1 024 textures where the pack wrote them (staged_meta), and
+// the wrappers launch it for such a bank at any object count.
 //
 // K1b, the per-tile object cull (ray_rust_tpu/ops/pallas_trace.py:
 // _build_candidates): in the instances that take it (CULL, launched above 64
@@ -76,8 +78,9 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   float* s_cam = reinterpret_cast<float*>(s_i32 + n_tab * rt::I32_COLS);
   float* s_light = s_cam + rt::CAM_COLS;
   int* s_meta = reinterpret_cast<int*>(s_light + rt::LIGHT_COLS);
+  const int n_meta = rt::staged_meta(tx.n_tex);  // meta rows staged in shared memory
   const int words = (n + 31) >> 5;
-  unsigned* s_prim = reinterpret_cast<unsigned*>(s_meta + tx.n_tex * rt::TEX_META_COLS);
+  unsigned* s_prim = reinterpret_cast<unsigned*>(s_meta + n_meta * rt::TEX_META_COLS);
   unsigned* s_shadow = s_prim + words;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -88,7 +91,7 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   }
   if (tid < rt::CAM_COLS) s_cam[tid] = cam[tid];
   if (tid < rt::LIGHT_COLS) s_light[tid] = light[tid];
-  for (int k = tid; k < tx.n_tex * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
+  for (int k = tid; k < n_meta * rt::TEX_META_COLS; k += nthreads) s_meta[k] = tx.meta[k];
   __syncthreads();
 
   rt::SceneView s;
@@ -97,7 +100,7 @@ trace_fwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   s.n = n;
   s.light = rt::v3(s_light[0], s_light[1], s_light[2]);
   s.tx = tx;
-  s.tx.meta = s_meta;
+  if (n_meta == tx.n_tex) s.tx.meta = s_meta;
   rt::FwdRecord<CULL, STACK> rec;
   if constexpr (CULL) {  // K1b: the block's candidate masks, a warp a word
     const rt::CullTile ct = rt::cull_tile(p, s_cam, s.light, p.col0 + blockIdx.x * BLOCK_X,
@@ -134,11 +137,12 @@ extern "C" {
 
 // Shared memory the launch needs for n objects and n_tex textures, in bytes:
 // the tables (in the shared-table build), the camera, the light, the meta
-// rows, and with ``cull`` the two candidate masks.
+// rows it stages (rt::staged_meta), and with ``cull`` the two candidate
+// masks.
 size_t rt_trace_fwd_smem(int n, int n_tex, int cull) {
   const int n_tab = rt::GLOBAL_TABLES ? 0 : n;
   return sizeof(float) * (n_tab * rt::F32_COLS + rt::CAM_COLS + rt::LIGHT_COLS) +
-         sizeof(int) * (n_tab * rt::I32_COLS + n_tex * rt::TEX_META_COLS) +
+         sizeof(int) * (n_tab * rt::I32_COLS + rt::staged_meta(n_tex) * rt::TEX_META_COLS) +
          (cull ? 2 * sizeof(unsigned) * ((n + 31) / 32) : 0);
 }
 

@@ -1,7 +1,7 @@
 """Build and load the port's native kernels from ``ray_rust_tpu_torch/csrc``.
 
 The CUDA kernels (``trace_fwd.cu``, ``march_fwd.cu``, ``trace_bwd.cu``,
-``march_bwd.cu``, ``march_bwd_buf.cu``, ``trace_retrace.cu``,
+``march_bwd.cu``, ``march_bwd_buf.cu``, ``march_fwd_deep.cu``, ``trace_retrace.cu``,
 ``pack_scene.cu``) are compiled at
 first use with ``nvcc`` for Hopper (``sm_90a``) into shared libraries with a
 plain C interface, which are loaded with ``ctypes``. A library's file name carries
@@ -15,8 +15,11 @@ compiler each. Each of ``trace_fwd``, ``march_fwd``, ``trace_bwd`` and
 the same launcher, its kernels reading the object tables from global memory
 (``csrc/trace_body.cuh: GLOBAL_TABLES``) for scenes too large for shared
 memory. ``march_bwd_buf`` (K4 with its records in device memory, past 35
-laps) is a library of its own beside ``march_bwd``, whose builds set the
-build's time, and reads the tables from global memory only.
+laps or a refraction cap of 10) is a library of its own beside
+``march_bwd``, whose builds set the build's time, and reads the tables from
+global memory only; so is ``march_fwd_deep`` (``csrc/march_fwd_deep.cu``:
+K3 past a refraction cap of 10, the deep march on an explicit stack, its
+launcher ``rt_march_fwd``).
 
 :func:`build_host_library` compiles a kernel's per-pixel body for the CPU
 with ``g++`` (``csrc/trace_host.cpp``, ``csrc/march_host.cpp``,
@@ -96,6 +99,7 @@ _CUDA_FNS = {"trace_fwd": ("rt_trace_fwd", _TRACE_ARGS), "march_fwd": ("rt_march
              "trace_bwd": ("rt_trace_bwd", _BWD_ARGS),
              "march_bwd": ("rt_march_bwd", _MARCH_BWD_ARGS),
              "march_bwd_buf": ("rt_march_bwd_buf", _MARCH_BWD_BUF_ARGS),
+             "march_fwd_deep": ("rt_march_fwd", _MARCH_ARGS),
              "trace_retrace": ("rt_trace_retrace", _RETRACE_ARGS),
              "pack_scene": ("rt_pack_scene", _PACK_ARGS)}
 _HOST_FNS = {"trace": ("rt_trace_host", _TRACE_ARGS), "march": ("rt_march_host", _MARCH_ARGS),
@@ -117,9 +121,10 @@ _HOST_RESTYPES = {"trace_retrace": _I, "trace_bwd": _I, "march_bwd": _I}
 # Functions of the CUDA libraries alone (after their arguments, the device
 # and the stream), of the host builds alone (after theirs, the operation
 # counter) and of the counting host builds alone: the backwards' buffer
-# instances and their twins, the stack counts.
+# instances and their twins, the deep march's host loop, the stack counts.
 _CUDA_EXTRA_FNS = {"trace_bwd": {"rt_trace_bwd_buf": (_BWD_BUF_ARGS + [_I, _P], _I)}}
-_HOST_EXTRA_FNS = {"trace_bwd": {"rt_trace_bwd_buf_host": (_BWD_BUF_ARGS + [_P], _I)},
+_HOST_EXTRA_FNS = {"march": {"rt_march_deep_host": (_MARCH_ARGS + [_P], None)},
+                   "trace_bwd": {"rt_trace_bwd_buf_host": (_BWD_BUF_ARGS + [_P], _I)},
                    "march_bwd": {"rt_march_bwd_buf_host": (_MARCH_BWD_BUF_ARGS + [_P], _I)}}
 _COUNT_EXTRA_FNS = {"trace": {"rt_trace_tasks_host": (_TRACE_ARGS + [_P, _P], None)},
                     "trace_retrace": {"rt_trace_retrace_tasks_host": (_RETRACE_ARGS + [_P, _P],
@@ -202,8 +207,8 @@ def _compile_cuda(name: str) -> Path:
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load CUDA library ``name`` (``"trace_fwd"``,
     ``"march_fwd"``, ``"trace_bwd"``, ``"march_bwd"``, ``"march_bwd_buf"``,
-    ``"trace_retrace"`` or ``"pack_scene"``; the first four also with
-    ``_global``)."""
+    ``"march_fwd_deep"``, ``"trace_retrace"`` or ``"pack_scene"``; the first
+    four also with ``_global``)."""
     if name not in _cuda_libs:
         src = _source(name)[0]
         fn_name, argtypes = _CUDA_FNS[src]
@@ -237,7 +242,8 @@ def called_functions(ptxas_log: str) -> list:
 def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
     """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
     a CPU loop (``rt_trace_host``, with K1b's ``rt_cull_masks_host``,
-    ``rt_march_host``, ``rt_trace_bwd_host`` with ``rt_trace_bwd_buf_host``,
+    ``rt_march_host`` with ``rt_march_deep_host``, ``rt_trace_bwd_host``
+    with ``rt_trace_bwd_buf_host``,
     ``rt_march_bwd_host`` with ``rt_march_bwd_buf_host``,
     ``rt_trace_retrace_host`` or ``rt_pack_scene_host``, with
     ``rt_pack_scene_vjp``; the counting builds of ``"trace"`` and

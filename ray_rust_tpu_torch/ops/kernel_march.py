@@ -7,9 +7,12 @@ Pallas kernel ``render_color_pallas_march``: camera rays, sphere tracing over
 the scene SDF, the lap loop, march shading with shadow marches, patterns,
 the refraction sub-marches, the sky and the glow factor, one thread per
 pixel, for march-mode scenes of any size the pack's 32-bit words hold;
-above :data:`SHARED_TABLE_MAX` objects its global-table build
-(``march_fwd_global``) reads the tables where the pack wrote them instead of
-staging them in shared memory. A textured hit reads the
+above :data:`SHARED_TABLE_MAX` objects (or past ``kernel_trace.TEXTURE_MAX``
+textures) its global-table build (``march_fwd_global``) reads the tables
+where the pack wrote them instead of staging them in shared memory. Past a
+refraction cap of :data:`FRAME_CAP` its deep instance (``march_fwd_deep``,
+``csrc/march_fwd_deep.cu``) runs the refraction recursion on an explicit
+stack of :data:`FRAME_CAP_DEEP` frames. A textured hit reads the
 scene's texture atlas as the trace kernel does (K1a); the JAX package's
 march kernel declines textures and renders them through its jnp march
 (``pallas_trace.py:render_color_fast``), whose function the plain version
@@ -47,6 +50,7 @@ from .kernel_trace import (
     render_color_plain,
     size_reason,
     texture_args,
+    texture_count,
     texture_reason,
 )
 from .sky import BG_IDS
@@ -54,6 +58,8 @@ from .sky import BG_IDS
 __all__ = [
     "kernel_supported",
     "unsupported_reason",
+    "deep",
+    "library_name",
     "render_color_kernel",
     "render_words_kernel",
     "render_color_plain",
@@ -61,8 +67,10 @@ __all__ = [
     "launch_args",
 ]
 
-# Launches of the march kernel since import (or since a caller reset it).
+# Launches of the march kernel since import (or since a caller reset it),
+# and of them those of its deep instance.
 LAUNCHES = 0
+DEEP_LAUNCHES = 0
 
 # The most objects whose tables K3 stages in shared memory: its 32x8
 # blocks at 128 registers run two an SM, which leaves each block 233472 / 2
@@ -81,7 +89,10 @@ OPS_SLOTS = 6
 # refraction sub-march at level l. Every chain of nested calls climbs through
 # distinct levels below the cap, so a pixel nests at most max(1, cap)
 # raymarch calls; at R = 3 its tree holds 8 calls at cap 4 and 32 at cap 10.
+# Past it the deep instance (csrc/march_fwd_deep.cu) runs, whose explicit
+# stack holds FRAME_CAP_DEEP frames (rt::MARCH_FRAMES_DEEP).
 FRAME_CAP = 10
+FRAME_CAP_DEEP = 64
 
 
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
@@ -99,9 +110,9 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     if cfg.bg not in BG_IDS:
         return f"unknown background {cfg.bg!r}"
     cap = cfg.refraction_cap()
-    if cap > FRAME_CAP:
+    if cap > FRAME_CAP_DEEP:
         return (f"refraction depth {cap} nests {cap} raymarch calls; "
-                f"the kernel's task stack holds {FRAME_CAP}")
+                f"the deep kernel's task stack holds {FRAME_CAP_DEEP} frames")
     return None
 
 
@@ -109,8 +120,23 @@ def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
     """March mode (the JAX kernel's ``pallas_march_supported``, the
     scenes past 512 objects it renders through jnp, and textured scenes
     within the trace kernel's atlas limits), refraction depth at most
-    ``FRAME_CAP``."""
+    ``FRAME_CAP_DEEP``."""
     return unsupported_reason(scene, cfg) is None
+
+
+def deep(cfg: RenderConfig) -> bool:
+    """Whether ``cfg``'s refraction cap nests more raymarch calls than the
+    recursive instances hold (:data:`FRAME_CAP`): the deep instance's."""
+    return cfg.refraction_cap() > FRAME_CAP
+
+
+def library_name(scene: Scene, cfg: RenderConfig) -> str:
+    """The CUDA library that renders ``scene`` under ``cfg``: the deep
+    instance past :data:`FRAME_CAP`, else ``march_fwd`` or its global-table
+    build (``kernel_trace.library``)."""
+    if deep(cfg):
+        return "march_fwd_deep"
+    return library("march_fwd", scene.objects.count, SHARED_TABLE_MAX, texture_count(scene))
 
 
 def kernel_args(cfg: RenderConfig) -> list:
@@ -146,13 +172,14 @@ def render_words_kernel(scene: Scene, words, cfg: RenderConfig, origin=(0, 0),
     straight from their addresses, for the window at ``origin`` of size
     ``shape`` of a render the caller has checked with
     :func:`unsupported_reason`."""
-    global LAUNCHES
+    global LAUNCHES, DEEP_LAUNCHES
     from ._build import load_cuda_library
 
     n = scene.objects.count
     ptrs, meta = word_pointers(words, n)
-    lib = load_cuda_library(library("march_fwd", n, SHARED_TABLE_MAX))
+    lib = load_cuda_library(library_name(scene, cfg))
     img = launch(lib, lib.rt_march_fwd, ptrs, n, words.device, cfg,
                  kernel_args(cfg) + texture_pointers(scene, meta), origin, shape)
     LAUNCHES += 1
+    DEEP_LAUNCHES += deep(cfg)
     return img

@@ -16,9 +16,11 @@ march kernel's own traversal, then runs a hand-written adjoint over them
 backwards, with the hit points pulled back by the implicit function theorem
 and the glow through its recorded argmin, as ``ops/march.py``'s implicit VJP
 does. It records at most :data:`SITE_CAP` laps a pixel in local arrays;
-configurations with more (``raymarch_max_reflections=7`` needs 39) launch
-its buffer instance (``csrc/march_bwd_buf.cu``, a library of its own, in the
-global-table regime, textured or not), whose records, :data:`RECORD_WORDS`
+configurations with more (``raymarch_max_reflections=7`` needs 39), or with
+a refraction cap past ``kernel_march.FRAME_CAP``, launch its buffer
+instance (``csrc/march_bwd_buf.cu``, a library of its own, in the
+global-table regime, textured or not, its record pass the deep march on an
+explicit stack of ``kernel_march.FRAME_CAP_DEEP`` frames), whose records, :data:`RECORD_WORDS`
 words a lap, lie in a buffer in device memory that
 ``kernel_trace_bwd.launch_buffered`` fills band by band of the window's
 rows within ``kernel_trace_bwd.RECORD_BUDGET``.
@@ -58,6 +60,7 @@ __all__ = [
     "count_sites",
     "count_frames",
     "buffered",
+    "nesting",
     "unsupported_reason",
     "kernel_supported",
     "kernel_args",
@@ -106,10 +109,33 @@ def count_frames(cfg: RenderConfig) -> int:
     return kernel_trace.tree_counts(cfg.raymarch_max_reflections, cfg.refraction_cap())[1]
 
 
+def nesting(buf: torch.Tensor, cap: int, pixels: int) -> torch.Tensor:
+    """The deepest chain of nested raymarch calls (the camera ray's march
+    is 1, a refraction sub-march one more than the call whose lap started
+    it) that each pixel of a one-band launch of the buffer instance over
+    ``pixels`` pixels recorded into ``buf``, filled with
+    ``kernel_trace_bwd.RECORD_FILL`` before it and read after it: a frame
+    record's first word is the lap that started it, a lap record's word 13
+    its frame (``csrc/march_bwd_body.cuh``: MSite, MFrame)."""
+    laps = buf[:cap * LAP_WORDS * pixels].view(cap, LAP_WORDS, pixels)[:, 13].long()
+    parents = buf[cap * LAP_WORDS * pixels:cap * RECORD_WORDS * pixels].view(
+        cap, RECORD_WORDS - LAP_WORDS, pixels)[:, 0].long()
+    cols = torch.arange(pixels, device=buf.device)
+    depth = torch.zeros((cap, pixels), dtype=torch.long, device=buf.device)
+    for k in range(cap):  # parents first: a frame's parent lap is in an earlier frame
+        p = parents[k]
+        written = (p >= -1) & (p < cap)  # RECORD_FILL where frame k never began
+        up = depth[laps[p.clamp(0, cap - 1), cols].clamp(0, cap - 1), cols]
+        depth[k] = torch.where(written, torch.where(p < 0, 1, up + 1), 0)
+    return depth.amax(0)
+
+
 def buffered(cfg: RenderConfig) -> bool:
-    """Whether the kernel keeps ``cfg``'s records in a buffer in device
-    memory: more laps than :data:`SITE_CAP`."""
-    return count_sites(cfg) > SITE_CAP
+    """Whether the buffer instance takes ``cfg``: more laps than
+    :data:`SITE_CAP`, or a refraction cap past ``kernel_march.FRAME_CAP``
+    (its record pass is the deep march, ``csrc/march_body.cuh:
+    raymarch_deep``)."""
+    return count_sites(cfg) > SITE_CAP or kernel_march.deep(cfg)
 
 
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
@@ -127,7 +153,7 @@ def kernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
     """March mode, scenes within ``kernel_trace.size_reason``'s limit (the
     pack's int32 words and K1b's masks in a block's shared memory; textured
     within the atlas limits), refraction depth at most
-    ``kernel_march.FRAME_CAP``, a pixel's records within
+    ``kernel_march.FRAME_CAP_DEEP``, a pixel's records within
     ``kernel_trace_bwd.RECORD_BUDGET``."""
     return unsupported_reason(scene, cfg) is None
 
@@ -170,7 +196,8 @@ def launch_words(scene: Scene, words, cfg: RenderConfig, g: Color, return_primal
                                                  origin, shape, RECORD_WORDS * cap, (cap,))
         BUF_LAUNCHES += bands
         return block, prim
-    lib = load_cuda_library(kernel_trace.library("march_bwd", n, ktb.SHARED_TABLE_MAX))
+    lib = load_cuda_library(kernel_trace.library("march_bwd", n, ktb.SHARED_TABLE_MAX,
+                                                 kernel_trace.texture_count(scene)))
     out = ktb.launch_block(lib, lib.rt_march_bwd, ptrs, n, words.device, cfg, args, g,
                            return_primal, origin, shape)
     LAUNCHES += 1

@@ -13,8 +13,10 @@ reach, and the root trace's first raycast and shadow ray scan only those;
 the cull is exact, so it changes no pixel (:mod:`.cull` is its plain
 version, for the tests). Scenes above :data:`SHARED_TABLE_MAX` objects run
 the kernel's global-table build (``trace_fwd_global``), which reads the
-tables where the pack wrote them. Its refraction sub-traces wait on a task
-stack of :func:`stack_tasks` tasks at most: the 16-task instance takes every
+tables where the pack wrote them; so do banks past :data:`TEXTURE_MAX`
+textures, whose meta rows that build reads from global memory too. Its
+refraction sub-traces wait on a task stack of :func:`stack_tasks` tasks at
+most: the 16-task instance takes every
 ``max_reflections`` up to refraction caps of 17 (the default unroll's 4
 among them), the 64-task instance the deeper caps. The texture atlas goes
 to the kernel as :func:`pack_textures` lays it out. On the card the scene's tables come from
@@ -64,6 +66,8 @@ __all__ = [
     "pack_textures",
     "texture_args",
     "texture_reason",
+    "texture_count",
+    "staged_meta",
     "kernel_supported",
     "count_sites",
     "tree_counts",
@@ -87,7 +91,10 @@ CULL_LAUNCHES = 0
 
 STACK_CAP = 16  # csrc/trace_body.cuh: rt::STACK_CAP
 STACK_CAP_DEEP = 64  # rt::STACK_CAP_DEEP: refraction caps 18 to 65 past 16 reflections
-TEXTURE_MAX = 1024  # the meta rows share the block's shared memory with the tables
+# The most textures whose meta rows a launch stages in shared memory beside
+# the tables (csrc/trace_body.cuh: rt::TEXTURE_MAX); a larger bank runs in
+# the global-table builds, which read the rows where the pack wrote them.
+TEXTURE_MAX = 1024
 # K1b runs above this many objects (the JAX kernel's _KERNEL_UNROLL_MAX);
 # below, the full scan (PERF.md §6 has the times of both at 5 objects).
 CULL_MIN_OBJECTS = 64
@@ -154,14 +161,23 @@ def texture_args(tex, device) -> list:
     return [atlas.data_ptr(), meta.data_ptr(), t, wmax, t * hmax * wmax]
 
 
+def texture_count(scene: Scene) -> int:
+    """The textures of the scene's bank (0 for none)."""
+    return 0 if scene.textures is None else scene.textures.packed.shape[0]
+
+
+def staged_meta(n_tex: int) -> int:
+    """The texture meta rows a launch stages in shared memory: all of a bank
+    of at most :data:`TEXTURE_MAX`, none of a larger one (the global-table
+    builds read those where the pack wrote them)."""
+    return n_tex if n_tex <= TEXTURE_MAX else 0
+
+
 def texture_reason(scene: Scene) -> Optional[str]:
-    """Why the kernels cannot read the scene's textures, or None: the
-    texture meta rows share a block's shared memory with the tables, and the
-    atlas is indexed in 32 bits."""
+    """Why the kernels cannot read the scene's textures, or None: the atlas
+    and the meta rows' base texels are indexed in 32 bits."""
     if scene.textures is not None:
         t, hmax, wmax = scene.textures.packed.shape[:3]
-        if t > TEXTURE_MAX:
-            return f"more than {TEXTURE_MAX} textures"
         if t * hmax * wmax >= 2**31:
             return "a texture atlas of 2^31 texels or more"
     return None
@@ -190,13 +206,13 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
 def size_reason(scene: Scene) -> Optional[str]:
     """Why the kernels cannot hold the scene's tables, or None: the pack's
     words are indexed in int32, and K1b's masks (8 bytes a 32 objects) stay
-    in a block's shared memory."""
+    in a block's shared memory beside the meta rows it stages."""
     n = scene.objects.count
-    n_tex = 0 if scene.textures is None else scene.textures.packed.shape[0]
+    n_tex = texture_count(scene)
     words = pack_words(n, n_tex)
     if words > WORDS_MAX:
         return f"{n} objects take {words} pack words; the kernels index at most {WORDS_MAX}"
-    smem = 4 * (CAM_COLS + LIGHT_COLS + TEX_META_COLS * n_tex) + 8 * ((n + 31) // 32)
+    smem = 4 * (CAM_COLS + LIGHT_COLS + TEX_META_COLS * staged_meta(n_tex)) + 8 * ((n + 31) // 32)
     if smem > BLOCK_SMEM_MAX:
         return (f"{n} objects' cull masks take {smem} bytes of a block's shared memory; "
                 f"a block takes at most {BLOCK_SMEM_MAX}")
@@ -216,20 +232,24 @@ def cull_on(cfg: RenderConfig, n: int) -> bool:
     return cfg.pallas_prefilter and n > CULL_MIN_OBJECTS
 
 
-def library(name: str, n: int, shared_max: int) -> str:
-    """CUDA library ``name``, or its global-table build above
-    ``shared_max`` objects (``_build.GLOBAL_SUFFIX``)."""
+def library(name: str, n: int, shared_max: int, n_tex: int = 0) -> str:
+    """CUDA library ``name``, or its global-table build
+    (``_build.GLOBAL_SUFFIX``) above ``shared_max`` objects or
+    :data:`TEXTURE_MAX` textures."""
     from ._build import GLOBAL_SUFFIX
 
-    return name + GLOBAL_SUFFIX if n > shared_max else name
+    return name + GLOBAL_SUFFIX if n > shared_max or n_tex > TEXTURE_MAX else name
 
 
-def render_color_plain(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None) -> Color:
+def render_color_plain(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None,
+                       rows=None) -> Color:
     """The kernel's function in plain PyTorch: camera rays + ``trace_image``
     (in march mode too, where ``trace_image`` marches), for the window at
     ``origin`` of size ``shape`` (``rays.window``; the whole frame by
-    default), each of its pixels the whole frame's."""
-    vi, eye = camera_rays(scene.camera.position, scene.camera.rotation, cfg, origin, shape)
+    default), or for the whole ``rows`` (row indices, stacked in that order),
+    each of its pixels the whole frame's."""
+    vi, eye = camera_rays(scene.camera.position, scene.camera.rotation, cfg, origin, shape,
+                          rows)
     return trace_image(scene, cfg, vi, eye)
 
 
@@ -309,7 +329,7 @@ def render_words_kernel(scene: Scene, words: torch.Tensor, cfg: RenderConfig, or
 
     n = scene.objects.count
     ptrs, meta = word_pointers(words, n)
-    lib = load_cuda_library(library("trace_fwd", n, SHARED_TABLE_MAX))
+    lib = load_cuda_library(library("trace_fwd", n, SHARED_TABLE_MAX, texture_count(scene)))
     cull = cull_on(cfg, n)
     img = launch(lib, lib.rt_trace_fwd, ptrs, n, words.device, cfg,
                  kernel_args(cfg) + texture_pointers(scene, meta) + [int(cull)], origin, shape)

@@ -220,19 +220,21 @@ def _scene_from_tables(f32t, i32t, cam, light, textures, texture_filter) -> Scen
                  textures)
 
 
-def plain_vjp(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None):
+def plain_vjp(scene: Scene, cfg: RenderConfig, origin=(0, 0), shape=None, rows=None):
     """``(image, vjp)``: the plain version's image of the window at
     ``origin`` of size ``shape`` (``render_color_plain``; the whole frame by
-    default), rendered from the packed tables under autograd, and the
-    function that pulls a cotangent ``g`` of that image back to the tables
-    once: ``vjp(g) -> (g_f32t (N, 19), g_cam (1, 8), g_light (1, 4))``. The
-    graph lives until then, so the cotangent may depend on the image."""
+    default; or of the whole ``rows``), rendered from the packed tables
+    under autograd, and the function that pulls a cotangent ``g`` of that
+    image back to the tables once: ``vjp(g) -> (g_f32t (N, 19), g_cam (1,
+    8), g_light (1, 4))``. The graph lives until then, so the cotangent may
+    depend on the image."""
     f32t, i32t, cam, light = (t.detach() for t in pack_scene(scene))
     wrt = tuple(t.requires_grad_() for t in (f32t, cam, light))
     filt = scene.materials.texture_filter[scene.objects.mat.long()]
     with torch.enable_grad():
         img = kernel_trace.render_color_plain(
-            _scene_from_tables(f32t, i32t, cam, light, scene.textures, filt), cfg, origin, shape)
+            _scene_from_tables(f32t, i32t, cam, light, scene.textures, filt), cfg, origin, shape,
+            rows)
 
     def vjp(g: Color):
         grads = torch.autograd.grad(tuple(img), wrt, tuple(g), allow_unused=True)
@@ -349,7 +351,8 @@ def launch_words(scene: Scene, words: torch.Tensor, cfg: RenderConfig, g: Color,
 
     n = scene.objects.count
     ptrs, meta = kernel_pack.word_pointers(words, n)
-    lib = load_cuda_library(library("trace_bwd", n, SHARED_TABLE_MAX))
+    lib = load_cuda_library(library("trace_bwd", n, SHARED_TABLE_MAX,
+                                    kernel_trace.texture_count(scene)))
     cap = site_cap(cfg)
     args = kernel_args(cfg) + [cap] + kernel_pack.texture_pointers(scene, meta)
     if buffered(cfg):

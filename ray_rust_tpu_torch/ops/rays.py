@@ -38,20 +38,29 @@ def window(cfg: RenderConfig, origin=(0, 0), shape=None) -> tuple:
 
 
 def camera_rays(camera_position: Vec3, camera_rotation: Quat, cfg: RenderConfig,
-                origin=(0, 0), shape=None):
+                origin=(0, 0), shape=None, rows=None):
     """``eye = normalize(rot · (1, (ix - xres/2)·2·xfov/xres,
     -(iy - yres/2)·2·yfov/yres))`` with integer ``xres/2``; the origin is the
     camera position. Returns ``(vi, eye)`` as Vec3 of ``(H, W)`` tensors, or
     of the window's ``(h, w)`` (:func:`window`): its pixels keep their global
     ``ix``, ``iy`` and the frame's ``xres``, ``yres``, so each is the whole
-    frame's bit for bit."""
+    frame's bit for bit. ``rows`` (a sequence of row indices) takes those
+    whole rows instead, in that order: ``(len(rows), W)``, each pixel again
+    the whole frame's."""
     xres, yres = cfg.xres, cfg.yres
-    row0, col0, h, w = window(cfg, origin, shape)
     dev = camera_position.x.device
     sx, sy = fov_scales(cfg)
+    if rows is None:
+        row0, col0, h, w = window(cfg, origin, shape)
+        iy = torch.arange(row0, row0 + h, dtype=torch.int32, device=dev)
+    else:
+        if not all(0 <= int(r) < yres for r in rows) or not len(rows):
+            raise ValueError(f"rows {rows} are not rows of the {yres}x{xres} frame")
+        col0, h, w = 0, len(rows), xres
+        iy = torch.tensor([int(r) for r in rows], dtype=torch.int32, device=dev)
 
     ix = torch.arange(col0, col0 + w, dtype=torch.int32, device=dev).expand(h, w)
-    iy = torch.arange(row0, row0 + h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
+    iy = iy[:, None].expand(h, w)
 
     # The divisors are device tensors: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, which rounds differently from a

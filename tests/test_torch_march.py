@@ -417,11 +417,15 @@ def test_floor_tail_cuts_the_longest_pixel(tmp_path):
 
 def test_march_tree_bounds():
     """A pixel's raymarch tree nests at most max(1, refraction cap) calls:
-    the kernel takes a cap of FRAME_CAP = 10 and refuses 11."""
+    the recursive instance takes a cap of FRAME_CAP = 10, the deep instance
+    11 to FRAME_CAP_DEEP = 64, and 65 is refused."""
     scene, _ = rtt.default_scene(device="cpu")
     cfg = rtt.RenderConfig(xres=8, yres=8, refraction_unroll=None, **_GLOW)
     assert km.unsupported_reason(scene, cfg.with_(max_refractions=10)) is None
-    assert "task stack holds 10" in km.unsupported_reason(scene, cfg.with_(max_refractions=11))
+    assert not km.deep(cfg.with_(max_refractions=10))
+    assert km.unsupported_reason(scene, cfg.with_(max_refractions=11)) is None
+    assert km.deep(cfg.with_(max_refractions=11)) and km.deep(cfg.with_(max_refractions=64))
+    assert "task stack holds 64" in km.unsupported_reason(scene, cfg.with_(max_refractions=65))
 
 
 def test_cached_build_keeps_its_log(tmp_path):
@@ -476,7 +480,7 @@ def test_cpu_march_render_takes_plain_version():
 @pytest.mark.parametrize("change,names", [
     (dict(use_raymarching=False), "K1"),
     (dict(bg="sunset"), "background"),
-    (dict(refraction_unroll=None, max_refractions=11), "task stack"),
+    (dict(refraction_unroll=None, max_refractions=65), "task stack"),
 ])
 def test_march_unsupported_reason_names_what_is_missing(change, names):
     scene, _ = rtt.default_scene(device="cpu")
@@ -487,11 +491,12 @@ def test_march_unsupported_reason_names_what_is_missing(change, names):
 
 
 def test_march_unsupported_reason_textures_and_size():
-    """Textured march is taken (the march kernels read the atlas); an atlas
-    past the kernels' limits (more than TEXTURE_MAX textures) is refused with
-    its reason. More than 512 objects are taken (above SHARED_TABLE_MAX the
-    global-table build), and a scene past the pack's int32 words is refused
-    with its reason."""
+    """Textured march is taken (the march kernels read the atlas), also past
+    TEXTURE_MAX textures (the global-table build, its meta rows read from
+    global memory); an atlas past the kernels' 32-bit texel index is refused
+    with its reason. More than 512 objects are taken (above SHARED_TABLE_MAX
+    the global-table build), and a scene past the pack's int32 words is
+    refused with its reason."""
     cfg = rtt.RenderConfig(xres=8, yres=8, **_GLOW)
     tex = np.zeros((4, 4, 3), np.uint8)
     textured, _ = rtt.build_scene([rtt.MaterialSpec(name="t", texture=tex)],
@@ -503,7 +508,12 @@ def test_march_unsupported_reason_textures_and_size():
         [rtt.MaterialSpec(name=f"t{i}", texture=tex[:1, :1]) for i in range(kt.TEXTURE_MAX + 1)],
         [rtt.SphereSpec("t0", 10.0, (0.0, 0.0, 50.0))],
         (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), device="cpu")
-    assert f"more than {kt.TEXTURE_MAX} textures" in km.unsupported_reason(oversized, cfg)
+    assert km.unsupported_reason(oversized, cfg) is None
+    assert km.library_name(oversized, cfg) == "march_fwd_global"
+    atlas = types.SimpleNamespace(objects=types.SimpleNamespace(count=1),
+                                  textures=types.SimpleNamespace(packed=types.SimpleNamespace(
+                                      shape=(2, 2**15, 2**15, 12))))
+    assert "2^31 texels" in km.unsupported_reason(atlas, cfg)
     big = rtt.build_scene(
         [rtt.MaterialSpec(name="m")],
         [rtt.SphereSpec("m", 1.0, (float(i), 0.0, 100.0)) for i in range(513)],

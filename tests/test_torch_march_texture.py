@@ -199,8 +199,9 @@ def test_plain_textured_march_gradient_matches_jax_vjp():
 
 
 def test_textured_march_reasons():
-    """Textured march is taken by both kernels; an atlas past the kernels'
-    limits is refused with its reason."""
+    """Textured march is taken by both kernels, also a bank past TEXTURE_MAX
+    textures (their global-table builds); an atlas past the kernels' 32-bit
+    texel index is refused with its reason."""
     cfg = rtt.RenderConfig(xres=8, yres=8, **_MARCH)
     scene = textured_scene(rtt, 1)
     assert km.unsupported_reason(scene, cfg) is None
@@ -210,8 +211,11 @@ def test_textured_march_reasons():
     many, _ = rtt.build_scene([rtt.MaterialSpec(name=f"t{i}", texture=tex) for i in range(n)],
                               [rtt.SphereSpec("t0", 10.0, (0.0, 0.0, 50.0))],
                               (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), device="cpu")
+    atlas = many._replace(textures=many.textures._replace(
+        packed=torch.empty((2, 2**15, 2**15, 0), dtype=torch.int32)))
     for mod in (km, kmb):
-        assert f"more than {kt.TEXTURE_MAX} textures" in mod.unsupported_reason(many, cfg)
+        assert mod.unsupported_reason(many, cfg) is None
+        assert "2^31 texels" in mod.unsupported_reason(atlas, cfg)
 
 
 # -- on the card -------------------------------------------------------------

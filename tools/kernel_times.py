@@ -38,6 +38,12 @@ the packing (``pack_times``: what K1's wrapper packs, the plain packs and
 the pull-back of a backward block to the leaves), by CUDA events and by
 the host's clock around 100 enqueued calls.
 
+``--march`` times the march kernels alone (``march_times``): K3 and K4 at
+1280x720, and K4 alone in turns with its buffer instance forced on that
+config; its line also gives the first 16 hex digits of the SHA-256 of K3's
+image and of K4's image (``sha256``), so two checkouts' images compare bit
+for bit.
+
 ``--caps`` first times K2 alone at 1920x1080 at each record cap it is built
 for (``SITE_CAPS``, in turns up and down), before any other launch, with
 the device memory each cap's first launch takes outside the caching
@@ -52,6 +58,7 @@ to ``--out`` if given. Run two checkouts in turns (A, B, B, A) in one call.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -172,12 +179,60 @@ def pack_times(torch, kt, kb, kp, scene, textured, ms) -> dict:
     return out
 
 
+def emit(args, line: str) -> None:
+    print(line)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+
+
+def march_times(torch, rtt, _build, km, kmb, kp, kb, kt, args, card) -> int:
+    """``--march``: K3 and K4 (with the image) at 1280x720 with glow 1.0 on
+    the default scene through their wrappers, and K4 alone on packed words
+    in turns with its buffer instance forced on the same config (local,
+    buffer, buffer, local; checkouts with ``march_bwd_buf``)."""
+    _build.prebuild(["march_fwd", "march_bwd", "march_bwd_buf", "pack_scene"])
+    scene = rtt.default_scene(device="cuda")[0]
+    mcfg = rtt.RenderConfig(xres=1280, yres=720, use_raymarching=True, glow_effect=1.0)
+    g = rtt.Color(*(torch.from_numpy(np.random.default_rng(0).standard_normal((720, 1280))
+                                     .astype(np.float32)).cuda() for _ in range(3)))
+    words = kp.launch_pack(scene)
+    n = scene.objects.count
+    ptrs, meta = kp.word_pointers(words, n)
+    lib = _build.load_cuda_library("march_bwd_buf")
+    cap = kmb.count_sites(mcfg)
+    fns = {"K4 alone": lambda: kmb.launch_words(scene, words, mcfg, g, True),
+           "K4 buffer forced": lambda: kb.launch_buffered(
+               lib, lib.rt_march_bwd_buf, ptrs, n, torch.device("cuda", 0), mcfg,
+               kmb.kernel_args(mcfg) + kp.texture_pointers(scene, meta), g, True,
+               cap_words=kmb.RECORD_WORDS * cap, extra=(cap,))}
+    times = {}
+    with torch.no_grad():
+        image = torch.stack(list(km.render_color_kernel(scene, mcfg)))
+        prim = torch.stack(list(kmb.render_grads_kernel(scene, mcfg, g, return_primal=True)[1]))
+        times["K3 1280x720"] = chip_smoke.cuda_ms(torch, lambda: km.render_color_kernel(scene,
+                                                                                     mcfg))
+    times["K4 1280x720"] = chip_smoke.cuda_ms(torch, lambda: kmb.render_grads_kernel(
+        scene, mcfg, g, return_primal=True))
+    for k in ("K4 alone", "K4 buffer forced", "K4 buffer forced", "K4 alone"):
+        times.setdefault(k, []).append(chip_smoke.cuda_ms(torch, fns[k]))
+    digests = {k: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+               for k, t in (("K3 image", image), ("K4 image", prim))}
+    emit(args, json.dumps({"label": args.label, "card": card, "ms": times,
+                           "sha256": digests}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default=os.path.basename(os.getcwd()))
     ap.add_argument("--out", help="a JSON-lines file to append the line to")
     ap.add_argument("--caps", action="store_true",
                     help="first time K2 at each record cap, with the device memory it takes")
+    ap.add_argument("--march", action="store_true",
+                    help="time only the march kernels: K3 and K4 at 1280x720 and K4's buffer "
+                         "instance forced on that config, in turns with K4")
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
 
@@ -203,6 +258,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
+    if args.march:
+        return march_times(torch, rtt, _build, km, kmb, kp, kb, kt, args, card)
     # checkouts up to 45346a9 have no pack kernel
     _build.prebuild([s for s in ("trace_fwd", "march_fwd", "trace_bwd", "march_bwd",
                                  "trace_retrace", "pack_scene") if s in _build._CUDA_FNS])
@@ -300,12 +357,7 @@ def main() -> int:
                   c for k, c in names.items() if "pack_scene_kernel(" in k),
               "step 1920x1080 pull-back launches": sum(
                   c for k, c in names.items() if "pack_scene_vjp_kernel(" in k)}
-    line = json.dumps({"label": args.label, "card": card, "ms": times, "counts": counts})
-    print(line)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "a") as f:
-            f.write(line + "\n")
+    emit(args, json.dumps({"label": args.label, "card": card, "ms": times, "counts": counts}))
     return 0
 
 
