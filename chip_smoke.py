@@ -126,15 +126,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at 1920x1080 on the 101 objects (its ``plain_ms``) and at 320x240 on the
    1 024; on the 1 024 with glow K3 against the plain march at 160x120 (a
    2000-step budget); K2 and K4 against autograd of the plain versions at
-   160x120 within relative L2 0.01 and 0.02 per scene leaf, each in the
-   build its wrapper launches (global tables) and in its shared-table
-   build; each of K1-K4 in its two table regimes (the shared-table build
-   and the ``_global`` one) on the same packed words, the images bit for
-   bit and the backwards' cotangent blocks within relative L2
-   REGIME_REL_L2, and timed in turns, at its threshold (``SHARED_TABLE_MAX``
-   objects, where both fit its launch shape; K3's 1 200 is past the 1 024)
-   and at 1 024 objects at the main paths' shapes (K1 and K2 1920x1080, K3
-   and K4 1280x720); a 1 024-object scene file through ``-d`` at 1920x1080
+   160x120 within relative L2 0.01 and 0.02 per scene leaf in the build
+   their wrappers launch (global tables), and their shared-table builds,
+   whose int64 block no longer fits 1 024 objects in a block, at 80x60 on
+   SHARED_BWD_FIT objects; each of K1-K4 in its two table regimes (the
+   shared-table build and the ``_global`` one) on the same packed words,
+   the images bit for bit and the backwards' cotangent blocks within
+   relative L2 REGIME_REL_L2, and timed in turns, at its threshold
+   (``SHARED_TABLE_MAX`` objects, where both fit its launch shape; K3's 1
+   200 is past the 1 024) and at 1 024 objects (the backwards at
+   SHARED_BWD_FIT, and at 1 024 their global-table builds alone) at the
+   main paths' shapes (K1 and K2 1920x1080, K3 and K4 1280x720); a
+   1 024-object scene file through ``-d`` at 1920x1080
    (one K1 launch with the cull); K1 at ``max_reflections=8`` (its 64-task
    stack) against the plain trace at 320x240, and timed at 1920x1080;
 5. times with CUDA events: the trace forward at 1920x1080, kernel and plain
@@ -207,9 +210,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    save): on the CPU at 160x120, in a process started with the phase, the
    10 resumed losses within ``RESUME_RTOL`` of the uninterrupted run's; on
    the card at 320x240 the restored state bit-equal to the saved one
-   (Adam's moments and step included), the resumed run's first step the
-   uninterrupted run's (its loss bit for bit), and the next losses beside
-   those of two twins (copies of the saved state in memory); the scan-mode
+   (Adam's moments and step included), and the resumed run and two twins
+   (copies of the saved state in memory) the uninterrupted run bit for bit
+   over ``RESUME_STEPS`` steps, losses and leaves, under
+   ``torch.use_deterministic_algorithms(True)``; the scan-mode
    march (``differentiable=True``, 256 steps) against K4's implicit VJP at
    160x120 (sphere 3's ``org.y``, rtol 5e-3), K3 and K4 launching for the
    implicit gradient only; ``RenderTimer``'s Mrays/s and
@@ -242,7 +246,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with a window): K2 on the 2x2 mesh's 1080p cell (untextured and with
    ``bar.png`` in Nearest) and K4 on its 720p cell (the same two scenes)
    against the whole-frame launch with the cotangent zero outside the cell,
-   the blocks within relative L2 REGIME_REL_L2 (atomics), the primal K1's
+   the blocks within relative L2 REGIME_REL_L2 (each launch's fixed-point
+   scale), the primal K1's
    (K3's) window bit for bit; both on the ragged window of 320x240 and on
    those cells against torch autograd of the windowed plain version (phase
    2 renders it under the build and keeps its graph), per scene leaf within
@@ -256,7 +261,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1920x1080 on the 2x2 mesh, each against its whole-frame step: the loss
    within 1e-6 relative, the colours' step within REGIME_REL_L2, Adam's
    trained leaves within ``STEP_ATOL`` (lr for a noise entry) and its frozen
-   ones bit for bit; times by events (3 warm-ups, 10 steps) of the
+   ones bit for bit; each 2x2 SGD step again from the same state, its loss
+   and colours bit for bit; times by events (3 warm-ups, 10 steps) of the
    whole-frame and 2x2 steps at the three shapes and of K2 and K4 on the
    cells, with the image and without it; two ranks over gloo and one over NCCL (a group of one) on the
    card, started together, each taking the 1080p step over
@@ -310,7 +316,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and K3 by phase 3's method and K2 and K4 against plain autograd at
    160x120; times by events of K3's deep instance forced at cap 4 beside
    ``march_fwd`` in turns, of K3 and K4 at cap 12 and of the bank's four
-   kernels at the main paths' shapes, with their bounds.
+   kernels at the main paths' shapes, with their bounds;
+11. an atlas of 2^31 texels or more (``huge_atlas``): HUGE_BANK textures
+   of seeded noise made on the card (2 049 of 1 024 x 1 024: a 24 GiB bank,
+   a 32 GiB atlas), the floor reading the last (base texel 2^31) in
+   Bilinear; K1 at 1920x1080, K3 at 320x240 (2 000 steps, tail off) and K2
+   and K4 on HUGE_WINDOWS each bit-equal to themselves on a twin bank of
+   the two textures read (the same texels under 2^31); K1 and K3 bit-equal
+   to their plain versions on ``check_rows``, K2 and K4 within GRAD_BUDGET
+   and MARCH_GRAD_BUDGET of plain autograd on their windows; with the launch
+   counts set to 0 just before and read just after, a frame of each mode
+   and a gradient of each window by autograd; times by events and bounds
+   (the twin's host counts); the bank freed before the end.
+
+Through every phase, each backward instance (library, launcher, record
+cap, task stack, textured or not) is launched a second time on the same
+inputs at its first launch and held bit-equal (``repeat_backwards``: the
+blocks sum in fixed point, csrc/fixed_sum.cuh), a line each and a summary
+before the phase times; phase 6's resume and phase 8's 2x2 steps repeat
+themselves bit for bit under ``torch.use_deterministic_algorithms(True)``.
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``. Each kernel's ``ms`` is its time through
@@ -351,7 +375,12 @@ at refraction cap 12 at 1280x720; ``forced_cap4_ms``: it and
 ``march_fwd`` in turns at cap 4, alone on packed words), the buffer
 instance at cap 12 (1280x720 with the image), and each of K1-K4 in its
 global-table build on the bank of BANK_TEXTURES textures at the main paths'
-shapes; their launches in phase 10's main paths.
+shapes; their launches in phase 10's main paths. Phase 11's entries
+(``... (2^31 texels)``): K1-K4 in their global-table builds on that bank,
+their launches in phase 11's main path, their largest error against the
+plain versions (K1's and K3's images, the backwards' largest leaf
+relative L2 on their windows), K1 and K3 at the main paths' shapes and K2
+and K4 on their windows by events.
 """
 
 from __future__ import annotations
@@ -369,6 +398,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+# cuBLAS's deterministic workspace, read when cuBLAS starts: the phases that
+# run under torch.use_deterministic_algorithms(True) would raise without it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUDGET = dict(frac=0.02, mean=0.01, tol=1e-3)  # tests/test_parity.py:152-161
 W, H = 1920, 1080  # the trace and training main paths
@@ -394,8 +426,9 @@ KNIFE_EDGE = dict(frac=0.005, tol=1e-3, contrast=0.05)
 # frame (csrc/bwd_kernel.cuh) and the trace body, changes, and while K1's
 # cull (K1b), the deep task stack and the global-table builds are added
 # beside them: registers, stack frame, spill stores and spill loads in
-# bytes, by kernel (PERF.md §6)
-PINNED_PTXAS = {"trace_bwd": [(119, 2512, 0, 0), (119, 7504, 0, 0), (119, 20816, 0, 0)],
+# bytes, by kernel (PERF.md §6; the trace backward's 125 registers, from
+# 119, are its fixed-point sums' digits, csrc/fixed_sum.cuh)
+PINNED_PTXAS = {"trace_bwd": [(125, 2512, 0, 0), (125, 7504, 0, 0), (125, 20816, 0, 0)],
                 "march_bwd": [(128, 8168, 4188, 5512)]}
 # The kernels of a library whose figures are pinned, by a part of their
 # mangled names: the trace backward's TraceBody<CAP> (its DeepTraceBody<CAP>
@@ -407,16 +440,26 @@ PINNED_KERNELS = {"trace_bwd": "9TraceBodyI", "march_bwd": "MarchBodyILb0E"}
 # and without K1b's cull at task stacks of 16 and 64, K2 at its three record
 # caps and, for 64 and 192, with the deep stack, and its buffer instance at
 # both stacks, K4 untextured and textured, K4's buffer instance and K3's
-# deep instance (libraries of their own), K5 at both stacks
+# deep instance (libraries of their own), K5 at both stacks; beside each
+# backward's, its launch's two fixed-point kernels (csrc/bwd_kernel.cuh: the
+# cotangent planes' largest |g|, the int64 block added to the output as
+# floats)
 KERNEL_COUNTS = {"trace_fwd": 4, "trace_fwd_global": 4, "march_fwd": 1, "march_fwd_global": 1,
-                 "trace_bwd": 7, "trace_bwd_global": 7, "march_bwd": 2, "march_bwd_global": 2,
-                 "march_bwd_buf": 1, "march_fwd_deep": 1, "trace_retrace": 2,
+                 "trace_bwd": 9, "trace_bwd_global": 9, "march_bwd": 4, "march_bwd_global": 4,
+                 "march_bwd_buf": 3, "march_fwd_deep": 1, "trace_retrace": 4,
                  "pack_scene": 2}
-# The largest relative L2 between a backward's cotangent blocks from its two
-# table regimes on the same inputs: their atomics add in different orders
-# (2.7e-6 to 4.2e-6 for K2 and K4 on 640 and 1 024 objects, PERF.md §6),
-# twenty times over
+# The largest relative L2 between a backward's cotangent blocks from two
+# launches of the same terms (its two table regimes, a frame and its
+# windows or bands): each launch rounds each term to its own fixed-point
+# grid (csrc/fixed_sum.cuh; the regimes' grids are the same, so their blocks
+# are too), twenty times the 2.7e-6 to 4.2e-6 the float atomics gave on 640
+# and 1 024 objects (PERF.md §6)
 REGIME_REL_L2 = 1e-4
+# The most objects whose tables and int64 (n+1, 20) block the backwards'
+# shared-table builds hold in one block's 227 KB of shared memory (412
+# bytes an object: csrc/bwd_kernel.cuh, bwd_smem), less a margin: where
+# phase 4b holds them against autograd and against the global-table builds
+SHARED_BWD_FIT = 544
 # The many-object scenes: BASELINE.md configuration 4's 101 objects and
 # 1 024 (past 512); their plain references run at the smallest shapes the
 # checks need (the plain trace loops over the objects in Python)
@@ -1030,8 +1073,11 @@ SCAN_BUDGET, SCAN_RTOL = 256, 5e-3
 # NOISE_MOMENT, STEP_ATOL): entries whose bias-corrected first moment is
 # under NOISE_MOMENT may be apart by lr, the others by STEP_ATOL
 NOISE_MOMENT, STEP_ATOL = 1e-6, 1e-3
-# a resumed run's 10 losses against the uninterrupted run's, on the CPU
+# a resumed run's 10 losses against the uninterrupted run's, on the CPU; on
+# the card the resumed run and two twins repeat it bit for bit over
+# RESUME_STEPS steps
 RESUME_RTOL = 1e-3
+RESUME_STEPS = 20
 
 
 def trace_frame(torch, rtt, scene, cfg) -> None:
@@ -1057,23 +1103,20 @@ def trace_frame(torch, rtt, scene, cfg) -> None:
         raise SystemExit(f"chip_smoke: K1 or the pack is not in the device trace: {kernels}")
 
 
-def resume_run(torch, device, size, n_twins):
+def resume_run(torch, device, size, n_twins, steps=10):
     """Checkpoint and resume of the example's training at ``size`` on
-    ``device``: a run takes 10 steps and is saved; it goes on for 10 more
-    (uninterrupted), a fresh state restored from the save takes the same 10
-    (resumed), and so do ``n_twins`` copies of the saved state in memory.
-    Raises SystemExit unless the restored state is the saved one bit for
-    bit and every loss is finite. Returns the runs' losses over the 10
-    steps (uninterrupted, resumed, twins), the saved tensors' count, the
-    trained leaves after the first step of the uninterrupted and the
-    resumed run, and the uninterrupted run's bias-corrected first moment
-    there."""
+    ``device``: a run takes 10 steps and is saved; it goes on for ``steps``
+    more (uninterrupted), a fresh state restored from the save takes the
+    same steps (resumed), and so do ``n_twins`` copies of the saved state in
+    memory. Raises SystemExit unless the restored state is the saved one bit
+    for bit and every loss is finite. Returns the runs' losses over those
+    steps (uninterrupted, resumed, twins), the saved tensors' count and each
+    run's leaves at the end (on the CPU)."""
     import copy
 
     import ray_rust_tpu_torch as rtt
     from ray_rust_tpu_torch import checkpoint
     from ray_rust_tpu_torch.examples import inverse_rendering as example
-    from ray_rust_tpu_torch.models.scene import leaf_paths
     from ray_rust_tpu_torch.parallel import SceneAdam, TrainState, make_train_step
 
     cfg = example.example_config(size)
@@ -1094,22 +1137,17 @@ def resume_run(torch, device, size, n_twins):
             torch.equal(a, b) for (_, a), (_, b) in zip(saved, back)):
         raise SystemExit(f"chip_smoke: the restored state is not the saved one ({device})")
     twins = [copy.deepcopy(state) for _ in range(n_twins)]
-    losses, first, mu = [], [], {}
+    losses, ends = [], []
     for run in (state, resumed, *twins):
         losses.append([])
-        for i in range(10):
+        for _ in range(steps):
             run, loss = step(run, target)
             losses[-1].append(float(loss))
-            if i == 0 and len(first) < 2:
-                leaves = dict(zip(leaf_paths(run.scene), run.scene.tensors()))
-                first.append({p: leaves[p].detach().cpu().numpy().copy() for p in opt.trained})
-                if len(first) == 1:
-                    mu = {p: run.opt_state.state[leaves[p]]["exp_avg"].cpu().numpy()
-                          / (1 - 0.9 ** 11) for p in opt.trained}
+        ends.append([t.detach().cpu().clone() for _, t in checkpoint.leaves(run)])
     if not np.isfinite(losses).all():
         raise SystemExit(f"chip_smoke: the losses after the save are not finite ({device}): "
                          f"{losses}")
-    return losses, len(saved), first, mu
+    return losses, len(saved), ends
 
 
 # resume_run on the CPU in a process of its own (argv: the size), started at
@@ -1119,7 +1157,7 @@ RESUME_CHILD = """
 import json, sys, torch
 torch.set_num_threads(2)
 import chip_smoke
-losses, n_saved, _, _ = chip_smoke.resume_run(torch, torch.device("cpu"), int(sys.argv[1]), 0)
+losses, n_saved, _ = chip_smoke.resume_run(torch, torch.device("cpu"), int(sys.argv[1]), 0)
 print(json.dumps({"losses": losses, "saved": n_saved}))
 """
 
@@ -1346,17 +1384,15 @@ def host_apps_checks(torch, card, resume_cpu) -> None:
           f"gradient within {worst[0]:.3g} ({STEP_ATOL}), losses within {worst[1]:.3g} relative")
 
     # -- checkpoint and resume: a run takes 10 steps and is saved; it goes on
-    # for 10 more (uninterrupted), a fresh state restored from the save
-    # takes the same 10 (resumed), and so do copies of the state in memory
+    # for more (uninterrupted), a fresh state restored from the save takes
+    # the same steps (resumed), and so do copies of the state in memory
     # (twins). The restored state must be the saved one bit for bit. On the
-    # CPU, whose plain steps are deterministic, the 10 resumed losses must be
-    # within RESUME_RTOL of the uninterrupted run's. On the card K2's atomics
-    # sum in no fixed order, and Adam turns that rounding into lr-sized steps
-    # that flip knife-edge pixels, so two uninterrupted runs part within a
-    # few steps (PERF.md §6): there the first resumed step must be the
-    # uninterrupted run's (its loss bit for bit, K1 being deterministic; its
-    # leaves as STEP_ATOL holds two Adam steps from one state), and the later
-    # gaps are printed beside the twins'.
+    # CPU the 10 resumed losses must be within RESUME_RTOL of the
+    # uninterrupted run's. On the card, where the backward kernels sum in
+    # fixed point (csrc/fixed_sum.cuh), every run repeats the uninterrupted
+    # one bit for bit: RESUME_STEPS losses each and the leaves at the end,
+    # under torch.use_deterministic_algorithms(True), so that a torch
+    # operation without a deterministic implementation on the path raises.
     def gaps(a, b):
         return [abs(x / y - 1) for x, y in zip(a, b)]
 
@@ -1373,23 +1409,21 @@ def host_apps_checks(torch, card, resume_cpu) -> None:
           f"state bit-equal to the saved one ({n_saved} tensors, Adam's moments and step "
           f"included); the 10 resumed losses within {max(gap_cpu):.3g} relative of the "
           f"uninterrupted run's ({RESUME_RTOL})")
-    (ref, res, *twins), n_saved, (ref_first, res_first), mu = resume_run(
-        torch, dev, EXAMPLE_SIZE, 2)
-    if res[0] != ref[0]:
-        raise SystemExit(f"chip_smoke: the resumed run's first loss {res[0]} is not the "
-                         f"uninterrupted run's {ref[0]}")
-    for path in opt.trained:
-        noise = np.abs(mu[path]) < NOISE_MOMENT
-        d = np.abs(res_first[path] - ref_first[path])
-        if d[~noise].max(initial=0.0) > STEP_ATOL or d[noise].max(initial=0.0) > opt.lr:
-            raise SystemExit(f"chip_smoke: the resumed run's first step moved {path} apart")
-    print(f"checkpoint/resume on the card at {EXAMPLE_SIZE}x{EXAMPLE_SIZE * 3 // 4}: restored "
-          f"state bit-equal to the saved one ({n_saved} tensors); the first resumed step's "
-          f"loss bit-equal to the uninterrupted run's, its leaves within {STEP_ATOL}; over "
-          f"steps 10-19 the resumed losses part from the uninterrupted run's by "
-          + ", ".join(f"{g:.2g}" for g in gaps(res, ref)) + "; two twins' by "
-          + "; ".join(", ".join(f"{g:.2g}" for g in gaps(t, ref)) for t in twins)
-          + " (relative)")
+    torch.use_deterministic_algorithms(True)
+    try:
+        (ref, *others), n_saved, (ref_end, *other_ends) = resume_run(
+            torch, dev, EXAMPLE_SIZE, 2, RESUME_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, losses, end in zip(("resumed", "twin 1", "twin 2"), others, other_ends):
+        if losses != ref or not all(torch.equal(a, b) for a, b in zip(end, ref_end)):
+            raise SystemExit(f"chip_smoke: on the card the {name} run is not the uninterrupted "
+                             f"one bit for bit: losses {losses} against {ref}")
+    print(f"checkpoint/resume on the card at {EXAMPLE_SIZE}x{EXAMPLE_SIZE * 3 // 4} under "
+          f"torch.use_deterministic_algorithms(True): restored state bit-equal to the saved "
+          f"one ({n_saved} tensors); the resumed run and two twins (copies of the saved state) "
+          f"repeat the uninterrupted run bit for bit over {RESUME_STEPS} Adam steps (K1 + K2 "
+          f"each), losses and leaves; losses {ref[0]:.9g} .. {ref[-1]:.9g}")
 
     # -- the scan-mode march oracle against K4's implicit VJP
     cfg = rtt.RenderConfig(**SCAN_CFG)
@@ -1805,8 +1839,8 @@ def sharded_grad(torch, rtt, card, scenes, grad_plain, ops):
         return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
     # -- K2 and K4 on a mesh cell against the whole frame with the cotangent
-    # zero outside it (the atomics add in another order: REGIME_REL_L2), the
-    # primal K1's (K3's) window bit for bit
+    # zero outside it (each launch at its own fixed-point scale:
+    # REGIME_REL_L2), the primal K1's (K3's) window bit for bit
     errs = {"trace_bwd": [], "march_bwd": []}
     cell_g = {}
     print("  K2 and K4 on a cell against the whole frame (cotangent zero outside the cell), "
@@ -1955,6 +1989,21 @@ def sharded_grad(torch, rtt, card, scenes, grad_plain, ops):
           f"({STEP_ATOL}), frozen leaves bit-equal")
     if adam_rel > 1e-6:
         raise SystemExit("chip_smoke: the sharded Adam step's loss is not the whole frame's")
+    # the sharded steps on the 2x2 mesh again from the same state: bit for bit
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k, (name, cfg, mesh, lr) in enumerate(sgd_cases):
+            if mesh is not mesh22:
+                continue
+            new, loss = sgd_train_step(start, cfg, targets[cfg], lr=lr, mesh=mesh)
+            same = float(loss) == float(sharded[k][1]) and np.array_equal(
+                trained(new), trained(sharded[k][0]))
+            print(f"  SGD {name} again from the same state: loss and colours bit-equal -> "
+                  f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"chip_smoke: the sharded step {name} does not repeat itself")
+    finally:
+        torch.use_deterministic_algorithms(False)
 
     # -- times by events (3 warm-ups, 10 steps): whole frame and 2x2 mesh
     times = {}
@@ -2936,6 +2985,258 @@ def deep_marches(torch, rtt, cli, ops, card, children):
     } for key, build, source, replaces, what in entries]
 
 
+# Phase 11: an atlas of 2^31 texels or more. 2 049 textures of 1 024 x
+# 1 024 (2^31 + 2^20 texels: the bank's packed u8 24 GiB, the atlas's int32
+# words 32 GiB), seeded noise made on the card, the floor reading the last
+# texture (base texel 2^31) in Bilinear; the checks' small march config (the
+# plain march's cost is its longest lane's steps) and the gradients' windows
+# on the floor
+HUGE_BANK = (2049, 1024)
+HUGE_SEED = 31
+HUGE_MARCH = dict(xres=320, yres=240, use_raymarching=True, glow_effect=1.0,
+                  march_max_iter=2000, march_floor_skip=False)
+HUGE_WINDOWS = {"trace": ((960, 900), (48, 64)), "march": ((640, 600), (48, 64))}
+
+
+def huge_texels(torch, tids, side, dev):
+    """Textures ``tids`` of phase 11's bank, ``(len(tids), side, side, 3)``
+    u8: seeded integer-hash noise of (texture, row, column, channel), the
+    same bits on the card and on the CPU."""
+    t = torch.as_tensor(tids, dtype=torch.int64, device=dev).view(-1, 1, 1, 1)
+    y = torch.arange(side, dtype=torch.int64, device=dev).view(1, -1, 1, 1)
+    x = torch.arange(side, dtype=torch.int64, device=dev).view(1, 1, -1, 1)
+    c = torch.arange(3, dtype=torch.int64, device=dev).view(1, 1, 1, -1)
+    h = ((t * side + y) * side + x) * 3 + c + HUGE_SEED * 0x9E3779B1
+    h = (h ^ (h >> 15)) * 0x2C1B3C6D & 0xFFFFFFFF
+    h = (h ^ (h >> 12)) * 0x297A2D39 & 0xFFFFFFFF
+    return ((h ^ (h >> 15)) & 0xFF).to(torch.uint8)
+
+
+def huge_bank(torch, tids, side, dev):
+    """A TextureBank of phase 11's textures ``tids`` on ``dev``: the packed
+    2x2 wrap-around taps made 16 textures at a time, ``data`` a view of
+    the first tap."""
+    from ray_rust_tpu_torch.models.material import TextureBank
+
+    packed = torch.empty((len(tids), side, side, 12), dtype=torch.uint8, device=dev)
+    for k in range(0, len(tids), 16):
+        t = huge_texels(torch, tids[k:k + 16], side, dev)
+        for j, (dy, dx) in enumerate(((0, 0), (0, -1), (-1, 0), (-1, -1))):
+            packed[k:k + len(t), ..., 3 * j:3 * j + 3] = t.roll((dy, dx), (1, 2))
+        del t
+    sizes = torch.full((len(tids),), side, dtype=torch.int32, device=dev)
+    return TextureBank(packed[..., 0:3], sizes, sizes.clone(), packed)
+
+
+def huge_bank_scenes(torch, rtt, dev, twin_only=False):
+    """Phase 11's scenes on ``dev``: :func:`bank_scene`'s layout with a bank
+    of HUGE_BANK textures (:func:`huge_texels`), the floor's material on the
+    last texture in Bilinear, and its twin, whose bank holds only the two
+    textures its materials read (the same texels at offsets under 2^31).
+    Returns ``(huge, twin)``, or with ``twin_only`` the twin alone."""
+    n_tex, side = HUGE_BANK
+    small = bank_scene(rtt, n_tex=2, filt=1, device=dev)
+    twin = small._replace(textures=huge_bank(torch, [0, n_tex - 1], side, dev))
+    if twin_only:
+        return twin
+    m = small.materials
+    tid = torch.where(m.texture_id == 1, n_tex - 1, m.texture_id).to(torch.int32)
+    huge = small._replace(materials=m._replace(texture_id=tid),
+                          textures=huge_bank(torch, list(range(n_tex)), side, dev))
+    return huge, twin
+
+
+def huge_configs(rtt):
+    """Phase 11's configurations: the trace main path, the march main path
+    (glow 1.0), the checks' small march (HUGE_MARCH) and the march window's
+    (the main path's frame at HUGE_MARCH's step budget, tail off: the plain
+    autograd's cost is its longest lane's steps)."""
+    cfg_march = rtt.RenderConfig(xres=MW, yres=MH, use_raymarching=True, glow_effect=1.0)
+    return (rtt.RenderConfig(xres=W, yres=H), cfg_march, rtt.RenderConfig(**HUGE_MARCH),
+            cfg_march.with_(march_max_iter=HUGE_MARCH["march_max_iter"],
+                            march_floor_skip=HUGE_MARCH["march_floor_skip"]))
+
+
+def huge_counts(pool, rtt, torch):
+    """Phase 11's host counts (its bounds) by its kernels line's keys,
+    submitted to ``pool``, on the twin bank's scene on the CPU (the same
+    fetches at smaller offsets): K1 and K3 at the main paths' shapes, K2
+    and K4 on their windows."""
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+
+    cpu = huge_bank_scenes(torch, rtt, torch.device("cpu"), twin_only=True)
+    cfg_main, cfg_march, _, grad_march = huge_configs(rtt)
+    (tr0, tc0), (th, tw) = HUGE_WINDOWS["trace"]
+    (mr0, mc0), (mh, mw) = HUGE_WINDOWS["march"]
+    return {"huge_trace_fwd": pool.submit(count_ops, "trace", kt, cfg_main, scene=cpu),
+            "huge_march_fwd": pool.submit(count_ops, "march", km, cfg_march, scene=cpu),
+            "huge_trace_bwd": pool.submit(count_bwd_ops, "trace_bwd", kb, cfg_main,
+                                          window=(tr0, tc0, th, tw), scene=cpu),
+            "huge_march_bwd": pool.submit(count_bwd_ops, "march_bwd", kmb, grad_march,
+                                          window=(mr0, mc0, mh, mw), scene=cpu)}
+
+
+def huge_atlas(torch, rtt, card, ops):
+    """Phase 11: a bank of 2^31 texels or more through K1-K4 on the card.
+    Each kernel against the same kernel on the twin bank (the same texels
+    under 2^31) bit for bit: K1 at 1920x1080, K3 at HUGE_MARCH's 320x240,
+    K2 and K4 on their HUGE_WINDOWS (block and image); then K1 and K3
+    against their plain versions on ``check_rows`` (the plain sampler indexes
+    the bank in int64), bit for bit, and K2 and K4 against plain autograd on
+    their windows within GRAD_BUDGET and MARCH_GRAD_BUDGET (the textured
+    checks' budgets), on the pixels where the forwards agree. Its main path
+    (the launches): a frame of each mode and a gradient of each window by
+    autograd, counts set to 0 before and read after; times by events at
+    the main paths' shapes, bounds from ``ops`` (:func:`huge_counts`); the
+    bank is freed before it returns. Returns phase 11's entries of the
+    kernels line."""
+    from ray_rust_tpu_torch.ops import kernel_march as km
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_pack as kp
+    from ray_rust_tpu_torch.ops import kernel_trace as kt
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    huge, twin = huge_bank_scenes(torch, rtt, dev)
+    n_tex, side = HUGE_BANK
+    texels = n_tex * side * side
+    atlas = kp.texture_atlas(huge.textures.packed)
+    torch.cuda.synchronize()
+    print(f"  the bank: {n_tex} textures of {side}x{side}, {texels} texels (2^31 = {2**31}); "
+          f"packed {huge.textures.packed.numel() / 2**30:.1f} GiB u8, atlas "
+          f"{atlas.numel() * 4 / 2**30:.1f} GiB int32, made on the card in "
+          f"{time.time() - t0:.1f} s; the floor reads texture {n_tex - 1} (base texel "
+          f"{(n_tex - 1) * side * side}) in Bilinear")
+    cfg_main, cfg_march, small_march, grad_march = huge_configs(rtt)
+    errs, plain_ms = {}, {}
+
+    def same(name, a, b):
+        ok = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"  {name}: bit-equal -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {name} is not bit-equal")
+
+    # -- each kernel against itself on the twin bank
+    with torch.no_grad():
+        for key, mod, cfg in (("trace_fwd", kt, cfg_main), ("march_fwd", km, small_march)):
+            same(f"{key} {cfg.xres}x{cfg.yres} on the 2^31-texel bank vs the twin bank",
+                 mod.render_color_kernel(huge, cfg), mod.render_color_kernel(twin, cfg))
+    rng = np.random.default_rng(HUGE_SEED)
+    grads = {}
+    for key, mod, fwd, cfg, budget in (("trace_bwd", kb, kt, cfg_main, GRAD_BUDGET),
+                                       ("march_bwd", kmb, km, grad_march, MARCH_GRAD_BUDGET)):
+        origin, shape = HUGE_WINDOWS["trace" if key == "trace_bwd" else "march"]
+        (ref, vjp), ms = event_ms(torch, lambda: kb.plain_vjp(huge, cfg, origin, shape))
+        ref = img(ref)
+        with torch.no_grad():
+            got = img(fwd.render_color_kernel(huge, cfg, origin, shape))
+        agree = np.abs(got - ref).max(-1) < 1e-4
+        flat = off_boundary(ref, ~agree)
+        g = rtt.Color(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                         * agree).to(dev) for _ in range(3)))
+        want, vjp_ms = event_ms(torch, lambda: vjp(g))
+        out, prim = mod.render_grads_kernel(huge, cfg, g, True, origin, shape)
+        out2, prim2 = mod.render_grads_kernel(twin, cfg, g, True, origin, shape)
+        same(f"{key} window {shape[1]}x{shape[0]} at {origin} of {cfg.xres}x{cfg.yres} on the "
+             f"2^31-texel bank vs the twin bank (block and image)", (*out, *prim),
+             (*out2, *prim2))
+        worst, leaf = leaf_err(key, huge, out, want)
+        image = float((img(prim) == got).all(-1).mean())
+        ok = worst <= budget and image == 1.0 and agree.mean() > 0.9 and flat == 0
+        print(f"  {key} window vs plain autograd: forwards agree on {agree.mean():.4%}, {flat} "
+              f"masked off a boundary; image the forward kernel's on {image:.4%}; largest leaf "
+              f"relative L2 {worst:.3g} ({leaf}; {budget}); plain {ms + vjp_ms:.1f} ms -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {key} on the 2^31-texel bank against autograd")
+        errs[key], plain_ms[key], grads[key] = worst, ms + vjp_ms, (cfg, g, origin, shape)
+    # -- K1 and K3 against their plain versions on check_rows, bit for bit
+    with torch.no_grad():
+        for key, mod, cfg in (("trace_fwd", kt, cfg_main), ("march_fwd", km, small_march)):
+            rows = check_rows(cfg.yres)
+            ref, ms = event_ms(torch, lambda: mod.render_color_plain(huge, cfg, rows=rows))
+            got = img(mod.render_color_kernel(huge, cfg))[rows]
+            ref = img(ref)
+            errs[key], plain_ms[key] = float(np.abs(got - ref).max()), ms
+            ok = np.array_equal(got, ref)
+            print(f"  {key} {cfg.xres}x{cfg.yres} on the 2^31-texel bank vs plain on "
+                  f"{len(rows)} rows (plain {ms:.1f} ms): max {errs[key]:.3g}, bit-equal "
+                  f"{ok} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {key} on the 2^31-texel bank is not the plain "
+                                 f"version")
+
+    # -- the main path: a frame of each mode, a gradient of each window
+    def leaves(scene):
+        mats = scene.materials
+        d = type(mats.diffuse)(*(t.detach().clone().requires_grad_() for t in mats.diffuse))
+        return scene._replace(materials=mats._replace(diffuse=d)), list(d)
+
+    kt.LAUNCHES = kb.LAUNCHES = km.LAUNCHES = kmb.LAUNCHES = 0
+    kp.LAUNCHES = kp.VJP_LAUNCHES = 0
+    with torch.no_grad():
+        rtt.render_color(huge, cfg_main)
+        rtt.render_color(huge, cfg_march)
+    for key in ("trace_bwd", "march_bwd"):
+        cfg, g, origin, shape = grads[key]
+        scene, params = leaves(huge)
+        img_w = rtt.render_color(scene, cfg, origin=origin, shape=shape)
+        torch.autograd.grad(tuple(img_w), params, tuple(g))
+    torch.cuda.synchronize()
+    launches = {"trace_fwd": kt.LAUNCHES, "trace_bwd": kb.LAUNCHES, "march_fwd": km.LAUNCHES,
+                "march_bwd": kmb.LAUNCHES, "pack": kp.LAUNCHES, "pull_back": kp.VJP_LAUNCHES}
+    want = {"trace_fwd": 2, "trace_bwd": 1, "march_fwd": 2, "march_bwd": 1, "pack": 4,
+            "pull_back": 2}
+    print(f"  main path on the 2^31-texel bank (a {W}x{H} frame, a {MW}x{MH} march + glow "
+          f"frame, a gradient of each window by autograd): launches {launches}, expected {want}")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: phase 11 launched {launches}, not {want}")
+
+    # -- times by events at the main paths' shapes and windows; bounds
+    with torch.no_grad():
+        ms = {"trace_fwd": cuda_ms(torch, lambda: kt.render_color_kernel(huge, cfg_main)),
+              "march_fwd": cuda_ms(torch, lambda: km.render_color_kernel(huge, cfg_march))}
+    for key, mod in (("trace_bwd", kb), ("march_bwd", kmb)):
+        cfg, g, origin, shape = grads[key]
+        ms[key] = cuda_ms(torch, lambda: mod.render_grads_kernel(huge, cfg, g, True, origin,
+                                                                 shape))
+    shapes = {"trace_fwd": (cfg_main, None), "march_fwd": (cfg_march, None),
+              "trace_bwd": (grads["trace_bwd"][0], grads["trace_bwd"][3]),
+              "march_bwd": (grads["march_bwd"][0], grads["march_bwd"][3])}
+    bounds = {}
+    for key, (cfg, shape) in shapes.items():
+        n_ops, fetched = ops[f"huge_{key}"][:2]
+        pixels = None if shape is None else shape[0] * shape[1]
+        nbytes = io_bytes(twin, cfg, pixels) + texel_bytes(twin, fetched)
+        if "_bwd" in key:  # + the cotangent planes read, the block written
+            nbytes += 3 * 4 * pixels + 4 * (huge.objects.count + 1) * kb.GRAD_COLS
+        bounds[key] = roofline(n_ops, nbytes)
+        print(f"  {key} on the 2^31-texel bank "
+              + (f"{cfg.xres}x{cfg.yres}" if shape is None else f"window {shape[1]}x{shape[0]}")
+              + f": {ms[key]:.4f} ms by events ({card}); plain {plain_ms[key]:.1f} ms; bound "
+              f"{n_ops} f32 operations, {nbytes} bytes -> {bounds[key][0]:.4f} ms "
+              f"({bounds[key][1]})")
+    del huge, twin, atlas, grads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sources = {"trace_fwd": ("trace_fwd.cu", "ray_rust_tpu/ops/pallas_trace.py:1275"),
+               "trace_bwd": ("trace_bwd.cu", "ray_rust_tpu/ops/pallas_bwd.py:563"),
+               "march_fwd": ("march_fwd.cu", "ray_rust_tpu/ops/pallas_march.py:814"),
+               "march_bwd": ("march_bwd.cu", "ray_rust_tpu/ops/pallas_bwd.py:1060")}
+    return [{
+        "name": f"{key}_global (2^31 texels)", "route": "cuda",
+        "source": f"ray_rust_tpu_torch/csrc/{source}", "replaces": replaces,
+        "launches": launches[key], "max_abs_err": errs[key], "ms": ms[key],
+        "plain_ms": plain_ms[key], "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+        "library_ms": None,
+    } for key, (source, replaces) in sources.items()]
+
+
 # The plain references that two child processes of this script render on
 # the card while phases 3 and 4 run (each is launch-bound on its own host
 # thread, tens of seconds at any pixel count), by key: the march main
@@ -3102,6 +3403,70 @@ def main() -> int:
         return run(torch, tex_dir)
 
 
+# Each backward instance (library, launcher, record cap, task stack,
+# textured or not) that this run launches is launched a second time on the
+# same inputs at its first launch, and its block and image held bit-equal
+# to the first launch's (repeat_backwards); by instance, whether they were
+REPEATS: dict = {}
+
+
+def repeat_backwards(torch, kb, kr, kt):
+    """Wrap the backward kernels' launchers, ``kernel_trace_bwd.launch_block``
+    (K2 and K4, their buffer instances through ``launch_buffered``) and
+    ``kernel_trace_retrace.launch_all`` (K5), so that the first launch of
+    each instance on the card is made twice on the same inputs and held bit
+    for bit: the blocks sum fixed-point integers (csrc/fixed_sum.cuh), the
+    same in any order of the kernels' atomics. The wrappers count their
+    launches outside these functions, so the second launch counts for no
+    path. Prints each instance's result; raises SystemExit on a
+    difference."""
+    import os.path as op
+
+    def stem(lib):
+        return op.basename(lib._name).split("-")[0][3:]
+
+    def check(key, first, again):
+        blocks = [(first[0], again[0])] if isinstance(first[0], torch.Tensor) else list(
+            zip(first[0], again[0]))
+        same = all(torch.equal(a, b) for a, b in blocks)
+        if first[1] is not None:
+            same = same and all(torch.equal(a, b) for a, b in zip(first[1], again[1]))
+        REPEATS[key] = same
+        print(f"  backward instance {key}: a second launch on the same inputs bit-equal -> "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"chip_smoke: backward instance {key} does not repeat itself")
+
+    block_launch, retrace_launch = kb.launch_block, kr.launch_all
+
+    def launch_block(lib, fn, ptrs, n, dev, cfg, args, g, return_primal, origin=(0, 0),
+                     shape=None, extra=(), tail=None):
+        go = lambda: block_launch(lib, fn, ptrs, n, dev, cfg, args, g, return_primal,  # noqa
+                                  origin, shape, extra, tail)
+        out = go()
+        if dev.type == "cuda":
+            trace = fn.__name__.startswith("rt_trace")
+            key = (stem(lib), fn.__name__, f"cap {kb.site_cap(cfg)}" if trace else "",
+                   f"{16 if kt.stack_tasks(cfg) <= kt.STACK_CAP else 64}-task stack"
+                   if trace else "", "textured" if args[-3] else "untextured")
+            if key not in REPEATS:
+                check(key, out, go())
+        return out
+
+    def launch_all(lib, fn_name, ptrs, n, dev, cfg, g, return_primal, tail):
+        out = retrace_launch(lib, fn_name, ptrs, n, dev, cfg, g, return_primal, tail)
+        if dev.type == "cuda":
+            key = (stem(lib), fn_name,
+                   f"{16 if kt.stack_tasks(cfg) <= kt.STACK_CAP else 64}-task stack")
+            if key not in REPEATS:
+                again = retrace_launch(lib, fn_name, ptrs, n, dev, cfg, g, return_primal, tail)
+                check(key, out if return_primal else (out, None),
+                      again if return_primal else (again, None))
+        return out
+
+    kb.launch_block, kr.launch_all = launch_block, launch_all
+
+
 def run(torch, tex_dir) -> int:
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3124,6 +3489,7 @@ def run(torch, tex_dir) -> int:
     from ray_rust_tpu_torch.parallel import sgd_train_step
     from ray_rust_tpu_torch.utils.image import load_png, save_png
 
+    repeat_backwards(torch, kb, kr, kt)
     cfg_main = rtt.RenderConfig(xres=W, yres=H)
     glow = dict(use_raymarching=True, glow_effect=1.0)
     cfg_march = rtt.RenderConfig(xres=MW, yres=MH, **glow)
@@ -3244,6 +3610,7 @@ def run(torch, tex_dir) -> int:
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print("    " + line.strip())
     ops_futures.update(deep_counts(counting, rtt, torch))  # phase 10's, once nvcc is done
+    ops_futures.update(huge_counts(counting, rtt, torch))  # phase 11's
     children = PlainChildren(tex_dir)  # phase 3's and phase 10's plain references
     for stem in stems:
         calls = _build.called_functions(_build.build_logs[stem])
@@ -3985,15 +4352,23 @@ def run(torch, tex_dir) -> int:
     if forced_err != 0.0:
         raise SystemExit("chip_smoke: K1b forced on the default scene changes the image")
 
-    # K2 and K4 (past kb.SHARED_TABLE_MAX: their global-table builds) and
-    # their shared-table builds, which 1 024 objects still fit, against one
-    # autograd call each
+    # K2 and K4 (past kb.SHARED_TABLE_MAX: their global-table builds)
+    # against one autograd call each; their shared-table builds, whose int64
+    # block no longer fits 1 024 objects in a block's shared memory, on
+    # SHARED_BWD_FIT objects against their own autograd call
     _, big_bwd_plain_ms = grad_case(f"1024 objects {gw}x{gh}", big,
                                     rtt.RenderConfig(xres=gw, yres=gh),
-                                    kernels=[kb.render_grads_kernel, staged("trace_bwd")])
+                                    kernels=[kb.render_grads_kernel])
     _, big_march_bwd_plain_ms = grad_case(
         f"march 1024 objects {gw}x{gh} march_max_iter=2000", big_glow, cfg_big_march,
-        kernels=[kmb.render_grads_kernel, staged("march_bwd")], plain=big_march_plain, **mgrad)
+        kernels=[kmb.render_grads_kernel], plain=big_march_plain, **mgrad)
+    fit, fit_glow = (spheres_scene(rtt, 11, SHARED_BWD_FIT - 1, glow_dist=d).to(dev)
+                     for d in (0.0, 3.0))
+    fw, fh = gw // 2, gh // 2  # a quarter of the pixels: the plain autograd's cost
+    grad_case(f"{SHARED_BWD_FIT} objects {fw}x{fh}", fit, rtt.RenderConfig(xres=fw, yres=fh),
+              kernels=[staged("trace_bwd")])
+    grad_case(f"march {SHARED_BWD_FIT} objects {fw}x{fh} march_max_iter=2000", fit_glow,
+              cfg_big_march.with_(xres=fw, yres=fh), kernels=[staged("march_bwd")], **mgrad)
     # each kernel's two table regimes (the build a wrapper launches is chosen
     # by n against its SHARED_TABLE_MAX) at its threshold, where both fit its
     # launch shape, and at 1 024 objects, the shapes of the times below
@@ -4004,13 +4379,19 @@ def run(torch, tex_dir) -> int:
     for stem, cfg, g, march, sizes in (
             ("trace_fwd", cfg_main, None, False, (kt.SHARED_TABLE_MAX, 1024)),
             ("march_fwd", cfg_march, None, True, (1024,)),
-            ("trace_bwd", cfg_main, g_big, False, (kb.SHARED_TABLE_MAX, 1024)),
-            ("march_bwd", cfg_march, g_bigm, True, (kb.SHARED_TABLE_MAX, 1024))):
+            ("trace_bwd", cfg_main, g_big, False, (kb.SHARED_TABLE_MAX, SHARED_BWD_FIT)),
+            ("march_bwd", cfg_march, g_bigm, True, (kb.SHARED_TABLE_MAX, SHARED_BWD_FIT))):
         for n in sizes:
             scene = (big_glow if march else big) if n == 1024 else spheres_scene(
                 rtt, 11, n - 1, glow_dist=3.0 if march else 0.0).to(dev)
             regime_ms[stem, n] = regimes(f"{n} objects", stem, scene, cfg, g,
                                          *((1, 3) if march else (3, 10)))
+    # the backwards at 1 024 objects: the global-table build alone
+    for stem, cfg, g, scene, reps in (("trace_bwd", cfg_main, g_big, big, (3, 10)),
+                                      ("march_bwd", cfg_march, g_bigm, big_glow, (1, 3))):
+        with torch.no_grad():
+            regime_ms[stem, 1024] = (None, cuda_ms(torch, regime_launch(
+                stem, scene, cfg, g, _build.GLOBAL_SUFFIX), *reps), 0.0)
     cli_file(torch, rtt, cli, kt, kp, big_built, W, H)
     print(f"  1024 objects ({card}), alone on words packed once, the build the wrappers launch: "
           f"K1 {W}x{H} with the cull {regime_ms['trace_fwd', 1024][1]:.3f} ms, K2 {W}x{H} with "
@@ -4319,6 +4700,14 @@ def run(torch, tex_dir) -> int:
     t_phase = time.time()
     deep += deep_marches(torch, rtt, cli, ops_futures, card, children)
     phase_s["10"] = time.time() - t_phase
+
+    # 11. an atlas of 2^31 texels or more
+    t_phase = time.time()
+    print("an atlas of 2^31 texels or more (K1-K4's 64-bit texel index):")
+    deep += huge_atlas(torch, rtt, card, ops)
+    phase_s["11"] = time.time() - t_phase
+    print(f"backward instances launched twice on the same inputs, each bit-equal: "
+          f"{len(REPEATS)}: " + "; ".join(" ".join(k for k in key if k) for key in REPEATS))
     print("phase wall times: " + ", ".join(f"{k} {v:.0f} s" for k, v in phase_s.items()))
 
     if "jax" in sys.modules or "ray_rust_tpu" in sys.modules:

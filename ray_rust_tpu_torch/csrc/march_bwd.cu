@@ -26,8 +26,8 @@
 // registers with ~8 KB of stack a thread (ptxas). The design is simple and
 // right, not fast, in the trace backward's frame (bwd_kernel.cuh: tables in
 // shared memory, a shared (n+1, 20) accumulator, one global atomic per
-// nonzero entry per block, summed in an order that changes from run to
-// run). The JAX kernel's tile gates are not carried over. Built with
+// nonzero entry per block, in 64-bit fixed point, the same sum in any
+// order). The JAX kernel's tile gates are not carried over. Built with
 // --fmad=false, as the forward kernels.
 //
 // Bound by ctypes through the plain C interface below (ops/_build.py,
@@ -66,7 +66,7 @@ int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const flo
                  int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                  float sy, int refraction_cap, int bg, int max_laps, int max_iter, float eps,
                  float far_away, int glow_on, float glow, int floor_skip, float cutoff,
-                 const void* tex, const int* tex_meta, int n_tex, int tex_stride, int tex_len,
+                 const void* tex, const int* tex_meta, int n_tex, int tex_stride, int tex_texels,
                  const float* g_r, const float* g_g, const float* g_b, float* out_block,
                  float* prim_r, float* prim_g, float* prim_b, int device, void* stream) {
   rt::MarchParams p;
@@ -88,7 +88,7 @@ int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const flo
   p.glow = glow;
   p.floor_skip = floor_skip;
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
-                          tex_len};
+                          tex_texels};
   if (n_tex > 0)
     return rt::launch_bwd<MarchBody<true>>(f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g,
                                            g_b, out_block, prim_r, prim_g, prim_b, device,
@@ -98,8 +98,11 @@ int rt_march_bwd(const float* f32t, const int* i32t, const float* cam, const flo
                                           device, stream);
 }
 
-const char* rt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+const char* rt_error_string(int code) { return rt::error_string(code); }
+
+// The last launch's fixed-point scale and counts (bwd_kernel.cuh: last_fixed).
+void rt_fixed_stats(int* out) {
+  for (int k = 0; k < 6; ++k) out[k] = rt::last_fixed()[k];
 }
 
 }  // extern "C"

@@ -7,8 +7,8 @@
 // refraction_unroll=4 needs 39). A lap's record and a frame's take 192 bytes
 // (march_bwd_body.cuh: MSite, MFrame), so the wrapper
 // (ops/kernel_march_bwd.py) allocates a buffer of count_sites(cfg) * 192
-// bytes a pixel for a band of the frame's rows within a budget, and launches
-// the frame band by band through the window (bwd_kernel.cuh). The buffer is
+// bytes a pixel for a band of the frame's rows within a budget, and the
+// launcher runs the frame band by band (bwd_kernel.cuh: launch_bwd). The buffer is
 // record-major and pixel-minor (trace_bwd_body.cuh: RecBuf, BufRecs): word k
 // of a pixel's record i lies at (i * W + k) * h * w plus the pixel's place
 // in the band, so the lanes of a warp, a row's neighbouring pixels, read
@@ -57,17 +57,18 @@ extern "C" {
 
 // rt_march_bwd (march_bwd.cu) with the records of ``site_cap`` laps a pixel
 // (any cap of at least 1) in ``buf``: 48 * site_cap words for each pixel of
-// the window, which the caller allocates and need not clear. The window is
-// one band of the wrapper's. Refraction caps past rt::MARCH_FRAMES_DEEP
-// return cudaErrorInvalidValue.
+// a band of ``band_rows`` x ``band_cols``, which the caller allocates and
+// need not clear; the window runs band by band (rt::launch_bwd). Refraction
+// caps past rt::MARCH_FRAMES_DEEP return cudaErrorInvalidValue.
 int rt_march_bwd_buf(const float* f32t, const int* i32t, const float* cam, const float* light,
                      int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                      float sy, int refraction_cap, int bg, int max_laps, int max_iter, float eps,
                      float far_away, int glow_on, float glow, int floor_skip, float cutoff,
                      const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                     int tex_len, const float* g_r, const float* g_g, const float* g_b,
+                     int tex_texels, const float* g_r, const float* g_g, const float* g_b,
                      float* out_block, float* prim_r, float* prim_g, float* prim_b,
-                     int site_cap, unsigned* buf, int device, void* stream) {
+                     int site_cap, unsigned* buf, int band_rows, int band_cols, int device,
+                     void* stream) {
   if (site_cap < 1 || buf == nullptr || refraction_cap > rt::MARCH_FRAMES_DEEP)
     return static_cast<int>(cudaErrorInvalidValue);
   rt::RecBuf<rt::MarchParams> p;
@@ -91,13 +92,17 @@ int rt_march_bwd_buf(const float* f32t, const int* i32t, const float* cam, const
   p.buf = buf;
   p.cap = site_cap;
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
-                          tex_len};
+                          tex_texels};
   return rt::launch_bwd<MarchBufBody>(f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b,
-                                      out_block, prim_r, prim_g, prim_b, device, stream);
+                                      out_block, prim_r, prim_g, prim_b, device, stream,
+                                      band_rows, band_cols);
 }
 
-const char* rt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+const char* rt_error_string(int code) { return rt::error_string(code); }
+
+// The last launch's fixed-point scale and counts (bwd_kernel.cuh: last_fixed).
+void rt_fixed_stats(int* out) {
+  for (int k = 0; k < 6; ++k) out[k] = rt::last_fixed()[k];
 }
 
 }  // extern "C"

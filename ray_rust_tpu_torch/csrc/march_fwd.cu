@@ -125,7 +125,7 @@ int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const flo
                  float sy, int refraction_cap, int bg,
                  int max_laps, int max_iter, float eps, float far_away, int glow_on,
                  float glow, int floor_skip, const void* tex, const int* tex_meta, int n_tex,
-                 int tex_stride, int tex_len, float* out_r, float* out_g, float* out_b,
+                 int tex_stride, int tex_texels, float* out_r, float* out_g, float* out_b,
                  int device, void* stream) {
 #ifdef RT_MARCH_DEEP
   if (refraction_cap > rt::MARCH_FRAMES_DEEP) return static_cast<int>(cudaErrorInvalidValue);
@@ -139,7 +139,7 @@ int rt_march_fwd(const float* f32t, const int* i32t, const float* cam, const flo
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
-                          tex_len};
+                          tex_texels};
   rt::MarchParams p;
   p.xres = xres;
   p.yres = yres;

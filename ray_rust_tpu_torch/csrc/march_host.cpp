@@ -20,14 +20,14 @@ void host_render(const float* f32t, const int* i32t, const float* cam, const flo
                  int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                  float sy, int refraction_cap, int bg, int max_laps, int max_iter, float eps,
                  float far_away, int glow_on, float glow, int floor_skip, const void* tex,
-                 const int* tex_meta, int n_tex, int tex_stride, int tex_len, float* out_r,
+                 const int* tex_meta, int n_tex, int tex_stride, int tex_texels, float* out_r,
                  float* out_g, float* out_b, unsigned long long* ops_total) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
   s.n = n;
   s.light = rt::v3(light[0], light[1], light[2]);
-  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
+  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_texels};
 #ifdef RT_COUNT_OPS
   s.ops = ops_total;
 #else
@@ -72,11 +72,11 @@ void host_render(const float* f32t, const int* i32t, const float* cam, const flo
       int yres, int row0, int col0, int h, int w, float sx, float sy, int refraction_cap,     \
       int bg, int max_laps, int max_iter, float eps, float far_away, int glow_on, float glow, \
       int floor_skip, const void *tex, const int *tex_meta, int n_tex, int tex_stride,        \
-      int tex_len, float *out_r, float *out_g, float *out_b, unsigned long long *ops_total
+      int tex_texels, float *out_r, float *out_g, float *out_b, unsigned long long *ops_total
 #define RT_MARCH_HOST_CALL                                                                  \
   f32t, i32t, cam, light, n, xres, yres, row0, col0, h, w, sx, sy, refraction_cap, bg,      \
       max_laps, max_iter, eps, far_away, glow_on, glow, floor_skip, tex, tex_meta, n_tex,   \
-      tex_stride, tex_len, out_r, out_g, out_b, ops_total
+      tex_stride, tex_texels, out_r, out_g, out_b, ops_total
 
 extern "C" void rt_march_host(RT_MARCH_HOST_ARGS) { host_render<false>(RT_MARCH_HOST_CALL); }
 

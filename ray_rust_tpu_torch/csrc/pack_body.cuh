@@ -156,8 +156,9 @@ RT_PACK_FI void pack_word(const PackArgs& a, int w, float* f32_out, int* i32_out
     v = i32_leaf(a, TEX_W)[j];
   } else if (c == 1) {
     v = i32_leaf(a, TEX_H)[j];
-  } else if (c == 2) {
-    v = j * a.tex_texels;
+  } else if (c == 2) {  // -1 past int32: the kernels derive it (texel_index)
+    const long long base = static_cast<long long>(j) * a.tex_texels;
+    v = base < (1ll << 31) ? static_cast<int>(base) : -1;
   } else {
     v = meta_filter(a, j);
   }

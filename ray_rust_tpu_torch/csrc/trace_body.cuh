@@ -151,7 +151,7 @@ constexpr int F32_COLS = 19;  // org xyz, normal xyz, diffuse rgb, specular rgb,
 constexpr int I32_COLS = 4;   // kind, pattern, uvmap, texture id
 constexpr int CAM_COLS = 8;   // position xyz, rotation xyzw, pad
 constexpr int LIGHT_COLS = 4; // direction xyz, pad
-constexpr int TEX_META_COLS = 4;  // width, height, base texel, filter
+constexpr int TEX_META_COLS = 4;  // width, height, base texel (unread: texel_index), filter
 
 constexpr int KIND_SPHERE = 0;
 constexpr int PATTERN_CHECKERBOARD = 1;
@@ -388,13 +388,14 @@ struct alignas(16) Texel4 {
 };
 
 // The texture atlas as the kernels take it (ops/kernel_trace.py:
-// pack_textures): ``len`` texels, ``stride`` (the widest texture's width) a
-// row, and a (n_tex, TEX_META_COLS) meta table. All zero when the scene has
-// no texture.
+// pack_textures): n_tex textures of ``texels`` texels each (Hmax * Wmax),
+// ``stride`` (the widest texture's width, Wmax) a row, and a (n_tex,
+// TEX_META_COLS) meta table. All zero when the scene has no texture. The
+// atlas may hold 2^31 texels or more: its offsets are 64-bit (texel_index).
 struct TexArgs {
   const Texel4* tex;
   const int* meta;
-  int n_tex, stride, len;
+  int n_tex, stride, texels;
 };
 
 // A Dual trace's local entries (K5): the camera's 7 (position xyz,
@@ -636,11 +637,15 @@ RT_FI float fimod(float f, float freq, int* idx) {
 // Where texture ``tid``'s lookup at (u, v) reads the atlas (render.rs:253-
 // 296): Nearest truncates u*w toward zero, Bilinear floors it and keeps the
 // fractions (*fu, *fv); both wrap by the texture's true size. The flat index
-// is clamped to the atlas (in range for every finite uv) as the plain version
-// and the JAX kernel (pallas_trace.py:674) clamp it. Sets *bilin.
-RT_FI int texel_index(const TexArgs& tx, int tid, float u, float v, bool* bilin, float* fu,
-                      float* fv) {
-  const int* m = tx.meta + TEX_META_COLS * (tid < tx.n_tex ? tid : tx.n_tex - 1);
+// (tid * Hmax + iy) * Wmax + ix, the atlas being texture-major, is 64-bit
+// (an atlas of 2^31 texels or more: the meta rows' int32 base texel column
+// is not read) and clamped to the atlas (in range for every finite uv) as
+// the plain version and the JAX kernel (pallas_trace.py:674) clamp it. Sets
+// *bilin.
+RT_FI long long texel_index(const TexArgs& tx, int tid, float u, float v, bool* bilin,
+                            float* fu, float* fv) {
+  const int t = tid < tx.n_tex ? tid : tx.n_tex - 1;
+  const int* m = tx.meta + TEX_META_COLS * t;
   const int w = m[0], h = m[1];
   const float wf = static_cast<float>(w), hf = static_cast<float>(h);
   *bilin = m[3] == FILTER_BILINEAR;
@@ -652,9 +657,10 @@ RT_FI int texel_index(const TexArgs& tx, int tid, float u, float v, bool* bilin,
     ix = imod(f32_to_i32(truncf(u * wf)), w);
     iy = imod(f32_to_i32(truncf(v * hf)), h);
   }
-  long long flat = static_cast<long long>(m[2]) + static_cast<long long>(iy) * tx.stride + ix;
-  flat = flat < 0 ? 0 : (flat >= tx.len ? tx.len - 1 : flat);
-  return static_cast<int>(flat);
+  const long long len = static_cast<long long>(tx.texels) * tx.n_tex;
+  long long flat = static_cast<long long>(t) * tx.texels +
+                   static_cast<long long>(iy) * tx.stride + ix;
+  return flat < 0 ? 0 : (flat >= len ? len - 1 : flat);
 }
 
 // One texel's taps: on the card one read-only 16-byte load.

@@ -15,7 +15,8 @@
 // walks its saved sites backwards. The frame (bwd_kernel.cuh) stages the
 // tables in shared memory as the forward kernel does and sums each block's
 // cotangents in a shared (n+1, 20) block before one global atomicAdd per
-// nonzero entry.
+// nonzero entry, every sum across threads in 64-bit fixed point
+// (fixed_sum.cuh), so a launch repeats itself bit for bit.
 //
 // The scatter into that block is K2's own (WarpAcc). At 1920x1080 a frame
 // adds 13 entries a pixel, and the lanes of a warp mostly add to the same
@@ -27,7 +28,9 @@
 // light cotangents in registers until the frame's flush, where the warp
 // reduces them with shuffles and one lane adds the 10 sums; at a hit, the
 // lanes that arrive together group by winner (__match_any_sync) and each
-// group sums its row with shuffles before its first lane adds it. The JAX
+// group sums its row with shuffles before its first lane adds it. Which
+// lanes arrive together is the scheduler's, so each lane turns its terms
+// into integers first and the shuffles sum integers. The JAX
 // kernel's pruned replay variants are not carried over: they let one
 // lockstep TPU tile skip masked work, and a CUDA thread already walks only
 // its own sites. Built with --fmad=false, as the forward kernel.
@@ -60,16 +63,25 @@ __device__ __forceinline__ unsigned lane_id() {
 }
 
 // The warp-aggregated accumulator: the sums of a warp's lanes, one shared
-// atomicAdd per nonzero entry and group of lanes. The body that calls it is
-// __host__ __device__, so are its methods; their intrinsics and atomics are
-// compiled for the device only (the host build has its own accumulator).
-struct WarpAcc {
-  float* block;
+// int64 atomicAdd per nonzero entry and group of lanes. Each lane turns its
+// own terms into integers (rt::FixedTerms) and splits them into their two
+// digits before any sum, so a group's shuffle tree sums integers, and
+// whichever lanes arrive together the block gets the same sum; the hi
+// digits (terms past 2^FIXED_HEAD |g|) take a tree of their own where a
+// lane of the group has one. The body that calls it is __host__
+// __device__, so are its methods; their intrinsics and atomics are compiled
+// for the device only (the host build has its own accumulator).
+struct WarpAcc : rt::FixedTerms {
+  long long* block;
   float cam[rt::CAM_GRADS] = {};  // this lane's camera and light cotangents
+
+  __host__ __device__ WarpAcc(long long* b, const rt::FixedTerms& t, int)
+      : rt::FixedTerms(t), block(b) {}
 
   __host__ __device__ void add(int row, int col, float v) {
 #ifdef __CUDA_ARCH__
-    atomicAdd(&block[row * rt::GRAD_COLS + col], v);
+    const int e = row * rt::GRAD_COLS + col;
+    put(block, e, take(e, v));
 #endif
   }
 
@@ -81,23 +93,39 @@ struct WarpAcc {
     const unsigned peers = __match_any_sync(mask, row);
     const unsigned lane = lane_id();
     // the next lane of this lane's group, then (by doubling) the one d
-    // lanes on: a shuffle-down tree over the group's ranks
+    // lanes on: a shuffle-down tree over the group's ranks, its sources
+    // (5 bits a step) and whether this lane adds at each step kept for the
+    // 19 columns' sums
     const unsigned above = peers & ~((2u << lane) - 1u);
     int next = above ? __ffs(above) - 1 : -1;
     const int group_max = __reduce_max_sync(mask, __popc(peers));
-    for (int d = 1; d < group_max; d <<= 1) {
+    unsigned srcs = 0, adds = 0;
+    int steps = 0;
+    for (int d = 1; d < group_max; d <<= 1, ++steps) {
       const int src = next >= 0 ? next : static_cast<int>(lane);
-#pragma unroll
-      for (int k = 0; k < rt::F32_COLS; ++k) {
-        const float v = __shfl_sync(mask, g[k], src);
-        if (next >= 0) g[k] += v;
-      }
+      srcs |= static_cast<unsigned>(src) << (5 * steps);
+      adds |= (next >= 0 ? 1u : 0u) << steps;
       next = __shfl_sync(mask, next, src);
     }
-    if ((peers & ((1u << lane) - 1u)) == 0) {  // the group's first lane
+    const bool first = (peers & ((1u << lane) - 1u)) == 0;  // the group's first lane
 #pragma unroll
-      for (int k = 0; k < rt::F32_COLS; ++k)
-        if (g[k] != 0.0f) atomicAdd(&block[row * rt::GRAD_COLS + k], g[k]);
+    for (int k = 0; k < rt::F32_COLS; ++k) {
+      const int e = row * rt::GRAD_COLS + k;
+      const long long q = take(e, g[k]);
+      if (!__any_sync(mask, q != 0)) continue;  // a column no lane of the group adds to
+      long long lo = rt::lo_digit(q), hi = rt::hi_digit(q, lo);
+      const bool his = __any_sync(mask, hi != 0);
+      for (int j = 0; j < steps; ++j) {
+        const int src = (srcs >> (5 * j)) & 31u;
+        const long long v = __shfl_sync(mask, lo, src);
+        const long long w = his ? __shfl_sync(mask, hi, src) : 0;
+        if ((adds >> j) & 1u) {
+          lo += v;
+          hi += w;
+        }
+      }
+      if (first && lo != 0) rt::add_digit(&block[e], lo);
+      if (first && hi != 0) rt::add_digit(&this->hi[e], hi);
     }
 #endif
   }
@@ -112,15 +140,17 @@ struct WarpAcc {
   __device__ void flush(int n) {
 #pragma unroll
     for (int k = 0; k < rt::CAM_GRADS; ++k) {
-      float v = cam[k];
+      const int e = n * rt::GRAD_COLS + k;
+      const long long q = take(e, cam[k]);
+      long long lo = rt::lo_digit(q), hi = rt::hi_digit(q, lo);
+      const bool his = __any_sync(0xffffffffu, hi != 0);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      cam[k] = v;
-    }
-    if (lane_id() == 0) {
-#pragma unroll
-      for (int k = 0; k < rt::CAM_GRADS; ++k)
-        if (cam[k] != 0.0f) atomicAdd(&block[n * rt::GRAD_COLS + k], cam[k]);
+      for (int o = 16; o > 0; o >>= 1) {
+        lo += __shfl_xor_sync(0xffffffffu, lo, o);
+        if (his) hi += __shfl_xor_sync(0xffffffffu, hi, o);
+      }
+      if (lane_id() == 0 && lo != 0) rt::add_digit(&block[e], lo);
+      if (lane_id() == 0 && hi != 0) rt::add_digit(&this->hi[e], hi);
     }
   }
 };
@@ -198,13 +228,13 @@ int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const flo
                  int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                  float sy, int max_reflections, int refraction_cap, int bg, float cutoff,
                  int site_cap, const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                 int tex_len, const float* g_r, const float* g_g, const float* g_b,
+                 int tex_texels, const float* g_r, const float* g_g, const float* g_b,
                  float* out_block, float* prim_r, float* prim_g, float* prim_b, int device,
                  void* stream) {
   const rt::Params p = trace_params(xres, yres, row0, col0, h, w, sx, sy, max_reflections,
                                     refraction_cap, bg);
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
-                          tex_len};
+                          tex_texels};
   const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
   if (tasks > rt::STACK_CAP_DEEP) return static_cast<int>(cudaErrorInvalidValue);
   // and at most the sites: a task holds one
@@ -224,38 +254,43 @@ int rt_trace_bwd(const float* f32t, const int* i32t, const float* cam, const flo
 }
 
 // rt_trace_bwd with the records of ``site_cap`` sites a pixel (any cap of
-// at least 1) in ``buf``: 26 * site_cap words for each pixel of the window
-// (trace_bwd_body.cuh: RecBuf, rec_stores), which the caller allocates and
-// need not clear. The window is one band of the wrapper's.
+// at least 1) in ``buf``: 26 * site_cap words for each pixel of a band of
+// ``band_rows`` x ``band_cols`` (trace_bwd_body.cuh: RecBuf, rec_stores),
+// which the caller allocates and need not clear; the window runs band by
+// band (rt::launch_bwd).
 int rt_trace_bwd_buf(const float* f32t, const int* i32t, const float* cam, const float* light,
                      int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                      float sy, int max_reflections, int refraction_cap, int bg, float cutoff,
                      int site_cap, const void* tex, const int* tex_meta, int n_tex,
-                     int tex_stride, int tex_len, const float* g_r, const float* g_g,
+                     int tex_stride, int tex_texels, const float* g_r, const float* g_g,
                      const float* g_b, float* out_block, float* prim_r, float* prim_g,
-                     float* prim_b, unsigned* buf, int device, void* stream) {
+                     float* prim_b, unsigned* buf, int band_rows, int band_cols, int device,
+                     void* stream) {
   rt::RecBuf<rt::Params> p;
   static_cast<rt::Params&>(p) = trace_params(xres, yres, row0, col0, h, w, sx, sy,
                                              max_reflections, refraction_cap, bg);
   p.buf = buf;
   p.cap = site_cap;
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
-                          tex_len};
+                          tex_texels};
   const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
   if (tasks > rt::STACK_CAP_DEEP || site_cap < 1 || buf == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (tasks > rt::STACK_CAP)
-    return rt::launch_bwd<BufTraceBody<rt::STACK_CAP_DEEP>>(f32t, i32t, cam, light, n, p, tx,
-                                                            cutoff, g_r, g_g, g_b, out_block,
-                                                            prim_r, prim_g, prim_b, device,
-                                                            stream);
+    return rt::launch_bwd<BufTraceBody<rt::STACK_CAP_DEEP>>(
+        f32t, i32t, cam, light, n, p, tx, cutoff, g_r, g_g, g_b, out_block, prim_r, prim_g,
+        prim_b, device, stream, band_rows, band_cols);
   return rt::launch_bwd<BufTraceBody<rt::STACK_CAP>>(f32t, i32t, cam, light, n, p, tx, cutoff,
                                                      g_r, g_g, g_b, out_block, prim_r, prim_g,
-                                                     prim_b, device, stream);
+                                                     prim_b, device, stream, band_rows,
+                                                     band_cols);
 }
 
-const char* rt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+const char* rt_error_string(int code) { return rt::error_string(code); }
+
+// The last launch's fixed-point scale and counts (bwd_kernel.cuh: last_fixed).
+void rt_fixed_stats(int* out) {
+  for (int k = 0; k < 6; ++k) out[k] = rt::last_fixed()[k];
 }
 
 }  // extern "C"

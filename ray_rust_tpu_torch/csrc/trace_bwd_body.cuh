@@ -469,7 +469,7 @@ RT_AD void fetch_texture_adj(const TexArgs& tx, int tid, float u, float v, C3 g,
                              float* gv) {
   bool bilin;
   float fu = 0.0f, fv = 0.0f;
-  const int k = texel_index(tx, tid, u, v, &bilin, &fu, &fv);
+  const long long k = texel_index(tx, tid, u, v, &bilin, &fu, &fv);
   if (!bilin) return;
   const Texel4 q = load_texel(tx.tex + k);
   const C3 p00 = unpack_tap(q.p00), p10 = unpack_tap(q.p10), p01 = unpack_tap(q.p01),

@@ -6,8 +6,9 @@
 // the device and stream; it returns 0, or 1 (cudaErrorInvalidValue) for a
 // window with no pixel or past the frame; a record cap the kernel is not
 // built for leaves NaN in the block. It reads the tables where they lie and
-// adds each cotangent straight to the block, as the -DRT_GLOBAL_TABLES build
-// does. Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC``
+// adds each cotangent straight to its int64 block, as the -DRT_GLOBAL_TABLES
+// build does, in the kernels' fixed point (fixed_sum.cuh: host_fixed_sum,
+// the same terms, scale and counts). Build with ``g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC``
 // (and -DRT_COUNT_OPS to add to ops_total: [0] the operation count, [1] the
 // texel bytes of the record pass's texture fetches, [2] the accumulator's
 // adds, [3] the distinct (warp, block entry) pairs among them, a warp being
@@ -15,22 +16,28 @@
 //
 // The host accumulator adds each nonzero entry as it comes, lane by lane,
 // as the kernel's accumulator did before it summed over a warp; the pairs
-// are the fewest adds a warp-aggregated scatter can reach.
+// are the fewest adds a warp-aggregated scatter can reach. Its integers are
+// the kernel's: a lane there turns the same terms (its pixel's camera and
+// light sums once, at the flush) into integers before it sums.
+//
+// rt_fixed_sum_host sums given terms as the kernels do, for the tests.
 //
 // rt_trace_bwd_buf_host is rt_trace_bwd_buf's twin: the records of every
-// pixel in ``buf``, laid out as the kernel lays them out.
+// pixel of a band in ``buf``, laid out as the kernel lays them out, the
+// window band by band.
 //
 // The rt_*_adj functions expose single adjoint steps for the tests, each
 // over ``m`` cases laid out as flat arrays.
 
 #include <vector>
 
+#include "fixed_sum.cuh"
 #include "trace_bwd_body.cuh"
 
 namespace {
 
-struct HostAcc {
-  float* block;
+struct HostAcc : rt::FixedTerms {
+  long long* block;
 #ifdef RT_COUNT_OPS
   unsigned long long* ops;
   std::vector<char> seen;  // entries this warp has added to
@@ -42,9 +49,11 @@ struct HostAcc {
   }
 #endif
 
+  HostAcc(long long* b, const rt::FixedTerms& t) : rt::FixedTerms(t), block(b) {}
+
   void add(int row, int col, float v) {
     const int a = row * rt::GRAD_COLS + col;
-    block[a] += v;
+    put(block, a, take(a, v));
 #ifdef RT_COUNT_OPS
     ++ops[2];
     if (!seen[a]) {
@@ -64,48 +73,68 @@ struct HostAcc {
   }
 };
 
-// The host loop over the window's pixels: ``pixel(s, p, ix, iy, g, acc)``
-// runs one pixel's body; returns rt_trace_bwd_host's code.
-template <class F>
-int host_loop(const float* f32t, const int* i32t, const float* light, int n, rt::Params p,
-              const void* tex, const int* tex_meta, int n_tex, int tex_stride, int tex_len,
+// The host loop over the window's pixels, band by band of ``band_rows`` x
+// ``band_cols`` (0: the window; rt::launch_bwd's bands): ``pixel(s, pb, ix,
+// iy, g, acc)`` runs one pixel's body in band ``pb``; returns
+// rt_trace_bwd_host's code.
+template <class P, class F>
+int host_loop(const float* f32t, const int* i32t, const float* light, int n, const P& p,
+              const void* tex, const int* tex_meta, int n_tex, int tex_stride, int tex_texels,
               const float* g_r, const float* g_g, const float* g_b, float* out_block,
               float* prim_r, float* prim_g, float* prim_b, unsigned long long* ops_total,
-              F&& pixel) {
+              F&& pixel, int band_rows = 0, int band_cols = 0) {
   rt::SceneView s;
   s.f32 = f32t;
   s.i32 = i32t;
   s.n = n;
   s.light = rt::v3(light[0], light[1], light[2]);
-  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
+  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_texels};
 #ifdef RT_COUNT_OPS
   s.ops = ops_total;
 #else
   (void)ops_total;
 #endif
-  if (!rt::window_ok(p)) return 1;
-  HostAcc acc;
-  acc.block = out_block;
+  const int br = band_rows > 0 ? band_rows : p.h, bc = band_cols > 0 ? band_cols : p.w;
+  if (!rt::window_ok(p) || (br > 1 && bc < p.w)) return 1;
+  const long long pixels = static_cast<long long>(p.h) * p.w;
 #ifdef RT_COUNT_OPS
-  acc.ops = ops_total;
-  acc.seen.assign(static_cast<size_t>(n + 1) * rt::GRAD_COLS, 0);
+  std::vector<unsigned long long> again(8);  // a second run's counts
+  int runs = 0;
 #endif
-  for (int ly = 0; ly < p.h; ++ly) {  // the pixel in the window
-    for (int lx = 0; lx < p.w; ++lx) {
+  return rt::host_fixed_sum(
+      out_block, (n + 1) * rt::GRAD_COLS, rt::planes_gbits(g_r, g_g, g_b, pixels),
+      [&](long long* q, const rt::FixedTerms& t) {
+        HostAcc acc(q, t);
 #ifdef RT_COUNT_OPS
-      if (lx % 32 == 0) acc.new_warp();
+        s.ops = acc.ops = runs++ == 0 ? ops_total : again.data();
+        acc.seen.assign(static_cast<size_t>(n + 1) * rt::GRAD_COLS, 0);
 #endif
-      const long o = static_cast<long>(ly) * p.w + lx;
-      const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
-      rt::C3 c = pixel(s, p.col0 + lx, p.row0 + ly, g, acc);
-      if (prim_r != nullptr) {
-        prim_r[o] = c.r;
-        prim_g[o] = c.g;
-        prim_b[o] = c.b;
-      }
-    }
-  }
-  return 0;
+        for (int r = 0; r < p.h; r += br) {
+          for (int c = 0; c < p.w; c += bc) {
+            P pb = p;
+            pb.row0 = p.row0 + r;
+            pb.col0 = p.col0 + c;
+            pb.h = std::min(br, p.h - r);
+            pb.w = std::min(bc, p.w - c);
+            for (int ly = 0; ly < pb.h; ++ly) {  // the pixel in the band
+              for (int lx = 0; lx < pb.w; ++lx) {
+#ifdef RT_COUNT_OPS
+                if (lx % 32 == 0) acc.new_warp();
+#endif
+                const long o = static_cast<long>(r + ly) * p.w + c + lx;
+                const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
+                rt::C3 col = pixel(s, pb, pb.col0 + lx, pb.row0 + ly, g, acc);
+                if (prim_r != nullptr) {
+                  prim_r[o] = col.r;
+                  prim_g[o] = col.g;
+                  prim_b[o] = col.b;
+                }
+              }
+            }
+          }
+        }
+        return static_cast<rt::FixedTerms>(acc);
+      });
 }
 
 rt::Params params(int xres, int yres, int row0, int col0, int h, int w, float sx, float sy,
@@ -133,7 +162,7 @@ int rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
                       const float* light, int n, int xres, int yres, int row0, int col0, int h,
                       int w, float sx, float sy, int max_reflections, int refraction_cap, int bg,
                       float cutoff, int site_cap, const void* tex, const int* tex_meta,
-                      int n_tex, int tex_stride, int tex_len, const float* g_r,
+                      int n_tex, int tex_stride, int tex_texels, const float* g_r,
                       const float* g_g, const float* g_b, float* out_block, float* prim_r,
                       float* prim_g, float* prim_b, unsigned long long* ops_total) {
   const rt::Params p = params(xres, yres, row0, col0, h, w, sx, sy, max_reflections,
@@ -145,9 +174,10 @@ int rt_trace_bwd_host(const float* f32t, const int* i32t, const float* cam,
   int rc = 0;
   const int cap_rc = rt::with_site_cap(site_cap, [&](auto cap) {
     constexpr int C = decltype(cap)::value;
-    rc = host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_len, g_r, g_g,
+    rc = host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_texels, g_r, g_g,
                    g_b, out_block, prim_r, prim_g, prim_b, ops_total,
-                   [&](const rt::SceneView& s, int ix, int iy, rt::C3 g, HostAcc& acc) {
+                   [&](const rt::SceneView& s, const rt::Params&, int ix, int iy, rt::C3 g,
+                       HostAcc& acc) {
                      return deep ? rt::trace_pixel_grad<C, rt::STACK_CAP_DEEP>(s, p, cutoff,
                                                                                cam, ix, iy, g,
                                                                                acc)
@@ -164,9 +194,10 @@ int rt_trace_bwd_buf_host(const float* f32t, const int* i32t, const float* cam,
                           int h, int w, float sx, float sy, int max_reflections,
                           int refraction_cap, int bg, float cutoff, int site_cap,
                           const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                          int tex_len, const float* g_r, const float* g_g, const float* g_b,
+                          int tex_texels, const float* g_r, const float* g_g, const float* g_b,
                           float* out_block, float* prim_r, float* prim_g, float* prim_b,
-                          unsigned* buf, unsigned long long* ops_total) {
+                          unsigned* buf, int band_rows, int band_cols,
+                          unsigned long long* ops_total) {
   rt::RecBuf<rt::Params> p;
   static_cast<rt::Params&>(p) = params(xres, yres, row0, col0, h, w, sx, sy, max_reflections,
                                        refraction_cap, bg);
@@ -174,15 +205,41 @@ int rt_trace_bwd_buf_host(const float* f32t, const int* i32t, const float* cam,
   p.cap = site_cap;
   const int tasks = rt::stack_tasks(max_reflections, refraction_cap);
   if (tasks > rt::STACK_CAP_DEEP || site_cap < 1 || buf == nullptr) return 1;
-  return host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_len, g_r, g_g,
+  return host_loop(f32t, i32t, light, n, p, tex, tex_meta, n_tex, tex_stride, tex_texels, g_r, g_g,
                    g_b, out_block, prim_r, prim_g, prim_b, ops_total,
-                   [&](const rt::SceneView& s, int ix, int iy, rt::C3 g, HostAcc& acc) {
+                   [&](const rt::SceneView& s, const rt::RecBuf<rt::Params>& pb, int ix,
+                       int iy, rt::C3 g, HostAcc& acc) {
                      return tasks > rt::STACK_CAP
-                                ? rt::trace_pixel_grad_buf<rt::STACK_CAP_DEEP>(s, p, cutoff, cam,
+                                ? rt::trace_pixel_grad_buf<rt::STACK_CAP_DEEP>(s, pb, cutoff, cam,
                                                                                ix, iy, g, acc)
-                                : rt::trace_pixel_grad_buf<rt::STACK_CAP>(s, p, cutoff, cam, ix,
+                                : rt::trace_pixel_grad_buf<rt::STACK_CAP>(s, pb, cutoff, cam, ix,
                                                                           iy, g, acc);
-                   });
+                   },
+                   band_rows, band_cols);
+}
+
+// The kernels' sum of ``m`` terms ``x`` at block entries ``entry`` (of
+// ``entries``), in the order given, added to ``out``: their launch's
+// fixed point (fixed_sum.cuh: host_fixed_sum) at the scale of the largest
+// |g| ``gmax``, or ``forced`` (when not FIXED_FREE = INT_MIN: no retry).
+// Returns 0 or FIXED_OVERFLOW, the scale taken in *scale.
+int rt_fixed_sum_host(int m, const int* entry, const float* x, int entries, float gmax,
+                      int forced, float* out, int* scale) {
+  return rt::host_fixed_sum(
+      out, entries, rt::finite_abs_bits(gmax),
+      [&](long long* lo, const rt::FixedTerms& t) {
+        rt::FixedTerms acc = t;
+        for (int i = 0; i < m; ++i) acc.put(lo, entry[i], acc.take(entry[i], x[i]));
+        return acc;
+      },
+      forced, scale);
+}
+
+// The name of a launcher's return code (bwd_kernel.cuh: error_string):
+// 1 for a call the loop does not take, FIXED_OVERFLOW.
+const char* rt_error_string(int code) {
+  return code == rt::FIXED_OVERFLOW ? "the fixed-point cotangent sum would overflow int64"
+                                    : (code == 1 ? "invalid argument" : "unknown error");
 }
 
 // light (3), d (3m), g (3m) -> g_light (3m), g_d (3m): default sky.
@@ -248,9 +305,9 @@ void rt_pow_adj(int m, const float* ri, const float* pn, const float* g, float* 
 // the texture fetch's adjoint.
 void rt_fetch_texture_adj(int m, const int* tid, const float* u, const float* v, const float* g,
                           const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                          int tex_len, float* gu, float* gv) {
+                          int tex_texels, float* gu, float* gv) {
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
-                          tex_len};
+                          tex_texels};
   for (int i = 0; i < m; ++i) {
     gu[i] = 0.0f;
     gv[i] = 0.0f;

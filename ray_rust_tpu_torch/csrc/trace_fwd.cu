@@ -149,16 +149,16 @@ size_t rt_trace_fwd_smem(int n, int n_tex, int cull) {
 // Launch the trace forward on ``stream`` of ``device``; returns the
 // cudaError_t of the launch (0 = success). The frame is xres x yres; the
 // launch renders its rows row0 .. row0+h-1 and columns col0 .. col0+w-1
-// into h x w output planes. ``tex`` is the atlas of
-// ``tex_len`` 16-byte texels, ``tex_stride`` a row, and ``tex_meta`` its
-// (n_tex, 4) table; null and zeros for an untextured scene. ``cull`` takes
+// into h x w output planes. ``tex`` is the atlas of n_tex textures of
+// ``tex_texels`` 16-byte texels each (Hmax * Wmax; the atlas may pass 2^31
+// texels), ``tex_stride`` a row, and ``tex_meta`` its (n_tex, 4) table; null and zeros for an untextured scene. ``cull`` takes
 // K1b's per-tile cull. The task stack holds 16 tasks where
 // rt::stack_tasks(max_reflections, refraction_cap) is 16 or less, else 64,
 // in either build; past 64 the launch returns cudaErrorInvalidValue.
 int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const float* light,
                  int n, int xres, int yres, int row0, int col0, int h, int w, float sx,
                  float sy, int max_reflections, int refraction_cap, int bg, const void* tex,
-                 const int* tex_meta, int n_tex, int tex_stride, int tex_len, int cull,
+                 const int* tex_meta, int n_tex, int tex_stride, int tex_texels, int cull,
                  float* out_r, float* out_g, float* out_b, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -166,7 +166,7 @@ int rt_trace_fwd(const float* f32t, const int* i32t, const float* cam, const flo
   if (tasks > rt::STACK_CAP_DEEP) return static_cast<int>(cudaErrorInvalidValue);
   const bool deep = tasks > rt::STACK_CAP;
   const size_t smem = rt_trace_fwd_smem(n, n_tex, cull);
-  rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
+  rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_texels};
   rt::Params p;
   p.xres = xres;
   p.yres = yres;

@@ -95,7 +95,7 @@ rt::SceneView view(const float* f32t, const int* i32t, const float* light, int n
 void trace_host(const float* f32t, const int* i32t, const float* cam, const float* light, int n,
                 int xres, int yres, int row0, int col0, int h, int w, float sx, float sy,
                 int max_reflections, int refraction_cap, int bg, const void* tex,
-                const int* tex_meta, int n_tex, int tex_stride, int tex_len, int cull,
+                const int* tex_meta, int n_tex, int tex_stride, int tex_texels, int cull,
                 float* out_r, float* out_g, float* out_b, unsigned long long* ops_total,
                 unsigned long long* tasks) {
   rt::SceneView s = view(f32t, i32t, light, n, ops_total);
@@ -104,7 +104,7 @@ void trace_host(const float* f32t, const int* i32t, const float* cam, const floa
 #else
   (void)tasks;
 #endif
-  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_len};
+  s.tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride, tex_texels};
   rt::Params p = params(xres, yres, sx, sy, max_reflections, refraction_cap, bg);
   p.row0 = row0;
   p.col0 = col0;
@@ -127,10 +127,10 @@ extern "C" void rt_trace_host(const float* f32t, const int* i32t, const float* c
                               int col0, int h, int w, float sx, float sy,
                               int max_reflections, int refraction_cap, int bg,
                               const void* tex, const int* tex_meta, int n_tex, int tex_stride,
-                              int tex_len, int cull, float* out_r, float* out_g,
+                              int tex_texels, int cull, float* out_r, float* out_g,
                               float* out_b, unsigned long long* ops_total) {
   trace_host(f32t, i32t, cam, light, n, xres, yres, row0, col0, h, w, sx, sy, max_reflections,
-             refraction_cap, bg, tex, tex_meta, n_tex, tex_stride, tex_len, cull, out_r, out_g,
+             refraction_cap, bg, tex, tex_meta, n_tex, tex_stride, tex_texels, cull, out_r, out_g,
              out_b, ops_total, nullptr);
 }
 
@@ -141,12 +141,12 @@ extern "C" void rt_trace_tasks_host(const float* f32t, const int* i32t, const fl
                                     int col0, int h, int w, float sx, float sy,
                                     int max_reflections, int refraction_cap, int bg,
                                     const void* tex, const int* tex_meta, int n_tex,
-                                    int tex_stride, int tex_len, int cull, float* out_r,
+                                    int tex_stride, int tex_texels, int cull, float* out_r,
                                     float* out_g, float* out_b, unsigned long long* ops_total,
                                     unsigned long long* tasks) {
   *tasks = 0;
   trace_host(f32t, i32t, cam, light, n, xres, yres, row0, col0, h, w, sx, sy, max_reflections,
-             refraction_cap, bg, tex, tex_meta, n_tex, tex_stride, tex_len, cull, out_r, out_g,
+             refraction_cap, bg, tex, tex_meta, n_tex, tex_stride, tex_texels, cull, out_r, out_g,
              out_b, ops_total, tasks);
 }
 #endif
@@ -167,11 +167,25 @@ extern "C" void rt_cull_masks_host(const float* f32t, const int* i32t, const flo
 // each) -> colours (3m), with the atlas arguments as above.
 extern "C" void rt_fetch_texture_host(int m, const int* tid, const float* u, const float* v,
                                       const void* tex, const int* tex_meta, int n_tex,
-                                      int tex_stride, int tex_len, float* rgb) {
+                                      int tex_stride, int tex_texels, float* rgb) {
   const rt::TexArgs tx = {static_cast<const rt::Texel4*>(tex), tex_meta, n_tex, tex_stride,
-                          tex_len};
+                          tex_texels};
   for (int i = 0; i < m; ++i) {
     const rt::C3 c = rt::fetch_texture(tx, tid[i], u[i], v[i]);
     rgb[3 * i] = c.r, rgb[3 * i + 1] = c.g, rgb[3 * i + 2] = c.b;
+  }
+}
+
+// The atlas offsets of m lookups (texel_index, 64-bit), for the tests: no
+// texel is read, so the atlas need not exist (an atlas of 2^31 texels or
+// more is 32 GiB); the meta rows and the sizes as above.
+extern "C" void rt_texel_index_host(int m, const int* tid, const float* u, const float* v,
+                                    const int* tex_meta, int n_tex, int tex_stride,
+                                    int tex_texels, long long* out) {
+  const rt::TexArgs tx = {nullptr, tex_meta, n_tex, tex_stride, tex_texels};
+  for (int i = 0; i < m; ++i) {
+    bool bilin;
+    float fu, fv;
+    out[i] = rt::texel_index(tx, tid[i], u[i], v[i], &bilin, &fu, &fv);
   }
 }

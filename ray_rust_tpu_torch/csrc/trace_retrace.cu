@@ -34,7 +34,9 @@
 // frame's flush sums over the block without atomics. The objects' entries
 // go to the frame's shared (n+1, 20) block: where the lanes of a pass all
 // add to one entry (__match_all_sync), a shuffle sum and one shared
-// atomicAdd, else one per lane. Lane by lane those adds took 1.4 of 4.7 ms
+// atomicAdd, else one per lane. Every term is a 64-bit fixed-point integer
+// before it is summed (fixed_sum.cuh), so the sums are the same whichever
+// lanes arrive together. Lane by lane those adds took 1.4 of 4.7 ms
 // on an H100; summed first, 0.23 of 3.5 ms (PERF.md §6). The frame is the
 // one the backwards share (bwd_kernel.cuh): tables in shared memory, one
 // global atomic per nonzero entry a block. The launch shape is the frame's,
@@ -55,15 +57,20 @@ namespace {
 
 constexpr int THREADS = rt::BwdFrame::BLOCK_X * rt::BwdFrame::BLOCK_Y;
 
-// The block's camera and light cotangents, one slot a thread and entry.
-__shared__ float scene_stage[rt::SCENE_ENTRIES * THREADS];
+// The block's camera and light cotangents, one slot a thread and entry, as
+// the thread's fixed-point digits (lo, then hi).
+__shared__ long long scene_stage[2 * rt::SCENE_ENTRIES * THREADS];
 
 // K5's accumulator: object entries into the shared block, the camera and
-// light entries staged per thread and summed at the flush. The body that
-// calls it is __host__ __device__, so are its methods; their shared memory,
-// warp intrinsics and atomics are compiled for the device only.
-struct RetraceAcc {
-  float* block;
+// light entries staged per thread and summed at the flush. Each thread
+// turns its own terms into integers (rt::FixedTerms) and splits them into
+// their two digits before any sum, so the sums are the same whichever lanes
+// arrive together. The body that calls it is __host__ __device__, so are
+// its methods; their shared memory, warp intrinsics and atomics are
+// compiled for the device only.
+struct RetraceAcc : rt::FixedTerms {
+  long long* block;
+  int n;
 
   __host__ __device__ static int tid() {
 #ifdef __CUDA_ARCH__
@@ -77,14 +84,14 @@ struct RetraceAcc {
   // The sum of v over the lanes of ``active`` (any set of lanes), in its
   // first lane: each lane adds the partial sum of the lane after it, whose
   // pointer then jumps twice as far, so ceil(log2 n) shuffles for n lanes.
-  __device__ static float sum_lanes(unsigned active, float v) {
+  __device__ static long long sum_lanes(unsigned active, long long v) {
     const unsigned lane = tid() & 31;
     const unsigned after = active & ~((2u << lane) - 1u);
     int next = after ? __ffs(after) - 1 : -1;
-    const int n = __popc(active);
-    for (int d = 1; d < n; d <<= 1) {
+    const int cnt = __popc(active);
+    for (int d = 1; d < cnt; d <<= 1) {
       const int src = next >= 0 ? next : static_cast<int>(lane);
-      const float w = __shfl_sync(active, v, src);
+      const long long w = __shfl_sync(active, v, src);
       const int jump = __shfl_sync(active, next, src);
       if (next >= 0) {
         v += w;
@@ -96,10 +103,11 @@ struct RetraceAcc {
 #endif
 
   // A thread outside the image stages zeros.
-  __host__ __device__ RetraceAcc(float* b) : block(b) {
+  __host__ __device__ RetraceAcc(long long* b, const rt::FixedTerms& t, int rows)
+      : rt::FixedTerms(t), block(b), n(rows) {
 #ifdef __CUDA_ARCH__
 #pragma unroll
-    for (int e = 0; e < rt::SCENE_ENTRIES; ++e) scene_stage[e * THREADS + tid()] = 0.0f;
+    for (int e = 0; e < 2 * rt::SCENE_ENTRIES; ++e) scene_stage[e * THREADS + tid()] = 0;
 #endif
   }
 
@@ -109,15 +117,19 @@ struct RetraceAcc {
   __host__ __device__ void add(int row, int col, float v) {
 #ifdef __CUDA_ARCH__
     const int entry = row * rt::GRAD_COLS + col;
+    const long long q = take(entry, v);
     const unsigned active = __activemask();
     int uniform;
     __match_all_sync(active, entry, &uniform);
     if (uniform) {
-      v = sum_lanes(active, v);
+      long long lo = rt::lo_digit(q), h = rt::hi_digit(q, lo);
+      lo = sum_lanes(active, lo);
+      if (__any_sync(active, h != 0)) h = sum_lanes(active, h);
       const bool first = (active & ((1u << (tid() & 31)) - 1u)) == 0;
-      if (first && v != 0.0f) atomicAdd(&block[entry], v);
-    } else if (v != 0.0f) {
-      atomicAdd(&block[entry], v);
+      if (first && lo != 0) rt::add_digit(&block[entry], lo);
+      if (first && h != 0) rt::add_digit(&hi[entry], h);
+    } else {
+      put(block, entry, q);
     }
 #endif
   }
@@ -125,22 +137,33 @@ struct RetraceAcc {
   // Local entry e < SCENE_ENTRIES, once a pixel.
   __host__ __device__ void add_scene(int e, float v) {
 #ifdef __CUDA_ARCH__
-    scene_stage[e * THREADS + tid()] = v;
+    const long long q = take(n * rt::GRAD_COLS + e, v), lo = rt::lo_digit(q);
+    scene_stage[e * THREADS + tid()] = lo;
+    scene_stage[(rt::SCENE_ENTRIES + e) * THREADS + tid()] = rt::hi_digit(q, lo);
 #endif
   }
 
   // Every thread of the block: each warp sums the staged slots of its
-  // entries over the block and one lane adds the sum to row n.
-  __device__ void flush(int n) {
+  // entries over the block and one lane adds the sums to row n.
+  __device__ void flush(int) {
     __syncthreads();
     const int lane = tid() & 31;
     for (int e = tid() >> 5; e < rt::SCENE_ENTRIES; e += THREADS / 32) {
-      float v = 0.0f;
+      long long lo = 0, h = 0;
 #pragma unroll
-      for (int j = lane; j < THREADS; j += 32) v += scene_stage[e * THREADS + j];
+      for (int j = lane; j < THREADS; j += 32) {
+        lo += scene_stage[e * THREADS + j];
+        h += scene_stage[(rt::SCENE_ENTRIES + e) * THREADS + j];
+      }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) block[n * rt::GRAD_COLS + e] += v;
+      for (int o = 16; o > 0; o >>= 1) {
+        lo += __shfl_xor_sync(0xffffffffu, lo, o);
+        h += __shfl_xor_sync(0xffffffffu, h, o);
+      }
+      if (lane == 0) {
+        block[n * rt::GRAD_COLS + e] += lo;
+        if (h != 0) rt::add_digit(&hi[n * rt::GRAD_COLS + e], h);
+      }
     }
   }
 };
@@ -202,8 +225,11 @@ int rt_trace_retrace(const float* f32t, const int* i32t, const float* cam, const
                                                     prim_b, device, stream);
 }
 
-const char* rt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+const char* rt_error_string(int code) { return rt::error_string(code); }
+
+// The last launch's fixed-point scale and counts (bwd_kernel.cuh: last_fixed).
+void rt_fixed_stats(int* out) {
+  for (int k = 0; k < 6; ++k) out[k] = rt::last_fixed()[k];
 }
 
 }  // extern "C"

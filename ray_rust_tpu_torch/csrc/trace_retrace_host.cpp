@@ -19,15 +19,23 @@
 // rt_trace_retrace_tasks_host, which gives the most tasks a pixel's stack
 // held.
 
+#include "fixed_sum.cuh"
 #include "trace_retrace_body.cuh"
 
 namespace {
 
-struct HostAcc {
-  float* block;
+// Each term into the int64 block in the kernels' fixed point
+// (fixed_sum.cuh: host_fixed_sum).
+struct HostAcc : rt::FixedTerms {
+  long long* block;
   int n;
-  void add(int row, int col, float v) { block[row * rt::GRAD_COLS + col] += v; }
-  void add_scene(int e, float v) { block[n * rt::GRAD_COLS + e] += v; }
+  HostAcc(long long* b, const rt::FixedTerms& t, int rows) : rt::FixedTerms(t), block(b), n(rows) {}
+  void add(int row, int col, float v) {
+    put(block, row * rt::GRAD_COLS + col, take(row * rt::GRAD_COLS + col, v));
+  }
+  void add_scene(int e, float v) {
+    put(block, n * rt::GRAD_COLS + e, take(n * rt::GRAD_COLS + e, v));
+  }
 };
 
 #ifdef RT_COUNT_OPS
@@ -68,43 +76,57 @@ int retrace_host(const float* f32t, const int* i32t, const float* cam, const flo
   p.max_reflections = max_reflections;
   p.refraction_cap = refraction_cap;
   p.bg = bg;
-  HostAcc acc = {out_block, n};
-  for (int iy = 0; iy < yres; ++iy) {
+  const long long pixels = static_cast<long long>(xres) * yres;
 #ifdef RT_COUNT_OPS
-    unsigned long long warp_most = 0;
+  std::vector<unsigned long long> again(SLOT_HIST + 65);  // a second run's counts
+  int runs = 0;
 #endif
-    for (int ix = 0; ix < xres; ++ix) {
-      const long o = static_cast<long>(iy) * xres + ix;
-      unsigned long long mask;
-      const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
-      // the kernel's choice of the task stack (trace_retrace.cu)
-      rt::C3 c = stack > rt::STACK_CAP
-                     ? rt::retrace_pixel<rt::RETRACE_LANES, rt::STACK_CAP_DEEP>(
-                           s, p, cutoff, cam, ix, iy, g, acc, mask)
-                     : rt::retrace_pixel<rt::RETRACE_LANES>(s, p, cutoff, cam, ix, iy, g, acc,
-                                                            mask);
-      if (prim_r != nullptr) {
-        prim_r[o] = c.r;
-        prim_g[o] = c.g;
-        prim_b[o] = c.b;
-      }
+  return rt::host_fixed_sum(
+      out_block, (n + 1) * rt::GRAD_COLS, rt::planes_gbits(g_r, g_g, g_b, pixels),
+      [&](long long* q, const rt::FixedTerms& t) {
+        HostAcc acc(q, t, n);
 #ifdef RT_COUNT_OPS
-      const unsigned long long passes = rt::retrace_passes<rt::RETRACE_LANES>(mask);
-      ops_total[SLOT_PASSES] += passes;
-      if (passes > ops_total[SLOT_MOST]) ops_total[SLOT_MOST] = passes;
-      if (passes > warp_most) warp_most = passes;
-      if (ix % WARP_X == WARP_X - 1 || ix == xres - 1) {
-        ops_total[SLOT_WARP] += warp_most;
-        warp_most = 0;
-      }
-      ops_total[SLOT_HIST + rt::popcount64(mask)] += 1;
+        unsigned long long* ops = runs++ == 0 ? ops_total : again.data();
+        s.ops = ops;
+        const unsigned long long dual_before = rt::dual_op_count;
 #endif
-    }
-  }
+        for (int iy = 0; iy < yres; ++iy) {
 #ifdef RT_COUNT_OPS
-  ops_total[0] += rt::dual_op_count;
+          unsigned long long warp_most = 0;
 #endif
-  return 0;
+          for (int ix = 0; ix < xres; ++ix) {
+            const long o = static_cast<long>(iy) * xres + ix;
+            unsigned long long mask;
+            const rt::C3 g = rt::c3(g_r[o], g_g[o], g_b[o]);
+            // the kernel's choice of the task stack (trace_retrace.cu)
+            rt::C3 c = stack > rt::STACK_CAP
+                           ? rt::retrace_pixel<rt::RETRACE_LANES, rt::STACK_CAP_DEEP>(
+                                 s, p, cutoff, cam, ix, iy, g, acc, mask)
+                           : rt::retrace_pixel<rt::RETRACE_LANES>(s, p, cutoff, cam, ix, iy, g,
+                                                                  acc, mask);
+            if (prim_r != nullptr) {
+              prim_r[o] = c.r;
+              prim_g[o] = c.g;
+              prim_b[o] = c.b;
+            }
+#ifdef RT_COUNT_OPS
+            const unsigned long long passes = rt::retrace_passes<rt::RETRACE_LANES>(mask);
+            ops[SLOT_PASSES] += passes;
+            if (passes > ops[SLOT_MOST]) ops[SLOT_MOST] = passes;
+            if (passes > warp_most) warp_most = passes;
+            if (ix % WARP_X == WARP_X - 1 || ix == xres - 1) {
+              ops[SLOT_WARP] += warp_most;
+              warp_most = 0;
+            }
+            ops[SLOT_HIST + rt::popcount64(mask)] += 1;
+#endif
+          }
+        }
+#ifdef RT_COUNT_OPS
+        ops[0] += rt::dual_op_count - dual_before;
+#endif
+        return static_cast<rt::FixedTerms>(acc);
+      });
 }
 
 }  // namespace
@@ -114,7 +136,10 @@ extern "C" {
 int rt_trace_retrace_lanes() { return rt::RETRACE_LANES; }
 
 const char* rt_error_string(int code) {
-  return code == 0 ? "no error" : code == 1 ? "invalid argument" : "unknown error";
+  return code == 0                     ? "no error"
+         : code == 1                   ? "invalid argument"
+         : code == rt::FIXED_OVERFLOW ? "the fixed-point cotangent sum would overflow int64"
+                                       : "unknown error";
 }
 
 int rt_trace_retrace_host(const float* f32t, const int* i32t, const float* cam,

@@ -84,9 +84,10 @@ _MARCH_ARGS = _FRAME + _WINDOW + _MARCH_RENDER + _TEX_ARGS + [_P, _P, _P]
 _BWD_ARGS = _FRAME + _WINDOW + _TRACE_RENDER + [_F, _I] + _TEX_ARGS + [_P] * 7
 _MARCH_BWD_ARGS = _FRAME + _WINDOW + _MARCH_RENDER + [_F] + _TEX_ARGS + [_P] * 7
 # the backward kernels' buffer instances: the record buffer after the primal
-# planes (the march backward's after its record cap)
-_BWD_BUF_ARGS = _BWD_ARGS + [_P]
-_MARCH_BWD_BUF_ARGS = _MARCH_BWD_ARGS + [_I, _P]
+# planes (the march backward's after its record cap), then the band's rows
+# and columns
+_BWD_BUF_ARGS = _BWD_ARGS + [_P, _I, _I]
+_MARCH_BWD_BUF_ARGS = _MARCH_BWD_ARGS + [_I, _P, _I, _I]
 # the re-trace gradient: the trace backward's, without the window, the record
 # cap and the atlas
 _RETRACE_ARGS = _FRAME + _TRACE_RENDER + [_F] + [_P] * 7
@@ -122,10 +123,22 @@ _HOST_RESTYPES = {"trace_retrace": _I, "trace_bwd": _I, "march_bwd": _I}
 # and the stream), of the host builds alone (after theirs, the operation
 # counter) and of the counting host builds alone: the backwards' buffer
 # instances and their twins, the deep march's host loop, the stack counts.
-_CUDA_EXTRA_FNS = {"trace_bwd": {"rt_trace_bwd_buf": (_BWD_BUF_ARGS + [_I, _P], _I)}}
+# The backwards' rt_fixed_stats gives the last launch's fixed-point scale
+# and counts (csrc/bwd_kernel.cuh: last_fixed); the trace backward's host
+# build sums given terms in that fixed point (rt_fixed_sum_host).
+_FIXED_STATS = {"rt_fixed_stats": ([_P], None)}
+_CUDA_EXTRA_FNS = {"trace_bwd": {"rt_trace_bwd_buf": (_BWD_BUF_ARGS + [_I, _P], _I),
+                                 **_FIXED_STATS},
+                   "march_bwd": _FIXED_STATS, "march_bwd_buf": _FIXED_STATS,
+                   "trace_retrace": _FIXED_STATS}
+_ERROR_STRING = {"rt_error_string": ([_I], ctypes.c_char_p)}
 _HOST_EXTRA_FNS = {"march": {"rt_march_deep_host": (_MARCH_ARGS + [_P], None)},
-                   "trace_bwd": {"rt_trace_bwd_buf_host": (_BWD_BUF_ARGS + [_P], _I)},
-                   "march_bwd": {"rt_march_bwd_buf_host": (_MARCH_BWD_BUF_ARGS + [_P], _I)}}
+                   "trace": {"rt_texel_index_host": ([_I] + [_P] * 4 + [_I] * 3 + [_P], None)},
+                   "trace_bwd": {"rt_trace_bwd_buf_host": (_BWD_BUF_ARGS + [_P], _I),
+                                 "rt_fixed_sum_host": ([_I, _P, _P, _I, _F, _I, _P, _P], _I),
+                                 **_ERROR_STRING},
+                   "march_bwd": {"rt_march_bwd_buf_host": (_MARCH_BWD_BUF_ARGS + [_P], _I),
+                                 **_ERROR_STRING}}
 _COUNT_EXTRA_FNS = {"trace": {"rt_trace_tasks_host": (_TRACE_ARGS + [_P, _P], None)},
                     "trace_retrace": {"rt_trace_retrace_tasks_host": (_RETRACE_ARGS + [_P, _P],
                                                                       _I)}}

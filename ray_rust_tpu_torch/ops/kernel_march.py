@@ -51,7 +51,6 @@ from .kernel_trace import (
     size_reason,
     texture_args,
     texture_count,
-    texture_reason,
 )
 from .sky import BG_IDS
 
@@ -101,9 +100,6 @@ def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
         return "trace mode runs in the trace kernel (K1, ops/kernel_trace.py)"
     if cfg.differentiable:
         return "cfg.differentiable selects the scan-mode march (ops/march.py), no kernel's"
-    reason = texture_reason(scene)
-    if reason is not None:
-        return reason
     reason = size_reason(scene)
     if reason is not None:
         return reason

@@ -55,6 +55,9 @@ F32_COLS, I32_COLS = 19, 4
 CAM_COLS, LIGHT_COLS = 8, 4
 TEX_META_COLS = 4  # csrc/trace_body.cuh: rt::TEX_META_COLS
 GRAD_COLS = 20  # the backward kernels' block: object rows of 19, then camera 7 + light 3
+# The most bytes atlas_words widens at once (its int32 copy of a chunk of
+# textures' u8 texels)
+ATLAS_CHUNK_BYTES = 2**30
 
 _ATLASES: dict = {}  # id(bank.packed) -> (weakref, version, data_ptr, atlas words)
 
@@ -97,10 +100,18 @@ def pack_scene(scene: Scene):
 def atlas_words(packed: torch.Tensor) -> torch.Tensor:
     """The texture atlas of :func:`pack_textures` from a bank's texels
     ``packed`` (``TextureBank.packed``, ``(T, Hmax, Wmax, 12)`` u8): ``(T,
-    Hmax, Wmax, 4)`` int32, each tap ``r | g<<8 | b<<16``."""
+    Hmax, Wmax, 4)`` int32, each tap ``r | g<<8 | b<<16``. Built a chunk of
+    textures at a time, so that besides the atlas it takes at most
+    :data:`ATLAS_CHUNK_BYTES` (a bank of 2^31 texels: an atlas of 32 GiB
+    from 24 GiB of u8, where widening all of ``packed`` at once would take
+    96 GiB)."""
     t, hmax, wmax = packed.shape[:3]
-    q = packed.to(torch.int32).reshape(t * hmax * wmax, 4, 3)
-    return (q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)).reshape(t, hmax, wmax, 4)
+    atlas = torch.empty((t, hmax, wmax, 4), dtype=torch.int32, device=packed.device)
+    step = max(1, ATLAS_CHUNK_BYTES // max(1, 12 * 4 * hmax * wmax))
+    for k in range(0, t, step):
+        q = packed[k:k + step].to(torch.int32).reshape(-1, hmax, wmax, 4, 3)
+        atlas[k:k + step] = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
+    return atlas
 
 
 def pack_textures(scene: Scene):
@@ -112,7 +123,10 @@ def pack_textures(scene: Scene):
     (``pallas_trace.py:200-265``) without its 128-lane chunks. ``meta`` is
     ``(T, 4)`` int32 rows ``[width, height, base texel, filter]``, the
     filter of the texture's owner material (by scatter-max, so a texture
-    shared by a Nearest and a Bilinear material is Bilinear, as there)."""
+    shared by a Nearest and a Bilinear material is Bilinear, as there); the
+    base texel is ``tid * Hmax * Wmax``, or -1 past int32 (the kernels
+    derive it in 64 bits and do not read it: ``csrc/trace_body.cuh:
+    texel_index``)."""
     bank = scene.textures
     if bank is None:
         return None
@@ -123,7 +137,8 @@ def pack_textures(scene: Scene):
     owner_filt = torch.where(tid >= 0, mats.texture_filter, 0).to(torch.int32)
     filt = torch.zeros(t, dtype=torch.int32, device=atlas.device).scatter_reduce(
         0, tid.clamp(0, t - 1), owner_filt, reduce="amax")
-    base = torch.arange(t, dtype=torch.int32, device=atlas.device) * (hmax * wmax)
+    base = torch.arange(t, dtype=torch.int64, device=atlas.device) * (hmax * wmax)
+    base = torch.where(base < 2**31, base, -1).to(torch.int32)
     meta = torch.stack([bank.widths.to(torch.int32), bank.heights.to(torch.int32), base, filt],
                        dim=1).contiguous()
     return atlas, meta
@@ -252,7 +267,7 @@ def texture_pointers(scene: Scene, meta_ptr: int) -> list:
         return [None, None, 0, 0, 0]
     atlas = texture_atlas(bank.packed)
     t, hmax, wmax = atlas.shape[:3]
-    return [atlas.data_ptr(), meta_ptr, t, wmax, t * hmax * wmax]
+    return [atlas.data_ptr(), meta_ptr, t, wmax, hmax * wmax]
 
 
 def texture_atlas(packed: torch.Tensor) -> torch.Tensor:

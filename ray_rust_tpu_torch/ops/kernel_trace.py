@@ -65,7 +65,6 @@ __all__ = [
     "pack_scene",
     "pack_textures",
     "texture_args",
-    "texture_reason",
     "texture_count",
     "staged_meta",
     "kernel_supported",
@@ -148,8 +147,10 @@ def stack_tasks(cfg: RenderConfig) -> int:
 def texture_args(tex, device) -> list:
     """The launcher's texture arguments (also those of the host builds) for
     :func:`pack_textures`'s pair on ``device``, or for None: the atlas and
-    meta pointers, the texture count, the row stride and the atlas length in
-    texels. Raises unless the pair is as the kernels take it."""
+    meta pointers, the texture count, the row stride and the texels a
+    texture takes (``Hmax * Wmax``; the kernels index the atlas in 64 bits,
+    so it may hold 2^31 texels or more). Raises unless the pair is as the
+    kernels take it."""
     if tex is None:
         return [None, None, 0, 0, 0]
     atlas, meta = tex
@@ -158,7 +159,10 @@ def texture_args(tex, device) -> list:
     check_tensor(meta, "texture meta", torch.int32, (t, TEX_META_COLS), device)
     if atlas.data_ptr() % 16:
         raise ValueError("the texture atlas must be 16-byte aligned")
-    return [atlas.data_ptr(), meta.data_ptr(), t, wmax, t * hmax * wmax]
+    if hmax * wmax > WORDS_MAX:
+        raise ValueError(f"a texture of {hmax} x {wmax} texels: the kernels take at most "
+                         f"{WORDS_MAX} a texture (the atlas as a whole is indexed in 64 bits)")
+    return [atlas.data_ptr(), meta.data_ptr(), t, wmax, hmax * wmax]
 
 
 def texture_count(scene: Scene) -> int:
@@ -173,23 +177,10 @@ def staged_meta(n_tex: int) -> int:
     return n_tex if n_tex <= TEXTURE_MAX else 0
 
 
-def texture_reason(scene: Scene) -> Optional[str]:
-    """Why the kernels cannot read the scene's textures, or None: the atlas
-    and the meta rows' base texels are indexed in 32 bits."""
-    if scene.textures is not None:
-        t, hmax, wmax = scene.textures.packed.shape[:3]
-        if t * hmax * wmax >= 2**31:
-            return "a texture atlas of 2^31 texels or more"
-    return None
-
-
 def unsupported_reason(scene: Scene, cfg: RenderConfig) -> Optional[str]:
     """Why the kernel cannot render ``scene`` under ``cfg``, or None."""
     if cfg.use_raymarching:
         return "march mode runs in the march kernel (K3, ops/kernel_march.py)"
-    reason = texture_reason(scene)
-    if reason is not None:
-        return reason
     reason = size_reason(scene)
     if reason is not None:
         return reason

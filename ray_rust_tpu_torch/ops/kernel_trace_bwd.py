@@ -6,7 +6,8 @@ Counterpart of ``ray_rust_tpu/ops/pallas_bwd.py``. The kernel
 the Pallas kernel ``render_color_pallas_grads_site`` for trace-mode scenes of
 any size the forward takes, textured or not (above :data:`SHARED_TABLE_MAX`
 objects in its global-table build, ``trace_bwd_global``, which reads the
-tables from global memory and adds straight to the output block): from the packed scene tables, the
+tables from global memory and adds straight to the launch's int64 block):
+from the packed scene tables, the
 texture atlas and the cotangent of the image it gives the cotangents of the
 f32 table ``(N, 19)``, the camera ``(1, 8)`` and the light ``(1, 4)``. It
 records each pixel's raycast sites with the forward kernel's own traversal,
@@ -21,6 +22,9 @@ allocates within :data:`RECORD_BUDGET` and fills band by band of the
 window's rows (:func:`record_bands`). It records with the forward's task
 stack (``kernel_trace.stack_tasks``: 16 tasks, or 64 past a refraction cap
 of 17). The JAX kernel's pruned replay variants are not carried over.
+Every sum across the kernel's threads is a 64-bit fixed-point sum
+(``csrc/fixed_sum.cuh``), so the same inputs give the same block bit for
+bit, launch after launch; a buffer instance's bands sum into one block.
 
 :class:`TraceRender` pairs the forward kernel with it, as ``_fast_fn``
 (``pallas_trace.py:1670-1701``) pairs the JAX kernels, from the scene's
@@ -35,7 +39,8 @@ Each of them covers a window of the frame at its global origin (``origin=``,
 kernels' ``origin=`` and ``shape=`` do: the cotangent and the primal are the
 window's ``(h, w)`` planes, and each pixel differentiates as the whole
 frame's, so a window's block is the whole frame's with the image cotangent
-zero outside it (another summation order: the kernel adds with atomics).
+zero outside it (at the window's own fixed-point scale, so up to its
+rounding).
 The multi-device layer (``parallel/shard.py``) differentiates a frame as
 windows.
 
@@ -126,9 +131,10 @@ RECORD_FILL = 0x7FBADBAD
 # The most objects whose tables and (n+1, 20) cotangent block the backward
 # frame (csrc/bwd_kernel.cuh, K2's and K4's) keeps in shared memory: its
 # 32x8 blocks run two an SM, which leaves each block 233472 / 2 - 1024 =
-# 115712 bytes, and an object takes 92 bytes of tables and 80 of the block.
-# Above it the global-table builds run (PERF.md §6).
-SHARED_TABLE_MAX = 640
+# 115712 bytes, and an object takes 92 bytes of tables and 320 of the
+# block's int64 fixed-point digits (279 objects; 640 when the block was
+# f32, PERF.md §6). Above it the global-table builds run.
+SHARED_TABLE_MAX = 272
 
 
 def site_cap(cfg: RenderConfig) -> int:
@@ -269,8 +275,7 @@ def launch_args(cfg: RenderConfig, tex, device) -> list:
 
 
 def launch_block(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list, g: Color,
-                 return_primal: bool, origin=(0, 0), shape=None, bands=None, extra=(),
-                 tail=None):
+                 return_primal: bool, origin=(0, 0), shape=None, extra=(), tail=None):
     """Call backward launcher ``fn`` of ``lib`` as ``fn(tables, n, xres,
     yres, row0, col0, h, w, sx, sy, *args, g_r, g_g, g_b, block, prim_r,
     prim_g, prim_b, *extra, device, stream)`` (``args``: :func:`launch_args`
@@ -281,29 +286,25 @@ def launch_block(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: list
     ``shape`` (``(h, w)``; the whole frame by default) on CUDA device
     ``dev``, or on the CPU a host build's launcher (``tail``: the arguments
     after ``extra``, by default the device and the stream, or on the CPU a
-    null operation counter); once for the window, or once for each of its
-    ``bands`` (:func:`record_bands`), all adding to one block. Returns
-    the ``(n+1, GRAD_COLS)`` block and, with ``return_primal``, the window's
-    image the kernel traced (else None). Raises if the cotangent or a launch
-    is not as the kernel takes it."""
+    null operation counter), once. Returns the ``(n+1, GRAD_COLS)`` block
+    and, with ``return_primal``, the window's image the kernel traced (else
+    None). Raises if the cotangent or the launch is not as the kernel takes
+    it, naming the launcher's error (``lib.rt_error_string``: a CUDA error,
+    or the fixed-point sum's overflow)."""
     row0, col0, h, w = window(cfg, origin, shape)
     for name, plane in zip("rgb", g):
         check_tensor(plane, f"cotangent {name}", torch.float32, (h, w), dev)
     block = torch.zeros((n + 1, GRAD_COLS), dtype=torch.float32, device=dev)
     prim = torch.empty((3, h, w), dtype=torch.float32, device=dev) if return_primal else None
-    planes = list(g) + (list(prim.unbind(0)) if return_primal else [])
+    prim_ptrs = [p.data_ptr() for p in prim] if return_primal else [None] * 3
     sx, sy = fov_scales(cfg)
     if tail is None:
         tail = ((dev.index, torch.cuda.current_stream(dev).cuda_stream) if dev.type == "cuda"
                 else (None,))
-    for r, c, bh, bw in bands or [(0, 0, h, w)]:
-        ptrs_rc = [p.data_ptr() + 4 * (r * w + c) for p in planes]  # the band's run of rows
-        prim_ptrs = ptrs_rc[3:] if return_primal else [None] * 3
-        rc = fn(*ptrs, n, cfg.xres, cfg.yres, row0 + r, col0 + c, bh, bw, sx, sy, *args,
-                *ptrs_rc[:3], block.data_ptr(), *prim_ptrs, *extra, *tail)
-        if rc != 0:
-            raise RuntimeError(f"{fn.__name__} launch failed: "
-                               f"{lib.rt_error_string(rc).decode()}")
+    rc = fn(*ptrs, n, cfg.xres, cfg.yres, row0, col0, h, w, sx, sy, *args,
+            *(p.data_ptr() for p in g), block.data_ptr(), *prim_ptrs, *extra, *tail)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: {lib.rt_error_string(rc).decode()}")
     return block, (Color(*prim.unbind(0)) if return_primal else None)
 
 
@@ -315,8 +316,11 @@ def launch_buffered(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: l
     the window's :func:`record_bands` within ``budget`` bytes (by default
     :data:`RECORD_BUDGET`), allocated on ``dev`` (or the caller's int32
     ``buf``, as large or larger) and passed after ``extra`` (K4's record
-    cap) to each band's launch, then ``tail``. Returns the block, the image
-    (or None) and the launches."""
+    cap) with the bands' rows and columns, then ``tail``: the launcher runs
+    the window band by band in stream order, every band summing into one
+    block at the window's fixed-point scale (``csrc/bwd_kernel.cuh``), so
+    the block is a one-band launch's bit for bit. Returns the block, the
+    image (or None) and the bands (the kernel's launches)."""
     row0, col0, h, w = window(cfg, origin, shape)
     bands = record_bands(h, w, 4 * cap_words, budget)
     words = bands[0][2] * bands[0][3] * cap_words
@@ -325,7 +329,7 @@ def launch_buffered(lib, fn, ptrs: list, n: int, dev, cfg: RenderConfig, args: l
     elif buf.dtype != torch.int32 or buf.numel() < words or buf.device != dev:
         raise ValueError(f"the record buffer must hold {words} int32 words on {dev}")
     block, prim = launch_block(lib, fn, ptrs, n, dev, cfg, args, g, return_primal, origin, shape,
-                               bands, tuple(extra) + (buf.data_ptr(),), tail)
+                               tuple(extra) + (buf.data_ptr(), bands[0][2], bands[0][3]), tail)
     return block, prim, len(bands)
 
 

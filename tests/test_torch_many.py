@@ -93,8 +93,9 @@ def _trace_host(lib, scene, cfg):
 
 def test_kernels_take_600_objects(big):
     """Each kernel wrapper takes the 600-object scene, K1 in its
-    global-table build (above 480 objects) with the cull, K3, K2 and K4 in
-    their shared ones (up to 1 200 and 640); the re-trace oracle keeps the
+    global-table build (above 480 objects) with the cull, K3 in its shared
+    one (up to 1 200), K2 and K4 in their global ones (above 272, where
+    their int64 blocks no longer fit two blocks an SM); the re-trace oracle keeps the
     JAX function's 64-object cap and names it; a scene past the pack's int32
     words is refused by all four with its reason."""
     trace, march = rtt.RenderConfig(xres=8, yres=8), rtt.RenderConfig(xres=8, yres=8, **_MARCH)
@@ -105,8 +106,8 @@ def test_kernels_take_600_objects(big):
     n = big.objects.count
     assert kt.library("trace_fwd", n, kt.SHARED_TABLE_MAX) == "trace_fwd_global"
     assert kt.library("march_fwd", n, km.SHARED_TABLE_MAX) == "march_fwd"
-    assert kt.library("trace_bwd", n, kb.SHARED_TABLE_MAX) == "trace_bwd"
-    assert kt.library("trace_bwd", 1024, kb.SHARED_TABLE_MAX) == "trace_bwd_global"
+    assert kt.library("trace_bwd", n, kb.SHARED_TABLE_MAX) == "trace_bwd_global"
+    assert kt.library("trace_bwd", kb.SHARED_TABLE_MAX, kb.SHARED_TABLE_MAX) == "trace_bwd"
     huge = types.SimpleNamespace(objects=types.SimpleNamespace(count=2**27), textures=None)
     for mod, cfg in ((kt, trace), (kb, trace), (km, march), (kmb, march)):
         assert "pack words" in mod.unsupported_reason(huge, cfg), mod.__name__

@@ -493,8 +493,8 @@ def test_march_unsupported_reason_names_what_is_missing(change, names):
 def test_march_unsupported_reason_textures_and_size():
     """Textured march is taken (the march kernels read the atlas), also past
     TEXTURE_MAX textures (the global-table build, its meta rows read from
-    global memory); an atlas past the kernels' 32-bit texel index is refused
-    with its reason. More than 512 objects are taken (above SHARED_TABLE_MAX
+    global memory), and an atlas of 2^31 texels (the kernels' texel index is
+    64-bit). More than 512 objects are taken (above SHARED_TABLE_MAX
     the global-table build), and a scene past the pack's int32 words is
     refused with its reason."""
     cfg = rtt.RenderConfig(xres=8, yres=8, **_GLOW)
@@ -513,7 +513,7 @@ def test_march_unsupported_reason_textures_and_size():
     atlas = types.SimpleNamespace(objects=types.SimpleNamespace(count=1),
                                   textures=types.SimpleNamespace(packed=types.SimpleNamespace(
                                       shape=(2, 2**15, 2**15, 12))))
-    assert "2^31 texels" in km.unsupported_reason(atlas, cfg)
+    assert km.unsupported_reason(atlas, cfg) is None
     big = rtt.build_scene(
         [rtt.MaterialSpec(name="m")],
         [rtt.SphereSpec("m", 1.0, (float(i), 0.0, 100.0)) for i in range(513)],
