@@ -294,7 +294,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against its local-record instance (blocks within REGIME_REL_L2, images
    bit for bit), timed in turns; K1 at 12 reflections at 1920x1080 against
    the plain trace and timed, K2 at 319 sites at 1920x1080 and K4 at 39
-   laps at 1280x720 timed, and their bounds;
+   laps at 1280x720 timed, and their bounds; past 2^32 fixed-point terms
+   (``past_terms``): K2 on the box at TERMS_BOX runs twice, the second run
+   with a lo digit narrower than 31 bits (``rt_fixed_stats``:
+   csrc/fixed_sum.cuh), bit-equal on a second launch and within
+   TERMS_REL_L2 per scene leaf of the float64 sum of its blocks on windows
+   of rows each under 2^32 terms, and K2 and K5 at 1920x1080 and K4 at
+   1280x720 on the default scene run once at the 31-bit digit;
 10. deep marches and large banks (``deep_marches``): with the launch
    counts set to 0 just before each main path and read just after, the
    CLI's ``-m -g 1.0 --max_refractions 12 --refraction_unroll 12`` at
@@ -428,7 +434,7 @@ KNIFE_EDGE = dict(frac=0.005, tol=1e-3, contrast=0.05)
 # beside them: registers, stack frame, spill stores and spill loads in
 # bytes, by kernel (PERF.md §6; the trace backward's 125 registers, from
 # 119, are its fixed-point sums' digits, csrc/fixed_sum.cuh)
-PINNED_PTXAS = {"trace_bwd": [(125, 2512, 0, 0), (125, 7504, 0, 0), (125, 20816, 0, 0)],
+PINNED_PTXAS = {"trace_bwd": [(128, 2512, 0, 0), (128, 7504, 0, 0), (128, 20816, 0, 0)],
                 "march_bwd": [(128, 8168, 4188, 5512)]}
 # The kernels of a library whose figures are pinned, by a part of their
 # mangled names: the trace backward's TraceBody<CAP> (its DeepTraceBody<CAP>
@@ -2104,6 +2110,110 @@ DEEP_BANDS = 4
 SWEEP_BANDS = (17, 5, 2)
 
 
+# Phase 9's launch past 2^32 fixed-point terms (csrc/fixed_sum.cuh: a
+# second run takes a lo digit of 63 - n bits for a count of n bits): K2 on
+# the box of planes at 3840x2160 (2^34 terms; at 1920x1080 it sums just
+# under 2^32, and no K4 or K5 frame that tools/terms_probe.py runs reaches
+# 2^31: PERF.md §6), held against the float64 sum of its blocks on
+# windows of rows each under 2^32 terms, per scene leaf
+TERMS_BOX = (3840, 2160)
+TERMS_REL_L2 = 1e-4
+# rt_fixed_stats's values (csrc/fixed_sum.cuh: last_fixed)
+FIXED_STATS = ("first_scale", "scale", "runs", "log2_terms", "term_exp", "g_exp", "lo_bits")
+
+
+def fixed_stats(lib):
+    """The last launch's fixed-point scale, counts and split of CUDA
+    library ``lib``; ``lo_bits`` is None for a library that gives six
+    values (an older checkout, whose lo digit is always 31 bits)."""
+    import ctypes
+
+    out = (ctypes.c_int * len(FIXED_STATS))(*([-1] * len(FIXED_STATS)))
+    lib.rt_fixed_stats(out)
+    got = dict(zip(FIXED_STATS, out))
+    if got["lo_bits"] == -1:
+        got["lo_bits"] = None
+    return got
+
+
+def past_terms(torch, rtt):
+    """Phase 9's launch past 2^32 terms: K2 on the box of planes at
+    TERMS_BOX through its wrapper on a seeded cotangent must run twice with
+    a lo digit narrower than 31 bits, repeat bit for bit on a second
+    launch, and lie within TERMS_REL_L2 per scene leaf of the float64 sum of
+    its blocks on windows of whole rows (4, or twice as many until each
+    window's count is under 2^32, so it sums at the 31-bit digit); K2 and
+    K5 at 1920x1080 and K4 at 1280x720 on the default scene must run once
+    at the 31-bit digit. Returns the box's ms (one launch, both runs), its
+    band launches, its stats, the windows and the relative L2."""
+    from ray_rust_tpu_torch.ops import _build
+    from ray_rust_tpu_torch.ops import kernel_march_bwd as kmb
+    from ray_rust_tpu_torch.ops import kernel_trace_bwd as kb
+    from ray_rust_tpu_torch.ops import kernel_trace_retrace as kr
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+
+    def planes(cfg, seed):
+        rng = np.random.default_rng(seed)
+        return rtt.Color(*(torch.from_numpy(rng.standard_normal((cfg.yres, cfg.xres))
+                                            .astype(np.float32)).to(dev) for _ in range(3)))
+
+    default = rtt.default_scene()[0]
+    for name, fn, lib, cfg in (
+            ("K2", kb.render_grads_kernel, "trace_bwd", rtt.RenderConfig(xres=W, yres=H)),
+            ("K5", kr.render_grads_retrace, "trace_retrace", rtt.RenderConfig(xres=W, yres=H)),
+            ("K4", kmb.render_grads_kernel, "march_bwd",
+             rtt.RenderConfig(xres=MW, yres=MH, use_raymarching=True, glow_effect=1.0))):
+        fn(default, cfg, planes(cfg, 21))
+        st = fixed_stats(_build.load_cuda_library(lib))
+        ok = st["runs"] == 1 and st["lo_bits"] == 31
+        print(f"  {name} {cfg.xres}x{cfg.yres}, default scene: fixed point {st} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {name} at its main shape left the first run's digits")
+    box = box_scene(rtt)
+    cfg = rtt.RenderConfig(xres=TERMS_BOX[0], yres=TERMS_BOX[1], max_reflections=42)
+    lib = _build.load_cuda_library("trace_bwd")
+    g = planes(cfg, 22)
+    launches = kb.BUF_LAUNCHES
+    block, ms = event_ms(torch, lambda: kb.render_grads_kernel(box, cfg, g))
+    launches = kb.BUF_LAUNCHES - launches
+    st = fixed_stats(lib)
+    again = kb.render_grads_kernel(box, cfg, g)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(block, again))
+    del again
+    nb = 4
+    while True:
+        windows, total = [], None
+        for r0, h in partition(cfg.yres, nb):
+            gw = rtt.Color(*(c[r0:r0 + h].contiguous() for c in g))
+            part = kb.render_grads_kernel(box, cfg, gw, origin=(r0, 0), shape=(h, cfg.xres))
+            windows.append(fixed_stats(lib))
+            total = ([t.double() for t in part] if total is None
+                     else [a + t.double() for a, t in zip(total, part)])
+        if all(w["lo_bits"] == 31 for w in windows) or nb >= cfg.yres:
+            break
+        nb *= 2
+    worst, leaf = leaf_err("K2 past 2^32 terms", box, block, [t.float() for t in total])
+    first = all(w["lo_bits"] == 31 and w["log2_terms"] <= 32 for w in windows)
+    ok = (st["runs"] == 2 and st["lo_bits"] < 31 and st["log2_terms"] > 32 and same and first
+          and worst <= TERMS_REL_L2)
+    print(f"  K2 past 2^32 terms, box of planes {cfg.xres}x{cfg.yres}: {ms:.1f} ms by events "
+          f"in {launches} band(s), fixed point {st}; a second launch bit-equal {same}; against "
+          f"the float64 sum of its {nb} row windows (log2 terms "
+          f"{[w['log2_terms'] for w in windows]}, each at the 31-bit digit {first}): largest "
+          f"leaf relative L2 {worst:.3g} ({leaf}, TERMS_REL_L2 {TERMS_REL_L2}) -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: K2 past 2^32 terms")
+    del block, total
+    torch.cuda.empty_cache()
+    print(f"  past 2^32 terms: {time.time() - t0:.1f} s")
+    return {"ms": ms, "launches": launches, "fixed": st, "windows": nb, "rel_l2": worst}
+
+
 def opaque_scene(rtt):
     """A checkered floor and two mirror spheres, nothing transparent: no
     pixel pushes a refraction sub-trace, so its image and gradient are the
@@ -2552,6 +2662,7 @@ def deep_trees(torch, rtt, cli, plain, ops):
         print(f"  {key} {cfg.xres}x{cfg.yres}: {ms[key]:.4f} ms by events with the image "
               f"(plain {plain_ms[key]:.1f} ms), bound {n_ops} f32 operations, {nbytes} bytes -> "
               f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
+    terms = past_terms(torch, rtt)
     return [{
         "name": key, "route": "cuda", "source": f"ray_rust_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": launches[main_key],
@@ -2561,6 +2672,7 @@ def deep_trees(torch, rtt, cli, plain, ops):
         **({"forced_ms": forced_ms[key], "forced_bands": forced_bands[key]}
            if key in forced_ms else {}),
         **({"bands_ms": bands_ms} if key == "trace_bwd_buf" else {}),
+        **({"past_2_32_terms": terms} if key == "trace_bwd_buf" else {}),
     } for key, main_key, source, replaces, plain_shape in (
         ("trace_fwd_deep", "trace_fwd", "trace_fwd.cu", "ray_rust_tpu/ops/pallas_trace.py:1275",
          [W, H]),

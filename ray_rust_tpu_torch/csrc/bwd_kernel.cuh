@@ -15,9 +15,10 @@
 //
 // A launch (launch_bwd) finds the largest finite |g| of the cotangent
 // planes (fixed_gmax_kernel), runs the frame at the scale that gives
-// (first_scale), reads the launch's counts back (one copy to the host and a
-// wait), runs the frame once more at retry_scale where they do not fit, and
-// adds the int64 block to the output block as floats (fixed_out_kernel).
+// (first_scale) with a 31-bit lo digit, reads the launch's counts back (one
+// copy to the host and a wait), runs the frame once more at the scale and
+// split its counts give (retry_split) where they do not fit, and adds the
+// int64 block to the output block as floats (fixed_out_kernel).
 // Its int64 blocks and counts live in a buffer kept for its device
 // (fixed_scratch).
 //
@@ -34,9 +35,9 @@
 // function besides the kernel, and a plain __device__ run was left as one.
 // ``Body::Acc`` is its accumulator, built as ``Acc(block, terms, n)`` on the
 // int64 block (shared, or the launch's global one) with the thread's
-// FixedTerms (its scale, the float output block for non-finite terms, its
-// counts); every thread of the block, in the image or not, calls ``acc.flush(n)``
-// after the body and before the block goes to global memory, so an
+// FixedTerms (its scale and split, the float output block for non-finite
+// terms, its counts); every thread of the block, in the image or not, calls
+// ``acc.flush(n)`` after the body and before the block goes to global memory, so an
 // accumulator may hold sums in registers and reduce them over whole warps
 // there. ``Body::BLOCK_X``, ``BLOCK_Y`` and ``MIN_BLOCKS`` are its launch
 // shape: the block, and the blocks an SM that __launch_bounds__ asks ptxas
@@ -63,7 +64,7 @@ namespace rt {
 
 // The block's accumulator, as the per-pixel program adds to it: one int64
 // atomicAdd per entry and lane to the lo digits (and one to the hi digits
-// beside them for a term past 2^FIXED_HEAD |g|).
+// beside them for a term past the lo digit).
 struct SharedAcc : FixedTerms {
   long long* block;
   __host__ __device__ SharedAcc(long long* b, const FixedTerms& t, int) : FixedTerms(t), block(b) {}
@@ -114,13 +115,13 @@ __global__ void fixed_gmax_kernel(const float* __restrict__ g_r, const float* __
   if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(out, m);
 }
 
-// out[k] += the float of entry k's digit sums (hi[k], lo[k]) at scale f,
-// for its nonzero entries.
+// out[k] += the float of entry k's digit sums (hi[k], lo[k]) at scale f
+// and lo digit width lo_bits, for its nonzero entries.
 __global__ void fixed_out_kernel(const long long* __restrict__ lo,
                                  const long long* __restrict__ hi, int entries, int f,
-                                 float* out) {
+                                 int lo_bits, float* out) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < entries && (lo[k] != 0 || hi[k] != 0)) out[k] += from_fixed(hi[k], lo[k], f);
+  if (k < entries && (lo[k] != 0 || hi[k] != 0)) out[k] += from_fixed(hi[k], lo[k], f, lo_bits);
 }
 
 template <class Body, class P>
@@ -131,7 +132,8 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
            const float* __restrict__ g_g, const float* __restrict__ g_b,
            float* __restrict__ out_block, long long* __restrict__ out_lo,
            long long* __restrict__ out_hi, FixedStats* __restrict__ stats, int forced,
-           float* __restrict__ prim_r, float* __restrict__ prim_g, float* __restrict__ prim_b) {
+           int lo_bits, float* __restrict__ prim_r, float* __restrict__ prim_g,
+           float* __restrict__ prim_b) {
   constexpr bool GLOBAL = GLOBAL_TABLES;
   extern __shared__ long long smem[];
   __shared__ unsigned long long s_count;
@@ -169,7 +171,7 @@ bwd_kernel(const float* __restrict__ f32t, const int* __restrict__ i32t,
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   const int scale = forced != FIXED_FREE ? forced : first_scale(stats->gbits);
   typename Body::Acc acc(GLOBAL ? out_lo : s_acc,
-                         FixedTerms(scale, out_block, GLOBAL ? out_hi : s_hi), n);
+                         FixedTerms(scale, lo_bits, out_block, GLOBAL ? out_hi : s_hi), n);
   if (lx < p.w && ly < p.h) {  // every thread reaches the flush and the barrier
     SceneView s;
     s.f32 = GLOBAL ? f32t : s_f32;
@@ -248,15 +250,6 @@ inline cudaError_t fixed_scratch(int device, size_t bytes, cudaStream_t st, void
   return cudaSuccess;
 }
 
-// The last launch_bwd's scale, its counts and whether it ran twice, for the
-// launchers' rt_fixed_stats: [first scale, scale taken, runs, log2 of the
-// terms rounded up, largest term's exponent bound (|x| < 2^E), the cotangent
-// planes' (|g| < 2^eG)].
-inline int* last_fixed() {
-  static int last[6] = {};
-  return last;
-}
-
 // Launch bwd_kernel<Body> on ``stream`` of ``device`` over the window of
 // ``p``: the cotangent planes and the primal planes are the window's (h x
 // w), and each pixel's program takes its global pixel (col0 + lx, row0 +
@@ -271,7 +264,8 @@ inline int* last_fixed() {
 // returns once the block is added (it waits for the frame's counts).
 // Returns the cudaError_t of the launch (0 = success),
 // cudaErrorInvalidValue for a window not window_ok or bands of several
-// rows narrower than the window, or FIXED_OVERFLOW.
+// rows narrower than the window, or FIXED_OVERFLOW (a count past
+// FIXED_SPLIT_BITS bits). last_fixed records a launch that returns 0.
 template <class Body, class P>
 int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float* light, int n,
                const P& p, const TexArgs& tx, float cutoff, const float* g_r, const float* g_g,
@@ -302,7 +296,7 @@ int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float
   cudaMemsetAsync(scratch, 0, q_bytes + sizeof(FixedStats), st);
   const int gblocks = static_cast<int>(pixels / 256 + 1 < 1024 ? pixels / 256 + 1 : 1024);
   fixed_gmax_kernel<<<gblocks, 256, 0, st>>>(g_r, g_g, g_b, pixels, &stats->gbits);
-  int forced = FIXED_FREE, runs = 0, scale = 0, first = 0;
+  int forced = FIXED_FREE, runs = 0, scale = 0, first = 0, lo_bits = FIXED_LO_BITS;
   FixedStats h = {};
   for (;;) {
     for (int r = 0; r < p.h; r += br) {
@@ -318,8 +312,8 @@ int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float
                   (pb.h + Body::BLOCK_Y - 1) / Body::BLOCK_Y);
         bwd_kernel<Body, P><<<grid, block, smem, st>>>(
             f32t, i32t, cam, light, n, pb, tx, cutoff, g_r + o, g_g + o, g_b + o, out_block, lo,
-            hi, stats, forced, prim_r ? prim_r + o : nullptr, prim_g ? prim_g + o : nullptr,
-            prim_b ? prim_b + o : nullptr);
+            hi, stats, forced, lo_bits, prim_r ? prim_r + o : nullptr,
+            prim_g ? prim_g + o : nullptr, prim_b ? prim_b + o : nullptr);
       }
     }
     ++runs;
@@ -327,27 +321,22 @@ int launch_bwd(const float* f32t, const int* i32t, const float* cam, const float
     if (err == cudaSuccess) err = cudaStreamSynchronize(st);
     if (err != cudaSuccess) break;
     if (runs == 1) first = scale = first_scale(h.gbits);
-    if (fits(h.count, h.efield, scale)) break;
-    if (runs > 1 || ceil_log2(h.count) > FIXED_TERMS_BITS) {
+    if (fits(h.count, h.efield, scale, lo_bits)) break;
+    if (runs > 1 || !retry_split(count_bits(h.count), h.efield, &scale, &lo_bits)) {
       err = static_cast<cudaError_t>(FIXED_OVERFLOW);
       break;
     }
-    forced = scale = retry_scale(h.efield);
+    forced = scale;
     cudaMemsetAsync(scratch, 0, q_bytes, st);  // and the counts; the planes' |g| stays
     cudaMemsetAsync(&stats->count, 0, sizeof(stats->count), st);
     cudaMemsetAsync(&stats->efield, 0, sizeof(stats->efield), st);
   }
   if (err == cudaSuccess) {
-    fixed_out_kernel<<<(entries + 255) / 256, 256, 0, st>>>(lo, hi, entries, scale, out_block);
+    fixed_out_kernel<<<(entries + 255) / 256, 256, 0, st>>>(lo, hi, entries, scale, lo_bits,
+                                                            out_block);
     err = cudaGetLastError();
     if (err == cudaSuccess) err = cudaEventRecord(done, st);
-    int* last = last_fixed();
-    last[0] = first;
-    last[1] = scale;
-    last[2] = runs;
-    last[3] = ceil_log2(h.count);
-    last[4] = h.efield - 126;
-    last[5] = static_cast<int>((h.gbits >> 23) & 0xFFu) - 126;
+    record_fixed(first, scale, runs, h, lo_bits);
   }
   return static_cast<int>(err);
 }

@@ -100,9 +100,10 @@ int rt_march_bwd_buf(const float* f32t, const int* i32t, const float* cam, const
 
 const char* rt_error_string(int code) { return rt::error_string(code); }
 
-// The last launch's fixed-point scale and counts (bwd_kernel.cuh: last_fixed).
+// The last launch's fixed-point scale, counts and split (fixed_sum.cuh:
+// last_fixed).
 void rt_fixed_stats(int* out) {
-  for (int k = 0; k < 6; ++k) out[k] = rt::last_fixed()[k];
+  for (int k = 0; k < rt::FIXED_STATS; ++k) out[k] = rt::last_fixed()[k];
 }
 
 }  // extern "C"

@@ -172,6 +172,12 @@ extern "C" int rt_march_bwd_buf_host(const float* f32t, const int* i32t, const f
                    band_rows, band_cols);
 }
 
+// The last launch's fixed-point scale, counts and split (fixed_sum.cuh:
+// last_fixed), as the CUDA libraries' rt_fixed_stats.
+extern "C" void rt_fixed_stats(int* out) {
+  for (int k = 0; k < rt::FIXED_STATS; ++k) out[k] = rt::last_fixed()[k];
+}
+
 // The name of a launcher's return code (bwd_kernel.cuh: error_string).
 extern "C" const char* rt_error_string(int code) {
   return code == rt::FIXED_OVERFLOW ? "the fixed-point cotangent sum would overflow int64"

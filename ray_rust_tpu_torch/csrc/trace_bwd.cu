@@ -67,7 +67,7 @@ __device__ __forceinline__ unsigned lane_id() {
 // own terms into integers (rt::FixedTerms) and splits them into their two
 // digits before any sum, so a group's shuffle tree sums integers, and
 // whichever lanes arrive together the block gets the same sum; the hi
-// digits (terms past 2^FIXED_HEAD |g|) take a tree of their own where a
+// digits (terms past the lo digit) take a tree of their own where a
 // lane of the group has one. The body that calls it is __host__
 // __device__, so are its methods; their intrinsics and atomics are compiled
 // for the device only (the host build has its own accumulator).
@@ -113,7 +113,7 @@ struct WarpAcc : rt::FixedTerms {
       const int e = row * rt::GRAD_COLS + k;
       const long long q = take(e, g[k]);
       if (!__any_sync(mask, q != 0)) continue;  // a column no lane of the group adds to
-      long long lo = rt::lo_digit(q), hi = rt::hi_digit(q, lo);
+      long long lo = lo_digit(q), hi = hi_digit(q, lo);
       const bool his = __any_sync(mask, hi != 0);
       for (int j = 0; j < steps; ++j) {
         const int src = (srcs >> (5 * j)) & 31u;
@@ -142,7 +142,7 @@ struct WarpAcc : rt::FixedTerms {
     for (int k = 0; k < rt::CAM_GRADS; ++k) {
       const int e = n * rt::GRAD_COLS + k;
       const long long q = take(e, cam[k]);
-      long long lo = rt::lo_digit(q), hi = rt::hi_digit(q, lo);
+      long long lo = lo_digit(q), hi = hi_digit(q, lo);
       const bool his = __any_sync(0xffffffffu, hi != 0);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
@@ -288,9 +288,10 @@ int rt_trace_bwd_buf(const float* f32t, const int* i32t, const float* cam, const
 
 const char* rt_error_string(int code) { return rt::error_string(code); }
 
-// The last launch's fixed-point scale and counts (bwd_kernel.cuh: last_fixed).
+// The last launch's fixed-point scale, counts and split (fixed_sum.cuh:
+// last_fixed).
 void rt_fixed_stats(int* out) {
-  for (int k = 0; k < 6; ++k) out[k] = rt::last_fixed()[k];
+  for (int k = 0; k < rt::FIXED_STATS; ++k) out[k] = rt::last_fixed()[k];
 }
 
 }  // extern "C"

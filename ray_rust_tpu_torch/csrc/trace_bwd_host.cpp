@@ -20,7 +20,10 @@
 // the kernel's: a lane there turns the same terms (its pixel's camera and
 // light sums once, at the flush) into integers before it sums.
 //
-// rt_fixed_sum_host sums given terms as the kernels do, for the tests.
+// rt_fixed_sum_host sums given terms as the kernels do, rt_fixed_split_host
+// gives the split a second run takes for a count of n bits, and
+// rt_fixed_stats the last launch's scale, counts and split (fixed_sum.cuh:
+// last_fixed), for the tests.
 //
 // rt_trace_bwd_buf_host is rt_trace_bwd_buf's twin: the records of every
 // pixel of a band in ``buf``, laid out as the kernel lays them out, the
@@ -233,6 +236,24 @@ int rt_fixed_sum_host(int m, const int* entry, const float* x, int entries, floa
         return acc;
       },
       forced, scale);
+}
+
+// The split of a second run whose count takes ``n`` bits (fixed_sum.cuh:
+// retry_split): out[0] the lo digit's width L, out[1] the bound Q of a
+// term's q (|q| < 2^Q; the scale it takes for terms below 2^0). Returns 0,
+// or FIXED_OVERFLOW (and nothing set) where no split holds.
+int rt_fixed_split_host(int n, int* out) {
+  int f = 0, lo_bits = 0;
+  if (!rt::retry_split(n, 126, &f, &lo_bits)) return rt::FIXED_OVERFLOW;
+  out[0] = lo_bits;
+  out[1] = f;
+  return 0;
+}
+
+// The last launch's fixed-point scale, counts and split (fixed_sum.cuh:
+// last_fixed), as the CUDA libraries' rt_fixed_stats.
+void rt_fixed_stats(int* out) {
+  for (int k = 0; k < rt::FIXED_STATS; ++k) out[k] = rt::last_fixed()[k];
 }
 
 // The name of a launcher's return code (bwd_kernel.cuh: error_string):

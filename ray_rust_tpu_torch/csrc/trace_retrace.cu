@@ -122,7 +122,7 @@ struct RetraceAcc : rt::FixedTerms {
     int uniform;
     __match_all_sync(active, entry, &uniform);
     if (uniform) {
-      long long lo = rt::lo_digit(q), h = rt::hi_digit(q, lo);
+      long long lo = lo_digit(q), h = hi_digit(q, lo);
       lo = sum_lanes(active, lo);
       if (__any_sync(active, h != 0)) h = sum_lanes(active, h);
       const bool first = (active & ((1u << (tid() & 31)) - 1u)) == 0;
@@ -137,9 +137,9 @@ struct RetraceAcc : rt::FixedTerms {
   // Local entry e < SCENE_ENTRIES, once a pixel.
   __host__ __device__ void add_scene(int e, float v) {
 #ifdef __CUDA_ARCH__
-    const long long q = take(n * rt::GRAD_COLS + e, v), lo = rt::lo_digit(q);
+    const long long q = take(n * rt::GRAD_COLS + e, v), lo = lo_digit(q);
     scene_stage[e * THREADS + tid()] = lo;
-    scene_stage[(rt::SCENE_ENTRIES + e) * THREADS + tid()] = rt::hi_digit(q, lo);
+    scene_stage[(rt::SCENE_ENTRIES + e) * THREADS + tid()] = hi_digit(q, lo);
 #endif
   }
 
@@ -227,9 +227,10 @@ int rt_trace_retrace(const float* f32t, const int* i32t, const float* cam, const
 
 const char* rt_error_string(int code) { return rt::error_string(code); }
 
-// The last launch's fixed-point scale and counts (bwd_kernel.cuh: last_fixed).
+// The last launch's fixed-point scale, counts and split (fixed_sum.cuh:
+// last_fixed).
 void rt_fixed_stats(int* out) {
-  for (int k = 0; k < 6; ++k) out[k] = rt::last_fixed()[k];
+  for (int k = 0; k < rt::FIXED_STATS; ++k) out[k] = rt::last_fixed()[k];
 }
 
 }  // extern "C"

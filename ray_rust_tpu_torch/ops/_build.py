@@ -123,9 +123,11 @@ _HOST_RESTYPES = {"trace_retrace": _I, "trace_bwd": _I, "march_bwd": _I}
 # and the stream), of the host builds alone (after theirs, the operation
 # counter) and of the counting host builds alone: the backwards' buffer
 # instances and their twins, the deep march's host loop, the stack counts.
-# The backwards' rt_fixed_stats gives the last launch's fixed-point scale
-# and counts (csrc/bwd_kernel.cuh: last_fixed); the trace backward's host
-# build sums given terms in that fixed point (rt_fixed_sum_host).
+# The backwards' rt_fixed_stats gives the last launch's fixed-point scale,
+# counts and split (csrc/fixed_sum.cuh: last_fixed), their host builds' too;
+# the trace backward's host build sums given terms in that fixed point
+# (rt_fixed_sum_host) and gives a second run's split for a count's bits
+# (rt_fixed_split_host).
 _FIXED_STATS = {"rt_fixed_stats": ([_P], None)}
 _CUDA_EXTRA_FNS = {"trace_bwd": {"rt_trace_bwd_buf": (_BWD_BUF_ARGS + [_I, _P], _I),
                                  **_FIXED_STATS},
@@ -136,9 +138,10 @@ _HOST_EXTRA_FNS = {"march": {"rt_march_deep_host": (_MARCH_ARGS + [_P], None)},
                    "trace": {"rt_texel_index_host": ([_I] + [_P] * 4 + [_I] * 3 + [_P], None)},
                    "trace_bwd": {"rt_trace_bwd_buf_host": (_BWD_BUF_ARGS + [_P], _I),
                                  "rt_fixed_sum_host": ([_I, _P, _P, _I, _F, _I, _P, _P], _I),
-                                 **_ERROR_STRING},
+                                 "rt_fixed_split_host": ([_I, _P], _I),
+                                 **_FIXED_STATS, **_ERROR_STRING},
                    "march_bwd": {"rt_march_bwd_buf_host": (_MARCH_BWD_BUF_ARGS + [_P], _I),
-                                 **_ERROR_STRING}}
+                                 **_FIXED_STATS, **_ERROR_STRING}}
 _COUNT_EXTRA_FNS = {"trace": {"rt_trace_tasks_host": (_TRACE_ARGS + [_P, _P], None)},
                     "trace_retrace": {"rt_trace_retrace_tasks_host": (_RETRACE_ARGS + [_P, _P],
                                                                       _I)}}
@@ -252,7 +255,8 @@ def called_functions(ptxas_log: str) -> list:
     return sorted(set(reported) - entries)
 
 
-def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) -> ctypes.CDLL:
+def build_host_library(out_dir, name: str = "trace", count_ops: bool = False,
+                       terms_shift: int = 0) -> ctypes.CDLL:
     """Build and load ``csrc/<name>_host.cpp``: a kernel's per-pixel body in
     a CPU loop (``rt_trace_host``, with K1b's ``rt_cull_masks_host``,
     ``rt_march_host`` with ``rt_march_deep_host``, ``rt_trace_bwd_host``
@@ -261,10 +265,18 @@ def build_host_library(out_dir, name: str = "trace", count_ops: bool = False) ->
     ``rt_trace_retrace_host`` or ``rt_pack_scene_host``, with
     ``rt_pack_scene_vjp``; the counting builds of ``"trace"`` and
     ``"trace_retrace"`` also with ``rt_trace_tasks_host`` and
-    ``rt_trace_retrace_tasks_host``)."""
+    ``rt_trace_retrace_tasks_host``). ``terms_shift`` S > 0 builds it with
+    ``-DRT_FIXED_TERMS_SHIFT=S``, a test's hook: the fixed-point sum counts
+    each term as 2^S terms when it chooses its digits
+    (``csrc/fixed_sum.cuh``), so a small frame takes the split of a launch
+    past 2^32 terms."""
     stem = f"{name}_host" + ("_ops" if count_ops else "")
-    path, _ = _compile(["g++"] + GXX_FLAGS + (COUNT_FLAGS if count_ops else []),
-                       CSRC_DIR / f"{name}_host.cpp", Path(out_dir), stem)
+    flags = COUNT_FLAGS if count_ops else []
+    if terms_shift:
+        stem += f"_t{terms_shift}"
+        flags = flags + [f"-DRT_FIXED_TERMS_SHIFT={terms_shift}"]
+    path, _ = _compile(["g++"] + GXX_FLAGS + flags, CSRC_DIR / f"{name}_host.cpp", Path(out_dir),
+                       stem)
     fn_name, argtypes = _HOST_FNS[name]
     extra = {**_EXTRA_FNS.get(name, {}), **_HOST_EXTRA_FNS.get(name, {}),
              **(_COUNT_EXTRA_FNS.get(name, {}) if count_ops else {})}

@@ -14,8 +14,8 @@ global-table builds), each ``--launches`` times on one seeded cotangent
 (uniform in [-1, 1]), and gives for each the entries of the (n+1, 20)
 tables that differ from the first launch in any later one and the largest
 difference over the larger magnitude of the two entries, and (on a checkout
-whose backward kernels sum in fixed point) the last launch's scale and
-counts. Then, under
+whose backward kernels sum in fixed point) the last launch's scale,
+counts and lo digit width. Then, under
 ``torch.use_deterministic_algorithms(True)`` (with
 ``CUBLAS_WORKSPACE_CONFIG`` set before torch is imported), two twins of one
 state take ``--steps`` steps each: ``sgd_train_step`` at 1920x1080 on the
@@ -78,21 +78,13 @@ def tables_diff(runs) -> dict:
 
 
 def fixed_stats(lib_name) -> dict:
-    """The last launch's fixed-point scale and counts of CUDA library
-    ``lib_name`` (``rt_fixed_stats``, csrc/bwd_kernel.cuh: last_fixed), on a
-    checkout whose backward kernels sum in fixed point; else {}."""
-    import ctypes
-
+    """The last launch's fixed-point scale, counts and split of CUDA library
+    ``lib_name`` (``chip_smoke.fixed_stats``), on a checkout whose backward
+    kernels sum in fixed point; else {}."""
     from ray_rust_tpu_torch.ops import _build
 
     lib = _build.load_cuda_library(lib_name)
-    try:
-        fn = lib.rt_fixed_stats
-    except AttributeError:
-        return {}
-    out = (ctypes.c_int * 6)()
-    fn(out)
-    return dict(zip(["first_scale", "scale", "runs", "log2_terms", "term_exp", "g_exp"], out))
+    return chip_smoke.fixed_stats(lib) if hasattr(lib, "rt_fixed_stats") else {}
 
 
 def repeat_launches(torch, name, fn, launches, lib_name) -> dict:
